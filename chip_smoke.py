@@ -1,0 +1,646 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of blockwise parallel decoding on an NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one CUDA card.  Phases:
+
+  1. device   — needs CUDA; prints the card's name and power limit.
+  2. build    — compiles the three CUDA kernels from src/repro_torch/kernels/csrc.
+  3. kernels  — each kernel against its plain PyTorch version at the decode
+                path's shapes, bf16 and fp32; times kernel, plain version,
+                the one-call PyTorch yardstick where there is one, and the
+                bound (bytes / 3.35 TB/s or FLOPs / peak, the larger).
+  4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
+                greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
+                BPD must emit greedy's tokens, and the kernels' launch counts
+                must match the forwards run.
+  5. accepts  — one BPD iteration with greedy's own continuation as the
+                proposals (k̂ = 8), then with slot j corrupted (k̂ = j).
+  6. serve    — the weights cast to bf16, served by repro_torch.launch.serve
+                (static batch, --full-config); BPD/greedy agreement reported.
+  7. profile  — one bf16 BPD iteration: host wall time against the summed
+                kernel time torch.profiler sees (the device's idle share).
+
+Any failure exits non-zero.  The second-to-last lines are the kernels' JSON
+and the card's name and power limit; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
+PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core rate
+              "float32": 67e12}           # fp32 outside the tensor cores
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TIE_MARGIN = 1e-4                         # of max|logit|: BPD/greedy near-ties
+HEADS_TIE_MARGIN = 1e-3                   # of max|logit|: fused-heads near-ties
+BF16_TIE_ULPS = 8                         # bf16 ulps of max|logit|: reported
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, *, runs: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``runs`` calls, CUDA events around
+    each; a 256 MB write before each call evicts the 50 MB L2, as the decode
+    path (which streams GBs of weights between two calls) finds it."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    del flush
+    times.sort()
+    return times[len(times) // 2]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(byte_count: int, flops: float, dtype: str):
+    t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def attention_case(torch, gen, b, kq, h, kvh, hd, l, dtype, *, length,
+                   stale=0):
+    """Cache of ``l`` slots holding positions 0..length+kq-1, a few stale
+    slots (-1), slots past the block marked as stale speculative writes."""
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, kq, h, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, l, kvh, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, l, kvh, hd), generator=gen, device="cuda").to(dt)
+    base = torch.tensor(length, dtype=torch.int32, device="cuda")
+    q_pos = base[:, None] + torch.arange(kq, dtype=torch.int32, device="cuda")
+    slot = torch.arange(l, dtype=torch.int32, device="cuda")[None, :].expand(b, l)
+    kv_pos = torch.where(slot < (base + kq)[:, None], slot, -1).contiguous()
+    if stale:
+        idx = torch.randint(0, l, (b, stale), generator=gen, device="cuda")
+        kv_pos.scatter_(1, idx, -1)
+    return q, k, v, q_pos, kv_pos
+
+
+def check_attention(torch, gen, results):
+    from repro_torch.kernels.block_attention import (verify_attention_cuda,
+                                                     verify_attention_plain)
+
+    cases = []
+    for dtype in ("bfloat16", "float32"):
+        for kq in (1, 8):
+            for l in (256, 4096):
+                cases.append((dtype, kq, l, 0, 0, "path"))
+        cases.append((dtype, 8, 256, 64, 4, "window+meta"))
+        cases.append((dtype, 8, 256, 0, 0, "all-stale"))
+    worst = 0.0
+    for dtype, kq, l, window, meta, kind in cases:
+        length = [l - kq - 3 * i for i in range(8)]
+        q, k, v, q_pos, kv_pos = attention_case(torch, gen, 8, kq, 32, 8, 128,
+                                                l, dtype, length=length,
+                                                stale=5)
+        if kind == "all-stale":          # only the block itself is visible
+            slot = torch.arange(l, dtype=torch.int32, device="cuda")[None]
+            own = (slot >= q_pos[:, :1]) & (slot <= q_pos[:, -1:])
+            kv_pos = torch.where(own, slot, -1).contiguous()
+        got = verify_attention_cuda(q, k, v, q_pos, kv_pos, window=window,
+                                    num_meta=meta)
+        want = verify_attention_plain(q, k, v, q_pos, kv_pos, window=window,
+                                      num_meta=meta)
+        torch.cuda.synchronize()
+        check(not torch.isnan(got).any(), f"verify_attention NaN ({kind})")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        log(f"  verify_attention {dtype} kq={kq} L={l} {kind}: "
+            f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
+        check(ok, f"verify_attention {dtype} kq={kq} L={l} {kind} "
+                  f"differs from its plain version by {err}")
+        worst = max(worst, err)
+        if (dtype, kq, l, kind) == ("bfloat16", 8, 256, "path"):
+            timed = (q, k, v, q_pos, kv_pos)
+    log(f"  verify_attention: max_abs_err over all {len(cases)} cases "
+        f"{worst:.3g}")
+
+    # time at the serve path's shape: bf16, B=8, kq=8, L=256
+    q, k, v, q_pos, kv_pos = timed
+    kernel_ms = time_ms(torch, lambda: verify_attention_cuda(q, k, v, q_pos, kv_pos))
+    plain_ms = time_ms(torch, lambda: verify_attention_plain(q, k, v, q_pos, kv_pos))
+    # yardstick: one scaled_dot_product_attention call on the same values
+    # (heads-first views; K/V repeated per query head, the mask from the
+    # positions — input preparation, outside the timed call)
+    b, kq, h, hd = q.shape
+    l, kvh = k.shape[1], k.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = ((kv_pos[:, None, :] >= 0)
+            & (kv_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, q), 4 * b * kq * h * l * hd,
+                    "bfloat16")
+    results["verify_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/verify_attention.cu",
+        replaces="src/repro/kernels/block_attention.py:83",
+        max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=library_ms,
+        shape="bf16 q (8,8,32,128), k/v (8,256,8,128)")
+
+
+def check_fused_verify(torch, gen, results):
+    from repro_torch.kernels.fused_verify import (fused_verify_cuda,
+                                                  fused_verify_plain)
+
+    b, k, vocab, vp = 8, 8, 49155, 49408
+    kw = dict(top_k=3, epsilon=2.0)
+    timed = None
+    for dtype in ("bfloat16", "float32"):
+        logits = torch.randn((b, k, vp), generator=gen, device="cuda")
+        logits[..., vocab:] = -1e9                   # as project_vocab pads
+        logits = logits.to(getattr(torch, dtype))
+        greedy = torch.argmax(logits.float(), -1).int()
+        props = torch.randint(0, vocab, (b, k), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        props[:, 1:4] = greedy[:, 0:3]               # accepted prefixes
+        all_acc = torch.cat([greedy[:, :1], greedy[:, :k - 1]], 1).contiguous()
+        all_rej = ((greedy + vocab // 2) % vocab).roll(1, 1).contiguous()
+        for name, pr in (("random", props), ("all-accept", all_acc),
+                         ("all-reject", all_rej)):
+            for crit in ("exact", "topk", "distance"):
+                got = fused_verify_cuda(logits, pr, criterion=crit, **kw)
+                want = fused_verify_plain(logits, pr, criterion=crit, **kw)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                log(f"  fused_verify {dtype} {crit} {name}: k̂="
+                    f"{got[1].tolist()} {'ok' if same else 'FAIL'}")
+                check(same, f"fused_verify {dtype} {crit} {name} differs "
+                            f"from its plain version")
+                if name == "all-accept" and crit == "exact":
+                    check(bool((got[1] == k).all()), "all-accept k̂ != k")
+                if name == "all-reject" and crit == "exact":
+                    check(bool((got[1] == 1).all()), "all-reject k̂ != 1")
+        # a 1-slot block (--block-k 1) goes through the same kernel
+        one = logits[:, :1].contiguous()
+        for crit in ("exact", "topk", "distance"):
+            got = fused_verify_cuda(one, props[:, :1].contiguous(),
+                                    criterion=crit, **kw)
+            want = fused_verify_plain(one, props[:, :1], criterion=crit, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            log(f"  fused_verify {dtype} {crit} k=1: "
+                f"{'ok' if same else 'FAIL'}")
+            check(same and bool((got[1] == 1).all()),
+                  f"fused_verify {dtype} {crit} k=1 differs from its plain "
+                  f"version")
+        if dtype == "bfloat16":
+            timed = (logits, props)
+    logits, props = timed
+    kernel_ms = time_ms(torch, lambda: fused_verify_cuda(logits, props,
+                                                         criterion="exact"))
+    plain_ms = time_ms(torch, lambda: fused_verify_plain(logits, props,
+                                                         criterion="exact"))
+    bms, by = bound(nbytes(logits, props) + b * k * 9 + b * 8, b * k * vp,
+                    "bfloat16")
+    results["fused_verify"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_verify.cu",
+        replaces="src/repro/kernels/fused_verify.py:109",
+        max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
+        shape="bf16 logits (8,8,49408), exact")
+
+
+def heads_ids_agree(torch, vals, ids, o, w, vocab, top_t):
+    """Kernel ids == plain ids, except where the plain version's own logit
+    at the kernel's id is within HEADS_TIE_MARGIN * max|logit| of the plain
+    version's value at that rank.  Returns (ok, ids that differ, the plain
+    version's values)."""
+    from repro_torch.kernels.fused_heads import heads_topk_plain
+
+    wv, wi = heads_topk_plain(o, w, vocab=vocab, top_t=top_t)
+    if torch.equal(ids, wi):
+        return True, 0, wv
+    logits = o.float() @ w.float()
+    margin = HEADS_TIE_MARGIN * logits[:, :vocab].abs().max()
+    at_kernel = torch.gather(logits, 1, ids.long())
+    diff = ids != wi
+    near = (at_kernel - wv).abs() <= margin
+    return bool((near | ~diff).all()), int(diff.sum()), wv
+
+
+def check_fused_heads(torch, gen, results):
+    from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
+
+    n, d, vocab, vp = 56, 4096, 49155, 49408
+    timed = None
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+        table = (torch.randn((vp, d), generator=gen, device="cuda") * 0.02).to(dt)
+        w = table.t()                                  # the tied view, no copy
+        for top_t in (1, 4):
+            vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+            torch.cuda.synchronize()
+            ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab, top_t)
+            err = (vals - wv).abs().max().item()
+            tol = ATTN_TOL[dtype]
+            vals_ok = torch.allclose(vals, wv, rtol=tol, atol=tol)
+            log(f"  fused_heads {dtype} T={top_t}: max_abs_err={err:.3g} "
+                f"near-ties={ties} {'ok' if ok and vals_ok else 'FAIL'}")
+            check(ok and vals_ok, f"fused_heads {dtype} T={top_t} differs "
+                                  f"from its plain version (err {err})")
+            worst = max(worst, err)
+            if dtype == "bfloat16" and top_t == 1:
+                timed = (o, w)
+        # pad lanes never win, even when they hold the largest logits
+        huge = table.clone()
+        huge[vocab:] = 1.0
+        _, pad_ids = fused_heads_topk_cuda(o.abs(), huge.t(), vocab=vocab,
+                                           top_t=4)
+        check(int(pad_ids.max()) < vocab, "fused_heads selected a pad lane")
+        log(f"  fused_heads {dtype} pad-never-wins: ok")
+    o, w = timed
+    kernel_ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
+                                                             top_t=1))
+    from repro_torch.kernels.fused_heads import heads_topk_plain
+    plain_ms = time_ms(torch, lambda: heads_topk_plain(o, w, vocab=vocab,
+                                                       top_t=1))
+    bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * vp, "bfloat16")
+    results["fused_heads"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_heads.cu",
+        replaces="src/repro/kernels/fused_heads.py:63",
+        max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
+        shape="bf16 o (56,4096), tied table view (4096,49408), T=1")
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the decode path at full width
+# ---------------------------------------------------------------------------
+
+
+def p1_logits_after(torch, M, params, cfg, prefix):
+    """p_1's logits (V,) in fp32 after ``prefix`` (1-d token tensor), by one
+    full forward of the prefix."""
+    h = M.embed_inputs(params, cfg, {"tokens": prefix[None]})
+    hidden, _ = M.forward_hidden(params, cfg, h)
+    return M.base_logits(params, cfg, hidden[:, -1])[0, :cfg.vocab_size].float()
+
+
+def near_tie(torch, M, params, cfg, prefix) -> float:
+    """Greedy's top-2 p_1 logit gap after ``prefix``, as a fraction of
+    max|logit|."""
+    logits = p1_logits_after(torch, M, params, cfg, prefix)
+    top2 = torch.topk(logits, 2).values
+    return float((top2[0] - top2[1]) / logits.abs().max())
+
+
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 values (8 significant bits) at magnitude ``x``."""
+    import math
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def divergence_at(torch, M, params, cfg, prefix, bpd_tok, greedy_tok):
+    """Where BPD's and greedy's tokens first differ: the full forward's top-2
+    gap, and the rank and gap below the top of each side's token, the gaps
+    in bf16 ulps of max|logit|."""
+    logits = p1_logits_after(torch, M, params, cfg, prefix)
+    ulp = bf16_ulp(float(logits.abs().max()))
+    top2 = torch.topk(logits, 2).values
+    out = {"top2_ulps": float(top2[0] - top2[1]) / ulp}
+    for side, tok in (("bpd", bpd_tok), ("greedy", greedy_tok)):
+        out[f"{side}_rank"] = int((logits > logits[tok]).sum()) + 1
+        out[f"{side}_ulps"] = float(top2[0] - logits[tok]) / ulp
+    return out
+
+
+def compare_rows(torch, M, params, cfg, bpd, greedy, text_len, prompt_len):
+    """BPD rows must equal greedy's, except a row that diverges at a
+    position where greedy's top-2 gap is below TIE_MARGIN."""
+    diverged = []
+    for r in range(bpd.shape[0]):
+        n = int(text_len[r])
+        a, g = bpd[r, :n], greedy[r, :n]
+        if torch.equal(a, g):
+            continue
+        p = int((a != g).nonzero()[0])
+        gap = near_tie(torch, M, params, cfg, g[:p])
+        log(f"    row {r} diverges at position {p} (new token {p - prompt_len}): "
+            f"greedy top-2 gap {gap:.3g} of max|logit|")
+        check(gap < TIE_MARGIN, f"row {r}: BPD differs from greedy at "
+                                f"position {p} with no near-tie (gap {gap})")
+        diverged.append(r)
+    return diverged
+
+
+def report_divergences(torch, M, params, cfg, bpd, greedy, prompt_len, end):
+    """bf16: each row's first BPD/greedy divergence, reported and counted
+    as a near-tie when BPD's token lies within BF16_TIE_ULPS of the full
+    forward's top logit (its rank is printed, but several logits can tie
+    within one ulp).  Reported, never failed."""
+    rows = []
+    for r in range(bpd.shape[0]):
+        a, g = bpd[r, :end], greedy[r, :end]
+        if torch.equal(a, g):
+            continue
+        p = int((a != g).nonzero()[0])
+        d = divergence_at(torch, M, params, cfg, g[:p], int(a[p]), int(g[p]))
+        d["tie"] = d["bpd_ulps"] <= BF16_TIE_ULPS
+        log(f"    row {r} diverges at new token {p - prompt_len}: full-forward "
+            f"top-2 gap {d['top2_ulps']:.3g} ulp; BPD's token rank "
+            f"{d['bpd_rank']} ({d['bpd_ulps']:.3g} ulp below the top), "
+            f"greedy's rank {d['greedy_rank']} ({d['greedy_ulps']:.3g} ulp)"
+            f"{'' if d['tie'] else '  NOT A NEAR-TIE'}")
+        rows.append(d)
+    return rows
+
+
+def phase_decode(torch, results):
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config("granite-3-8b").replace(dtype="float32")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[decode] granite-3-8b fp32: {n_params / 1e9:.3f} B parameters, "
+        f"init {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+    task = MarkovLM(vocab=256, temperature=0.2, seed=0)
+    prompt_len, max_new, block_k = 64, 64, cfg.bpd_k
+    prompts = torch.as_tensor(task.sample(np.random.default_rng(1), 8,
+                                          prompt_len), device="cuda")
+    batch = {"tokens": prompts}
+    dec = DecodeConfig(max_new_tokens=max_new, block_k=block_k)
+    layers = cfg.num_layers
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    g_toks, g_stats = D.greedy_decode(params, cfg, dec, batch)
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    g_launch = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    b_toks, b_stats = D.bpd_decode(params, cfg, dec, batch)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    b_launch = dict(_build.LAUNCHES)
+    log(f"[decode] greedy: {g_stats['iterations']} steps, {g_wall:.2f}s, "
+        f"launches {g_launch}")
+    log(f"[decode] bpd: k̂={b_stats['mean_accepted']:.4f} iterations="
+        f"{b_stats['iterations']} invocations={b_stats['invocations']}, "
+        f"{b_wall:.2f}s, launches {b_launch}")
+    check(g_launch["verify_attention"] == layers * g_stats["iterations"],
+          f"greedy: verify_attention launched {g_launch['verify_attention']} "
+          f"times for {g_stats['iterations']} forwards of {layers} layers")
+    check(b_launch["verify_attention"] == layers * b_stats["iterations"],
+          f"bpd: verify_attention launched {b_launch['verify_attention']} "
+          f"times for {b_stats['iterations']} forwards of {layers} layers")
+    check(b_launch["fused_verify"] == b_stats["iterations"],
+          "bpd: fused_verify not launched once per iteration")
+    check(b_launch["fused_heads"] == b_stats["iterations"] + 1,
+          "bpd: fused_heads not launched once per iteration + prefill")
+    check(bool((b_stats["generated"] == max_new).all()), "bpd: short rows")
+    diverged = compare_rows(torch, M, params, cfg, b_toks, g_toks,
+                            b_stats["text_len"], prompt_len)
+    log(f"[decode] fp32 BPD tokens == greedy tokens in "
+        f"{8 - len(diverged)}/8 rows (others at near-ties)")
+
+    # ---- phase 5: multi-token accepts on the card -------------------------
+    cont = g_toks[:, prompt_len:prompt_len + block_k].contiguous()
+    for corrupt in (None, 3):
+        state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
+                                                max_new=max_new)
+        props = cont.clone()
+        if corrupt is not None:
+            props[:, corrupt] = (props[:, corrupt] + 1) % cfg.vocab_size
+        check(torch.equal(state.proposals[:, 0], cont[:, 0]),
+              "prefill's verified slot 0 != greedy's first token")
+        state = state._replace(proposals=props)
+        with torch.no_grad():
+            state = D.bpd_iteration(params, cfg, dec, D.causal_lm_backend(cfg),
+                                    state, prefix_offset=prefix,
+                                    max_new=max_new)
+        khat = (state.text_len - prompt_len).tolist()
+        want = block_k if corrupt is None else corrupt
+        log(f"[accepts] proposals = greedy continuation"
+            f"{'' if corrupt is None else f' with slot {corrupt} corrupted'}: "
+            f"k̂ per row {khat}")
+        for r, kh in enumerate(khat):
+            if kh != want:
+                gap = near_tie(torch, M, params, cfg,
+                               g_toks[r, :prompt_len + kh])
+                check(kh < want and gap < TIE_MARGIN,
+                      f"row {r}: k̂={kh}, expected {want} (gap {gap})")
+        n = prompt_len + min(khat)
+        check(torch.equal(state.tokens[:, :n], g_toks[:, :n]),
+              "committed tokens differ from greedy's")
+
+    # ---- phase 6: bf16 serve ------------------------------------------------
+    del state
+    params.to(torch.bfloat16)                     # in place: frees the fp32 copy
+    torch.cuda.empty_cache()
+    log(f"[serve] weights cast to bf16: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+    _build.reset_launches()
+    out = serve.main(["--arch", "granite-3-8b", "--full-config", "--batch",
+                      "8", "--prompt-len", str(prompt_len), "--max-new",
+                      str(max_new), "--block-k", str(block_k), "--seed", "0"],
+                     params=params)
+    launches = dict(_build.LAUNCHES)
+    scfg, sdec, sbatch = out["cfg"], out["dec"], out["batch"]
+    check(torch.equal(sbatch["tokens"], prompts), "serve prompts differ")
+    s_toks, s_stats = out["tokens"], out["stats"]
+    check(all(launches[name] > 0 for name in launches),
+          f"serve: a kernel was never launched: {launches}")
+    check(launches["verify_attention"] == 2 * layers * s_stats["iterations"],
+          f"serve: verify_attention launches {launches}")
+    gb_toks, gb_stats = D.greedy_decode(params, scfg, sdec, sbatch)
+    n = prompt_len + max_new
+    same = (s_toks[:, prompt_len:n] == gb_toks[:, prompt_len:n])
+    agree = float(same.float().mean())
+    rows_equal = int(same.all(dim=1).sum())
+    generated = int(s_stats["generated"].sum())
+    log(f"[serve] bf16: {generated / out['wall_s']:.1f} tokens/s, "
+        f"k̂={s_stats['mean_accepted']:.4f}, invocations="
+        f"{s_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; "
+        f"BPD vs greedy agreement {agree:.4f} of tokens, {rows_equal}/8 rows "
+        f"identical (reported, not required in bf16)")
+    div = report_divergences(torch, M, params, scfg, s_toks, gb_toks,
+                             prompt_len, n)
+    log(f"[serve] bf16 first divergences: {len(div)} rows, "
+        f"{sum(d['tie'] for d in div)} at near-ties (BPD's token <= "
+        f"{BF16_TIE_ULPS} ulp below the top); BPD's token ranks "
+        f"{[d['bpd_rank'] for d in div]}, ulps below the top "
+        f"{[round(d['bpd_ulps'], 3) for d in div]}")
+    for name, n_launch in launches.items():
+        results[name]["launches"] = n_launch
+    profile_iteration(torch, D, params, scfg, sdec, sbatch)
+
+
+def profile_iteration(torch, D, params, cfg, dec, batch):
+    """One bf16 BPD iteration under torch.profiler: host wall time against
+    the kernels' summed device time (the device's idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
+                                            max_new=dec.max_new_tokens)
+    be = D.causal_lm_backend(cfg)
+
+    def step(s):
+        with torch.no_grad():
+            return D.bpd_iteration(params, cfg, dec, be, s,
+                                   prefix_offset=prefix,
+                                   max_new=dec.max_new_tokens)
+
+    state = step(state)                           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = step(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = step(state)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except (RuntimeError, AttributeError) as exc:    # a measurement, not the path
+        log(f"[profile] torch.profiler unavailable ({exc}); not measured")
+        return
+    busy = {}
+    for e in kernels:
+        busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(busy.values())
+    if not kernels:
+        log(f"[profile] one bf16 BPD iteration: wall {wall_ms:.2f} ms; the "
+            f"profiler saw no kernels, device time not measured")
+        return
+    log(f"[profile] one bf16 BPD iteration: wall {wall_ms:.2f} ms, "
+        f"{len(kernels)} kernels busy {busy_ms:.2f} ms, device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
+    for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms:8.3f} ms  {name[:90]}")
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: run it from the root of a checkout of the repo "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"[build] {len(_build.KERNELS)} kernels for sm_90a in "
+        f"{time.perf_counter() - t0:.1f}s: "
+        f"{[_build.library_path(n).name for n in _build.KERNELS]}")
+
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    log("[kernels] each CUDA kernel against its plain version")
+    check_attention(torch, gen, results)
+    check_fused_verify(torch, gen, results)
+    check_fused_heads(torch, gen, results)
+    for name, r in results.items():
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"  {name} @ {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    phase_decode(torch, results)
+
+    kernels = []
+    for name in _build.KERNELS:
+        r = results[name]
+        check(r.get("launches", 0) > 0, f"{name} never launched on the path")
+        kernels.append({"name": name, "route": "cuda", "source": r["source"],
+                        "replaces": r["replaces"], "launches": r["launches"],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,2 @@
+"""Registered architectures (importing this package registers them)."""
+from repro_torch.configs import granite_3_8b  # noqa: F401

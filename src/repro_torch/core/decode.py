@@ -1,0 +1,334 @@
+"""Blockwise parallel decoding (paper §3–§5) and the greedy baseline, as in
+``repro.core.decode`` (decoder-only chain path).
+
+One model invocation per iteration verifies the current block and drafts
+the next (§4 combined scoring), so an output of length m costs
+(m / mean-k̂) + 1 invocations instead of m.  The reference's
+``lax.while_loop`` is a Python loop here with the same condition; per-row
+accepted block sizes let every batch row advance at its own rate.
+
+One departure from the reference's structure, at the drafter seam: the
+reference materializes every head's logits (B, k, K, V) each iteration and
+the drafter takes their argmax.  Here ``Backend.head_logits`` is replaced by
+``p1_logits`` (p_1 at every slot, for the acceptor and for proposal slot 0)
+and ``head_topk`` (heads p_2.. at the accepted slot only, through the
+fused-heads kernel, logits never written).  The tokens are the reference's:
+the heads act per position, and slot 0 is the argmax of the same p_1
+logits greedy decoding reads.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.config import DecodeConfig, ModelConfig
+from repro_torch.core import policy as policy_lib
+from repro_torch.core.policy import DecodePolicy, DraftInputs, PolicyState
+from repro_torch.models import cache as cache_lib
+from repro_torch.models import model as model_lib
+from repro_torch.models.layers import embed_apply
+
+I32 = torch.int32
+
+
+class Backend(NamedTuple):
+    """Model functions the BPD loop needs."""
+
+    embed_tokens: Callable  # (params, tokens (B,S)) -> (B,S,d)
+    decode_block: Callable  # (params, h, caches, length) -> (hidden, staged_caches)
+    commit: Callable        # (caches, khat) -> caches
+    p1_logits: Callable     # (params, hidden (..., d)) -> (..., Vp)
+    head_topk: Callable     # (params, hidden (B, d), n) -> (B, n) int32
+
+
+def causal_lm_backend(cfg: ModelConfig) -> Backend:
+    return Backend(
+        embed_tokens=lambda p, t: embed_apply(p["embed"], t).to(cfg.compute_dtype),
+        decode_block=lambda p, h, c, ln: model_lib.decode_block_step(p, cfg, h, c, ln),
+        commit=lambda c, kh: model_lib.commit_caches(cfg, c, kh),
+        p1_logits=lambda p, h: model_lib.base_logits(p, cfg, h),
+        head_topk=lambda p, h, n: model_lib.head_topk(p, cfg, h, n),
+    )
+
+
+# ---------------------------------------------------------------------------
+# One BPD iteration (predict+verify merged — paper §4, Fig. 2)
+# ---------------------------------------------------------------------------
+
+
+class BPDState(NamedTuple):
+    tokens: torch.Tensor       # (B, buf) generated+prompt token buffer
+    text_len: torch.Tensor     # (B,) tokens valid in the buffer
+    proposals: torch.Tensor    # (B, k) next block proposals
+    caches: Any                # per-layer caches
+    finished: torch.Tensor     # (B,) bool
+    iters: int                 # model invocations in the loop
+    generated: torch.Tensor    # (B,) int32 — accepted tokens so far
+    policy_state: PolicyState = PolicyState()
+
+
+def _freeze_rows(frozen, old, new):
+    """Keep the old policy-state rows where ``frozen`` is True."""
+    if isinstance(new, torch.Tensor):
+        mask = frozen.reshape((-1,) + (1,) * (new.dim() - 1))
+        return torch.where(mask, old, new)
+    if isinstance(new, dict):
+        return {k: _freeze_rows(frozen, old[k], v) for k, v in new.items()}
+    return type(new)(_freeze_rows(frozen, o, n) for o, n in zip(old, new))
+
+
+def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
+                  backend: Backend, state: BPDState, *, prefix_offset: int,
+                  max_new, active=None,
+                  policy: Optional[DecodePolicy] = None) -> BPDState:
+    """One combined predict/verify/accept step.
+
+    max_new : int or (B,) int32 — per-row generation budget.
+    active  : optional (B,) bool — rows with ``active == False`` accept
+              nothing and keep their state frozen, like finished rows.
+    The attention caches are written in place (see ``attn_cached``).
+    """
+    pol = policy_lib.resolve_policy(dec, policy)
+    block_k = dec.block_k or cfg.bpd_k
+    dev = state.proposals.device
+    slots = torch.arange(block_k, dtype=I32, device=dev)[None, :]
+    pos_len = state.text_len + prefix_offset
+
+    # ---- parallel scoring of the k proposals (verify ∧ next-predict) ------
+    h = backend.embed_tokens(params, state.proposals)
+    hidden, staged = backend.decode_block(params, h, state.caches, pos_len)
+    p1_logits = backend.p1_logits(params, hidden)           # (B, k, Vp)
+
+    # ---- verify ------------------------------------------------------------
+    accepts = pol.acceptor.accepts(state.proposals, p1_logits)
+    commit_tokens = state.proposals
+    remaining = torch.clamp(max_new - state.generated, min=1)
+    khat, sched_state = pol.schedule.block_size(
+        accepts, remaining, state.policy_state.schedule)    # (B,) in [1, k]
+    frozen = state.finished if active is None else (state.finished | ~active)
+    khat = torch.where(frozen, 0, khat).to(I32)
+
+    # ---- EOS handling -------------------------------------------------------
+    if dec.eos_id >= 0:
+        iseos = (commit_tokens == dec.eos_id) & (slots < khat[:, None])
+        has_eos = iseos.any(dim=1)
+        first_eos = torch.argmax(iseos.to(I32), dim=1)
+        khat = torch.where(has_eos, first_eos + 1, khat).to(I32)
+    else:
+        has_eos = torch.zeros_like(state.finished)
+
+    # ---- accept -------------------------------------------------------------
+    widx = (state.text_len[:, None] + slots).long()
+    wmask = slots < khat[:, None]
+    tokens = state.tokens.clone()
+    tokens.scatter_(1, widx, torch.where(wmask, commit_tokens,
+                                         tokens.gather(1, widx)))
+    caches = backend.commit(staged, khat)
+    generated = state.generated + khat
+    finished = state.finished | has_eos | (generated >= max_new)
+
+    # ---- next-block proposals (drafted from this same invocation) ----------
+    draft_in = DraftInputs(
+        hidden=hidden, p1_logits=p1_logits, khat=khat,
+        slot=torch.clamp(khat - 1, min=0), text_len=state.text_len + khat,
+        old_proposals=commit_tokens,
+        head_topk=functools.partial(backend.head_topk, params))
+    proposals, draft_state = pol.drafter.draft(
+        draft_in, state.policy_state.drafter)
+    proposals = torch.where(frozen[:, None], state.proposals, proposals)
+    policy_state = PolicyState(
+        drafter=_freeze_rows(frozen, state.policy_state.drafter, draft_state),
+        schedule=_freeze_rows(frozen, state.policy_state.schedule,
+                              sched_state))
+
+    return BPDState(
+        tokens=tokens,
+        text_len=state.text_len + khat,
+        proposals=proposals,
+        caches=caches,
+        finished=finished,
+        iters=state.iters + 1,
+        generated=generated,
+        policy_state=policy_state,
+    )
+
+
+def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
+                  p1_logits: torch.Tensor, text_len, block_k: int, state, *,
+                  head_topk: Callable):
+    """Draft the FIRST block from a prefill's last position.
+
+    ``hidden`` (B, d) and ``p1_logits`` (B, Vp) at the last context
+    position are presented to the drafter as a single pseudo block slot
+    (slot 0, k̂ = 1), so the same ``draft`` covers prefill and loop
+    iterations.  ``head_topk`` is ``Backend.head_topk`` with the params
+    bound.
+    """
+    b = hidden.shape[0]
+    dev = hidden.device
+    din = DraftInputs(
+        hidden=hidden[:, None], p1_logits=p1_logits[:, None],
+        khat=torch.ones((b,), dtype=I32, device=dev),
+        slot=torch.zeros((b,), dtype=I32, device=dev),
+        text_len=torch.as_tensor(text_len, dtype=I32, device=dev).expand(b),
+        old_proposals=torch.zeros((b, block_k), dtype=I32, device=dev),
+        head_topk=head_topk)
+    proposals, new_state = pol.drafter.draft(din, state)
+    return proposals.to(I32), new_state
+
+
+# ---------------------------------------------------------------------------
+# Run-to-completion entry points
+# ---------------------------------------------------------------------------
+
+
+def decode_stats(final) -> Dict:
+    """``mean_accepted`` is the paper's headline k̂; ``invocations`` counts
+    model calls (prefill + loop iterations)."""
+    b = final.generated.shape[0]
+    return {
+        "iterations": final.iters,
+        "generated": final.generated,
+        "mean_accepted": float(final.generated.sum()) / max(final.iters, 1) / b,
+        "invocations": final.iters + 1,
+        "text_len": final.text_len,
+    }
+
+
+@torch.no_grad()
+def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
+                          batch: Dict, *, max_new: int,
+                          policy: Optional[DecodePolicy] = None):
+    """Prefill the caches from the prompt and produce the first proposals.
+    The prompt's device is the decode's device."""
+    pol = policy_lib.resolve_policy(dec, policy)
+    block_k = dec.block_k or cfg.bpd_k
+    prompt = batch["tokens"]
+    b, prompt_len = prompt.shape
+    dev = prompt.device
+    prefix = model_lib.prefix_len(cfg, batch)
+    context_len = prefix + prompt_len + max_new
+    caches = model_lib.init_caches(cfg, b, context_len, block_k, device=dev,
+                                   backend=cache_lib.get_backend(dec))
+
+    h = model_lib.embed_inputs(params, cfg, batch)          # (B, P, d)
+    positions = torch.arange(h.shape[1], dtype=I32, device=dev)
+    hidden, caches = model_lib.forward_hidden(params, cfg, h,
+                                              positions=positions,
+                                              caches=caches)
+    last = hidden[:, -1, :]                                 # context = full prompt
+    be = causal_lm_backend(cfg)
+    ps = pol.init_state(cfg, dec, batch, b)
+    proposals, dstate = initial_draft(
+        pol, last, be.p1_logits(params, last), prompt_len, block_k,
+        ps.drafter, head_topk=functools.partial(be.head_topk, params))
+
+    buf = prompt_len + max_new + block_k
+    tokens = torch.zeros((b, buf), dtype=I32, device=dev)
+    tokens[:, :prompt_len] = prompt
+    state = BPDState(
+        tokens=tokens,
+        text_len=torch.full((b,), prompt_len, dtype=I32, device=dev),
+        proposals=proposals,
+        caches=caches,
+        finished=torch.zeros((b,), dtype=torch.bool, device=dev),
+        iters=0,
+        generated=torch.zeros((b,), dtype=I32, device=dev),
+        policy_state=ps._replace(drafter=dstate),
+    )
+    return state, prefix
+
+
+@torch.no_grad()
+def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
+               max_new_rows=None, policy=None) -> Tuple[torch.Tensor, Dict]:
+    """Full blockwise parallel decode for the decoder-only model.
+
+    Returns (tokens (B, buf), stats).  max_new_rows: optional (B,) per-row
+    budgets <= dec.max_new_tokens (buffers stay sized by max_new_tokens).
+    """
+    max_new = dec.max_new_tokens
+    pol = policy_lib.resolve_policy(dec, policy)
+    state, prefix = bpd_prefill_causal_lm(params, cfg, dec, batch,
+                                          max_new=max_new, policy=pol)
+    be = causal_lm_backend(cfg)
+    budget = max_new if max_new_rows is None else torch.as_tensor(
+        max_new_rows, dtype=I32, device=state.text_len.device)
+    while not bool(state.finished.all()) and state.iters < max_new:
+        state = bpd_iteration(params, cfg, dec, be, state,
+                              prefix_offset=prefix, max_new=budget, policy=pol)
+    return state.tokens, decode_stats(state)
+
+
+# ---------------------------------------------------------------------------
+# Greedy baseline (paper §2): block size 1, p_1 only.
+# ---------------------------------------------------------------------------
+
+
+class GreedyState(NamedTuple):
+    tokens: torch.Tensor       # (B, buf) prompt+output token buffer
+    text_len: torch.Tensor     # (B,) tokens valid in the buffer
+    tok: torch.Tensor          # (B,) next token to commit
+    caches: Any
+    finished: torch.Tensor     # (B,) bool
+    iters: int                 # decode steps taken
+    generated: torch.Tensor    # (B,) int32 — committed tokens so far
+
+
+@torch.no_grad()
+def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
+                  batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    max_new = dec.max_new_tokens
+    prompt = batch["tokens"]
+    b, prompt_len = prompt.shape
+    dev = prompt.device
+    prefix = model_lib.prefix_len(cfg, batch)
+    context_len = prefix + prompt_len + max_new
+    caches = model_lib.init_caches(cfg, b, context_len, 1, device=dev,
+                                   backend=cache_lib.get_backend(dec))
+
+    h = model_lib.embed_inputs(params, cfg, batch)
+    positions = torch.arange(h.shape[1], dtype=I32, device=dev)
+    hidden, caches = model_lib.forward_hidden(params, cfg, h,
+                                              positions=positions,
+                                              caches=caches)
+    logits = model_lib.base_logits(params, cfg, hidden[:, -1, :])
+
+    buf = prompt_len + max_new + 1
+    tokens = torch.zeros((b, buf), dtype=I32, device=dev)
+    tokens[:, :prompt_len] = prompt
+    s = GreedyState(
+        tokens=tokens,
+        text_len=torch.full((b,), prompt_len, dtype=I32, device=dev),
+        tok=model_lib.greedy_token(logits),
+        caches=caches,
+        finished=torch.zeros((b,), dtype=torch.bool, device=dev),
+        iters=0,
+        generated=torch.zeros((b,), dtype=I32, device=dev),
+    )
+
+    while not bool(s.finished.all()) and s.iters < max_new:
+        live = ~s.finished
+        adv = live.to(I32)
+        idx = s.text_len.long()[:, None]
+        tokens = s.tokens.clone()
+        tokens.scatter_(1, idx, torch.where(live[:, None], s.tok[:, None],
+                                            tokens.gather(1, idx)))
+        h = embed_apply(params["embed"], s.tok[:, None]).to(cfg.compute_dtype)
+        hidden, staged = model_lib.decode_block_step(params, cfg, h, s.caches,
+                                                     s.text_len + prefix)
+        caches = model_lib.commit_caches(cfg, staged, adv)
+        new_tok = model_lib.greedy_token(
+            model_lib.base_logits(params, cfg, hidden[:, 0, :]))
+        text_len = s.text_len + adv
+        finished = s.finished
+        if dec.eos_id >= 0:
+            finished = finished | (s.tok == dec.eos_id)
+        finished = finished | (text_len - prompt_len >= max_new)
+        s = GreedyState(tokens=tokens, text_len=text_len,
+                        tok=torch.where(finished, s.tok, new_tok),
+                        caches=caches, finished=finished, iters=s.iters + 1,
+                        generated=s.generated + adv)
+    return s.tokens, decode_stats(s)

@@ -1,0 +1,57 @@
+"""Combined scoring-and-proposal heads (paper §4, §6, Fig. 3), as in
+``repro.core.heads``.
+
+One feedforward layer with hidden size k·d_hidden and output size k·d_model
+after the decoder output, a residual from the decoder output into each of
+the k outputs, and the vocabulary projection applied to each output.  With
+``identity_p1`` (the default) p_1 is the base model itself, so exact
+blockwise decoding reproduces greedy decoding of p_1.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.layers import normal
+
+
+def heads_init(gen, cfg: ModelConfig, *, dtype=torch.float32,
+               device=None) -> Dict:
+    d, k, dh = cfg.d_model, cfg.bpd_k, cfg.resolved_bpd_hidden
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w1": normal(gen, (d, k, dh), std=d ** -0.5, **kw),
+        "b1": torch.zeros((k, dh), **kw),
+        "w2": normal(gen, (k, dh, d), std=(dh ** -0.5) * 0.1, **kw),
+        "b2": torch.zeros((k, d), **kw),
+    }
+
+
+def heads_apply(p, cfg: ModelConfig, hidden, *,
+                identity_p1: bool = True) -> torch.Tensor:
+    """hidden: (..., d) -> (..., k, d) per-head decoder outputs."""
+    dt = hidden.dtype
+    h = torch.einsum("...d,dkh->...kh", hidden, p["w1"].to(dt))
+    h = F.relu(h + p["b1"].to(dt))
+    out = torch.einsum("...kh,khd->...kd", h, p["w2"].to(dt))
+    out = out + p["b2"].to(dt) + hidden[..., None, :]
+    if identity_p1:
+        out[..., 0, :] = hidden
+    return out
+
+
+def head_apply_single(p, cfg: ModelConfig, hidden, head_idx: int, *,
+                      identity_p1: bool = True) -> torch.Tensor:
+    """Only head ``head_idx``."""
+    if identity_p1 and head_idx == 0:
+        return hidden
+    dt = hidden.dtype
+    w1 = p["w1"][:, head_idx].to(dt)
+    b1 = p["b1"][head_idx].to(dt)
+    w2 = p["w2"][head_idx].to(dt)
+    b2 = p["b2"][head_idx].to(dt)
+    h = F.relu(hidden @ w1 + b1)
+    return h @ w2 + b2 + hidden

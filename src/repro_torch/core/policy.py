@@ -1,0 +1,244 @@
+"""Decode policies: Drafter × Acceptor × BlockSchedule (base layer of
+``repro.core.policy``).
+
+  * ``Acceptor``      — (proposals, verify p_1 logits) -> per-position
+    accepts.  ``ExactAcceptor`` is §3: token-identical to greedy.
+  * ``BlockSchedule`` — accept mask -> per-row block size k̂.
+    ``StaticSchedule`` is §5.3's minimum block size.
+  * ``Drafter``       — the next block of k proposals from the verify
+    forward.  ``HeadsDrafter`` is the paper's prediction heads.
+
+Index convention (0-based within a block): ``proposals[:, i]`` proposes the
+token at ``text_len + i``, and slot 0 of a fresh draft is the model's own
+verified greedy token (k̂ >= 1 is unconditional), so drafts change
+iteration counts, never tokens.
+
+Only the ``exact`` policy is ported; the other registered names of the
+reference raise ``NotImplementedError`` (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+
+import torch
+
+from repro_torch.config import DecodeConfig
+from repro_torch.kernels import ops
+from repro_torch.models.model import greedy_token
+
+I32 = torch.int32
+
+
+class PolicyState(NamedTuple):
+    """Loop-carried policy state; leaves are batch-leading (B, …) tensors,
+    ``()`` means stateless."""
+
+    drafter: Any = ()
+    schedule: Any = ()
+
+
+class DraftInputs(NamedTuple):
+    """What one verify forward exposes to a ``Drafter``.
+
+    The reference hands drafters every head's logits (B, k, K, V).  The port
+    hands them the verify forward's hidden states and p_1 logits, plus
+    ``head_topk``, which projects heads p_2.. at one position through the
+    fused-heads kernel, so the heads' logits are never materialized.
+    """
+
+    hidden: torch.Tensor        # (B, k, d) final hidden states at every slot
+    p1_logits: torch.Tensor     # (B, k, Vp) p_1 logits at every slot
+    khat: torch.Tensor          # (B,) accepted block size this iteration
+    slot: torch.Tensor          # (B,) accepted slot index = max(k̂ - 1, 0)
+    text_len: torch.Tensor      # (B,) text length AFTER accepting this block
+    old_proposals: torch.Tensor  # (B, k) the block that was just verified
+    head_topk: Callable         # (hidden (B, d), n) -> (B, n) top-1 of p_2..p_{n+1}
+
+
+def _gather_slot(x: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """x: (B, k, ...) gathered at per-row slot -> (B, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device), slot.long()]
+
+
+# ---------------------------------------------------------------------------
+# Acceptors
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Acceptor:
+    """Per-position acceptance rule; slot 0 is always accepted (k̂ >= 1).
+
+    On the card ``accepts`` runs the fused-verify kernel whenever the
+    acceptor has a fused form.  On the CPU ``fused=True``
+    (``DecodeConfig.fused_verify``) takes the kernel's plain version and
+    ``False`` the ``position_ok`` path; the two are token-identical.
+    """
+
+    fused: bool = False
+
+    def accepts(self, proposals: torch.Tensor,
+                p1_logits: torch.Tensor) -> torch.Tensor:
+        """proposals (B, k) int32, p1_logits (B, k, V) -> (B, k) bool."""
+        b, k = proposals.shape
+        spec = self.fused_spec()
+        if spec is not None and (self.fused or p1_logits.is_cuda):
+            acc, _, _, _ = ops.fused_verify(p1_logits[:, :k], proposals, **spec)
+            return acc
+        ok = self.position_ok(proposals[:, 1:], p1_logits[:, :k - 1])
+        return torch.cat([torch.ones((b, 1), dtype=torch.bool,
+                                     device=ok.device), ok], dim=1)
+
+    def fused_spec(self) -> Optional[Dict]:
+        """kwargs for ``kernels.ops.fused_verify`` (None: no fused form)."""
+        return None
+
+    def position_ok(self, cand, ver_logits):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactAcceptor(Acceptor):
+    """§3: accept while the proposal equals the model's greedy token."""
+
+    def position_ok(self, cand, ver_logits):
+        return cand == greedy_token(ver_logits)
+
+    def fused_spec(self):
+        return {"criterion": "exact"}
+
+
+# ---------------------------------------------------------------------------
+# Block schedules
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSchedule:
+    """Turns per-position accepts into a per-row block size k̂."""
+
+    def init_state(self, b: int) -> Any:
+        return ()
+
+    def block_size(self, accepts, remaining, state):
+        """accepts (B, k) bool, remaining (B,) int32 ->
+        (k̂ (B,) int32 in [1, min(k, remaining)], new state)."""
+        raise NotImplementedError
+
+
+def _prefix_len(accepts: torch.Tensor) -> torch.Tensor:
+    """Longest accepted prefix per row: (B, k) bool -> (B,) int32."""
+    return torch.cumprod(accepts.to(I32), dim=1).sum(dim=1).to(I32)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticSchedule(BlockSchedule):
+    """§5.3 minimum block size: k̂ = max(prefix, min_block), clamped to the
+    remaining budget."""
+
+    min_block: int = 1
+
+    def block_size(self, accepts, remaining, state):
+        khat = _prefix_len(accepts)
+        if self.min_block > 1:
+            khat = torch.clamp(khat, min=min(self.min_block, accepts.shape[1]))
+        return torch.clamp(torch.minimum(khat, remaining), min=1).to(I32), state
+
+
+# ---------------------------------------------------------------------------
+# Drafters
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Drafter:
+    """Produces the next block of proposals from the verify forward."""
+
+    def init_state(self, cfg, dec: DecodeConfig, batch: Optional[Dict],
+                   b: int) -> Any:
+        return ()
+
+    def draft(self, inputs: DraftInputs, state: Any):
+        """-> (proposals (B, k) int32 with slot 0 = verified token, state)."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadsDrafter(Drafter):
+    """The paper's proposal mechanism at the accepted slot: slot 0 is p_1's
+    argmax (the routine greedy decoding uses, on the same logits), slot i
+    is head p_{i+1}'s top-1 from the fused-heads kernel.  Gathering the
+    slot before the heads gives the reference's ids, since the heads act
+    per position."""
+
+    def draft(self, inputs: DraftInputs, state: Any):
+        k = inputs.old_proposals.shape[1]
+        first = greedy_token(_gather_slot(inputs.p1_logits, inputs.slot))
+        if k == 1:
+            return first[:, None], state
+        rest = inputs.head_topk(_gather_slot(inputs.hidden, inputs.slot), k - 1)
+        return torch.cat([first[:, None], rest], dim=1), state
+
+
+# ---------------------------------------------------------------------------
+# The composed policy + registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePolicy:
+    """Drafter × Acceptor × BlockSchedule behind every decode path."""
+
+    drafter: Drafter
+    acceptor: Acceptor
+    schedule: BlockSchedule
+    name: str = "custom"
+
+    def init_state(self, cfg, dec: DecodeConfig, batch: Optional[Dict],
+                   b: int) -> PolicyState:
+        return PolicyState(
+            drafter=self.drafter.init_state(cfg, dec, batch, b),
+            schedule=self.schedule.init_state(b))
+
+
+POLICY_BUILDERS: Dict[str, Callable[[DecodeConfig], DecodePolicy]] = {}
+
+
+def register_policy(name: str,
+                    builder: Callable[[DecodeConfig], DecodePolicy]) -> None:
+    if name in POLICY_BUILDERS:
+        raise ValueError(f"duplicate policy registration: {name!r}")
+    POLICY_BUILDERS[name] = builder
+
+
+def list_policies() -> list:
+    return sorted(POLICY_BUILDERS)
+
+
+def resolve_policy(dec: DecodeConfig,
+                   policy: Union[None, str, DecodePolicy] = None
+                   ) -> DecodePolicy:
+    """Precedence: an explicit ``DecodePolicy`` > an explicit name >
+    ``dec.policy`` > the legacy ``dec.criterion`` alias."""
+    if isinstance(policy, DecodePolicy):
+        return policy
+    name = policy or dec.policy or dec.criterion
+    builder = POLICY_BUILDERS.get(name)
+    if builder is None:
+        raise NotImplementedError(
+            f"decode policy {name!r} is not ported yet (see ROADMAP.md, "
+            f"'Modules to port', item 4); ported: {list_policies()}")
+    return builder(dec)
+
+
+def _maybe_fused(acceptor: Acceptor, dec: DecodeConfig) -> Acceptor:
+    """Honor ``DecodeConfig.fused_verify`` (the CPU path's choice)."""
+    if dec.fused_verify:
+        return dataclasses.replace(acceptor, fused=True)
+    return acceptor
+
+
+register_policy("exact", lambda dec: DecodePolicy(
+    HeadsDrafter(), _maybe_fused(ExactAcceptor(), dec),
+    StaticSchedule(min_block=dec.min_block), name="exact"))

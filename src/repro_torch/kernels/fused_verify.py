@@ -1,0 +1,68 @@
+"""One-pass block verification on Hopper (paper §3, §5.1–5.2).
+
+The CUDA kernel (``csrc/fused_verify.cu``) replaces the reference's
+``repro/kernels/fused_verify.py::fused_verify_pallas``: one thread block per
+batch row reads that row's (k, V) p_1 logits once, keeping a running top-T
+per thread, merges them by (value desc, id asc), and runs the criterion
+compare and the longest-accepted-prefix scan.  ``fused_verify_plain``
+(``kernels/ref.py``) is its plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import CRITERIA
+from repro_torch.kernels.ref import fused_verify as fused_verify_plain
+
+MAX_K = 32
+MAX_TOP_T = 8
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+
+_require = functools.partial(_build.require, "fused_verify")
+
+__all__ = ["fused_verify_cuda", "fused_verify_plain"]
+
+
+def fused_verify_cuda(p1_logits, proposals, *, criterion: str,
+                      top_k: int = 1, epsilon: float = 0.0):
+    """p1_logits: (B, k, V) f32/bf16; proposals: (B, k) int32.
+
+    Returns (accepts (B, k) bool, k̂ (B,) int32, accepted_tokens (B, k)
+    int32, next_greedy (B,) int32), as ``fused_verify_plain``.
+    """
+    _require(criterion in CRITERIA,
+             f"unknown criterion {criterion!r}; one of {CRITERIA}")
+    _require(p1_logits.dim() == 3, "p1_logits must be (B, k, V)")
+    b, k, vocab = p1_logits.shape
+    top_t = max(1, int(top_k)) if criterion == "topk" else 1
+    _require(p1_logits.is_cuda and proposals.device == p1_logits.device,
+             "p1_logits and proposals must be on one CUDA device")
+    _require(p1_logits.dtype in _build.DTYPE_CODES,
+             f"dtype {p1_logits.dtype} not supported")
+    _require(p1_logits.is_contiguous() and proposals.is_contiguous(),
+             "inputs must be contiguous")
+    _require(proposals.dtype == torch.int32
+             and tuple(proposals.shape) == (b, k),
+             "proposals must be (B, k) int32")
+    _require(1 <= k <= MAX_K, f"block size {k} outside [1, {MAX_K}]")
+    _require(top_t <= MAX_TOP_T and top_t <= vocab,
+             f"top_k={top_t} exceeds {MAX_TOP_T} or the vocab")
+    dev = p1_logits.device
+    acc = torch.empty((b, k), dtype=torch.bool, device=dev)
+    khat = torch.empty((b,), dtype=torch.int32, device=dev)
+    toks = torch.empty((b, k), dtype=torch.int32, device=dev)
+    nxt = torch.empty((b,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch("fused_verify", "fused_verify", _ARGTYPES,
+                      p1_logits.data_ptr(), proposals.data_ptr(),
+                      acc.data_ptr(), khat.data_ptr(), toks.data_ptr(),
+                      nxt.data_ptr(), _build.DTYPE_CODES[p1_logits.dtype], b, k,
+                      vocab, top_t, CRITERIA.index(criterion),
+                      float(epsilon), stream)
+    return acc, khat, toks, nxt

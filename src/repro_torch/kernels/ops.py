@@ -1,0 +1,46 @@
+"""Public kernel entry points, dispatched by device.
+
+A CUDA tensor goes to the hand-written kernel (which raises on anything it
+does not take); a CPU tensor goes to the kernel's plain PyTorch version.
+There is no other fallback.  Launch counts are in ``_build.LAUNCHES``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.block_attention import verify_attention_cuda
+from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
+from repro_torch.kernels.fused_verify import fused_verify_cuda
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def verify_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                     num_meta: int = 0):
+    """BPD verify-substep attention (see kernels.block_attention)."""
+    fn = verify_attention_cuda if _on_card(q) else ref.verify_attention
+    return fn(q, k, v, q_pos, kv_pos, window=window, num_meta=num_meta)
+
+
+def fused_verify(p1_logits, proposals, *, criterion: str, top_k: int = 1,
+                 epsilon: float = 0.0):
+    """One-pass block verification: top-T + criterion compare + prefix
+    scan (see kernels.fused_verify).  Returns (accepts (B, k) bool, k̂ (B,)
+    int32, accepted_tokens (B, k), next_greedy (B,)).  A 1-slot block takes
+    the same route: the kernel scans nothing and returns slot 0's argmax."""
+    fn = fused_verify_cuda if _on_card(p1_logits) else ref.fused_verify
+    return fn(p1_logits, proposals, criterion=criterion, top_k=top_k,
+              epsilon=epsilon)
+
+
+def fused_heads_topk(o, w_vocab, *, vocab: int, top_t: int = 4):
+    """Streaming head-logits top-T (see kernels.fused_heads)."""
+    fn = fused_heads_topk_cuda if _on_card(o) else ref.heads_topk
+    return fn(o, w_vocab, vocab=vocab, top_t=top_t)

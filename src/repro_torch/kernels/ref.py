@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the CUDA kernels (twins of ``repro.kernels.ref``).
+
+Self-contained (no imports from ``repro_torch.models``) so a kernel test
+failure implicates the kernel, not the model stack.  These serve CPU tensors
+in ``kernels.ops`` and are what the tests and ``chip_smoke.py`` hold the
+kernels against.  Ties go to the lowest token id, as ``jnp.argmax`` and
+``lax.top_k`` give: ``torch.argmax`` returns the first maximum, and top-T>1
+uses a stable descending sort (``torch.topk`` promises no order among ties).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+CRITERIA = ("exact", "topk", "distance")
+
+
+def top_t_ids(x: torch.Tensor, t: int):
+    """Top-``t`` (values, ids) along the last dim, ordered by (value desc,
+    id asc)."""
+    if t == 1:
+        ids = torch.argmax(x, dim=-1, keepdim=True)
+    else:
+        ids = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :t]
+    return torch.gather(x, -1, ids), ids
+
+
+# ---------------------------------------------------------------------------
+# block_attention
+# ---------------------------------------------------------------------------
+
+
+def verify_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                     num_meta: int = 0) -> torch.Tensor:
+    """q: (B, kq, H, hd); k/v: (B, L, KV, hd); q_pos (B, kq); kv_pos (B, L).
+
+    Head h = kv·G + g; masked scores are the finite -1e30, so a row with no
+    visible entry averages V instead of producing NaN.  Returns (B, kq, H,
+    hd) in q's dtype.
+    """
+    b, kq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kq, kvh, g, hd).float()
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k.float())
+    scores = scores / math.sqrt(hd)
+    qp = q_pos[:, :, None]
+    kp = kv_pos[:, None, :]
+    mask = (kp >= 0) & (kp <= qp)
+    if window:
+        mask &= (qp - kp < window) | (kp < num_meta)
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhgqs,bshk->bqhgk", probs, v.float())
+    return ctx.reshape(b, kq, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused_heads
+# ---------------------------------------------------------------------------
+
+
+def heads_topk(o, w_vocab, *, vocab: int, top_t: int = 4):
+    """o: (N, d); w_vocab: (d, Vp).  Full-logits top-T over the logical
+    vocab (lanes >= vocab are -1e30).  Returns (vals (N, T) f32, ids (N, T)
+    int32)."""
+    logits = o.float() @ w_vocab.float()
+    lane = torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(lane[None, :] < vocab, logits, NEG_INF)
+    vals, ids = top_t_ids(logits, top_t)
+    return vals, ids.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# fused_verify (materialized top-T + prefix-accept scan)
+# ---------------------------------------------------------------------------
+
+
+def fused_verify(p1_logits, proposals, *, criterion: str, top_k: int = 1,
+                 epsilon: float = 0.0):
+    """p1_logits: (B, k, V); proposals: (B, k) int32 (slot 0 = verified).
+
+    Returns (accepts (B, k) bool, k̂ (B,) int32, accepted_tokens (B, k)
+    int32, next_greedy (B,) int32).
+    """
+    if criterion not in CRITERIA:
+        raise ValueError(f"unknown criterion {criterion!r}; one of {CRITERIA}")
+    b, k, _ = p1_logits.shape
+    top_t = max(1, int(top_k)) if criterion == "topk" else 1
+    _, ids = top_t_ids(p1_logits.float(), top_t)
+    greedy = ids[..., 0]                                    # (B, k)
+    cand = proposals[:, 1:]
+    if criterion == "exact":
+        ok = cand == greedy[:, :k - 1]
+    elif criterion == "topk":
+        ok = torch.any(ids[:, :k - 1, :] == cand[..., None], dim=-1)
+    else:
+        ok = (cand - greedy[:, :k - 1]).abs().float() <= epsilon
+    acc = torch.cat([torch.ones((b, 1), dtype=torch.bool,
+                                device=ok.device), ok], dim=1)
+    rej = ~acc
+    first = torch.argmax(rej.to(torch.int32), dim=1)
+    khat = torch.where(rej.any(dim=1), first, k).to(torch.int32)
+    slot = torch.arange(k, device=acc.device)[None, :]
+    toks = torch.where(slot < khat[:, None], proposals, 0).to(torch.int32)
+    nxt = torch.gather(greedy, 1, (khat - 1).long()[:, None])[:, 0]
+    return acc, khat, toks, nxt.to(torch.int32)

@@ -1,0 +1,206 @@
+"""Model assembly: the decoder-only text ``CausalLM`` of ``repro.models.model``.
+
+Parameters live in a ``ParamTree``: the reference's nested dict / list
+pytree as an ``nn.Module``, so ``state_dict()`` keys are the reference's key
+paths (``blocks.3.attn.wq`` is ``params["blocks"][3]["attn"]["wq"]``) and
+``p["wq"]`` reads as it does there.  The reference keeps weights in
+``param_dtype`` and casts at every use; here the caller casts the whole set
+once (``params.to(cfg.compute_dtype)``) before decoding — bit-identical, and
+it avoids re-reading fp32 weights on every forward.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.core.heads import head_apply_single, heads_apply, heads_init
+from repro_torch.kernels import ops
+from repro_torch.models import cache as cache_lib
+from repro_torch.models.blocks import (
+    block_cache_init,
+    block_cached,
+    block_full,
+    block_init,
+    check_supported,
+    commit_cache,
+)
+from repro_torch.models.layers import (
+    dense_apply,
+    dense_init,
+    embed_apply,
+    embed_init,
+    norm_apply,
+    norm_init,
+    unembed_apply,
+)
+
+
+class ParamTree(nn.Module):
+    """A nested dict (lists for ``blocks``) of tensors as an ``nn.Module``."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, torch.Tensor):
+                self.register_parameter(key, nn.Parameter(val, requires_grad=False))
+            elif isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(key, nn.ModuleList(ParamTree(v) for v in val))
+            else:
+                raise TypeError(f"param {key!r}: unsupported leaf {type(val)}")
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
+    """Random parameters in ``cfg.param_dtype`` from a seeded
+    ``torch.Generator`` on ``device`` (default the card; ``"meta"`` gives
+    shapes only).  Same distributions as the reference's ``init``; the
+    numbers differ, as the two frameworks' generators do."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(dtype=cfg.params_dtype, device=dev)
+    p: Dict = {
+        "embed": embed_init(gen, cfg.padded_vocab_size, cfg.d_model, **kw),
+        "blocks": [block_init(gen, cfg, i, **kw) for i in range(cfg.num_layers)],
+        "final_norm": norm_init(cfg.d_model, kind=cfg.norm_type, **kw),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size, **kw)
+    if cfg.bpd_enabled:
+        p["bpd_heads"] = heads_init(gen, cfg, **kw)
+    return ParamTree(p)
+
+
+# ---------------------------------------------------------------------------
+# Input embedding (text)
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """batch: {"tokens": (B, S) int32} -> (B, S, d) in the compute dtype."""
+    return embed_apply(params["embed"], batch["tokens"]).to(cfg.compute_dtype)
+
+
+def prefix_len(cfg: ModelConfig, batch: Dict) -> int:
+    """Number of non-text positions preceding the text tokens (none for the
+    text model)."""
+    return cfg.num_meta_tokens
+
+
+# ---------------------------------------------------------------------------
+# Backbone forwards
+# ---------------------------------------------------------------------------
+
+
+def forward_hidden(params, cfg: ModelConfig, h, *, positions=None, caches=None):
+    """Whole-sequence forward.  h: (B,S,d) embeddings.
+    Returns (hidden, caches) — caches filled if given (prefill)."""
+    new_caches = list(caches) if caches is not None else None
+    for i, bp in enumerate(params["blocks"]):
+        c = caches[i] if caches is not None else None
+        h, c_out = block_full(bp, cfg, i, h, positions=positions, cache=c)
+        if caches is not None:
+            new_caches[i] = c_out
+    h = norm_apply(params["final_norm"], h, kind=cfg.norm_type)
+    return h, (tuple(new_caches) if new_caches is not None else None)
+
+
+def decode_block_step(params, cfg: ModelConfig, h, caches, length):
+    """BPD verify-substep backbone: k fresh embeddings vs the caches.
+    Returns (hidden_block, staged_caches); ``commit_caches`` resolves them."""
+    new_caches = []
+    for i, bp in enumerate(params["blocks"]):
+        h, c_out = block_cached(bp, cfg, i, h, caches[i], length)
+        new_caches.append(c_out)
+    h = norm_apply(params["final_norm"], h, kind=cfg.norm_type)
+    return h, tuple(new_caches)
+
+
+def commit_caches(cfg: ModelConfig, caches, khat):
+    return tuple(commit_cache(cfg, c, khat) for c in caches)
+
+
+def init_caches(cfg: ModelConfig, batch: int, context_len: int, block_k: int,
+                dtype=None, *, device=None,
+                backend: Optional[cache_lib.DenseBackend] = None):
+    dtype = dtype or cfg.compute_dtype
+    return tuple(block_cache_init(cfg, i, batch, context_len, block_k, dtype,
+                                  device, backend=backend)
+                 for i in range(cfg.num_layers))
+
+
+# ---------------------------------------------------------------------------
+# Output projections
+# ---------------------------------------------------------------------------
+
+
+def vocab_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, Vp) vocab projection: the tied table's transpose view (no
+    copy) or the untied ``lm_head``."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].t()
+    return params["lm_head"]["w"]
+
+
+def project_vocab(params, cfg: ModelConfig, h) -> torch.Tensor:
+    """(..., d) -> (..., padded_vocab) logits; pad lanes set to -1e9 so
+    argmax / softmax never select them."""
+    if cfg.tie_embeddings:
+        logits = unembed_apply(params["embed"], h)
+    else:
+        logits = dense_apply(params["lm_head"], h)
+    if cfg.padded_vocab_size != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e9
+    return logits
+
+
+def all_head_logits(params, cfg: ModelConfig, hidden) -> torch.Tensor:
+    """hidden: (..., d) -> (..., k, V) logits of p_1..p_k (paper Fig. 3)."""
+    outs = heads_apply(params["bpd_heads"], cfg, hidden,
+                       identity_p1=cfg.bpd_identity_p1)
+    return project_vocab(params, cfg, outs)
+
+
+def base_logits(params, cfg: ModelConfig, hidden) -> torch.Tensor:
+    """p_1 logits only."""
+    if cfg.bpd_enabled and not cfg.bpd_identity_p1:
+        hidden = head_apply_single(params["bpd_heads"], cfg, hidden, 0,
+                                   identity_p1=False)
+    return project_vocab(params, cfg, hidden)
+
+
+def greedy_token(logits) -> torch.Tensor:
+    """Greedy next token: the first maximum (lowest id among ties), int32.
+    Greedy decoding and BPD's verified slot 0 both take this routine."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def head_topk(params, cfg: ModelConfig, hidden, n: int) -> torch.Tensor:
+    """Top-1 ids of heads p_2..p_{n+1} at hidden (B, d) -> (B, n) int32,
+    through the fused-heads kernel: the heads' logits are never written."""
+    b, d = hidden.shape
+    if n >= cfg.bpd_k:
+        raise ValueError(f"{n + 1} proposal slots need {n + 1} heads; "
+                         f"{cfg.name} has bpd_k={cfg.bpd_k}")
+    outs = heads_apply(params["bpd_heads"], cfg, hidden,
+                       identity_p1=cfg.bpd_identity_p1)[:, 1:1 + n]
+    _, ids = ops.fused_heads_topk(outs.reshape(b * n, d),
+                                  vocab_matrix(params, cfg),
+                                  vocab=cfg.vocab_size, top_t=1)
+    return ids[:, 0].reshape(b, n)

@@ -1,0 +1,134 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device; on a
+machine with one (no JAX needed):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.config import DecodeConfig, ModelConfig  # noqa: E402
+from repro_torch.core import decode  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels.block_attention import verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
+from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
+from repro_torch.models import model  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+CRITERIA = ("exact", "topk", "distance")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kq,hd,window,meta", [(1, 128, 0, 0), (8, 128, 0, 0),
+                                               (8, 128, 32, 4), (4, 64, 0, 0),
+                                               (4, 32, 16, 2)])
+def test_verify_attention_kernel_matches_plain(cuda, kq, hd, window, meta, dtype):
+    gen = torch.Generator().manual_seed(kq * hd)
+    b, h, kvh, l = 2, 32, 8, 300
+    q = _randn(gen, (b, kq, h, hd), dtype, cuda)
+    k = _randn(gen, (b, l, kvh, hd), dtype, cuda)
+    v = _randn(gen, (b, l, kvh, hd), dtype, cuda)
+    base = torch.tensor([l - kq, l // 2], dtype=torch.int32)
+    q_pos = (base[:, None] + torch.arange(kq, dtype=torch.int32)).to(cuda)
+    kv_pos = torch.arange(l, dtype=torch.int32).repeat(b, 1)
+    kv_pos[:, ::37] = -1                                  # stale slots
+    kv_pos = kv_pos.to(cuda)
+    got = verify_attention_cuda(q, k, v, q_pos, kv_pos, window=window,
+                                num_meta=meta)
+    want = ref.verify_attention(q, k, v, q_pos, kv_pos, window=window,
+                                num_meta=meta)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("crit", CRITERIA)
+@pytest.mark.parametrize("k", [8, 1])
+def test_fused_verify_kernel_matches_plain(cuda, k, crit, dtype):
+    rng = np.random.default_rng(6)
+    lg = torch.from_numpy(rng.normal(size=(8, k, 4000)).astype(np.float32))
+    lg = lg.to(cuda, dtype)
+    props = torch.from_numpy(rng.integers(0, 4000, (8, k)).astype(np.int32)).to(cuda)
+    props[:, 1:4] = torch.argmax(lg[:, :3].float(), -1).int()[:, :k - 1]
+    got = fused_verify_cuda(lg, props, criterion=crit, top_k=3, epsilon=2.0)
+    want = ref.fused_verify(lg, props, criterion=crit, top_k=3, epsilon=2.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("top_t", [1, 4])
+@pytest.mark.parametrize("tied", [True, False])
+def test_fused_heads_kernel_matches_plain(cuda, top_t, tied):
+    rng = np.random.default_rng(7)
+    o = torch.from_numpy(rng.standard_normal((56, 256)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.standard_normal((1024, 256)).astype(np.float32)).to(cuda)
+    w = table.t() if tied else table.t().contiguous()
+    vals, ids = fused_heads_topk_cuda(o, w, vocab=1000, top_t=top_t)
+    wv, wi = ref.heads_topk(o, w, vocab=1000, top_t=top_t)
+    torch.testing.assert_close(vals, wv, rtol=1e-4, atol=1e-4)
+    assert torch.equal(ids, wi)
+
+
+def test_every_launch_is_counted(cuda):
+    _build.reset_launches()
+    q = torch.zeros((1, 2, 4, 64), device=cuda)
+    kv = torch.zeros((1, 16, 2, 64), device=cuda)
+    pos = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    verify_attention_cuda(q, kv, kv, pos, torch.zeros((1, 16), dtype=torch.int32,
+                                                      device=cuda))
+    fused_verify_cuda(torch.zeros((1, 3, 16), device=cuda),
+                      torch.zeros((1, 3), dtype=torch.int32, device=cuda),
+                      criterion="exact")
+    fused_heads_topk_cuda(torch.zeros((2, 8), device=cuda),
+                          torch.zeros((8, 16), device=cuda), vocab=10, top_t=1)
+    assert _build.LAUNCHES == {name: 1 for name in _build.KERNELS}
+
+
+def test_one_slot_block_goes_through_the_kernel(cuda):
+    """k = 1 on a CUDA tensor launches the kernel, as any other k does."""
+    from repro_torch.kernels import ops
+
+    lg = torch.randn((4, 1, 300), generator=torch.Generator().manual_seed(3))
+    props = torch.zeros((4, 1), dtype=torch.int32)
+    _build.reset_launches()
+    got = ops.fused_verify(lg.to(cuda), props.to(cuda), criterion="exact")
+    assert _build.LAUNCHES["fused_verify"] == 1
+    for g, w in zip(got, ref.fused_verify(lg, props, criterion="exact")):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_decode_on_the_card_goes_through_the_kernels(cuda):
+    """A small model decoded on the card: BPD emits greedy's tokens, and
+    every forward ran the kernels."""
+    cfg = ModelConfig(name="t", num_layers=2, d_model=256, num_heads=8,
+                      num_kv_heads=2, d_ff=512, vocab_size=1000, bpd_k=4,
+                      dtype="float32")
+    params = model.init(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, 1000, (4, 8), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    dec = DecodeConfig(max_new_tokens=16, block_k=4)
+    _build.reset_launches()
+    bt, bs = decode.bpd_decode(params, cfg, dec, {"tokens": prompt})
+    assert _build.LAUNCHES["verify_attention"] == 2 * bs["iterations"]
+    assert _build.LAUNCHES["fused_verify"] == bs["iterations"]
+    assert _build.LAUNCHES["fused_heads"] == bs["iterations"] + 1
+    gt, _ = decode.greedy_decode(params, cfg, dec, {"tokens": prompt})
+    assert torch.equal(bt[:, :24], gt[:, :24])

@@ -1,0 +1,261 @@
+"""The port's kernels on the CPU: plain PyTorch versions against the JAX
+Pallas kernels (interpret mode) and the jnp oracles, at the sweeps of
+tests/test_kernels.py, plus the dispatch and the CUDA wrappers' input
+checks.  The CUDA kernels themselves are tested on the card in
+tests/test_torch_cuda_kernels.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.block_attention import verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
+from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
+
+torch.set_num_threads(2)
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same numpy values as a JAX array and a torch tensor of ``dtype``
+    (both round f32 -> bf16 to nearest even, so the bits agree)."""
+    x = np.asarray(x, np.float32)
+    return jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy() if x.is_floating_point() else x.numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32) if x.dtype == jnp.bfloat16 else x)
+
+
+# ---------------------------------------------------------------------------
+# verify attention (test_kernels.py:39, :57)
+# ---------------------------------------------------------------------------
+
+
+def _attn_case(seed, b, kq, h, kv, hd, l, meta):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, kq, h, hd), (b, l, kv, hd), (b, l, kv, hd)))
+    base = rng.integers(max(meta, 1), l - kq, b)
+    qpos = (base[:, None] + np.arange(kq)[None, :]).astype(np.int32)
+    kvpos = np.tile(np.arange(l, dtype=np.int32)[None], (b, 1))
+    kvpos[:, rng.integers(0, l, 5)] = -1          # stale speculative slots
+    return q, k, v, qpos, kvpos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,kq,h,kv,hd,l,window,meta,block_kv",
+    [
+        (1, 2, 4, 4, 16, 64, 0, 0, 32),     # MHA
+        (2, 4, 8, 2, 32, 100, 0, 0, 32),    # GQA, ragged L
+        (1, 8, 6, 2, 64, 256, 64, 0, 128),  # sliding window
+        (2, 4, 4, 1, 32, 96, 32, 4, 32),    # MQA + meta tokens
+        (1, 1, 2, 2, 128, 33, 0, 0, 512),   # single query, one short block
+    ])
+def test_verify_attention_plain_matches_pallas(b, kq, h, kv, hd, l, window,
+                                               meta, block_kv, dtype):
+    q, k, v, qpos, kvpos = _attn_case(1, b, kq, h, kv, hd, l, meta)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
+    got = ref.verify_attention(tq, tk, tv, torch.from_numpy(qpos),
+                               torch.from_numpy(kvpos), window=window,
+                               num_meta=meta)
+    assert got.dtype == TDT[dtype] and got.shape == (b, kq, h, hd)
+    oracle = jref.verify_attention(jq, jk, jv, jnp.asarray(qpos),
+                                   jnp.asarray(kvpos), window=window,
+                                   num_meta=meta)
+    np.testing.assert_allclose(_np(got), _np(oracle), **TOL[dtype])
+    if dtype == "float32":   # the Pallas kernel equals its oracle (test_kernels.py)
+        pallas = jops.verify_attention(jq, jk, jv, jnp.asarray(qpos),
+                                       jnp.asarray(kvpos), window=window,
+                                       num_meta=meta, block_kv=block_kv)
+        np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
+
+
+def test_verify_attention_masks_all_stale_rows():
+    """A row whose only visible entries are its own block must not NaN."""
+    b, kq, h, kv, hd, l = 1, 2, 2, 2, 16, 16
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, kq, h, hd), (b, l, kv, hd), (b, l, kv, hd)))
+    qpos = np.asarray([[0, 1]], np.int32)
+    kvpos = np.r_[0:2, [-1] * (l - 2)][None].astype(np.int32)
+    got = ops.verify_attention(*(torch.from_numpy(x) for x in (q, k, v, qpos, kvpos)))
+    assert not torch.isnan(got).any()
+    want = jops.verify_attention(*(jnp.asarray(x) for x in (q, k, v, qpos, kvpos)))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# fused heads (test_kernels.py:199, :212)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,vocab,vp,top_t,block_v", [
+    (8, 32, 256, 256, 1, 128),
+    (17, 32, 1000, 1024, 4, 256),     # ragged rows + vocab pad
+    (64, 64, 504, 512, 2, 512),       # tiny vocab, 1 tile
+    (5, 128, 2000, 2048, 4, 1024),
+])
+def test_heads_topk_plain_matches_pallas(n, d, vocab, vp, top_t, block_v,
+                                         dtype):
+    rng = np.random.default_rng(3)
+    (jo, to), (jw, tw) = (_pair(rng.standard_normal(s), dtype)
+                          for s in ((n, d), (d, vp)))
+    vals, ids = ops.fused_heads_topk(to, tw, vocab=vocab, top_t=top_t)
+    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
+    wants = [jref.heads_topk(jo, jw, vocab=vocab, top_t=top_t)]
+    if dtype == "float32":   # the Pallas kernel equals its oracle (test_kernels.py)
+        wants.append(jops.fused_heads_topk(jo, jw, vocab=vocab, top_t=top_t,
+                                           block_v=block_v, block_rows=8))
+    for want_v, want_i in wants:
+        np.testing.assert_allclose(_np(vals), _np(want_v), **TOL["float32"])
+        np.testing.assert_array_equal(_np(ids), _np(want_i))
+
+
+def test_heads_topk_never_selects_vocab_pad():
+    o = torch.ones((4, 16))
+    w = torch.ones((16, 512)) * 10.0              # pad lanes equally huge
+    _, ids = ops.fused_heads_topk(o, w, vocab=300, top_t=4)
+    assert int(ids.max()) < 300
+    np.testing.assert_array_equal(_np(ids), np.tile(np.arange(4), (4, 1)))
+
+
+def test_heads_topk_reads_tied_table_view():
+    """The tied table's transpose view (strides (1, d)) gives the same ids
+    as a contiguous copy."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((512, 32)).astype(np.float32))
+    o = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))
+    got = ops.fused_heads_topk(o, table.t(), vocab=500, top_t=3)
+    want = ops.fused_heads_topk(o, table.t().contiguous(), vocab=500, top_t=3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), _np(w))
+
+
+# ---------------------------------------------------------------------------
+# fused verify (test_kernels.py:276, :281)
+# ---------------------------------------------------------------------------
+
+FV_CRITERIA = ("exact", "topk", "distance")
+FV_KW = dict(top_k=3, epsilon=2.0)
+
+
+def _check_fused_verify(seed, crit, b, k, vocab, dtype, block_v):
+    rng = np.random.default_rng(seed)
+    props = rng.integers(0, vocab, (b, k)).astype(np.int32)
+    jl, tl = _pair(rng.normal(size=(b, k, vocab)), dtype)
+    got = ops.fused_verify(tl, torch.from_numpy(props), criterion=crit, **FV_KW)
+    assert [t.dtype for t in got] == [torch.bool] + [torch.int32] * 3
+    wants = [jref.fused_verify(jl, jnp.asarray(props), criterion=crit, **FV_KW)]
+    if dtype == "float32":   # the Pallas kernel equals its oracle (test_kernels.py)
+        wants.append(jops.fused_verify(jl, jnp.asarray(props), criterion=crit,
+                                       block_rows=8, block_v=block_v, **FV_KW))
+    for want in wants:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_np(g), _np(w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("crit", FV_CRITERIA)
+@pytest.mark.parametrize("b,k,vocab,block_v", [
+    (3, 4, 128, 128),        # single vocab tile
+    (2, 8, 1000, 256),       # ragged vocab (pad lanes in the last tile)
+    (5, 6, 333, 128),        # b*k not a sublane multiple
+    (1, 2, 2048, 1024),
+    (3, 1, 128, 128),        # 1-slot block: nothing to scan
+])
+def test_fused_verify_plain_matches_pallas(b, k, vocab, block_v, crit, dtype):
+    _check_fused_verify(7, crit, b, k, vocab, dtype, block_v)
+
+
+@pytest.mark.parametrize("crit", FV_CRITERIA)
+def test_fused_verify_all_accept_and_all_reject(crit):
+    b, k, vocab = 2, 5, 64
+    rng = np.random.default_rng(3)
+    logits_np = rng.normal(size=(b, k, vocab)).astype(np.float32)
+    logits = torch.from_numpy(logits_np)
+    greedy = logits_np.argmax(-1)
+    props_acc = np.zeros((b, k), np.int32)
+    props_acc[:, 1:] = greedy[:, :k - 1]                 # slot i <- greedy i-1
+    acc, khat, _, _ = ops.fused_verify(logits, torch.from_numpy(props_acc),
+                                       criterion=crit, **FV_KW)
+    assert bool(acc.all()) and bool((khat == k).all())
+    order = np.argsort(-logits_np, axis=-1)
+    props_rej = np.zeros((b, k), np.int32)
+    for i in range(b):
+        for j in range(1, k):
+            cand = [t for t in order[i, j - 1, vocab // 2:]
+                    if abs(int(t) - int(greedy[i, j - 1])) > 2]
+            props_rej[i, j] = cand[0]
+    acc, khat, toks, nxt = ops.fused_verify(
+        logits, torch.from_numpy(props_rej), criterion=crit, **FV_KW)
+    want = jops.fused_verify(jnp.asarray(logits_np), jnp.asarray(props_rej),
+                             criterion=crit, block_rows=8, block_v=64, **FV_KW)
+    for g, w in zip((acc, khat, toks, nxt), want):
+        np.testing.assert_array_equal(_np(g), _np(w))
+    assert bool((khat == 1).all())
+    np.testing.assert_array_equal(_np(nxt), greedy[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# dispatch and the kernels' input checks (no card needed)
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    _build.reset_launches()
+    q = torch.zeros((1, 2, 2, 64))
+    kv = torch.zeros((1, 8, 2, 64))
+    pos = torch.zeros((1, 2), dtype=torch.int32)
+    ops.verify_attention(q, kv, kv, pos, torch.zeros((1, 8), dtype=torch.int32))
+    ops.fused_verify(torch.zeros((1, 3, 16)), torch.zeros((1, 3), dtype=torch.int32),
+                     criterion="exact")
+    ops.fused_heads_topk(torch.zeros((2, 8)), torch.zeros((8, 16)), vocab=10,
+                         top_t=1)
+    assert _build.LAUNCHES == {name: 0 for name in _build.KERNELS}
+
+
+def test_other_devices_raise():
+    q = torch.zeros((1, 2, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ops.verify_attention(q, q, q, q, q)
+
+
+@pytest.mark.parametrize("call", ["verify_attention", "fused_verify",
+                                  "fused_heads"])
+def test_cuda_wrappers_refuse_cpu_tensors(call):
+    """The CUDA wrappers check their inputs before any launch: a CPU
+    tensor is refused, never computed."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        if call == "verify_attention":
+            q = torch.zeros((1, 2, 2, 64))
+            pos = torch.zeros((1, 2), dtype=torch.int32)
+            verify_attention_cuda(q, q, q, pos, pos)
+        elif call == "fused_verify":
+            fused_verify_cuda(torch.zeros((1, 3, 16)),
+                              torch.zeros((1, 3), dtype=torch.int32),
+                              criterion="exact")
+        else:
+            fused_heads_topk_cuda(torch.zeros((2, 8)), torch.zeros((8, 16)),
+                                  vocab=10, top_t=1)
+
+
+def test_kernel_builds_are_keyed_by_source_hash():
+    paths = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert len(set(paths.values())) == len(paths)
+    for name, p in paths.items():
+        assert p.parent == _build.BUILD_DIR and p.name.startswith(name + "-")
+        assert (_build.CSRC / f"{name}.cu").exists()
