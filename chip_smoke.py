@@ -6,21 +6,38 @@
 Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 
   1. device   — needs CUDA; prints the card's name and power limit.
-  2. build    — compiles the three CUDA kernels from src/repro_torch/kernels/csrc.
+  2. build    — compiles the five CUDA kernels from src/repro_torch/kernels/csrc
+                (one nvcc per source, all started together).
   3. kernels  — each kernel against its plain PyTorch version at the decode
-                path's shapes, bf16 and fp32; times kernel, plain version,
-                the one-call PyTorch yardstick where there is one, and the
-                bound (bytes / 3.35 TB/s or FLOPs / peak, the larger).
+                paths' shapes, bf16 and fp32 (tree shapes, 32-node trees,
+                shared and unmapped pages included); times kernel, plain
+                version, the one-call PyTorch yardstick where there is one,
+                and the bound (bytes / 3.35 TB/s or FLOPs / peak, the larger).
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
                 must match the forwards run.
+  4b. paths   — on the same weights: greedy on the paged cache, BPD exact on
+                the paged cache, BPD topk_tree on the dense and the paged
+                cache; each must emit greedy's tokens, each kernel launched
+                once per layer and forward of its path.
   5. accepts  — one BPD iteration with greedy's own continuation as the
                 proposals (k̂ = 8), then with slot j corrupted (k̂ = j).
+  5b. tree    — hand-made tree proposals from greedy's continuation: node 1
+                wrong and node 2 right (k̂ = 2), node 1's chain right
+                (k̂ = 8 - fanout + 1); a second iteration gives greedy's
+                tokens, dense and paged.
   6. serve    — the weights cast to bf16, served by repro_torch.launch.serve
                 (static batch, --full-config); BPD/greedy agreement reported.
-  7. profile  — one bf16 BPD iteration: host wall time against the summed
-                kernel time torch.profiler sees (the device's idle share).
+  6b. serve   — the same with --policy topk_tree --cache-backend paged.
+  7. profile  — one bf16 BPD iteration of each serve (after 6 and after
+                6b): host wall time against the summed kernel time
+                torch.profiler sees (the device's idle share).
+
+Each kernel's launch count in the JSON line is read from one path's run,
+the counts set to 0 just before it: verify_attention, fused_verify and
+fused_heads from phase 6, tree_verify_attention from phase 6b,
+paged_verify_attention from phase 4b's BPD exact run on the paged cache.
 
 Any failure exits non-zero.  The second-to-last lines are the kernels' JSON
 and the card's name and power limit; the last line is
@@ -191,6 +208,199 @@ def check_attention(torch, gen, results):
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=library_ms,
         shape="bf16 q (8,8,32,128), k/v (8,256,8,128)")
+
+
+def tree_case(torch, gen, b, h, kvh, hd, l, topo, dtype, *, stale=0):
+    """A cache of ``l`` slots whose slots [length, length + kq) hold the
+    block's tree nodes at logical positions length + depth, the prefix
+    below, a few stale prefix slots (-1)."""
+    dt = getattr(torch, dtype)
+    kq = topo.num_nodes
+    q = torch.randn((b, kq, h, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, l, kvh, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, l, kvh, hd), generator=gen, device="cuda").to(dt)
+    length = torch.tensor([l - kq - 3 * i for i in range(b)], dtype=torch.int32,
+                          device="cuda")
+    depth = torch.as_tensor(topo.depths, dtype=torch.int32, device="cuda")
+    q_pos = (length[:, None] + depth[None, :]).contiguous()
+    slot = torch.arange(l, dtype=torch.int32, device="cuda")[None, :]
+    node = slot - length[:, None]
+    in_tree = (node >= 0) & (node < kq)
+    kv_node = torch.where(in_tree, node, -1).int().contiguous()
+    kv_pos = torch.where(slot < length[:, None], slot,
+                         torch.where(in_tree, length[:, None]
+                                     + depth[node.clamp(0, kq - 1)], -1)).int()
+    if stale:
+        idx = torch.randint(0, l - 64, (b, stale), generator=gen, device="cuda")
+        kv_pos.scatter_(1, idx, -1)
+    anc = torch.as_tensor(topo.anc_bits, dtype=torch.int32,
+                          device="cuda")[None].repeat(b, 1)
+    return q, k, v, q_pos, kv_pos.contiguous(), kv_node, anc
+
+
+def check_tree_attention(torch, gen, results):
+    from repro_torch.kernels.block_attention import (tree_verify_attention_cuda,
+                                                     tree_verify_attention_plain,
+                                                     verify_attention_cuda)
+    from repro_torch.kernels.tree_mask import TreeTopology, default_tree
+
+    chain = TreeTopology((-1,) + tuple(range(7)))
+    chain32 = TreeTopology((-1,) + tuple(range(31)))
+    cases = []   # (dtype, topology name, topology, H, L, window, meta)
+    for dtype in ("bfloat16", "float32"):
+        for name, topo in (("tree(8,2)", default_tree(8, 2)),
+                           ("tree(8,4)", default_tree(8, 4)),
+                           ("chain(8)", chain)):
+            for l in (256, 4096):
+                cases.append((dtype, name, topo, 32, l, 0, 0))
+        cases.append((dtype, "tree(8,2) window+meta", default_tree(8, 2), 32,
+                      256, 64, 4))
+        # 32 nodes: node 31's bit is the int32 sign bit; kq·G <= 64, so G = 2
+        cases.append((dtype, "chain(32) bit 31", chain32, 16, 256, 0, 0))
+        cases.append((dtype, "tree(32,4) bit 31", default_tree(32, 4), 16,
+                      4096, 0, 0))
+    worst = 0.0
+    timed = None
+    for dtype, name, topo, h, l, window, meta in cases:
+        args = tree_case(torch, gen, 8, h, 8, 128, l, topo, dtype, stale=5)
+        got = tree_verify_attention_cuda(*args, window=window, num_meta=meta)
+        want = tree_verify_attention_plain(*args, window=window, num_meta=meta)
+        torch.cuda.synchronize()
+        check(not torch.isnan(got).any(), f"tree_verify_attention NaN ({name})")
+        check(topo.num_nodes < 32 or int(args[-1][0, 31]) < 0,
+              "the 32-node case does not set bit 31")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        extra = ""
+        if name == "chain(8)":        # a chain's ancestor mask is causality
+            chain_out = verify_attention_cuda(*args[:5], window=window,
+                                              num_meta=meta)
+            same = torch.allclose(got.float(), chain_out.float(), rtol=1e-6,
+                                  atol=1e-6)
+            extra = f" vs verify_attention kernel {'ok' if same else 'FAIL'}"
+            ok = ok and same
+        log(f"  tree_verify_attention {dtype} {name} H={h} L={l}: "
+            f"max_abs_err={err:.3g}{extra} {'ok' if ok else 'FAIL'}")
+        check(ok, f"tree_verify_attention {dtype} {name} L={l} differs from "
+                  f"its plain version by {err}")
+        worst = max(worst, err)
+        if (dtype, name, l, window) == ("bfloat16", "tree(8,2)", 256, 0):
+            timed = args
+    log(f"  tree_verify_attention: max_abs_err over all {len(cases)} cases "
+        f"{worst:.3g}")
+
+    # time at the topk_tree path's shape: bf16, B=8, kq=8 (default_tree(8, 2),
+    # --top-k 2), H=32, KV=8, L=256
+    q, k, v, q_pos, kv_pos, kv_node, anc = timed
+    kernel_ms = time_ms(torch, lambda: tree_verify_attention_cuda(*timed))
+    plain_ms = time_ms(torch, lambda: tree_verify_attention_plain(*timed))
+    # yardstick: scaled_dot_product_attention with the boolean tree mask
+    # precomputed (outside the timed call), K/V repeated per query head
+    b, kq, h, hd = q.shape
+    l, kvh = k.shape[1], k.shape[2]
+    qp, kp, kn = q_pos[:, :, None], kv_pos[:, None, :], kv_node[:, None, :]
+    bit = (anc[:, :, None] >> kn.clamp(0, 31)) & 1
+    mask = ((kp >= 0) & (kp <= qp) & ((kn < 0) | (bit != 0)))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, kv_node, anc, q),
+                    4 * b * kq * h * l * hd, "bfloat16")
+    results["tree_verify_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/tree_verify_attention.cu",
+        replaces="src/repro/kernels/block_attention.py:210",
+        max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=library_ms,
+        shape="bf16 q (8,8,32,128) default_tree(8,2), k/v (8,256,8,128)")
+
+
+def paged_case(torch, gen, b, kq, h, kvh, hd, P, ps, dtype, *, ctx,
+               share=False, unmapped=0):
+    """A pool of 1 + B·P pages under a shuffled table; row r holds
+    positions 0..ctx[r]-1.  ``share``: row 1's first page is row 0's.
+    ``unmapped``: the last pages of the last row point at trash page 0 with
+    pos -1."""
+    dt = getattr(torch, dtype)
+    num_pages = 1 + b * P
+    q = torch.randn((b, kq, h, hd), generator=gen, device="cuda").to(dt)
+    kp = torch.randn((num_pages, ps, kvh, hd), generator=gen, device="cuda").to(dt)
+    vp = torch.randn((num_pages, ps, kvh, hd), generator=gen, device="cuda").to(dt)
+    tbl = (1 + torch.randperm(b * P, generator=gen, device="cuda")).int()
+    tbl = tbl.reshape(b, P).contiguous()
+    if share:
+        tbl[1, 0] = tbl[0, 0]
+    ctx = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    slot = torch.arange(P * ps, dtype=torch.int32, device="cuda")[None, :]
+    kv_pos = torch.where(slot < ctx[:, None], slot, -1).int()
+    if unmapped:
+        tbl[-1, P - unmapped:] = 0
+        kv_pos[-1, (P - unmapped) * ps:] = -1
+    q_pos = (ctx[:, None] - kq
+             + torch.arange(kq, dtype=torch.int32, device="cuda")[None, :])
+    return q, kp, vp, tbl, q_pos.int().contiguous(), kv_pos.contiguous()
+
+
+def check_paged_attention(torch, gen, results):
+    from repro_torch.kernels.paged_attention import (paged_verify_attention_cuda,
+                                                     paged_verify_attention_plain)
+
+    b, h, kvh, hd, P = 8, 32, 8, 128, 9
+    cases = []   # (dtype, ps, kq, window, meta, kind)
+    for dtype in ("bfloat16", "float32"):
+        for ps in (8, 16):
+            for kq in (1, 8):
+                cases.append((dtype, ps, kq, 0, 0, "path"))
+        cases.append((dtype, 16, 8, 0, 0, "shared page"))
+        cases.append((dtype, 16, 8, 0, 0, "unmapped"))
+        cases.append((dtype, 16, 8, 48, 4, "window+meta"))
+    worst = 0.0
+    timed = None
+    for dtype, ps, kq, window, meta, kind in cases:
+        n = P * 16 // ps              # the same span of positions at any ps
+        ctx = [n * ps - 3 * i for i in range(b)]
+        if kind == "unmapped":
+            ctx[-1] = (n - 3) * ps - 5
+        args = paged_case(torch, gen, b, kq, h, kvh, hd, n, ps, dtype, ctx=ctx,
+                          share=kind == "shared page",
+                          unmapped=3 if kind == "unmapped" else 0)
+        got = paged_verify_attention_cuda(*args, window=window, num_meta=meta)
+        want = paged_verify_attention_plain(*args, window=window, num_meta=meta)
+        torch.cuda.synchronize()
+        check(not torch.isnan(got).any(), f"paged_verify_attention NaN ({kind})")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        log(f"  paged_verify_attention {dtype} ps={ps} kq={kq} {kind}: "
+            f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
+        check(ok, f"paged_verify_attention {dtype} ps={ps} kq={kq} {kind} "
+                  f"differs from its plain version by {err}")
+        worst = max(worst, err)
+        if (dtype, ps, kq, kind) == ("bfloat16", 16, 8, "path"):
+            timed = args
+    log(f"  paged_verify_attention: max_abs_err over all {len(cases)} cases "
+        f"{worst:.3g}")
+
+    # time at the paged path's shape: bf16, B=8, kq=8, P=9 pages of 16
+    # (64 + 64 + 8 positions), every page mapped
+    q, kp, vp, tbl, q_pos, kv_pos = timed
+    kernel_ms = time_ms(torch, lambda: paged_verify_attention_cuda(*timed))
+    plain_ms = time_ms(torch, lambda: paged_verify_attention_plain(*timed))
+    # bytes: the pages this table maps (each read once), not the whole pool
+    mapped = int(torch.unique(tbl).numel())
+    page_bytes = kp[0].numel() * kp.element_size()
+    bq, kq, hq, hdq = q.shape
+    bms, by = bound(2 * mapped * page_bytes + nbytes(q, tbl, q_pos, kv_pos, q),
+                    4 * bq * kq * hq * tbl.shape[1] * kp.shape[1] * hdq,
+                    "bfloat16")
+    results["paged_verify_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:87",
+        max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
+        shape=f"bf16 q (8,8,32,128), {mapped} mapped pages of (16,8,128)")
 
 
 def check_fused_verify(torch, gen, results):
@@ -410,6 +620,7 @@ def phase_decode(torch, results):
     from repro_torch.data.synthetic import MarkovLM
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
+    from repro_torch.kernels.tree_mask import default_tree
     from repro_torch.models import model as M
 
     cfg = get_config("granite-3-8b").replace(dtype="float32")
@@ -461,6 +672,44 @@ def phase_decode(torch, results):
     log(f"[decode] fp32 BPD tokens == greedy tokens in "
         f"{8 - len(diverged)}/8 rows (others at near-ties)")
 
+    # ---- phase 4b: the paged cache and tree verification, fp32 -------------
+    for label, kw, bpd in (
+            ("greedy paged", dict(cache_backend="paged"), False),
+            ("bpd exact paged", dict(cache_backend="paged"), True),
+            ("bpd topk_tree dense", dict(policy="topk_tree", top_k=2), True),
+            ("bpd topk_tree paged", dict(policy="topk_tree", top_k=2,
+                                         cache_backend="paged"), True)):
+        pdec = dec.replace(**kw)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run = D.bpd_decode if bpd else D.greedy_decode
+        toks, stats = run(params, cfg, pdec, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launch = dict(_build.LAUNCHES)
+        iters = stats["iterations"]
+        if pdec.policy == "topk_tree":
+            attn = "tree_verify_attention"
+        elif pdec.cache_backend == "paged":
+            attn = "paged_verify_attention"
+        else:
+            attn = "verify_attention"
+        want = {name: 0 for name in launch}
+        want[attn] = layers * iters
+        if bpd:
+            want.update(fused_verify=iters, fused_heads=iters + 1)
+        log(f"[paths] {label}: k̂={stats['mean_accepted']:.4f} iterations="
+            f"{iters} invocations={stats['invocations']}, {wall:.2f}s, "
+            f"launches {launch}")
+        check(launch == want, f"{label}: launches {launch}, expected {want}")
+        check(bool((stats["generated"] == max_new).all()), f"{label}: short rows")
+        diverged = compare_rows(torch, M, params, cfg, toks, g_toks,
+                                stats["text_len"], prompt_len)
+        log(f"[paths] {label}: tokens == greedy tokens in "
+            f"{8 - len(diverged)}/8 rows (others at near-ties)")
+        if label == "bpd exact paged":
+            results["paged_verify_attention"]["launches"] = launch[attn]
+
     # ---- phase 5: multi-token accepts on the card -------------------------
     cont = g_toks[:, prompt_len:prompt_len + block_k].contiguous()
     for corrupt in (None, 3):
@@ -491,6 +740,51 @@ def phase_decode(torch, results):
         check(torch.equal(state.tokens[:, :n], g_toks[:, :n]),
               "committed tokens differ from greedy's")
 
+    # ---- phase 5b: hand-made tree proposals ---------------------------------
+    fanout = 2
+    topo = default_tree(block_k, fanout)
+    chain = [int(n) for n in topo.path_matrix[block_k - 1]]   # node 1's chain
+    for backend in ("dense", "paged"):
+        tdec = dec.replace(policy="topk_tree", top_k=fanout,
+                           cache_backend=backend)
+        for case, want in (("node 1 wrong, node 2 right", 2),
+                           ("node 1's chain right", block_k - fanout + 1)):
+            nodes = torch.empty_like(cont)
+            for n in range(block_k):
+                d = int(topo.depths[n])
+                if n in chain:
+                    nodes[:, n] = cont[:, d]
+                else:                    # a sibling of node 1: a wrong token
+                    nodes[:, n] = (cont[:, 1] + int(topo.ranks[n])) % cfg.vocab_size
+            if want == 2:
+                nodes[:, 1] = (cont[:, 1] + fanout) % cfg.vocab_size
+                nodes[:, 2] = cont[:, 1]
+            state, prefix = D.bpd_prefill_causal_lm(params, cfg, tdec, batch,
+                                                    max_new=max_new)
+            state = state._replace(proposals=nodes)
+            with torch.no_grad():
+                state = D.bpd_iteration(params, cfg, tdec,
+                                        D.causal_lm_backend(cfg), state,
+                                        prefix_offset=prefix, max_new=max_new)
+            khat = (state.text_len - prompt_len).tolist()
+            log(f"[tree] {backend} cache, {case}: k̂ per row {khat} "
+                f"(expected {want})")
+            for r, kh in enumerate(khat):
+                if kh != want:
+                    gap = near_tie(torch, M, params, cfg,
+                                   g_toks[r, :prompt_len + kh])
+                    check(kh < want and gap < TIE_MARGIN,
+                          f"tree row {r}: k̂={kh}, expected {want} (gap {gap})")
+            with torch.no_grad():            # the next block on the compacted cache
+                state = D.bpd_iteration(params, cfg, tdec,
+                                        D.causal_lm_backend(cfg), state,
+                                        prefix_offset=prefix, max_new=max_new)
+            diverged = compare_rows(torch, M, params, cfg, state.tokens, g_toks,
+                                    state.text_len, prompt_len)
+            log(f"[tree] {backend} cache, {case}, second iteration: k̂ per row "
+                f"{(state.text_len - prompt_len - torch.tensor(khat, device='cuda')).tolist()}; "
+                f"tokens == greedy tokens in {8 - len(diverged)}/8 rows")
+
     # ---- phase 6: bf16 serve ------------------------------------------------
     del state
     params.to(torch.bfloat16)                     # in place: frees the fp32 copy
@@ -506,7 +800,8 @@ def phase_decode(torch, results):
     scfg, sdec, sbatch = out["cfg"], out["dec"], out["batch"]
     check(torch.equal(sbatch["tokens"], prompts), "serve prompts differ")
     s_toks, s_stats = out["tokens"], out["stats"]
-    check(all(launches[name] > 0 for name in launches),
+    chain_path = ("verify_attention", "fused_verify", "fused_heads")
+    check(all(launches[name] > 0 for name in chain_path),
           f"serve: a kernel was never launched: {launches}")
     check(launches["verify_attention"] == 2 * layers * s_stats["iterations"],
           f"serve: verify_attention launches {launches}")
@@ -528,12 +823,46 @@ def phase_decode(torch, results):
         f"{BF16_TIE_ULPS} ulp below the top); BPD's token ranks "
         f"{[d['bpd_rank'] for d in div]}, ulps below the top "
         f"{[round(d['bpd_ulps'], 3) for d in div]}")
-    for name, n_launch in launches.items():
-        results[name]["launches"] = n_launch
-    profile_iteration(torch, D, params, scfg, sdec, sbatch)
+    for name in chain_path:
+        results[name]["launches"] = launches[name]
+    profile_iteration(torch, D, params, scfg, sdec, sbatch, "exact dense")
+
+    # ---- phase 6b: bf16 serve, topk_tree on the paged cache ----------------
+    _build.reset_launches()
+    out = serve.main(["--arch", "granite-3-8b", "--full-config", "--batch",
+                      "8", "--prompt-len", str(prompt_len), "--max-new",
+                      str(max_new), "--block-k", str(block_k), "--seed", "0",
+                      "--policy", "topk_tree", "--cache-backend", "paged"],
+                     params=params)
+    launches = dict(_build.LAUNCHES)
+    tcfg, tdec, tbatch = out["cfg"], out["dec"], out["batch"]
+    t_toks, t_stats = out["tokens"], out["stats"]
+    iters = t_stats["iterations"]
+    want = {name: 0 for name in launches}
+    want.update(tree_verify_attention=2 * layers * iters,
+                fused_verify=2 * iters, fused_heads=2 * (iters + 1))
+    check(launches == want, f"serve topk_tree paged: launches {launches}, "
+                            f"expected {want}")
+    results["tree_verify_attention"]["launches"] = launches["tree_verify_attention"]
+    gt_toks, _ = D.greedy_decode(params, tcfg, tdec, tbatch)
+    same = (t_toks[:, prompt_len:n] == gt_toks[:, prompt_len:n])
+    generated = int(t_stats["generated"].sum())
+    log(f"[serve] bf16 topk_tree paged: {generated / out['wall_s']:.1f} "
+        f"tokens/s, k̂={t_stats['mean_accepted']:.4f}, invocations="
+        f"{t_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; "
+        f"BPD vs greedy agreement {float(same.float().mean()):.4f} of tokens, "
+        f"{int(same.all(dim=1).sum())}/8 rows identical (reported, not "
+        f"required in bf16)")
+    div = report_divergences(torch, M, params, tcfg, t_toks, gt_toks,
+                             prompt_len, n)
+    log(f"[serve] bf16 topk_tree paged first divergences: {len(div)} rows, "
+        f"{sum(d['tie'] for d in div)} at near-ties; BPD's token ranks "
+        f"{[d['bpd_rank'] for d in div]}, ulps below the top "
+        f"{[round(d['bpd_ulps'], 3) for d in div]}")
+    profile_iteration(torch, D, params, tcfg, tdec, tbatch, "topk_tree paged")
 
 
-def profile_iteration(torch, D, params, cfg, dec, batch):
+def profile_iteration(torch, D, params, cfg, dec, batch, label):
     """One bf16 BPD iteration under torch.profiler: host wall time against
     the kernels' summed device time (the device's idle share)."""
     from torch.autograd import DeviceType
@@ -569,10 +898,10 @@ def profile_iteration(torch, D, params, cfg, dec, batch):
         busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(busy.values())
     if not kernels:
-        log(f"[profile] one bf16 BPD iteration: wall {wall_ms:.2f} ms; the "
+        log(f"[profile] one bf16 BPD iteration ({label}): wall {wall_ms:.2f} ms; the "
             f"profiler saw no kernels, device time not measured")
         return
-    log(f"[profile] one bf16 BPD iteration: wall {wall_ms:.2f} ms, "
+    log(f"[profile] one bf16 BPD iteration ({label}): wall {wall_ms:.2f} ms, "
         f"{len(kernels)} kernels busy {busy_ms:.2f} ms, device idle share "
         f"{1 - busy_ms / wall_ms:.3f}")
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
@@ -612,6 +941,8 @@ def main() -> int:
     check_attention(torch, gen, results)
     check_fused_verify(torch, gen, results)
     check_fused_heads(torch, gen, results)
+    check_tree_attention(torch, gen, results)
+    check_paged_attention(torch, gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"  {name} @ {r['shape']}: kernel {r['ms']:.4f} ms, plain "

@@ -28,6 +28,7 @@ from repro_torch.core import policy as policy_lib
 from repro_torch.core.policy import DecodePolicy, DraftInputs, PolicyState
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models.attention import tree_tables
 from repro_torch.models.layers import embed_apply
 
 I32 = torch.int32
@@ -37,19 +38,21 @@ class Backend(NamedTuple):
     """Model functions the BPD loop needs."""
 
     embed_tokens: Callable  # (params, tokens (B,S)) -> (B,S,d)
-    decode_block: Callable  # (params, h, caches, length) -> (hidden, staged_caches)
+    decode_block: Callable  # (params, h, caches, length, tree=None) -> (hidden, staged_caches)
     commit: Callable        # (caches, khat) -> caches
     p1_logits: Callable     # (params, hidden (..., d)) -> (..., Vp)
-    head_topk: Callable     # (params, hidden (B, d), n) -> (B, n) int32
+    head_topk: Callable     # (params, hidden (B, d), n, top_t=1) -> (B, n, top_t) int32
 
 
 def causal_lm_backend(cfg: ModelConfig) -> Backend:
     return Backend(
         embed_tokens=lambda p, t: embed_apply(p["embed"], t).to(cfg.compute_dtype),
-        decode_block=lambda p, h, c, ln: model_lib.decode_block_step(p, cfg, h, c, ln),
+        decode_block=lambda p, h, c, ln, tree=None: model_lib.decode_block_step(
+            p, cfg, h, c, ln, tree=tree),
         commit=lambda c, kh: model_lib.commit_caches(cfg, c, kh),
         p1_logits=lambda p, h: model_lib.base_logits(p, cfg, h),
-        head_topk=lambda p, h, n: model_lib.head_topk(p, cfg, h, n),
+        head_topk=lambda p, h, n, top_t=1: model_lib.head_topk(p, cfg, h, n,
+                                                               top_t),
     )
 
 
@@ -95,15 +98,27 @@ def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
     dev = state.proposals.device
     slots = torch.arange(block_k, dtype=I32, device=dev)[None, :]
     pos_len = state.text_len + prefix_offset
+    topo = pol.drafter.tree_topology(block_k)
+    if topo is not None and getattr(pol.schedule, "min_block", 1) > 1:
+        raise NotImplementedError(
+            "tree verification with min_block > 1 would commit tokens "
+            "beyond the accepted root-to-leaf path")
 
     # ---- parallel scoring of the k proposals (verify ∧ next-predict) ------
     h = backend.embed_tokens(params, state.proposals)
-    hidden, staged = backend.decode_block(params, h, state.caches, pos_len)
+    hidden, staged = backend.decode_block(params, h, state.caches, pos_len,
+                                          tree=topo)
     p1_logits = backend.p1_logits(params, hidden)           # (B, k, Vp)
 
     # ---- verify ------------------------------------------------------------
-    accepts = pol.acceptor.accepts(state.proposals, p1_logits)
-    commit_tokens = state.proposals
+    if topo is None:
+        accepts = pol.acceptor.accepts(state.proposals, p1_logits)
+        commit_tokens = state.proposals
+    else:
+        accepts, path_nodes = _tree_accepts(pol, topo, state.proposals,
+                                            p1_logits)
+        commit_tokens = torch.gather(
+            state.proposals, 1, path_nodes.clamp(0, block_k - 1).long())
     remaining = torch.clamp(max_new - state.generated, min=1)
     khat, sched_state = pol.schedule.block_size(
         accepts, remaining, state.policy_state.schedule)    # (B,) in [1, k]
@@ -126,13 +141,23 @@ def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
     tokens.scatter_(1, widx, torch.where(wmask, commit_tokens,
                                          tokens.gather(1, widx)))
     caches = backend.commit(staged, khat)
+    if topo is not None:
+        # move the accepted path's K/V into chain slots so later iterations
+        # see an ordinary committed chain
+        caches = model_lib.commit_tree_path(cfg, caches, path_nodes, khat,
+                                            pos_len, block_k)
     generated = state.generated + khat
     finished = state.finished | has_eos | (generated >= max_new)
 
     # ---- next-block proposals (drafted from this same invocation) ----------
+    slot = torch.clamp(khat - 1, min=0)
+    if topo is not None:
+        # the accepted slot is the path's node at depth k̂-1 (root for k̂=0)
+        slot = torch.gather(path_nodes, 1, slot.long()[:, None])[:, 0]
+        slot = torch.clamp(slot, min=0)
     draft_in = DraftInputs(
         hidden=hidden, p1_logits=p1_logits, khat=khat,
-        slot=torch.clamp(khat - 1, min=0), text_len=state.text_len + khat,
+        slot=slot, text_len=state.text_len + khat,
         old_proposals=commit_tokens,
         head_topk=functools.partial(backend.head_topk, params))
     proposals, draft_state = pol.drafter.draft(
@@ -153,6 +178,31 @@ def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
         generated=generated,
         policy_state=policy_state,
     )
+
+
+def _tree_accepts(pol: DecodePolicy, topo, proposals, p1_logits):
+    """Tree verify: node n is checked by p_1 at its PARENT node (each node's
+    logits are conditioned on its own ancestor chain by the tree mask), so
+    permuting p_1's slots by parent turns the tree accept into the ordinary
+    chain accept (fused kernel included); the trailing slot of the
+    permutation only feeds the always-true column 0.  The accepted path is
+    the deepest node whose whole root path is accepted (lowest node id on
+    ties).  Returns (chain-shaped accepts (B, k) for the schedule, the
+    path's node at each depth (B, k), -1 past its end)."""
+    b, k = proposals.shape
+    tables = tree_tables(topo, proposals.device)
+    acc_nodes = pol.acceptor.accepts(
+        proposals, p1_logits[:, tables["verify_perm"]])           # (B, N)
+    reach = [acc_nodes[:, 0]]                    # root: always accepted
+    for n in range(1, k):
+        reach.append(acc_nodes[:, n] & reach[topo.parents[n]])
+    reach = torch.stack(reach, dim=1)
+    depth = tables["depths"][None, :]
+    path_len = torch.where(reach, depth + 1, 0).amax(dim=1)
+    # deepest reached node; torch.argmax returns the first maximum
+    chosen = torch.argmax(torch.where(reach, depth, -1), dim=1)
+    accepts = tables["nodes"][None, :] < path_len[:, None]
+    return accepts, tables["paths"][chosen]
 
 
 def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,

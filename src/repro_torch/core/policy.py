@@ -2,19 +2,24 @@
 ``repro.core.policy``).
 
   * ``Acceptor``      — (proposals, verify p_1 logits) -> per-position
-    accepts.  ``ExactAcceptor`` is §3: token-identical to greedy.
+    accepts.  ``ExactAcceptor`` is §3 (token-identical to greedy),
+    ``TopKAcceptor`` §5.1, ``DistanceAcceptor`` §5.2.
   * ``BlockSchedule`` — accept mask -> per-row block size k̂.
-    ``StaticSchedule`` is §5.3's minimum block size.
+    ``StaticSchedule`` is §5.3's minimum block size; ``AdaptiveSchedule``
+    caps k̂ per row from the running acceptance rate.
   * ``Drafter``       — the next block of k proposals from the verify
-    forward.  ``HeadsDrafter`` is the paper's prediction heads.
+    forward.  ``HeadsDrafter`` is the paper's prediction heads;
+    ``TopKTreeDrafter`` drafts a candidate tree verified in one forward.
 
 Index convention (0-based within a block): ``proposals[:, i]`` proposes the
 token at ``text_len + i``, and slot 0 of a fresh draft is the model's own
 verified greedy token (k̂ >= 1 is unconditional), so drafts change
 iteration counts, never tokens.
 
-Only the ``exact`` policy is ported; the other registered names of the
-reference raise ``NotImplementedError`` (see ROADMAP.md).
+Registered: ``exact``, ``topk``, ``distance``, ``adaptive`` and
+``topk_tree``.  The reference's ``input_copy``, ``locality`` and
+``draft_model`` are not ported yet and raise ``NotImplementedError``
+(see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,7 +29,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.config import DecodeConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.tree_mask import default_tree
+from repro_torch.models.attention import tree_tables
 from repro_torch.models.model import greedy_token
 
 I32 = torch.int32
@@ -44,7 +51,8 @@ class DraftInputs(NamedTuple):
     The reference hands drafters every head's logits (B, k, K, V).  The port
     hands them the verify forward's hidden states and p_1 logits, plus
     ``head_topk``, which projects heads p_2.. at one position through the
-    fused-heads kernel, so the heads' logits are never materialized.
+    fused-heads kernel and returns their top-T ids, so the heads' logits
+    are never materialized.
     """
 
     hidden: torch.Tensor        # (B, k, d) final hidden states at every slot
@@ -53,7 +61,8 @@ class DraftInputs(NamedTuple):
     slot: torch.Tensor          # (B,) accepted slot index = max(k̂ - 1, 0)
     text_len: torch.Tensor      # (B,) text length AFTER accepting this block
     old_proposals: torch.Tensor  # (B, k) the block that was just verified
-    head_topk: Callable         # (hidden (B, d), n) -> (B, n) top-1 of p_2..p_{n+1}
+    head_topk: Callable         # (hidden (B, d), n, top_t=1) -> (B, n, top_t)
+                                # top-T ids of heads p_2..p_{n+1}
 
 
 def _gather_slot(x: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -109,6 +118,35 @@ class ExactAcceptor(Acceptor):
         return {"criterion": "exact"}
 
 
+@dataclasses.dataclass(frozen=True)
+class TopKAcceptor(Acceptor):
+    """§5.1: accept any proposal inside the verifier's top-k set (ties
+    ranked by lowest id, as ``lax.top_k``)."""
+
+    top_k: int = 1
+
+    def position_ok(self, cand, ver_logits):
+        _, ids = ref.top_t_ids(ver_logits, self.top_k)
+        return torch.any(ids == cand[..., None], dim=-1)
+
+    def fused_spec(self):
+        return {"criterion": "topk", "top_k": self.top_k}
+
+
+@dataclasses.dataclass(frozen=True)
+class DistanceAcceptor(Acceptor):
+    """§5.2: ordinal vocabularies — accept proposals within ``epsilon`` of
+    the greedy token id."""
+
+    epsilon: float = 0.0
+
+    def position_ok(self, cand, ver_logits):
+        return (cand - greedy_token(ver_logits)).abs() <= self.epsilon
+
+    def fused_spec(self):
+        return {"criterion": "distance", "epsilon": self.epsilon}
+
+
 # ---------------------------------------------------------------------------
 # Block schedules
 # ---------------------------------------------------------------------------
@@ -118,7 +156,7 @@ class ExactAcceptor(Acceptor):
 class BlockSchedule:
     """Turns per-position accepts into a per-row block size k̂."""
 
-    def init_state(self, b: int) -> Any:
+    def init_state(self, b: int, device=None) -> Any:
         return ()
 
     def block_size(self, accepts, remaining, state):
@@ -146,6 +184,42 @@ class StaticSchedule(BlockSchedule):
         return torch.clamp(torch.minimum(khat, remaining), min=1).to(I32), state
 
 
+@dataclasses.dataclass(frozen=True)
+class AdaptiveSchedule(BlockSchedule):
+    """Dynamic §5.3: a per-row cap on k̂ driven by the running acceptance
+    rate.  An fp32 EMA of k̂/cap grows the cap by one above ``grow`` and
+    shrinks it by one below ``shrink``.
+
+    State (per row): ``rate`` fp32 EMA, ``cap`` int32 (starts at int32 max,
+    clipped into [floor, k] at use)."""
+
+    min_block: int = 1
+    decay: float = 0.7
+    grow: float = 0.8
+    shrink: float = 0.4
+
+    def init_state(self, b: int, device=None) -> Any:
+        return {"rate": torch.ones((b,), dtype=torch.float32, device=device),
+                "cap": torch.full((b,), torch.iinfo(I32).max, dtype=I32,
+                                  device=device)}
+
+    def block_size(self, accepts, remaining, state):
+        k = accepts.shape[1]
+        floor = max(min(self.min_block, k), 1)
+        cap = torch.clamp(state["cap"], floor, k)
+        accepted = torch.minimum(torch.clamp(_prefix_len(accepts), min=floor),
+                                 cap)
+        khat = torch.clamp(torch.minimum(accepted, remaining), min=1).to(I32)
+        # rate tracks the un-clamped acceptance (the budget clamp at the end
+        # of a row's generation says nothing about proposal quality)
+        rate = (self.decay * state["rate"]
+                + (1 - self.decay) * accepted.float() / cap.float())
+        cap = torch.where(rate >= self.grow, torch.clamp(cap + 1, max=k),
+                          torch.where(rate <= self.shrink,
+                                      torch.clamp(cap - 1, min=floor), cap))
+        return khat, {"rate": rate, "cap": cap.to(I32)}
+
+
 # ---------------------------------------------------------------------------
 # Drafters
 # ---------------------------------------------------------------------------
@@ -159,8 +233,15 @@ class Drafter:
                    b: int) -> Any:
         return ()
 
+    def tree_topology(self, block_k: int):
+        """The static ``kernels.tree_mask.TreeTopology`` this drafter's
+        proposals form, or None for chain drafts.  Non-None switches
+        ``bpd_iteration`` to tree verification."""
+        return None
+
     def draft(self, inputs: DraftInputs, state: Any):
-        """-> (proposals (B, k) int32 with slot 0 = verified token, state)."""
+        """-> (proposals (B, k) int32 with slot 0 = verified token, state).
+        For a tree drafter slot n is the token of tree node n."""
         raise NotImplementedError
 
 
@@ -178,6 +259,37 @@ class HeadsDrafter(Drafter):
         if k == 1:
             return first[:, None], state
         rest = inputs.head_topk(_gather_slot(inputs.hidden, inputs.slot), k - 1)
+        return torch.cat([first[:, None], rest[:, :, 0]], dim=1), state
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKTreeDrafter(Drafter):
+    """Drafts a candidate tree that the verifier scores in one forward
+    (tree verification, arXiv:2404.09221): node 0 is p_1's argmax at the
+    accepted slot (the verified token), and the node at depth d >= 1 with
+    sibling rank r carries head p_{d+1}'s r-th id there (one fused-heads
+    launch for every depth).  The topology is ``default_tree(block_k,
+    fanout)``: ``fanout`` children of the root, then a top-1 chain below
+    the first, so the heads chain is always a subtree.  Stateless and
+    lossless under exact acceptance."""
+
+    fanout: int = 4
+
+    def tree_topology(self, block_k: int):
+        return default_tree(block_k, self.fanout)
+
+    def draft(self, inputs: DraftInputs, state: Any):
+        k = inputs.old_proposals.shape[1]
+        topo = self.tree_topology(k)
+        first = greedy_token(_gather_slot(inputs.p1_logits, inputs.slot))
+        if k == 1:
+            return first[:, None], state
+        need = int(topo.ranks.max()) + 1
+        ids = inputs.head_topk(_gather_slot(inputs.hidden, inputs.slot),
+                               topo.max_depth, need)      # (B, D, need)
+        tables = tree_tables(topo, ids.device)
+        head = tables["depths"][1:].long() - 1            # p_{d+1} is row d-1
+        rest = ids[:, head, tables["ranks"][1:]]
         return torch.cat([first[:, None], rest], dim=1), state
 
 
@@ -197,12 +309,15 @@ class DecodePolicy:
 
     def init_state(self, cfg, dec: DecodeConfig, batch: Optional[Dict],
                    b: int) -> PolicyState:
+        device = batch["tokens"].device if batch else None
         return PolicyState(
             drafter=self.drafter.init_state(cfg, dec, batch, b),
-            schedule=self.schedule.init_state(b))
+            schedule=self.schedule.init_state(b, device))
 
 
 POLICY_BUILDERS: Dict[str, Callable[[DecodeConfig], DecodePolicy]] = {}
+# the reference's other registered policies -> their ROADMAP modules item
+NOT_PORTED = {"input_copy": 4, "locality": 4, "draft_model": 6}
 
 
 def register_policy(name: str,
@@ -225,10 +340,14 @@ def resolve_policy(dec: DecodeConfig,
         return policy
     name = policy or dec.policy or dec.criterion
     builder = POLICY_BUILDERS.get(name)
-    if builder is None:
+    if name in NOT_PORTED:
         raise NotImplementedError(
             f"decode policy {name!r} is not ported yet (see ROADMAP.md, "
-            f"'Modules to port', item 4); ported: {list_policies()}")
+            f"'Modules to port', item {NOT_PORTED[name]}); ported: "
+            f"{list_policies()}")
+    if builder is None:
+        raise ValueError(f"unknown decode policy {name!r}; "
+                         f"registered: {list_policies()}")
     return builder(dec)
 
 
@@ -239,6 +358,22 @@ def _maybe_fused(acceptor: Acceptor, dec: DecodeConfig) -> Acceptor:
     return acceptor
 
 
+def _schedule_for(dec: DecodeConfig) -> BlockSchedule:
+    return StaticSchedule(min_block=dec.min_block)
+
+
 register_policy("exact", lambda dec: DecodePolicy(
+    HeadsDrafter(), _maybe_fused(ExactAcceptor(), dec), _schedule_for(dec),
+    name="exact"))
+register_policy("topk", lambda dec: DecodePolicy(
+    HeadsDrafter(), _maybe_fused(TopKAcceptor(top_k=dec.top_k), dec),
+    _schedule_for(dec), name="topk"))
+register_policy("distance", lambda dec: DecodePolicy(
+    HeadsDrafter(), _maybe_fused(DistanceAcceptor(epsilon=dec.epsilon), dec),
+    _schedule_for(dec), name="distance"))
+register_policy("adaptive", lambda dec: DecodePolicy(
     HeadsDrafter(), _maybe_fused(ExactAcceptor(), dec),
-    StaticSchedule(min_block=dec.min_block), name="exact"))
+    AdaptiveSchedule(min_block=dec.min_block), name="adaptive"))
+register_policy("topk_tree", lambda dec: DecodePolicy(
+    TopKTreeDrafter(fanout=max(dec.top_k, 2)),
+    _maybe_fused(ExactAcceptor(), dec), _schedule_for(dec), name="topk_tree"))

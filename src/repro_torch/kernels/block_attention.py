@@ -1,10 +1,15 @@
-"""BPD verify attention on Hopper: k fresh queries against a dense KV cache.
+"""BPD verify attention on Hopper: k fresh queries against a dense KV cache,
+as a chain (``verify_attention_cuda``) or as a candidate tree
+(``tree_verify_attention_cuda``).
 
-The CUDA kernel (``csrc/verify_attention.cu``) replaces the reference's
-``repro/kernels/block_attention.py::verify_attention_pallas``: one thread
-block per (batch row, KV head) holds the kq·G query rows of that head group
-and streams the cache through shared memory with an fp32 online softmax.
-``verify_attention_plain`` (``kernels/ref.py``) is its plain version.
+The CUDA kernels (``csrc/verify_attention.cu``, ``csrc/tree_verify_attention.cu``,
+sharing the body in ``csrc/attention.cuh``) replace the reference's
+``repro/kernels/block_attention.py::verify_attention_pallas`` and
+``tree_verify_attention_pallas``: one thread block per (batch row, KV head)
+holds the kq·G query rows of that head group and streams the cache through
+shared memory with an fp32 online softmax.  ``verify_attention_plain`` and
+``tree_verify_attention_plain`` (``kernels/ref.py``) are their plain
+versions.
 """
 from __future__ import annotations
 
@@ -14,16 +19,66 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import tree_verify_attention as tree_verify_attention_plain
 from repro_torch.kernels.ref import verify_attention as verify_attention_plain
 
 HEAD_DIMS = (32, 64, 128)
 MAX_ROWS = 64                       # kq · G query rows per thread block
+MAX_TREE_NODES = 32                 # anc_bits is one int32 per node
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_TREE_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
 
-_require = functools.partial(_build.require, "verify_attention")
+__all__ = ["verify_attention_cuda", "verify_attention_plain",
+           "tree_verify_attention_cuda", "tree_verify_attention_plain",
+           "check_attention_inputs", "launch_attention"]
 
-__all__ = ["verify_attention_cuda", "verify_attention_plain"]
+
+def check_attention_inputs(kernel: str, q, k, v, q_pos, kv_pos, *,
+                           kv_len: int, **extra) -> None:
+    """The checks every verify-attention wrapper makes before a launch: q
+    (B, kq, H, hd), k/v of q's dtype with KV heads in dim 2 and head_dim
+    last, q_pos (B, kq) and kv_pos (B, kv_len) int32, ``extra`` int32
+    tensors, all contiguous on q's CUDA device."""
+    require = functools.partial(_build.require, kernel)
+    require(q.dim() == 4 and k.dim() == 4, "q and k/v must be 4-d")
+    b, kq, h, hd = q.shape
+    kvh = k.shape[2]
+    tensors = {"q": q, "k": k, "v": v, "q_pos": q_pos, "kv_pos": kv_pos,
+               **extra}
+    for name, t in tensors.items():
+        require(t.device == q.device and t.is_cuda,
+                f"{name} must be on q's CUDA device")
+        require(t.is_contiguous(), f"{name} must be contiguous")
+    require(q.dtype in _build.DTYPE_CODES, f"dtype {q.dtype} not supported")
+    require(k.dtype == q.dtype and v.dtype == q.dtype,
+            "q, k and v must share one dtype")
+    require(v.shape == k.shape and k.shape[3] == hd,
+            f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    require(kv_len >= 1 and kvh >= 1 and h % kvh == 0,
+            f"{h} heads over {kvh} KV heads, L={kv_len}")
+    require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
+    require(kq * (h // kvh) <= MAX_ROWS,
+            f"kq·G = {kq * (h // kvh)} query rows exceed {MAX_ROWS}")
+    require(q_pos.dtype == torch.int32 and tuple(q_pos.shape) == (b, kq),
+            "q_pos must be (B, kq) int32")
+    require(kv_pos.dtype == torch.int32
+            and tuple(kv_pos.shape) == (b, kv_len),
+            f"kv_pos must be (B, {kv_len}) int32")
+    for name, t in extra.items():
+        require(t.dtype == torch.int32, f"{name} must be int32")
+
+
+def launch_attention(kernel: str, argtypes, q, pointers, ints) -> torch.Tensor:
+    """Launch ``kernel``'s C entry (q, *pointers, out, dtype, *ints, stream)
+    on q's device and current stream; returns the new output."""
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch(kernel, kernel, argtypes, q.data_ptr(),
+                      *(t.data_ptr() for t in pointers), out.data_ptr(),
+                      _build.DTYPE_CODES[q.dtype], *ints, stream)
+    return out
 
 
 def verify_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
@@ -31,34 +86,38 @@ def verify_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
     """q: (B, kq, H, hd); k/v: (B, L, KV, hd); q_pos: (B, kq) int32;
     kv_pos: (B, L) int32 (-1 = empty or stale).  Returns (B, kq, H, hd) in
     q's dtype.  All tensors contiguous on one CUDA device."""
-    _require(q.dim() == 4 and k.dim() == 4, "q and k/v must be 4-d")
+    check_attention_inputs("verify_attention", q, k, v, q_pos, kv_pos,
+                           kv_len=k.shape[1] if k.dim() == 4 else 0)
     b, kq, h, hd = q.shape
-    l, kvh = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
-                    ("kv_pos", kv_pos)):
-        _require(t.device == q.device and t.is_cuda,
-                 f"{name} must be on q's CUDA device")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
-    _require(q.dtype in _build.DTYPE_CODES, f"dtype {q.dtype} not supported")
-    _require(k.dtype == q.dtype and v.dtype == q.dtype,
-             "q, k and v must share one dtype")
-    _require(tuple(k.shape) == (b, l, kvh, hd) and v.shape == k.shape,
-             f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    _require(l >= 1 and kvh >= 1 and h % kvh == 0,
-             f"{h} heads over {kvh} KV heads, L={l}")
-    _require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
-    _require(kq * (h // kvh) <= MAX_ROWS,
-             f"kq·G = {kq * (h // kvh)} query rows exceed {MAX_ROWS}")
-    _require(q_pos.dtype == torch.int32 and tuple(q_pos.shape) == (b, kq),
-             "q_pos must be (B, kq) int32")
-    _require(kv_pos.dtype == torch.int32 and tuple(kv_pos.shape) == (b, l),
-             "kv_pos must be (B, L) int32")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.launch("verify_attention", "verify_attention", _ARGTYPES,
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
-                      _build.DTYPE_CODES[q.dtype], b, kq, h, kvh, hd, l,
-                      int(window), int(num_meta), stream)
-    return out
+    _build.require("verify_attention", k.shape[0] == b, "k/v batch != q batch")
+    return launch_attention("verify_attention", _ARGTYPES, q,
+                            (k, v, q_pos, kv_pos),
+                            (b, kq, h, k.shape[2], hd, k.shape[1], int(window),
+                             int(num_meta)))
+
+
+def tree_verify_attention_cuda(q, k, v, q_pos, kv_pos, kv_node, anc_bits, *,
+                               window: int = 0,
+                               num_meta: int = 0) -> torch.Tensor:
+    """``verify_attention_cuda`` for a candidate tree of kq <= 32 nodes.
+    kv_node: (B, L) int32 node index of the block's slots, -1 for the
+    committed prefix; anc_bits: (B, kq) int32 packed ancestor-or-self bits
+    per query node (``TreeTopology.anc_bits``).  q_pos and kv_pos are
+    logical (RoPE) positions."""
+    check_attention_inputs("tree_verify_attention", q, k, v, q_pos, kv_pos,
+                           kv_len=k.shape[1] if k.dim() == 4 else 0,
+                           kv_node=kv_node, anc_bits=anc_bits)
+    b, kq, h, hd = q.shape
+    l = k.shape[1]
+    _build.require("tree_verify_attention", k.shape[0] == b,
+                   "k/v batch != q batch")
+    _build.require("tree_verify_attention", kq <= MAX_TREE_NODES,
+                   f"{kq} tree nodes exceed {MAX_TREE_NODES}")
+    _build.require("tree_verify_attention",
+                   tuple(kv_node.shape) == (b, l)
+                   and tuple(anc_bits.shape) == (b, kq),
+                   "kv_node must be (B, L) and anc_bits (B, kq)")
+    return launch_attention("tree_verify_attention", _TREE_ARGTYPES, q,
+                            (k, v, q_pos, kv_pos, kv_node, anc_bits),
+                            (b, kq, h, k.shape[2], hd, l, int(window),
+                             int(num_meta)))

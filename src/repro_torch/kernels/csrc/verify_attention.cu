@@ -1,249 +1,19 @@
 // BPD verify attention: k fresh queries against a dense KV cache.
 //
 // Replaces repro/kernels/block_attention.py: verify_attention_pallas
-// (_verify_attn_kernel).  Same contract: q (B, kq, H, hd), k/v (B, L, KV, hd)
-// in f32 or bf16, q_pos (B, kq) and kv_pos (B, L) int32; head h = kv * G + g;
-// a key is visible when kv_pos >= 0, kv_pos <= q_pos and, with a window,
-// q_pos - kv_pos < window or kv_pos < num_meta.  Masked scores are the finite
-// -1e30 (a row with no visible key averages V, no NaN); the softmax runs
-// online in fp32; the output is in q's dtype.
-//
-// What bounds it on an H100: reading K and V once, B * L * KV * hd * 2
-// tensors (8.4 MB in bf16 at B = 8, L = 256, KV = 8, hd = 128: 2.5 us at
-// 3.35 TB/s).  Its FLOPs (4 * B * kq * H * L * hd) are far below that line.
-//
-// Design: one thread block per (batch row, KV head) owns the kq * G query
-// rows of that head group (32 at kq = 8, G = 4), so each K/V byte is read
-// from device memory once.  The TPU kernel's sequential grid axis with a
-// VMEM carry becomes a loop over KV tiles inside the block: a tile of kTile
-// keys and values is staged in shared memory (as fp32), scores go to shared
-// memory, each row's running max / sum is updated, and every thread keeps
-// its slice of the (rows, hd) accumulator in registers.  Every row runs the
-// same tile loop whatever kq and B are, so a query's result does not depend
-// on the block size (BPD at kq = k and greedy at kq = 1 agree).  There is no
-// lane or row padding; keys past L are skipped.  B * KV = 64 blocks at the
-// path's shape leaves part of the card's 132 SMs idle: splitting the KV axis
-// (flash-decoding, with a combine pass) and tensor-core products are later
-// work.
-#include "common.cuh"
+// (_verify_attn_kernel).  The contract, what bounds it on an H100 and the
+// design are in attention.cuh, whose body it shares with the tree and paged
+// variants; here keys are read from dense rows k/v (B, L, KV, hd).
+#include "attention.cuh"
 
-#include <atomic>
-#include <cmath>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 32;      // keys per shared-memory tile
-constexpr int kMaxRows = 64;   // kq * G query rows per block
-constexpr float kNegInf = -1e30f;
-
-template <int HD>
-size_t smem_bytes(int rows) {
-  return sizeof(float) * (size_t(rows) * HD          // q rows, pre-scaled
-                          + kTile * (HD + 1)         // k tile (padded rows)
-                          + kTile * HD               // v tile
-                          + size_t(rows) * kTile     // scores / probabilities
-                          + 3 * size_t(rows))        // max, sum, rescale
-         + sizeof(int) * (rows + kTile);             // q / kv positions
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-verify_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ q_pos,
-                        const int* __restrict__ kv_pos, T* __restrict__ out,
-                        int kq, int heads, int kv_heads, int L, int window,
-                        int num_meta, float scale) {
-  static_assert(kThreads % HD == 0, "a thread owns one column of the output");
-  constexpr int kRowStep = kThreads / HD;
-  constexpr int kAcc = (kMaxRows + kRowStep - 1) / kRowStep;
-
-  const int b = blockIdx.x / kv_heads;
-  const int kvh = blockIdx.x % kv_heads;
-  const int G = heads / kv_heads;
-  const int R = kq * G;
-  const int tid = threadIdx.x;
-
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [R][HD]
-  float* ks = qs + R * HD;               // [kTile][HD + 1]
-  float* vs = ks + kTile * (HD + 1);     // [kTile][HD]
-  float* ps = vs + kTile * HD;           // [R][kTile]
-  float* m_s = ps + R * kTile;           // [R]
-  float* l_s = m_s + R;                  // [R]
-  float* a_s = l_s + R;                  // [R]
-  int* qp_s = reinterpret_cast<int*>(a_s + R);  // [R]
-  int* kp_s = qp_s + R;                  // [kTile]
-
-  // Row r = qi * G + g holds query qi of head kvh * G + g.
-  for (int e = tid; e < R * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int qi = r / G, h = kvh * G + r % G;
-    qs[e] = to_f32(q[((size_t(b) * kq + qi) * heads + h) * HD + d]) * scale;
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    qp_s[r] = q_pos[b * kq + r / G];
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  const int d = tid % HD;
-  const int r0 = tid / HD;
-  float acc[kAcc];
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int n = min(kTile, L - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < kTile * HD; e += kThreads) {
-      const int t = e / HD, dd = e % HD;
-      float kv = 0.f, vv = 0.f;
-      if (t < n) {
-        const size_t off = ((size_t(b) * L + t0 + t) * kv_heads + kvh) * HD + dd;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
-      }
-      ks[t * (HD + 1) + dd] = kv;
-      vs[t * HD + dd] = vv;
-    }
-    if (tid < kTile) kp_s[tid] = tid < n ? kv_pos[size_t(b) * L + t0 + tid] : -1;
-    __syncthreads();
-
-    // scores of this tile; keys past L are left out of the softmax below
-    for (int e = tid; e < R * kTile; e += kThreads) {
-      const int r = e / kTile, t = e % kTile;
-      float s = kNegInf;
-      if (t < n) {
-        const int kp = kp_s[t], qp = qp_s[r];
-        bool vis = kp >= 0 && kp <= qp;
-        if (window) vis = vis && (qp - kp < window || kp < num_meta);
-        if (vis) {
-          const float* qr = qs + r * HD;
-          const float* kr = ks + t * (HD + 1);
-          float dot = 0.f;
-#pragma unroll 8
-          for (int i = 0; i < HD; ++i) dot = fmaf(qr[i], kr[i], dot);
-          s = dot;
-        }
-      }
-      ps[e] = s;
-    }
-    __syncthreads();
-
-    // online softmax update, one thread per row
-    for (int r = tid; r < R; r += kThreads) {
-      float* pr = ps + r * kTile;
-      const float m_prev = m_s[r];
-      float m_new = m_prev;
-      for (int t = 0; t < n; ++t) m_new = fmaxf(m_new, pr[t]);
-      float sum = 0.f;
-      for (int t = 0; t < kTile; ++t) {
-        const float p = t < n ? expf(pr[t] - m_new) : 0.f;
-        pr[t] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[r] = l_s[r] * alpha + sum;
-      m_s[r] = m_new;
-      a_s[r] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      const int r = r0 + j * kRowStep;
-      if (r < R) {
-        const float* pr = ps + r * kTile;
-        float s = acc[j] * a_s[r];
-        for (int t = 0; t < n; ++t) s = fmaf(pr[t], vs[t * HD + d], s);
-        acc[j] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) {
-    const int r = r0 + j * kRowStep;
-    if (r < R) {
-      const int qi = r / G, h = kvh * G + r % G;
-      out[((size_t(b) * kq + qi) * heads + h) * HD + d] =
-          from_f32<T>(acc[j] / fmaxf(l_s[r], 1e-30f));
-    }
-  }
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int kq, int heads, int kv_heads, int L, int window,
-                   int num_meta, cudaStream_t stream) {
-  const int rows = kq * (heads / kv_heads);
-  const size_t smem = smem_bytes<HD>(rows);
-  auto kernel = verify_attention_kernel<T, HD>;
-  // The shared-memory limit is a per-device attribute of the instantiation:
-  // set it on the first launch on each device, not on every launch.
-  static std::atomic<unsigned long long> configured{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned long long bit = 1ull << dev;
-  if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_bytes<HD>(kMaxRows)));
-    if (err != cudaSuccess) return err;
-    configured.fetch_or(bit);
-  }
-  kernel<<<B * kv_heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), kq,
-      heads, kv_heads, L, window, num_meta, 1.0f / sqrtf(float(HD)));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const int* q_pos, const int* kv_pos, void* out, int B,
-                        int kq, int heads, int kv_heads, int L, int window,
-                        int num_meta, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, q_pos, kv_pos, out, B, kq, heads,
-                           kv_heads, L, window, num_meta, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, q_pos, kv_pos, out, B, kq, heads,
-                           kv_heads, L, window, num_meta, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, q_pos, kv_pos, out, B, kq, heads,
-                            kv_heads, L, window, num_meta, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// The wrapper (kernels/block_attention.py) has checked shapes, dtypes and
-// contiguity; this re-checks what would make the launch unsafe.
 BPD_EXPORT int verify_attention(const void* q, const void* k, const void* v,
                                 const void* q_pos, const void* kv_pos,
                                 void* out, int dtype, int B, int kq, int heads,
                                 int kv_heads, int hd, int L, int window,
                                 int num_meta, void* stream) {
-  if (B < 1 || kq < 1 || L < 1 || kv_heads < 1 || heads % kv_heads != 0 ||
-      kq * (heads / kv_heads) > kMaxRows)
-    return cudaErrorInvalidValue;
-  const int* qp = static_cast<const int*>(q_pos);
-  const int* kp = static_cast<const int*>(kv_pos);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_hd<float>(hd, q, k, v, qp, kp, out, B, kq, heads, kv_heads,
-                              L, window, num_meta, s);
-  if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, qp, kp, out, B, kq, heads,
-                                      kv_heads, L, window, num_meta, s);
-  return cudaErrorInvalidValue;
+  const bpd_attn::Args a{q, k, v, static_cast<const int*>(q_pos),
+                         static_cast<const int*>(kv_pos), nullptr, nullptr,
+                         out, B, kq, heads, kv_heads, L, window, num_meta};
+  return bpd_attn::run<bpd_attn::DenseRows, false>(
+      dtype, hd, a, bpd_attn::DenseRows{L}, stream);
 }

@@ -9,9 +9,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.block_attention import verify_attention_cuda
+from repro_torch.kernels.block_attention import (tree_verify_attention_cuda,
+                                                 verify_attention_cuda)
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
 from repro_torch.kernels.fused_verify import fused_verify_cuda
+from repro_torch.kernels.paged_attention import paged_verify_attention_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -27,6 +29,23 @@ def verify_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     """BPD verify-substep attention (see kernels.block_attention)."""
     fn = verify_attention_cuda if _on_card(q) else ref.verify_attention
     return fn(q, k, v, q_pos, kv_pos, window=window, num_meta=num_meta)
+
+
+def tree_verify_attention(q, k, v, q_pos, kv_pos, kv_node, anc_bits, *,
+                          window: int = 0, num_meta: int = 0):
+    """Tree-verification attention: a whole candidate tree scored in one
+    forward (see kernels.block_attention and kernels.tree_mask)."""
+    fn = tree_verify_attention_cuda if _on_card(q) else ref.tree_verify_attention
+    return fn(q, k, v, q_pos, kv_pos, kv_node, anc_bits, window=window,
+              num_meta=num_meta)
+
+
+def paged_verify_attention(q, kp, vp, tbl, q_pos, kv_pos, *, window: int = 0,
+                           num_meta: int = 0):
+    """BPD verify attention over a paged KV pool (see
+    kernels.paged_attention)."""
+    fn = paged_verify_attention_cuda if _on_card(q) else ref.paged_verify_attention
+    return fn(q, kp, vp, tbl, q_pos, kv_pos, window=window, num_meta=num_meta)
 
 
 def fused_verify(p1_logits, proposals, *, criterion: str, top_k: int = 1,

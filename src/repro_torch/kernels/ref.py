@@ -40,21 +40,60 @@ def verify_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     visible entry averages V instead of producing NaN.  Returns (B, kq, H,
     hd) in q's dtype.
     """
-    b, kq, h, hd = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
-    qg = q.reshape(b, kq, kvh, g, hd).float()
-    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k.float())
-    scores = scores / math.sqrt(hd)
     qp = q_pos[:, :, None]
     kp = kv_pos[:, None, :]
     mask = (kp >= 0) & (kp <= qp)
     if window:
         mask &= (qp - kp < window) | (kp < num_meta)
+    return _masked_attend(q, k, v, mask)
+
+
+def _masked_attend(q, k, v, mask) -> torch.Tensor:
+    """fp32 GQA attention of q (B, kq, H, hd) over k/v (B, L, KV, hd) under
+    mask (B, kq, L); head h = kv·G + g.  Masked scores are -1e30."""
+    b, kq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, kq, kvh, h // kvh, hd).float()
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k.float())
+    scores = scores / math.sqrt(hd)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhgqs,bshk->bqhgk", probs, v.float())
     return ctx.reshape(b, kq, h, hd).to(q.dtype)
+
+
+def tree_verify_attention(q, k, v, q_pos, kv_pos, kv_node, anc_bits, *,
+                          window: int = 0, num_meta: int = 0) -> torch.Tensor:
+    """``verify_attention`` for a candidate tree.  kv_node: (B, L) node index
+    of this block's tree slots, -1 for committed-prefix slots; anc_bits:
+    (B, kq) int32 packed ancestor-or-self bitmask per query node (bit 31 may
+    be set).  Positions are logical (RoPE) positions.  A tree slot is
+    visible only if the query's bit for its node is set; ``>>`` on int32 is
+    arithmetic, and ``& 1`` keeps bit n alone, as the reference's logical
+    shift does."""
+    qp = q_pos[:, :, None]
+    kp = kv_pos[:, None, :]
+    kn = kv_node[:, None, :]
+    mask = (kp >= 0) & (kp <= qp)
+    if window:
+        mask &= (qp - kp < window) | (kp < num_meta)
+    bit = (anc_bits.to(torch.int32)[:, :, None] >> kn.clamp(0, 31)) & 1
+    mask &= (kn < 0) | (bit != 0)
+    return _masked_attend(q, k, v, mask)
+
+
+def paged_verify_attention(q, kp, vp, tbl, q_pos, kv_pos, *, window: int = 0,
+                           num_meta: int = 0) -> torch.Tensor:
+    """q: (B, kq, H, hd); kp/vp: (num_pages, ps, KV, hd); tbl: (B, P) int32;
+    kv_pos: (B, P·ps).  Gathers the pages densely (``kp[tbl]``), then the
+    dense plain version."""
+    b, P = tbl.shape
+    _, ps, kvh, hd = kp.shape
+    idx = tbl.long()
+    k = kp[idx].reshape(b, P * ps, kvh, hd)
+    v = vp[idx].reshape(b, P * ps, kvh, hd)
+    return verify_attention(q, k, v, q_pos, kv_pos, window=window,
+                            num_meta=num_meta)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,11 @@ path, on the card).
 Without ``--full-config`` the registered smoke config runs in fp32, as the
 reference serves it; with it the full config runs in its own compute dtype.
 ``--device`` defaults to ``cuda`` (``--device cpu`` runs the plain versions
-of the kernels on the CPU).  The continuous-batching engine, HTTP serving,
-meshes and the paged cache are not ported yet (ROADMAP.md).
+of the kernels on the CPU).  Every registered decode policy runs
+(``--policy exact|topk|distance|adaptive|topk_tree``, with ``--top-k`` and
+``--epsilon``), on the dense or the paged KV cache (``--cache-backend
+paged --page-size 16``).  The continuous-batching engine, HTTP serving and
+meshes are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from repro_torch import bridge, resolve_device
 from repro_torch.config import DecodeConfig, get_config
 from repro_torch.core.decode import bpd_decode
+from repro_torch.core.policy import list_policies
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.models import model as M
 
@@ -40,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["exact", "topk", "distance"],
                     help="legacy alias for --policy")
     ap.add_argument("--policy", default="",
-                    help="decode policy name (only 'exact' is ported)")
+                    help=f"decode policy name, one of {list_policies()}; "
+                         f"empty = the --criterion alias")
     ap.add_argument("--fused-verify", action="store_true",
                     help="CPU: accept through the fused-verify plain version "
                          "(on the card the fused kernel always runs)")
@@ -51,7 +56,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve the registered full config instead of the "
                          "smoke config")
     ap.add_argument("--cache-backend", default="dense",
-                    choices=["dense", "paged"])
+                    choices=["dense", "paged"],
+                    help="KV cache layout: dense per-row buffers, or a page "
+                         "pool with identity block tables")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (multiple of 8; paged only)")
+    ap.add_argument("--top-k", type=int, default=2,
+                    help="topk acceptance set size; topk_tree fanout "
+                         "(at least 2)")
+    ap.add_argument("--epsilon", type=float, default=2.0,
+                    help="distance acceptance radius in token ids")
     for flag in ("--engine", "--http"):
         ap.add_argument(flag, action="store_true")
     for flag in ("--mesh-data", "--mesh-model", "--mesh-pod"):
@@ -64,8 +78,6 @@ def _not_ported(args) -> Optional[str]:
         return "--engine / --http (the serving stack: ROADMAP.md item 7)"
     if args.mesh_data or args.mesh_model > 1 or args.mesh_pod > 1:
         return "--mesh-* (multi-GPU: ROADMAP.md item 10)"
-    if args.cache_backend != "dense":
-        return "--cache-backend paged (ROADMAP.md item 7)"
     return None
 
 
@@ -95,6 +107,9 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
     dec = DecodeConfig(max_new_tokens=args.max_new,
                        block_k=args.block_k or cfg.bpd_k,
                        policy=args.policy or args.criterion,
+                       top_k=args.top_k, epsilon=args.epsilon,
+                       cache_backend=args.cache_backend,
+                       page_size=args.page_size,
                        fused_verify=args.fused_verify)
     task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
                     seed=args.seed)
@@ -115,7 +130,8 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
 
     generated = int(stats["generated"].sum())
     print(f"[serve] {args.batch} requests, {args.max_new} tokens each, "
-          f"policy={dec.policy}, {cfg.name} ({cfg.dtype}) on {dev}")
+          f"policy={dec.policy}, {dec.cache_backend} cache, {cfg.name} "
+          f"({cfg.dtype}) on {dev}")
     print(f"[serve] mean accepted block size k̂ = "
           f"{stats['mean_accepted']:.2f}  invocations = "
           f"{stats['invocations']} (greedy would need {args.max_new + 1})  "

@@ -1,21 +1,34 @@
-"""GQA attention with RoPE, sliding windows and a BPD-aware dense KV cache.
+"""GQA attention with RoPE, sliding windows and a BPD-aware KV cache, dense
+or paged.
 
-Two entry points, as in ``repro.models.attention`` (dense chain path):
+Entry points, as in ``repro.models.attention`` (decoder-only path):
   * ``attn_full``   — parallel forward over a whole sequence (prefill); a
                       plain tensor path, as in the reference.
   * ``attn_cached`` — scores a block of ``k`` fresh tokens against the cache
-                      and each other (the paper's verify substep) through
-                      ``kernels.ops.verify_attention``: the CUDA kernel for
-                      tensors on the card, its plain version on the CPU.
+                      and each other (the paper's verify substep), as a
+                      chain or as a candidate tree, through the kernels of
+                      ``kernels.ops`` (the CUDA kernel for tensors on the
+                      card, its plain version on the CPU):
+
+                        chain, dense cache  -> verify_attention
+                        chain, paged cache  -> paged_verify_attention
+                        tree,  dense cache  -> tree_verify_attention
+                        tree,  paged cache  -> cache_kv_view's page gather,
+                                               then tree_verify_attention
+  * ``tree_commit_attn`` — after a tree forward, moves the accepted
+                      root-to-leaf path's K/V into chain slots.
 
 Masking is computed from absolute positions, so the BPD rollback ("length
-decreases by up to k-1") moves no data.
+decreases by up to k-1") moves no data.  Caches are written in place (the
+reference returns new ones).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
@@ -122,13 +135,54 @@ def _reserved_slots(cfg: ModelConfig, layer_idx: int, buf_len: int) -> int:
     return cfg.num_meta_tokens if _window(cfg, layer_idx) else 0
 
 
+def _paged_cache_write(cache: Dict, k, v, positions) -> Dict:
+    """Scatter K/V through the block table into the page pool, in place.
+
+    Paged layers are full-attention, so position p lives at offset
+    ``p % page_size`` of logical page ``p // page_size``, i.e. at physical
+    slot ``tbl[b, p // ps] * ps + p % ps``; ``pos`` is indexed by position.
+    positions: (S,) shared across rows (prefill) or (B, S) per row.
+    """
+    kp, vp, tbl = cache["kp"], cache["vp"], cache["tbl"]
+    num_pages, ps, kvh, hd = kp.shape
+    b = tbl.shape[0]
+    positions = positions.to(torch.int32)
+    if positions.dim() == 1:
+        positions = positions[None].expand(b, -1)
+    s = positions.shape[1]
+    rows = torch.arange(b, device=tbl.device)[:, None]
+    pl = positions.long()
+    phys = (tbl[rows, pl // ps].long() * ps + pl % ps).reshape(-1)
+    kp.view(num_pages * ps, kvh, hd)[phys] = k.reshape(b * s, kvh, hd).to(kp.dtype)
+    vp.view(num_pages * ps, kvh, hd)[phys] = v.reshape(b * s, kvh, hd).to(vp.dtype)
+    cache["pos"][rows, pl] = positions
+    return cache
+
+
+def cache_kv_view(cache: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (B, L, KV, hd) K/V that attention scores against: the arrays
+    themselves for a dense layer, a page gather for a paged one (column j
+    of the view is position j)."""
+    if "kp" in cache:
+        kp, vp, tbl = cache["kp"], cache["vp"], cache["tbl"]
+        _, ps, kvh, hd = kp.shape
+        b, n_pages = tbl.shape
+        idx = tbl.long()
+        return (kp[idx].reshape(b, n_pages * ps, kvh, hd),
+                vp[idx].reshape(b, n_pages * ps, kvh, hd))
+    return cache["k"], cache["v"]
+
+
 def cache_write(cache: Dict, cfg: ModelConfig, layer_idx: int, k, v,
                 positions) -> Dict:
-    """Scatter post-RoPE K/V for ``positions`` into the dense ring buffer,
-    in place, and return the same cache dict.
+    """Scatter post-RoPE K/V for ``positions`` into the dense ring buffer
+    or through the block table (paged), in place, and return the same cache
+    dict.
 
     positions: (S,) shared across rows (prefill) or (B, S) per row (decode).
     """
+    if "kp" in cache:
+        return _paged_cache_write(cache, k, v, positions)
     buf_len = cache["k"].shape[1]
     b = cache["k"].shape[0]
     nres = _reserved_slots(cfg, layer_idx, buf_len)
@@ -157,8 +211,32 @@ def cache_write(cache: Dict, cfg: ModelConfig, layer_idx: int, k, v,
     return cache
 
 
+@functools.lru_cache(maxsize=64)
+def tree_tables(tree, device) -> Dict[str, torch.Tensor]:
+    """A topology's tables as tensors on ``device``, made once per topology
+    and device: every layer of every tree iteration reads them, and a copy
+    from pageable host memory would wait for the stream each time.  The
+    tensors are shared; callers never write to them.
+
+      depths (N,) int32, anc_bits (N,) int32, nodes (N,) int32 = 0..N-1,
+      paths (N, N) int32 = ``path_matrix`` padded with -1,
+      verify_perm (N,) int64 = parents[1:] + (0,), ranks (N,) int64.
+    """
+    n = tree.num_nodes
+    paths = np.full((n, n), -1, np.int32)
+    paths[:, :tree.max_depth + 1] = tree.path_matrix
+    tables = {"depths": (tree.depths, torch.int32),
+              "anc_bits": (tree.anc_bits, torch.int32),
+              "nodes": (np.arange(n), torch.int32),
+              "paths": (paths, torch.int32),
+              "verify_perm": (tree.parents[1:] + (0,), torch.int64),
+              "ranks": (tree.ranks, torch.int64)}
+    return {name: torch.as_tensor(np.asarray(t), dtype=dt, device=device)
+            for name, (t, dt) in tables.items()}
+
+
 def attn_cached(p, cfg: ModelConfig, x_block, cache: Dict, length, *,
-                layer_idx: int = 0) -> Tuple[torch.Tensor, Dict]:
+                layer_idx: int = 0, tree=None) -> Tuple[torch.Tensor, Dict]:
     """Verify-substep attention: ``k`` fresh tokens vs the cache and each other.
 
     x_block : (B, k, d) tokens at absolute positions length .. length+k-1
@@ -166,6 +244,14 @@ def attn_cached(p, cfg: ModelConfig, x_block, cache: Dict, length, *,
               entries with pos >= length+k are stale speculative writes and
               are masked out; entries in [length, length+k) are overwritten
               by this call's own write.
+    tree    : optional ``kernels.tree_mask.TreeTopology`` — the block is a
+              draft tree of ``k`` nodes.  Node n still writes its K/V at
+              storage position ``length + n``, but RoPE runs at its logical
+              position ``length + depth[n]``, and the kernel sees the
+              block's columns at those logical positions with node ids, so
+              each node attends to its root-to-node chain plus the
+              committed cache.  ``tree_commit_attn`` then compacts the
+              accepted path into chain slots.
 
     The block's K/V are written into ``cache`` in place (the reference
     returns a new cache).  That is sound because attention caches need no
@@ -173,15 +259,98 @@ def attn_cached(p, cfg: ModelConfig, x_block, cache: Dict, length, *,
     the next block (``blocks.commit_cache`` passes them through).
     """
     b, kblk, _ = x_block.shape
-    length = torch.as_tensor(length, dtype=torch.int32,
-                             device=x_block.device).expand(b)
-    positions = length[:, None] + torch.arange(kblk, dtype=torch.int32,
-                                               device=x_block.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x_block, positions)
+    dev = x_block.device
+    length = torch.as_tensor(length, dtype=torch.int32, device=dev).expand(b)
+    slot_ids = torch.arange(kblk, dtype=torch.int32, device=dev)
+    positions = length[:, None] + slot_ids[None, :]
+    if tree is None:
+        rope_pos = positions
+    else:
+        if tree.num_nodes != kblk:
+            raise ValueError(
+                f"tree topology has {tree.num_nodes} nodes but the block "
+                f"has {kblk} slots")
+        tables = tree_tables(tree, dev)
+        rope_pos = length[:, None] + tables["depths"][None, :]
+    q, k, v = _project_qkv(p, cfg, x_block, rope_pos)
     cache = cache_write(cache, cfg, layer_idx, k, v, positions)
+    window = _window(cfg, layer_idx)
     kv_pos = cache["pos"]                                            # (B, L)
     kv_pos = torch.where(kv_pos < (length + kblk)[:, None], kv_pos, -1)
-    ctx = ops.verify_attention(q, cache["k"], cache["v"], positions, kv_pos,
-                               window=_window(cfg, layer_idx),
-                               num_meta=cfg.num_meta_tokens)
+    if tree is None:
+        if "kp" in cache:
+            ctx = ops.paged_verify_attention(
+                q, cache["kp"], cache["vp"], cache["tbl"], positions, kv_pos,
+                window=window, num_meta=cfg.num_meta_tokens)
+        else:
+            ctx = ops.verify_attention(q, cache["k"], cache["v"], positions,
+                                       kv_pos, window=window,
+                                       num_meta=cfg.num_meta_tokens)
+        return _out_proj(p, ctx), cache
+    # The block's columns of the K/V view (the ring slot of a dense layer,
+    # the position itself for a paged one) carry the nodes' logical
+    # positions and node ids; the kernel adds the ancestor-bit test there.
+    if "kp" in cache:
+        cols = positions
+    else:
+        buf_len = cache["k"].shape[1]
+        cols = _slot_for(positions, buf_len,
+                         _reserved_slots(cfg, layer_idx, buf_len))
+    rows = torch.arange(b, device=dev)[:, None]
+    kv_pos[rows, cols.long()] = rope_pos      # kv_pos is torch.where's copy
+    kv_node = torch.full_like(kv_pos, -1)
+    kv_node[rows, cols.long()] = tables["nodes"][None, :].expand(b, -1)
+    ck, cv = cache_kv_view(cache)
+    ctx = ops.tree_verify_attention(
+        q, ck, cv, rope_pos, kv_pos, kv_node,
+        tables["anc_bits"][None, :].expand(b, -1).contiguous(), window=window,
+        num_meta=cfg.num_meta_tokens)
     return _out_proj(p, ctx), cache
+
+
+def tree_commit_attn(cache: Dict, cfg: ModelConfig, layer_idx: int,
+                     path_nodes, khat, length, block_k: int) -> Dict:
+    """Compact an accepted root-to-leaf tree path into chain slots, in place.
+
+    After a tree verify forward, the K/V of the token committed at position
+    ``length + j`` lives at storage position ``length + path_nodes[:, j]``
+    (its RoPE position is already right, since depth[path_nodes[:, j]] ==
+    j).  This copies those entries into the leading ``khat`` chain slots;
+    slots at j >= k̂ keep their speculative entries, which the next block
+    overwrites as in chain decode.  All sources are gathered into a fresh
+    tensor before any slot is written: a source of one depth can be the
+    destination of a deeper one.
+
+    path_nodes : (B, k) int32 — node id at depth j (< 0 beyond the path)
+    khat       : (B,) int32 accepted tokens; 0 = frozen row (unchanged)
+    length     : (B,) or () int32 pre-accept lengths (the block's base)
+    """
+    b = path_nodes.shape[0]
+    dev = path_nodes.device
+    length = torch.as_tensor(length, dtype=torch.int32, device=dev).expand(b)
+    j = torch.arange(block_k, dtype=torch.int32, device=dev)[None, :]
+    node = path_nodes.clamp(0, block_k - 1)
+    src_pos = (length[:, None] + node).long()
+    dst_pos = (length[:, None] + j).long()
+    keep = (j < khat[:, None]) & (node != j)
+    rows = torch.arange(b, device=dev)[:, None]
+    # every chain slot is rewritten, a slot that keeps its entry from
+    # itself: a boolean selection would wait for the device to count it
+    if "kp" in cache:
+        kp, tbl = cache["kp"], cache["tbl"]
+        num_pages, ps, kvh, hd = kp.shape
+        src = tbl[rows, src_pos // ps].long() * ps + src_pos % ps
+        dst = tbl[rows, dst_pos // ps].long() * ps + dst_pos % ps
+        src = torch.where(keep, src, dst)
+        for name in ("kp", "vp"):
+            flat = cache[name].view(num_pages * ps, kvh, hd)
+            flat[dst] = flat[src]          # the gather copies before the write
+        return cache
+    buf_len = cache["k"].shape[1]
+    nres = _reserved_slots(cfg, layer_idx, buf_len)
+    dst = _slot_for(dst_pos, buf_len, nres).long()
+    src = torch.where(keep, _slot_for(src_pos, buf_len, nres).long(), dst)
+    for name in ("k", "v"):
+        buf = cache[name]
+        buf[rows, dst] = buf[rows, src]    # the gather copies before the write
+    return cache

@@ -46,7 +46,8 @@ def block_init(gen, cfg: ModelConfig, layer_idx: int, *, dtype=torch.float32,
 def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
                      context_len: int, block_k: int, dtype, device=None,
                      backend: Optional[cache_lib.DenseBackend] = None) -> Dict:
-    """Static cache buffers for one layer (decode path)."""
+    """Static cache buffers for one layer (decode path), in the layout of
+    ``backend`` (dense when None)."""
     be = backend if backend is not None else cache_lib.DenseBackend()
     return {"attn": be.layer_attn_init(cfg, layer_idx, batch, context_len,
                                        block_k, dtype, device)}
@@ -76,13 +77,14 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
 
 
 def block_cached(p, cfg: ModelConfig, layer_idx: int, x, cache: Dict,
-                 length) -> Tuple[torch.Tensor, Dict]:
-    """x: (B, k, d) fresh tokens at positions length..length+k-1.
+                 length, *, tree=None) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, k, d) fresh tokens at positions length..length+k-1 (or the
+    nodes of draft tree ``tree``, see ``attention.attn_cached``).
     Returns (y, cache); the attention cache is written in place."""
     new_cache = dict(cache)
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
     y, new_cache["attn"] = attn_cached(p["attn"], cfg, h, cache["attn"],
-                                       length, layer_idx=layer_idx)
+                                       length, layer_idx=layer_idx, tree=tree)
     x = x + y
     h = norm_apply(p["ln2"], x, kind=cfg.norm_type)
     return x + mlp_apply(p["mlp"], h, act=cfg.activation), new_cache

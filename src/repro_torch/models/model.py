@@ -20,6 +20,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.heads import head_apply_single, heads_apply, heads_init
 from repro_torch.kernels import ops
 from repro_torch.models import cache as cache_lib
+from repro_torch.models.attention import tree_commit_attn
 from repro_torch.models.blocks import (
     block_cache_init,
     block_cached,
@@ -121,12 +122,15 @@ def forward_hidden(params, cfg: ModelConfig, h, *, positions=None, caches=None):
     return h, (tuple(new_caches) if new_caches is not None else None)
 
 
-def decode_block_step(params, cfg: ModelConfig, h, caches, length):
+def decode_block_step(params, cfg: ModelConfig, h, caches, length, *,
+                      tree=None):
     """BPD verify-substep backbone: k fresh embeddings vs the caches.
-    Returns (hidden_block, staged_caches); ``commit_caches`` resolves them."""
+    Returns (hidden_block, staged_caches); ``commit_caches`` resolves them.
+    ``tree`` switches the block to tree verification (see
+    ``attention.attn_cached``)."""
     new_caches = []
     for i, bp in enumerate(params["blocks"]):
-        h, c_out = block_cached(bp, cfg, i, h, caches[i], length)
+        h, c_out = block_cached(bp, cfg, i, h, caches[i], length, tree=tree)
         new_caches.append(c_out)
     h = norm_apply(params["final_norm"], h, kind=cfg.norm_type)
     return h, tuple(new_caches)
@@ -134,6 +138,15 @@ def decode_block_step(params, cfg: ModelConfig, h, caches, length):
 
 def commit_caches(cfg: ModelConfig, caches, khat):
     return tuple(commit_cache(cfg, c, khat) for c in caches)
+
+
+def commit_tree_path(cfg: ModelConfig, caches, path_nodes, khat, length,
+                     block_k: int):
+    """Compact the accepted root-to-leaf path into chain slots in every
+    layer after a tree verify forward (see ``attention.tree_commit_attn``)."""
+    for i, c in enumerate(caches):
+        tree_commit_attn(c["attn"], cfg, i, path_nodes, khat, length, block_k)
+    return caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, context_len: int, block_k: int,
@@ -191,9 +204,12 @@ def greedy_token(logits) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def head_topk(params, cfg: ModelConfig, hidden, n: int) -> torch.Tensor:
-    """Top-1 ids of heads p_2..p_{n+1} at hidden (B, d) -> (B, n) int32,
-    through the fused-heads kernel: the heads' logits are never written."""
+def head_topk(params, cfg: ModelConfig, hidden, n: int,
+              top_t: int = 1) -> torch.Tensor:
+    """Top-``top_t`` ids of heads p_2..p_{n+1} at hidden (B, d) ->
+    (B, n, top_t) int32, ordered by (logit desc, id asc), from one
+    fused-heads launch over the B·n rows: the heads' logits are never
+    written."""
     b, d = hidden.shape
     if n >= cfg.bpd_k:
         raise ValueError(f"{n + 1} proposal slots need {n + 1} heads; "
@@ -202,5 +218,5 @@ def head_topk(params, cfg: ModelConfig, hidden, n: int) -> torch.Tensor:
                        identity_p1=cfg.bpd_identity_p1)[:, 1:1 + n]
     _, ids = ops.fused_heads_topk(outs.reshape(b * n, d),
                                   vocab_matrix(params, cfg),
-                                  vocab=cfg.vocab_size, top_t=1)
-    return ids[:, 0].reshape(b, n)
+                                  vocab=cfg.vocab_size, top_t=top_t)
+    return ids.reshape(b, n, top_t)

@@ -13,9 +13,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.config import DecodeConfig, ModelConfig  # noqa: E402
 from repro_torch.core import decode  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
-from repro_torch.kernels.block_attention import verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.block_attention import (  # noqa: E402
+    tree_verify_attention_cuda, verify_attention_cuda)
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
 from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.tree_mask import TreeTopology, default_tree  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -59,6 +62,72 @@ def test_verify_attention_kernel_matches_plain(cuda, kq, hd, window, meta, dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _tree_case(gen, dev, dtype, b, h, kvh, hd, l, topo, window=0):
+    kq = topo.num_nodes
+    q = _randn(gen, (b, kq, h, hd), dtype, dev)
+    k = _randn(gen, (b, l, kvh, hd), dtype, dev)
+    v = _randn(gen, (b, l, kvh, hd), dtype, dev)
+    length = torch.tensor([l - kq - 5 * i for i in range(b)], dtype=torch.int32)
+    depth = torch.as_tensor(topo.depths, dtype=torch.int32)
+    q_pos = length[:, None] + depth[None, :]
+    slot = torch.arange(l, dtype=torch.int32)[None, :]
+    node = slot - length[:, None]
+    tree = (node >= 0) & (node < kq)
+    kv_node = torch.where(tree, node, -1).int()
+    kv_pos = torch.where(slot < length[:, None], slot,
+                         torch.where(tree, length[:, None]
+                                     + depth[node.clamp(0, kq - 1)], -1)).int()
+    anc = torch.as_tensor(topo.anc_bits, dtype=torch.int32)[None].repeat(b, 1)
+    return [t.to(dev) if t.device.type == "cpu" else t
+            for t in (q, k, v, q_pos, kv_pos, kv_node, anc)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("topo,h,window", [
+    (default_tree(8, 2), 32, 0), (default_tree(8, 4), 32, 0),
+    (default_tree(8, 2), 32, 24),
+    (TreeTopology((-1,) + tuple(range(31))), 16, 0)])   # bit 31, G = 2
+def test_tree_verify_attention_kernel_matches_plain(cuda, topo, h, window, dtype):
+    gen = torch.Generator().manual_seed(topo.num_nodes + h)
+    args = _tree_case(gen, cuda, dtype, 2, h, 8, 128, 300, topo)
+    got = tree_verify_attention_cuda(*args, window=window)
+    want = ref.tree_verify_attention(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_tree_kernel_on_a_chain_equals_verify_kernel(cuda):
+    topo = TreeTopology((-1,) + tuple(range(7)))
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, q_pos, kv_pos, kv_node, anc = _tree_case(
+        gen, cuda, torch.float32, 2, 32, 8, 128, 256, topo)
+    got = tree_verify_attention_cuda(q, k, v, q_pos, kv_pos, kv_node, anc)
+    want = verify_attention_cuda(q, k, v, q_pos, kv_pos)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,kq,window", [(8, 8, 0), (16, 8, 0), (16, 1, 0),
+                                          (16, 8, 40)])
+def test_paged_verify_attention_kernel_matches_plain(cuda, ps, kq, window, dtype):
+    gen = torch.Generator().manual_seed(ps * kq)
+    b, h, kvh, hd, P = 3, 32, 8, 128, 9
+    num_pages = 1 + b * P
+    q = _randn(gen, (b, kq, h, hd), dtype, cuda)
+    kp = _randn(gen, (num_pages, ps, kvh, hd), dtype, cuda)
+    vp = _randn(gen, (num_pages, ps, kvh, hd), dtype, cuda)
+    tbl = 1 + torch.randperm(b * P, generator=gen).int().reshape(b, P)
+    tbl[1, 0] = tbl[0, 0]                         # two rows share a page
+    ctx = torch.tensor([P * ps - 3, 5 * ps, 2 * ps + 1])
+    slot = torch.arange(P * ps)[None, :]
+    kv_pos = torch.where(slot < ctx[:, None], slot, -1).int()
+    tbl[2, 3:] = 0                                # unmapped: trash page, pos -1
+    q_pos = (ctx[:, None] - kq + torch.arange(kq)[None, :]).int()
+    args = [q, kp, vp, tbl.to(cuda), q_pos.to(cuda), kv_pos.to(cuda)]
+    got = paged_verify_attention_cuda(*args, window=window)
+    want = ref.paged_verify_attention(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("crit", CRITERIA)
 @pytest.mark.parametrize("k", [8, 1])
@@ -99,6 +168,13 @@ def test_every_launch_is_counted(cuda):
                       criterion="exact")
     fused_heads_topk_cuda(torch.zeros((2, 8), device=cuda),
                           torch.zeros((8, 16), device=cuda), vocab=10, top_t=1)
+    node = torch.full((1, 16), -1, dtype=torch.int32, device=cuda)
+    tree_verify_attention_cuda(q, kv, kv, pos, node + 1, node,
+                               torch.ones((1, 2), dtype=torch.int32, device=cuda))
+    pool = torch.zeros((3, 8, 2, 64), device=cuda)
+    paged_verify_attention_cuda(q, pool, pool,
+                                torch.ones((1, 2), dtype=torch.int32, device=cuda),
+                                pos, node + 1)
     assert _build.LAUNCHES == {name: 1 for name in _build.KERNELS}
 
 
@@ -130,5 +206,28 @@ def test_decode_on_the_card_goes_through_the_kernels(cuda):
     assert _build.LAUNCHES["verify_attention"] == 2 * bs["iterations"]
     assert _build.LAUNCHES["fused_verify"] == bs["iterations"]
     assert _build.LAUNCHES["fused_heads"] == bs["iterations"] + 1
+    gt, _ = decode.greedy_decode(params, cfg, dec, {"tokens": prompt})
+    assert torch.equal(bt[:, :24], gt[:, :24])
+
+
+@pytest.mark.parametrize("policy,backend", [("exact", "paged"),
+                                            ("topk_tree", "dense"),
+                                            ("topk_tree", "paged")])
+def test_tree_and_paged_decode_on_the_card(cuda, policy, backend):
+    """Tree verification and the paged cache on the card: greedy's tokens,
+    and the forwards ran the tree or paged kernel in every layer."""
+    cfg = ModelConfig(name="t", num_layers=2, d_model=256, num_heads=8,
+                      num_kv_heads=2, d_ff=512, vocab_size=1000, bpd_k=8,
+                      dtype="float32")
+    params = model.init(cfg, seed=1, device=cuda)
+    prompt = torch.randint(0, 1000, (4, 8), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(2)).to(cuda)
+    dec = DecodeConfig(max_new_tokens=16, block_k=8, policy=policy,
+                       cache_backend=backend)
+    _build.reset_launches()
+    bt, bs = decode.bpd_decode(params, cfg, dec, {"tokens": prompt})
+    kernel = "tree_verify_attention" if policy == "topk_tree" else "paged_verify_attention"
+    assert _build.LAUNCHES[kernel] == 2 * bs["iterations"]
+    assert _build.LAUNCHES["verify_attention"] == 0
     gt, _ = decode.greedy_decode(params, cfg, dec, {"tokens": prompt})
     assert torch.equal(bt[:, :24], gt[:, :24])

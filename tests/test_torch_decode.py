@@ -229,8 +229,8 @@ def test_serve_static_path_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--engine"], ["--http"], ["--mesh-data", "2"],
-                                  ["--cache-backend", "paged"],
-                                  ["--policy", "topk_tree"]])
+                                  ["--policy", "input_copy"],
+                                  ["--policy", "draft_model"]])
 def test_unported_serving_options_raise(argv):
     from repro_torch.launch import serve
 
@@ -239,9 +239,9 @@ def test_unported_serving_options_raise(argv):
                     "2", "--batch", "1", "--prompt-len", "4", *argv])
 
 
-def test_only_exact_policy_resolves():
+def test_exact_resolves_and_unported_policies_raise():
     pol = tpolicy.resolve_policy(DecodeConfig())
     assert pol.name == "exact" and isinstance(pol.drafter, tpolicy.HeadsDrafter)
     assert tpolicy.resolve_policy(DecodeConfig(fused_verify=True)).acceptor.fused
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpolicy.resolve_policy(DecodeConfig(policy="adaptive"))
+        tpolicy.resolve_policy(DecodeConfig(policy="input_copy"))

@@ -12,10 +12,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.tree_mask import TreeTopology as JTreeTopology  # noqa: E402
+from repro.kernels.tree_mask import default_tree as jdefault_tree  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.block_attention import verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.block_attention import (  # noqa: E402
+    tree_verify_attention_cuda, verify_attention_cuda)
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
 from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.tree_mask import TreeTopology, default_tree  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -95,6 +100,163 @@ def test_verify_attention_masks_all_stale_rows():
     assert not torch.isnan(got).any()
     want = jops.verify_attention(*(jnp.asarray(x) for x in (q, k, v, qpos, kvpos)))
     np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# tree verify attention (test_kernels.py:361, :373)
+# ---------------------------------------------------------------------------
+
+
+def _tree_inputs(b, kq, h, kvh, hd, l, topo, length, seed=11):
+    """A cache whose slots [length, length+kq) hold the block's tree nodes
+    at logical positions length + depth (as numpy, for both packages)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, kq, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, l, kvh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, l, kvh, hd)).astype(np.float32)
+    length = np.asarray(length, np.int32)
+    depths = np.asarray(topo.depths)
+    q_pos = (length[:, None] + depths[None, :]).astype(np.int32)
+    slot = np.arange(l)[None, :]
+    node = slot - length[:, None]
+    is_tree = (node >= 0) & (node < kq)
+    kv_node = np.where(is_tree, node, -1).astype(np.int32)
+    kv_pos = np.where(slot < length[:, None], slot,
+                      np.where(is_tree,
+                               length[:, None] + depths[np.clip(node, 0, kq - 1)],
+                               -1)).astype(np.int32)
+    anc = np.broadcast_to(np.asarray(topo.anc_bits)[None, :], (b, kq)).copy()
+    return q, k, v, q_pos, kv_pos, kv_node, anc
+
+
+def test_tree_topology_copy_matches_reference():
+    for kq, fanout in ((1, 2), (4, 2), (8, 4), (8, 7), (32, 2)):
+        got, want = default_tree(kq, fanout), jdefault_tree(kq, fanout)
+        assert got == TreeTopology(want.parents)
+        for name in ("depths", "ranks", "anc_matrix", "path_matrix", "anc_bits"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert int(default_tree(32, 2).anc_bits[31]) < 0      # bit 31 wraps
+
+
+@pytest.mark.parametrize("b,kq,h,kvh,hd,l,fanout,window,block_kv", [
+    (2, 8, 4, 2, 16, 48, 4, 0, 16),     # GQA
+    (1, 4, 4, 4, 24, 33, 2, 12, 16),    # MHA + sliding window, ragged hd/L
+    (3, 8, 8, 2, 32, 64, 7, 0, 32),     # full-fanout star
+    (1, 2, 2, 1, 64, 40, 1, 0, 512),    # MQA chain-like tree, one block
+])
+def test_tree_verify_attention_plain_matches_pallas(b, kq, h, kvh, hd, l,
+                                                    fanout, window, block_kv):
+    rng = np.random.default_rng(11)
+    length = rng.integers(kq, l - kq, size=(b,))
+    args = _tree_inputs(b, kq, h, kvh, hd, l, default_tree(kq, fanout), length)
+    got = ops.tree_verify_attention(*(torch.from_numpy(x) for x in args),
+                                    window=window)
+    want = jops.tree_verify_attention(*(jnp.asarray(x) for x in args),
+                                      window=window, block_kv=block_kv)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    oracle = jref.tree_verify_attention(*(jnp.asarray(x) for x in args),
+                                        window=window)
+    np.testing.assert_allclose(_np(got), _np(oracle), **TOL["float32"])
+
+
+def test_tree_verify_chain_degenerates_to_verify_attention():
+    """A pure-chain topology's ancestor mask is the causal mask: the tree
+    plain version equals the chain one and the Pallas tree kernel."""
+    b, kq, h, kvh, hd, l = 2, 6, 4, 2, 32, 40
+    topo = TreeTopology((-1,) + tuple(range(kq - 1)))
+    q, k, v, q_pos, _, kv_node, anc = _tree_inputs(b, kq, h, kvh, hd, l, topo,
+                                                   [10, 17], seed=5)
+    slot = np.arange(l)[None, :]
+    kv_pos = np.where(slot < q_pos[:, -1:] + 1, slot, -1).astype(np.int32)
+    t = [torch.from_numpy(x) for x in (q, k, v, q_pos, kv_pos, kv_node, anc)]
+    got = ops.tree_verify_attention(*t)
+    chain = ops.verify_attention(*t[:5])
+    np.testing.assert_allclose(_np(got), _np(chain), **TOL["float32"])
+    want = jops.tree_verify_attention(*(jnp.asarray(x) for x in
+                                        (q, k, v, q_pos, kv_pos, kv_node, anc)),
+                                      block_kv=16)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+def test_tree_verify_attention_uses_bit_31():
+    """A 32-node tree: node 31's ancestor bit is the int32 sign bit, and
+    the plain version reads it as the reference's logical shift does."""
+    b, kq, h, kvh, hd, l = 1, 32, 2, 2, 16, 80
+    topo = JTreeTopology((-1,) + tuple(range(31)))             # one chain
+    args = _tree_inputs(b, kq, h, kvh, hd, l, topo, [20], seed=3)
+    assert args[-1][0, 31] < 0
+    got = ops.tree_verify_attention(*(torch.from_numpy(x) for x in args))
+    want = jref.tree_verify_attention(*(jnp.asarray(x) for x in args))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# paged verify attention (test_kernels.py:110, :122, :136)
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(b, kq, h, kv, hd, P, ps, num_pages, meta=0, share=False,
+                  seed=0):
+    """A paged cache with random mapped prefixes, the rest on trash page 0
+    with pos -1, a few stale slots; numpy inputs for both packages."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, kq, h, hd)).astype(np.float32)
+    kp = rng.standard_normal((num_pages, ps, kv, hd)).astype(np.float32)
+    vp = rng.standard_normal((num_pages, ps, kv, hd)).astype(np.float32)
+    tbl = np.zeros((b, P), np.int32)
+    kvpos = np.full((b, P * ps), -1, np.int32)
+    ctx = np.zeros(b, np.int64)
+    pool = list(range(1, num_pages))
+    for bi in range(b):
+        n = int(rng.integers(1, P + 1))
+        for i in range(n):
+            tbl[bi, i] = tbl[0, 0] if (share and bi > 0 and i == 0) else pool.pop()
+        ctx[bi] = n * ps
+        kvpos[bi, :ctx[bi]] = np.arange(ctx[bi])
+    for bi in range(b):
+        kvpos[bi, rng.integers(0, ctx[bi], 2)] = -1
+    base = np.maximum(ctx - kq, meta)
+    qpos = (base[:, None] + np.arange(kq)[None, :]).astype(np.int32)
+    return q, kp, vp, tbl, qpos, kvpos
+
+
+@pytest.mark.parametrize("b,kq,h,kv,hd,P,ps,num_pages,window,meta", [
+    (1, 2, 4, 4, 16, 4, 8, 8, 0, 0),      # MHA, small pool
+    (2, 4, 8, 2, 32, 3, 16, 12, 0, 0),    # GQA
+    (1, 8, 6, 2, 64, 6, 8, 16, 32, 0),    # sliding window
+    (2, 4, 4, 1, 32, 4, 8, 16, 16, 4),    # MQA + meta tokens
+])
+def test_paged_attention_plain_matches_pallas(b, kq, h, kv, hd, P, ps,
+                                              num_pages, window, meta):
+    args = _paged_inputs(b, kq, h, kv, hd, P, ps, num_pages, meta=meta)
+    got = ops.paged_verify_attention(*(torch.from_numpy(x) for x in args),
+                                     window=window, num_meta=meta)
+    for fn in (jops.paged_verify_attention, jref.paged_verify_attention):
+        want = fn(*(jnp.asarray(x) for x in args), window=window, num_meta=meta)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+def test_paged_attention_matches_dense_gather():
+    b, kq, h, kv, hd, P, ps = 2, 4, 4, 2, 32, 4, 8
+    q, kp, vp, tbl, qpos, kvpos = _paged_inputs(b, kq, h, kv, hd, P, ps, 16,
+                                                seed=1)
+    got = ops.paged_verify_attention(*(torch.from_numpy(x) for x in
+                                       (q, kp, vp, tbl, qpos, kvpos)))
+    kd = kp[tbl].reshape(b, P * ps, kv, hd)
+    vd = vp[tbl].reshape(b, P * ps, kv, hd)
+    want = jops.verify_attention(*(jnp.asarray(x) for x in
+                                   (q, kd, vd, qpos, kvpos)), block_kv=ps)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+def test_paged_attention_cow_shared_page():
+    """Two rows sharing one physical prefix page read identical bytes."""
+    args = _paged_inputs(2, 2, 2, 2, 16, 3, 8, 8, share=True, seed=2)
+    assert args[3][0, 0] == args[3][1, 0]
+    got = ops.paged_verify_attention(*(torch.from_numpy(x) for x in args))
+    want = jops.paged_verify_attention(*(jnp.asarray(x) for x in args))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    assert not torch.isnan(got).any()
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +387,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                      criterion="exact")
     ops.fused_heads_topk(torch.zeros((2, 8)), torch.zeros((8, 16)), vocab=10,
                          top_t=1)
+    ops.tree_verify_attention(q, kv, kv, pos, torch.zeros((1, 8), dtype=torch.int32),
+                              torch.full((1, 8), -1, dtype=torch.int32),
+                              torch.ones((1, 2), dtype=torch.int32))
+    ops.paged_verify_attention(q, torch.zeros((3, 8, 2, 64)),
+                               torch.zeros((3, 8, 2, 64)),
+                               torch.ones((1, 1), dtype=torch.int32), pos,
+                               torch.zeros((1, 8), dtype=torch.int32))
     assert _build.LAUNCHES == {name: 0 for name in _build.KERNELS}
 
 
@@ -235,7 +404,8 @@ def test_other_devices_raise():
 
 
 @pytest.mark.parametrize("call", ["verify_attention", "fused_verify",
-                                  "fused_heads"])
+                                  "fused_heads", "tree_verify_attention",
+                                  "paged_verify_attention"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers check their inputs before any launch: a CPU
     tensor is refused, never computed."""
@@ -244,6 +414,17 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
             q = torch.zeros((1, 2, 2, 64))
             pos = torch.zeros((1, 2), dtype=torch.int32)
             verify_attention_cuda(q, q, q, pos, pos)
+        elif call == "tree_verify_attention":
+            q = torch.zeros((1, 2, 2, 64))
+            pos = torch.zeros((1, 2), dtype=torch.int32)
+            tree_verify_attention_cuda(q, q, q, pos, pos, pos, pos)
+        elif call == "paged_verify_attention":
+            q = torch.zeros((1, 2, 2, 64))
+            pool = torch.zeros((3, 8, 2, 64))
+            paged_verify_attention_cuda(q, pool, pool,
+                                        torch.ones((1, 1), dtype=torch.int32),
+                                        torch.zeros((1, 2), dtype=torch.int32),
+                                        torch.zeros((1, 8), dtype=torch.int32))
         elif call == "fused_verify":
             fused_verify_cuda(torch.zeros((1, 3, 16)),
                               torch.zeros((1, 3), dtype=torch.int32),

@@ -178,7 +178,8 @@ def test_head_topk_equals_argmax_of_all_head_logits(dense):
     h = _x((6, 64), 3)
     want = np.asarray(jnp.argmax(jmodel.all_head_logits(jp, jcfg, jnp.asarray(h)), -1))
     got = tmodel.head_topk(tp, tcfg, torch.tensor(h), jcfg.bpd_k - 1)
-    np.testing.assert_array_equal(got.numpy(), want[:, 1:])
+    assert got.shape == (6, jcfg.bpd_k - 1, 1)
+    np.testing.assert_array_equal(got[:, :, 0].numpy(), want[:, 1:])
 
 
 # ---------------------------------------------------------------------------
