@@ -6,11 +6,12 @@
 Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 
   1. device   — needs CUDA; prints the card's name and power limit.
-  2. build    — compiles the five CUDA kernels from src/repro_torch/kernels/csrc
+  2. build    — compiles the six CUDA kernels from src/repro_torch/kernels/csrc
                 (one nvcc per source, all started together).
   3. kernels  — each kernel against its plain PyTorch version at the decode
                 paths' shapes, bf16 and fp32 (tree shapes, 32-node trees,
-                shared and unmapped pages included); times kernel, plain
+                shared and unmapped pages, rwkv6's untied lm_head, ragged
+                and strong-decay scans included); times kernel, plain
                 version, the one-call PyTorch yardstick where there is one,
                 and the bound (bytes / 3.35 TB/s or FLOPs / peak, the larger).
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
@@ -27,17 +28,28 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 wrong and node 2 right (k̂ = 2), node 1's chain right
                 (k̂ = 8 - fanout + 1); a second iteration gives greedy's
                 tokens, dense and paged.
-  6. serve    — the weights cast to bf16, served by repro_torch.launch.serve
-                (static batch, --full-config); BPD/greedy agreement reported.
+  6. serve    — the weights cast for bf16 (model.cast_for_compute), served by
+                repro_torch.launch.serve (static batch, --full-config);
+                BPD/greedy agreement reported.
   6b. serve   — the same with --policy topk_tree --cache-backend paged.
   7. profile  — one bf16 BPD iteration of each serve (after 6 and after
                 6b): host wall time against the summed kernel time
                 torch.profiler sees (the device's idle share).
+  8. rwkv     — granite freed; rwkv6-1.6b at full width in fp32 (random
+                weights, seed 0): greedy and BPD exact of 8 prompts x 512
+                tokens, 64 new each; BPD must emit greedy's tokens; launches
+                exact (rwkv6_scan once per layer and prefill).
+  8b. accepts — rwkv6 iterations with greedy's continuation (k̂ = 8) and with
+                slot 3 corrupted (k̂ = 3), each followed by a second
+                iteration on the committed recurrent state (greedy's tokens).
+  9. serve    — rwkv6-1.6b cast for bf16 and served (--prompt-len 512);
+                BPD/greedy agreement reported; one iteration profiled.
 
 Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
 fused_heads from phase 6, tree_verify_attention from phase 6b,
-paged_verify_attention from phase 4b's BPD exact run on the paged cache.
+paged_verify_attention from phase 4b's BPD exact run on the paged cache,
+rwkv6_scan from phase 9.
 
 Any failure exits non-zero.  The second-to-last lines are the kernels' JSON
 and the card's name and power limit; the last line is
@@ -45,6 +57,7 @@ and the card's name and power limit; the last line is
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -58,6 +71,8 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core rate
               "float32": 67e12}           # fp32 outside the tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SCAN_TOL = 1e-4                           # relative, and of max|out| absolute:
+                                          # fp32 sums in another order
 TIE_MARGIN = 1e-4                         # of max|logit|: BPD/greedy near-ties
 HEADS_TIE_MARGIN = 1e-3                   # of max|logit|: fused-heads near-ties
 BF16_TIE_ULPS = 8                         # bf16 ulps of max|logit|: reported
@@ -515,6 +530,25 @@ def check_fused_heads(torch, gen, results):
                                            top_t=4)
         check(int(pad_ids.max()) < vocab, "fused_heads selected a pad lane")
         log(f"  fused_heads {dtype} pad-never-wins: ok")
+        # rwkv6-1.6b: an untied, row-major lm_head (d 2048, Vp = V 65536)
+        ro = torch.randn((n, 2048), generator=gen, device="cuda").to(dt)
+        rw = (torch.randn((2048, 65536), generator=gen, device="cuda")
+              * 0.02).to(dt)
+        for top_t in (1, 4):
+            vals, ids = fused_heads_topk_cuda(ro, rw, vocab=65536, top_t=top_t)
+            torch.cuda.synchronize()
+            ok, ties, wv = heads_ids_agree(torch, vals, ids, ro, rw, 65536,
+                                           top_t)
+            err = (vals - wv).abs().max().item()
+            tol = ATTN_TOL[dtype]
+            vals_ok = torch.allclose(vals, wv, rtol=tol, atol=tol)
+            log(f"  fused_heads {dtype} T={top_t} untied lm_head (2048,65536): "
+                f"max_abs_err={err:.3g} near-ties={ties} "
+                f"{'ok' if ok and vals_ok else 'FAIL'}")
+            check(ok and vals_ok, f"fused_heads {dtype} T={top_t} untied "
+                                  f"lm_head differs from its plain version")
+            worst = max(worst, err)
+        del rw
     o, w = timed
     kernel_ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
                                                              top_t=1))
@@ -528,6 +562,64 @@ def check_fused_heads(torch, gen, results):
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None,
         shape="bf16 o (56,4096), tied table view (4096,49408), T=1")
+
+
+def check_rwkv6_scan(torch, gen, results):
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
+                                                rwkv6_scan_plain)
+
+    cases = []   # (dtype, B, S, H, D, kind)
+    for dtype in ("bfloat16", "float32"):
+        cases += [(dtype, 8, 512, 32, 64, "path"),
+                  (dtype, 8, 37, 32, 64, "ragged S"),
+                  (dtype, 2, 64, 8, 16, "D 16"),
+                  (dtype, 2, 64, 8, 32, "D 32"),
+                  (dtype, 2, 64, 8, 128, "D 128"),
+                  (dtype, 1, 48, 4, 64, "strong decay")]
+    worst = 0.0
+    timed = None
+    for dtype, b, s, h, d, kind in cases:
+        dt = getattr(torch, dtype)
+        r, k, v = (torch.randn((b, s, h, d), generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        if kind == "strong decay":               # w = e^-8: near-total decay
+            logw = torch.full((b, s, h, d), -8.0, device="cuda")
+        else:
+            logw = -torch.exp(torch.randn((b, s, h, d), generator=gen,
+                                          device="cuda") * 0.5 - 1.0)
+        u = torch.randn((h, d), generator=gen, device="cuda") * 0.1
+        got = rwkv6_scan_cuda(r, k, v, logw, u)
+        want = rwkv6_scan_plain(r, k, v, logw, u)
+        torch.cuda.synchronize()
+        ok, err = True, 0.0
+        for g, w in zip(got, want):                  # y, then the final state
+            ok = ok and bool(torch.isfinite(g).all()) and torch.allclose(
+                g, w, rtol=SCAN_TOL, atol=SCAN_TOL * float(w.abs().max()))
+            err = max(err, (g - w).abs().max().item())
+        log(f"  rwkv6_scan {dtype} B={b} S={s} H={h} D={d} {kind}: "
+            f"max_abs_err={err:.3g} (max|y| {float(want[0].abs().max()):.3g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"rwkv6_scan {dtype} S={s} D={d} {kind} differs from its "
+                  f"plain version by {err}")
+        worst = max(worst, err)
+        if (dtype, kind) == ("bfloat16", "path"):
+            timed = (r, k, v, logw, u)
+    log(f"  rwkv6_scan: max_abs_err over all {len(cases)} cases {worst:.3g}")
+
+    # time at the rwkv6 serve path's prefill: bf16, B=8, S=512, H=32, D=64
+    kernel_ms = time_ms(torch, lambda: rwkv6_scan_cuda(*timed))
+    plain_ms = time_ms(torch, lambda: rwkv6_scan_plain(*timed), runs=5,
+                       warmup=1)
+    b, s, h, d = timed[0].shape
+    out_bytes = (b * s * h * d + b * h * d * d) * 4      # y and the state, f32
+    bms, by = bound(nbytes(*timed) + out_bytes, 4.0 * b * s * h * d * d,
+                    "float32")
+    results["rwkv6_scan"] = dict(
+        source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:100",
+        max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
+        shape="bf16 r/k/v (8,512,32,64), logw f32, u (32,64)")
 
 
 # ---------------------------------------------------------------------------
@@ -787,9 +879,10 @@ def phase_decode(torch, results):
 
     # ---- phase 6: bf16 serve ------------------------------------------------
     del state
-    params.to(torch.bfloat16)                     # in place: frees the fp32 copy
+    # in place (frees the fp32 copy), the fp32-read leaves kept in fp32
+    M.cast_for_compute(params, cfg.replace(dtype="bfloat16"))
     torch.cuda.empty_cache()
-    log(f"[serve] weights cast to bf16: "
+    log(f"[serve] weights cast for bf16: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
     _build.reset_launches()
     out = serve.main(["--arch", "granite-3-8b", "--full-config", "--batch",
@@ -908,6 +1001,138 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label):
         log(f"    {ms:8.3f} ms  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: rwkv6-1.6b, the RWKV-6 family, at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_rwkv(torch, results):
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config("rwkv6-1.6b").replace(dtype="float32")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[rwkv] rwkv6-1.6b fp32: {n_params / 1e9:.3f} B parameters, init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+    task = MarkovLM(vocab=256, temperature=0.2, seed=0)
+    prompt_len, max_new, block_k = 512, 64, cfg.bpd_k
+    prompts = torch.as_tensor(task.sample(np.random.default_rng(1), 8,
+                                          prompt_len), device="cuda")
+    batch = {"tokens": prompts}
+    dec = DecodeConfig(max_new_tokens=max_new, block_k=block_k)
+    layers = cfg.num_layers
+
+    # ---- phase 8: fp32 greedy and BPD exact ---------------------------------
+    runs = {}
+    for label, run in (("greedy", D.greedy_decode), ("bpd exact", D.bpd_decode)):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        toks, stats = run(params, cfg, dec, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launch = dict(_build.LAUNCHES)
+        iters = stats["iterations"]
+        want = {name: 0 for name in launch}
+        want["rwkv6_scan"] = layers                       # one prefill
+        if run is D.bpd_decode:
+            want.update(fused_verify=iters, fused_heads=iters + 1)
+        log(f"[rwkv] {label}: k̂={stats['mean_accepted']:.4f} iterations="
+            f"{iters} invocations={stats['invocations']}, {wall:.2f}s, "
+            f"launches {launch}")
+        check(launch == want, f"rwkv {label}: launches {launch}, expected {want}")
+        check(bool((stats["generated"] == max_new).all()), f"rwkv {label}: short rows")
+        runs[label] = (toks, stats)
+    g_toks = runs["greedy"][0]
+    b_toks, b_stats = runs["bpd exact"]
+    diverged = compare_rows(torch, M, params, cfg, b_toks, g_toks,
+                            b_stats["text_len"], prompt_len)
+    log(f"[rwkv] fp32 BPD tokens == greedy tokens in {8 - len(diverged)}/8 "
+        f"rows (others at near-ties)")
+
+    # ---- phase 8b: multi-token accepts roll the recurrent state back --------
+    cont = g_toks[:, prompt_len:prompt_len + block_k].contiguous()
+    be = D.causal_lm_backend(cfg)
+    for corrupt in (None, 3):
+        state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
+                                                max_new=max_new)
+        check(torch.equal(state.proposals[:, 0], cont[:, 0]),
+              "rwkv prefill's verified slot 0 != greedy's first token")
+        props = cont.clone()
+        if corrupt is not None:
+            props[:, corrupt] = (props[:, corrupt] + 1) % cfg.vocab_size
+        state = state._replace(proposals=props)
+        with torch.no_grad():
+            state = D.bpd_iteration(params, cfg, dec, be, state,
+                                    prefix_offset=prefix, max_new=max_new)
+        khat = (state.text_len - prompt_len).tolist()
+        want = block_k if corrupt is None else corrupt
+        log(f"[rwkv accepts] proposals = greedy continuation"
+            f"{'' if corrupt is None else f' with slot {corrupt} corrupted'}: "
+            f"k̂ per row {khat}")
+        for r, kh in enumerate(khat):
+            if kh != want:
+                gap = near_tie(torch, M, params, cfg, g_toks[r, :prompt_len + kh])
+                check(kh < want and gap < TIE_MARGIN,
+                      f"rwkv row {r}: k̂={kh}, expected {want} (gap {gap})")
+        with torch.no_grad():           # the next block on the committed state
+            state = D.bpd_iteration(params, cfg, dec, be, state,
+                                    prefix_offset=prefix, max_new=max_new)
+        diverged = compare_rows(torch, M, params, cfg, state.tokens, g_toks,
+                                state.text_len, prompt_len)
+        log(f"[rwkv accepts] second iteration: k̂ per row "
+            f"{(state.text_len - prompt_len - torch.tensor(khat, device='cuda')).tolist()}; "
+            f"tokens == greedy tokens in {8 - len(diverged)}/8 rows")
+    del state
+
+    # ---- phase 9: bf16 serve ------------------------------------------------
+    _build.reset_launches()
+    out = serve.main(["--arch", "rwkv6-1.6b", "--full-config", "--batch", "8",
+                      "--prompt-len", str(prompt_len), "--max-new",
+                      str(max_new), "--block-k", str(block_k), "--seed", "0"],
+                     params=params)
+    launches = dict(_build.LAUNCHES)
+    scfg, sdec, sbatch = out["cfg"], out["dec"], out["batch"]
+    check(torch.equal(sbatch["tokens"], prompts), "rwkv serve prompts differ")
+    log(f"[rwkv serve] weights cast for bf16: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated; "
+        f"{sum(p.numel() for p in params.parameters() if p.dtype == torch.float32)} "
+        f"parameters kept fp32")
+    s_toks, s_stats = out["tokens"], out["stats"]
+    iters = s_stats["iterations"]
+    want = {name: 0 for name in launches}           # warm-up + timed run
+    want.update(rwkv6_scan=2 * layers, fused_verify=2 * iters,
+                fused_heads=2 * (iters + 1))
+    check(launches == want, f"rwkv serve: launches {launches}, expected {want}")
+    results["rwkv6_scan"]["launches"] = launches["rwkv6_scan"]
+    gb_toks, _ = D.greedy_decode(params, scfg, sdec, sbatch)
+    n = prompt_len + max_new
+    same = (s_toks[:, prompt_len:n] == gb_toks[:, prompt_len:n])
+    generated = int(s_stats["generated"].sum())
+    log(f"[rwkv serve] bf16: {generated / out['wall_s']:.1f} tokens/s, "
+        f"k̂={s_stats['mean_accepted']:.4f}, invocations="
+        f"{s_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; BPD vs "
+        f"greedy agreement {float(same.float().mean()):.4f} of tokens, "
+        f"{int(same.all(dim=1).sum())}/8 rows identical (reported, not "
+        f"required in bf16)")
+    div = report_divergences(torch, M, params, scfg, s_toks, gb_toks,
+                             prompt_len, n)
+    log(f"[rwkv serve] bf16 first divergences: {len(div)} rows, "
+        f"{sum(d['tie'] for d in div)} at near-ties; BPD's token ranks "
+        f"{[d['bpd_rank'] for d in div]}, ulps below the top "
+        f"{[round(d['bpd_ulps'], 3) for d in div]}")
+    profile_iteration(torch, D, params, scfg, sdec, sbatch, "rwkv6 exact")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the repo "
@@ -943,6 +1168,7 @@ def main() -> int:
     check_fused_heads(torch, gen, results)
     check_tree_attention(torch, gen, results)
     check_paged_attention(torch, gen, results)
+    check_rwkv6_scan(torch, gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"  {name} @ {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -950,6 +1176,11 @@ def main() -> int:
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     phase_decode(torch, results)
+    gc.collect()                                  # granite's weights go first
+    torch.cuda.empty_cache()
+    log(f"[rwkv] granite freed: {torch.cuda.memory_allocated() / 2 ** 30:.1f} "
+        f"GiB allocated")
+    phase_rwkv(torch, results)
 
     kernels = []
     for name in _build.KERNELS:

@@ -117,10 +117,15 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> None:
-        if self.num_heads % max(self.num_kv_heads, 1):
+        if self.block_type in ("attn", "hymba") \
+                and self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} not divisible by "
                 f"num_kv_heads={self.num_kv_heads}")
+        if self.block_type == "rwkv6" and self.d_model % self.rwkv_head_dim:
+            raise ValueError(
+                f"{self.name}: d_model={self.d_model} not divisible by "
+                f"rwkv_head_dim={self.rwkv_head_dim}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,6 +29,7 @@ from repro_torch.core.policy import DecodePolicy, DraftInputs, PolicyState
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.attention import tree_tables
+from repro_torch.models.blocks import check_tree_supported
 from repro_torch.models.layers import embed_apply
 
 I32 = torch.int32
@@ -103,6 +104,8 @@ def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
         raise NotImplementedError(
             "tree verification with min_block > 1 would commit tokens "
             "beyond the accepted root-to-leaf path")
+    if topo is not None:
+        check_tree_supported(cfg)
 
     # ---- parallel scoring of the k proposals (verify ∧ next-predict) ------
     h = backend.embed_tokens(params, state.proposals)

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("verify_attention", "fused_verify", "fused_heads",
-           "tree_verify_attention", "paged_verify_attention")
+           "tree_verify_attention", "paged_verify_attention", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -14,6 +14,7 @@ from repro_torch.kernels.block_attention import (tree_verify_attention_cuda,
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
 from repro_torch.kernels.fused_verify import fused_verify_cuda
 from repro_torch.kernels.paged_attention import paged_verify_attention_cuda
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -63,3 +64,15 @@ def fused_heads_topk(o, w_vocab, *, vocab: int, top_t: int = 4):
     """Streaming head-logits top-T (see kernels.fused_heads)."""
     fn = fused_heads_topk_cuda if _on_card(o) else ref.heads_topk
     return fn(o, w_vocab, vocab=vocab, top_t=top_t)
+
+
+def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 16):
+    """RWKV-6 wkv scan from a zero state (see kernels.rwkv6_scan).  Returns
+    (y (B, S, H, D) f32, final state (B, H, D, D) f32).  ``chunk`` is the
+    reference's tile length, taken for call compatibility; the result does
+    not depend on it (the kernel stages 16 steps at a time, the plain
+    version runs step by step)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    fn = rwkv6_scan_cuda if _on_card(r) else ref.rwkv6_scan
+    return fn(r, k, v, logw, u)

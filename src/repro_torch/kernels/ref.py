@@ -97,6 +97,29 @@ def paged_verify_attention(q, kp, vp, tbl, q_pos, kv_pos, *, window: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# rwkv6_scan (sequential recurrence, f32)
+# ---------------------------------------------------------------------------
+
+
+def rwkv6_scan(r, k, v, logw, u):
+    """r/k/v/logw: (B, S, H, D); u: (H, D).  Zero initial state;
+    S_t = diag(w_t) S_{t-1} + k_tᵀ v_t, y_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)
+    with w = exp(logw).  Returns (y (B, S, H, D) f32, final state (B, H, D,
+    D) f32)."""
+    b, s, h, d = r.shape
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    wf = torch.exp(logw.float())
+    uf = u.float()[None, :, :, None]
+    state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B, H, D, D)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], state + uf * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1), state
+
+
+# ---------------------------------------------------------------------------
 # fused_heads
 # ---------------------------------------------------------------------------
 

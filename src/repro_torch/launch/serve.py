@@ -11,7 +11,10 @@ reference serves it; with it the full config runs in its own compute dtype.
 of the kernels on the CPU).  Every registered decode policy runs
 (``--policy exact|topk|distance|adaptive|topk_tree``, with ``--top-k`` and
 ``--epsilon``), on the dense or the paged KV cache (``--cache-backend
-paged --page-size 16``).  The continuous-batching engine, HTTP serving and
+paged --page-size 16``).  ``--arch rwkv6-1.6b`` serves the RWKV-6 family:
+its recurrent caches have no KV layout, so ``--cache-backend paged`` leaves
+them as they are, and ``topk_tree`` raises (tree verification needs
+attention blocks).  The continuous-batching engine, HTTP serving and
 meshes are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
@@ -85,7 +88,8 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
     """Parse ``argv``, decode one static batch and print the summary.
 
     ``params`` (a ``ParamTree`` for the chosen config) skips the random
-    init / checkpoint load; it is cast to the compute dtype in place.
+    init / checkpoint load; it is cast for the compute dtype in place
+    (``model.cast_for_compute``).
     Returns the tokens, stats, wall time and the batch.
     """
     args = build_parser().parse_args(argv)
@@ -102,7 +106,7 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
             print(f"[serve] restored {args.ckpt_dir}")
         else:
             params = M.init(cfg, seed=args.seed, device=dev)
-    params = params.to(cfg.compute_dtype)
+    params = M.cast_for_compute(params, cfg)
 
     dec = DecodeConfig(max_new_tokens=args.max_new,
                        block_k=args.block_k or cfg.bpd_k,

@@ -1,11 +1,14 @@
-"""Per-layer block: attention + dense MLP (the ``attn`` × ``dense`` path of
+"""Per-layer block: attention + dense MLP, or the RWKV-6 time mix + channel
+mix (the ``attn`` × ``dense`` and ``rwkv6`` × ``rwkv_channel_mix`` paths of
 ``repro.models.blocks``).
 
 Two execution modes:
   * full   — whole-sequence parallel forward (prefill); optionally fills the
              decode cache.
-  * cached — a block of ``k`` fresh tokens against the cache (the BPD verify
-             substep).
+  * cached — a block of ``k`` fresh tokens against the cache (the BPD
+             verify substep).  Recurrent components return per-step states
+             stacked along axis 1; ``commit_cache`` selects the accepted
+             step.
 """
 from __future__ import annotations
 
@@ -17,37 +20,68 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.attention import attn_cached, attn_full, attn_init, cache_write
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
+from repro_torch.models.rwkv6 import (
+    rwkv_cm_apply,
+    rwkv_cm_init,
+    rwkv_tm_apply,
+    rwkv_tm_init,
+)
+
+SUPPORTED_BLOCKS = (("attn", "dense"), ("rwkv6", "rwkv_channel_mix"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice ports the decoder-only text model with attention + dense
-    MLP blocks; other families raise here, before any work."""
-    if (cfg.block_type, cfg.mlp_type, cfg.modality) != ("attn", "dense", "text") \
-            or cfg.is_encoder_only or cfg.is_encoder_decoder or cfg.num_meta_tokens:
+    """The port runs decoder-only text models with attention + dense MLP
+    blocks or RWKV-6 blocks; other families raise here, before any work."""
+    if (cfg.block_type, cfg.mlp_type) not in SUPPORTED_BLOCKS \
+            or cfg.modality != "text" or cfg.is_encoder_only \
+            or cfg.is_encoder_decoder or cfg.num_meta_tokens:
         raise NotImplementedError(
             f"{cfg.name}: block_type={cfg.block_type!r}, mlp_type="
             f"{cfg.mlp_type!r}, modality={cfg.modality!r} is not ported yet "
             f"(see ROADMAP.md, 'Modules to port'); the port runs decoder-only "
-            f"text models with attention + dense MLP blocks")
+            f"text models with (block_type, mlp_type) in {SUPPORTED_BLOCKS}")
+
+
+def check_tree_supported(cfg: ModelConfig) -> None:
+    """Tree verification needs pure attention blocks: recurrent states are
+    conditioned on the whole previous chain step by step, so a branching
+    block has no single per-step state to roll back to."""
+    if cfg.block_type != "attn":
+        raise NotImplementedError(
+            f"tree verification requires pure attention blocks "
+            f"(block_type='attn'); {cfg.block_type!r} carries chain-"
+            f"conditioned per-step recurrent state")
 
 
 def block_init(gen, cfg: ModelConfig, layer_idx: int, *, dtype=torch.float32,
                device=None) -> Dict:
     check_supported(cfg)
     kw = dict(dtype=dtype, device=device)
-    return {
-        "ln1": norm_init(cfg.d_model, kind=cfg.norm_type, **kw),
-        "attn": attn_init(gen, cfg, **kw),
-        "ln2": norm_init(cfg.d_model, kind=cfg.norm_type, **kw),
-        "mlp": mlp_init(gen, cfg, **kw),
-    }
+    p: Dict = {"ln1": norm_init(cfg.d_model, kind=cfg.norm_type, **kw)}
+    if cfg.block_type == "attn":
+        p["attn"] = attn_init(gen, cfg, **kw)
+    else:
+        p["tm"] = rwkv_tm_init(gen, cfg, **kw)
+    p["ln2"] = norm_init(cfg.d_model, kind=cfg.norm_type, **kw)
+    if cfg.mlp_type == "dense":
+        p["mlp"] = mlp_init(gen, cfg, **kw)
+    else:
+        p["cm"] = rwkv_cm_init(gen, cfg, **kw)
+    return p
 
 
 def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
                      context_len: int, block_k: int, dtype, device=None,
                      backend: Optional[cache_lib.DenseBackend] = None) -> Dict:
-    """Static cache buffers for one layer (decode path), in the layout of
-    ``backend`` (dense when None)."""
+    """Static cache buffers for one layer (decode path): the attention cache
+    in the layout of ``backend`` (dense when None), or the RWKV-6 recurrent
+    cache, which every backend leaves as it is."""
+    if cfg.block_type == "rwkv6":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        return {"tm": cache_lib.rwkv_cache_init(batch, cfg.d_model, h,
+                                                cfg.rwkv_head_dim, dtype,
+                                                device)}
     be = backend if backend is not None else cache_lib.DenseBackend()
     return {"attn": be.layer_attn_init(cfg, layer_idx, batch, context_len,
                                        block_k, dtype, device)}
@@ -58,14 +92,21 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
     """Returns (y, cache_out); cache_out is filled when a cache is passed in
     (prefill)."""
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
-    cache_out = None
-    if cache is not None:
+    cache_out = dict(cache) if cache is not None else None
+    if cfg.block_type == "rwkv6":
+        y, aux = rwkv_tm_apply(p["tm"], cfg, h)
+        if cache is not None:
+            cache_out["tm"] = {
+                "shift_tm": aux["x_last"],
+                "shift_cm": cache["tm"]["shift_cm"],  # filled below
+                "state": aux["state"],
+            }
+    elif cache is not None:
         y, (kk, vv) = attn_full(p["attn"], cfg, h, layer_idx=layer_idx,
                                 positions=positions, return_kv=True)
         if positions is None:
             positions = torch.arange(x.shape[1], dtype=torch.int32,
                                      device=x.device)
-        cache_out = dict(cache)
         cache_out["attn"] = cache_write(cache["attn"], cfg, layer_idx, kk, vv,
                                         positions)
     else:
@@ -73,25 +114,76 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
                       positions=positions)
     x = x + y
     h = norm_apply(p["ln2"], x, kind=cfg.norm_type)
-    return x + mlp_apply(p["mlp"], h, act=cfg.activation), cache_out
+    if cfg.mlp_type == "dense":
+        return x + mlp_apply(p["mlp"], h, act=cfg.activation), cache_out
+    y, cm_aux = rwkv_cm_apply(p["cm"], cfg, h)
+    if cache_out is not None:
+        cache_out["tm"] = dict(cache_out["tm"], shift_cm=cm_aux["x_last"])
+    return x + y, cache_out
 
 
 def block_cached(p, cfg: ModelConfig, layer_idx: int, x, cache: Dict,
                  length, *, tree=None) -> Tuple[torch.Tensor, Dict]:
     """x: (B, k, d) fresh tokens at positions length..length+k-1 (or the
-    nodes of draft tree ``tree``, see ``attention.attn_cached``).
-    Returns (y, cache); the attention cache is written in place."""
+    nodes of draft tree ``tree``, see ``attention.attn_cached``; attention
+    blocks only).  Returns (y, cache): the attention cache is written in
+    place; an RWKV-6 cache comes back staged, its per-step shifts (the
+    normed block inputs) and states stacked along axis 1 beside the old
+    entries, for ``commit_cache``."""
+    if tree is not None:
+        check_tree_supported(cfg)
     new_cache = dict(cache)
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
-    y, new_cache["attn"] = attn_cached(p["attn"], cfg, h, cache["attn"],
-                                       length, layer_idx=layer_idx, tree=tree)
+    if cfg.block_type == "rwkv6":
+        tm = cache["tm"]
+        y, aux = rwkv_tm_apply(p["tm"], cfg, h, x_prev=tm["shift_tm"],
+                               state0=tm["state"], return_states=True)
+        new_cache["tm"] = {
+            "shift_tm_steps": h,                       # (B,k,d)
+            "state_steps": aux["state"],               # (B,k,H,D,D)
+            "shift_tm": tm["shift_tm"],
+            "shift_cm": tm["shift_cm"],
+            "state": tm["state"],
+        }
+    else:
+        y, new_cache["attn"] = attn_cached(p["attn"], cfg, h, cache["attn"],
+                                           length, layer_idx=layer_idx,
+                                           tree=tree)
     x = x + y
     h = norm_apply(p["ln2"], x, kind=cfg.norm_type)
-    return x + mlp_apply(p["mlp"], h, act=cfg.activation), new_cache
+    if cfg.mlp_type == "dense":
+        return x + mlp_apply(p["mlp"], h, act=cfg.activation), new_cache
+    y, _ = rwkv_cm_apply(p["cm"], cfg, h, x_prev=cache["tm"]["shift_cm"])
+    new_cache["tm"]["shift_cm_steps"] = h              # (B,k,d)
+    return x + y, new_cache
+
+
+def _pick(steps, old, khat):
+    """steps (B, k, ...), old (B, ...): step k̂-1 of each row, the old entry
+    where k̂ == 0, in the old entry's dtype."""
+    b = steps.shape[0]
+    kh = torch.broadcast_to(torch.as_tensor(khat, device=steps.device), (b,))
+    rows = torch.arange(b, device=steps.device)
+    picked = steps[rows, (kh - 1).clamp(min=0).long()]
+    keep_old = (kh == 0).reshape((b,) + (1,) * (old.dim() - 1))
+    return torch.where(keep_old, old, picked.to(old.dtype))
 
 
 def commit_cache(cfg: ModelConfig, cache: Dict, khat) -> Dict:
-    """Resolve a staged cache to the accepted prefix.  Attention caches
-    need no rollback (positions mask rejected entries), so this passes the
-    cache through; recurrent families will select their accepted step."""
-    return cache
+    """Resolve a staged cache to the accepted prefix.
+
+    khat: (B,) or () int32 in [0, k] — tokens accepted per row this
+    iteration (0 = the row is frozen: keep its pre-iteration state).
+    Attention caches pass through (positions mask rejected entries);
+    recurrent entries select step k̂-1.
+    """
+    if "tm" not in cache or "state_steps" not in cache["tm"]:
+        return cache
+    tm = cache["tm"]
+    out = dict(cache)
+    out["tm"] = {
+        "shift_tm": _pick(tm["shift_tm_steps"], tm["shift_tm"], khat),
+        "shift_cm": _pick(tm["shift_cm_steps"], tm["shift_cm"], khat),
+        "state": _pick(tm["state_steps"], tm["state"], khat),
+    }
+    return out

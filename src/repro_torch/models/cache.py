@@ -12,6 +12,10 @@ Paged KV layout (per full-attention layer, ``cache_backend="paged"``):
                                     trash page unmapped entries point at
     pos    : (batch, P * page_size) int32   absolute positions, as dense
 
+RWKV-6 layers keep a recurrent cache instead (``rwkv_cache_init``): the
+time-mix and channel-mix token shifts (batch, d_model) and the wkv state
+(batch, H, D, D) fp32, the same under either backend.
+
 Masking is computed from absolute positions, so BPD rollback is "decrease
 the length": stale slots have ``pos >= length`` and are masked out until
 overwritten, under either layout.  Windowed layers keep the dense ring
@@ -60,6 +64,19 @@ def paged_attn_cache_init(batch: int, pages_per_row: int, page_size: int,
         "tbl": tbl,
         "pos": torch.full((batch, pages_per_row * page_size), -1,
                           dtype=torch.int32, device=device),
+    }
+
+
+def rwkv_cache_init(batch: int, d_model: int, num_heads: int, head_dim: int,
+                    dtype, device=None) -> Dict:
+    """One RWKV-6 layer's recurrent cache: the two token shifts in the
+    compute dtype and the wkv state in fp32.  Recurrent caches do not
+    depend on the KV layout: the paged backend leaves them as they are."""
+    return {
+        "shift_tm": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "shift_cm": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "state": torch.zeros((batch, num_heads, head_dim, head_dim),
+                             dtype=torch.float32, device=device),
     }
 
 

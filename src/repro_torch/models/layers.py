@@ -64,6 +64,18 @@ def norm_apply(p, x, *, kind: str = "rmsnorm", eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def group_norm_apply(p, x, num_groups: int, *, eps: float = 1e-5):
+    """GroupNorm over the channel dim (RWKV-6's per-head ``ln_x``): fp32,
+    the population variance, eps 1e-5; returned in x's dtype."""
+    *lead, c = x.shape
+    xf = x.float().reshape(*lead, num_groups, c // num_groups)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, c)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------

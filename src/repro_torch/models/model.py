@@ -4,9 +4,12 @@ Parameters live in a ``ParamTree``: the reference's nested dict / list
 pytree as an ``nn.Module``, so ``state_dict()`` keys are the reference's key
 paths (``blocks.3.attn.wq`` is ``params["blocks"][3]["attn"]["wq"]``) and
 ``p["wq"]`` reads as it does there.  The reference keeps weights in
-``param_dtype`` and casts at every use; here the caller casts the whole set
-once (``params.to(cfg.compute_dtype)``) before decoding — bit-identical, and
-it avoids re-reading fp32 weights on every forward.
+``param_dtype`` and casts at every use, to the compute dtype for most
+leaves but to fp32 for the norms' scale/bias and RWKV-6's decay weights and
+bonus.  Here the caller casts once before decoding (``cast_for_compute``):
+the leaves read in the compute dtype are cast, the fp32-read ones stay in
+fp32, so every use sees the value the reference's cast gives, and fp32
+weights are not re-read on every forward.
 """
 from __future__ import annotations
 
@@ -88,6 +91,33 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     return ParamTree(p)
 
 
+# Leaves the reference reads in fp32 whatever the compute dtype: every
+# norm's scale / bias (models/layers.py:46,49,61 there: ln1, ln2,
+# final_norm, tm.ln_x) and RWKV-6's decay weights and bonus
+# (models/rwkv6.py:105,166-168 there).
+FP32_READ_LEAVES = ("scale", "bias")
+FP32_READ_TM = ("w0", "decay_A", "decay_B", "u")
+
+
+def reads_fp32(key: str) -> bool:
+    """True for a ``state_dict`` key the reference reads in fp32."""
+    *path, leaf = key.split(".")
+    return leaf in FP32_READ_LEAVES or (bool(path) and path[-1] == "tm"
+                                        and leaf in FP32_READ_TM)
+
+
+def cast_for_compute(params: ParamTree, cfg: ModelConfig) -> ParamTree:
+    """Cast ``params`` in place to ``cfg.compute_dtype``, except the leaves
+    the reference reads in fp32 (``reads_fp32``), which stay in (or go to)
+    fp32.  Returns ``params``."""
+    with torch.no_grad():
+        for key, p in params.named_parameters():
+            dtype = torch.float32 if reads_fp32(key) else cfg.compute_dtype
+            if p.dtype != dtype:
+                p.data = p.data.to(dtype)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # Input embedding (text)
 # ---------------------------------------------------------------------------
@@ -145,7 +175,9 @@ def commit_tree_path(cfg: ModelConfig, caches, path_nodes, khat, length,
     """Compact the accepted root-to-leaf path into chain slots in every
     layer after a tree verify forward (see ``attention.tree_commit_attn``)."""
     for i, c in enumerate(caches):
-        tree_commit_attn(c["attn"], cfg, i, path_nodes, khat, length, block_k)
+        if "attn" in c:
+            tree_commit_attn(c["attn"], cfg, i, path_nodes, khat, length,
+                             block_k)
     return caches
 
 

@@ -18,6 +18,7 @@ from repro_torch.kernels.block_attention import (  # noqa: E402
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
 from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
 from repro_torch.kernels.tree_mask import TreeTopology, default_tree  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 
@@ -156,6 +157,41 @@ def test_fused_heads_kernel_matches_plain(cuda, top_t, tied):
     assert torch.equal(ids, wi)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,strong", [
+    (1, 16, 1, 16, False),
+    (2, 37, 3, 16, False),       # ragged: S % 16 != 0
+    (1, 128, 2, 64, False),
+    (2, 64, 2, 32, False),
+    (2, 40, 2, 128, False),
+    (1, 48, 1, 16, True),        # strong decay, w = e^-8
+    (8, 512, 32, 64, False),     # the serve path's prefill
+])
+def test_rwkv6_scan_kernel_matches_plain(cuda, b, s, h, d, strong, dtype):
+    """fp32 sums in another order than the plain version's: 1e-4 relative,
+    and 1e-4 of the largest output absolute."""
+    gen = torch.Generator().manual_seed(b * 1000 + s + d)
+    r, k, v = (_randn(gen, (b, s, h, d), dtype, cuda) for _ in range(3))
+    if strong:
+        logw = torch.full((b, s, h, d), -8.0, device=cuda)
+    else:
+        logw = -torch.exp(_randn(gen, (b, s, h, d), torch.float32, cuda) * 0.5 - 1.0)
+    u = _randn(gen, (h, d), torch.float32, cuda) * 0.1
+    y, state = rwkv6_scan_cuda(r, k, v, logw, u)
+    wy, ws = ref.rwkv6_scan(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    for got, want in ((y, wy), (state, ws)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_rwkv6_scan_kernel_refuses_other_head_dims(cuda):
+    x = torch.zeros((1, 4, 1, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        rwkv6_scan_cuda(x, x, x, x, torch.zeros((1, 48), device=cuda))
+
+
 def test_every_launch_is_counted(cuda):
     _build.reset_launches()
     q = torch.zeros((1, 2, 4, 64), device=cuda)
@@ -175,6 +211,8 @@ def test_every_launch_is_counted(cuda):
     paged_verify_attention_cuda(q, pool, pool,
                                 torch.ones((1, 2), dtype=torch.int32, device=cuda),
                                 pos, node + 1)
+    rkv = torch.zeros((1, 3, 2, 16), device=cuda)
+    rwkv6_scan_cuda(rkv, rkv, rkv, rkv, torch.zeros((2, 16), device=cuda))
     assert _build.LAUNCHES == {name: 1 for name in _build.KERNELS}
 
 
@@ -231,3 +269,24 @@ def test_tree_and_paged_decode_on_the_card(cuda, policy, backend):
     assert _build.LAUNCHES["verify_attention"] == 0
     gt, _ = decode.greedy_decode(params, cfg, dec, {"tokens": prompt})
     assert torch.equal(bt[:, :24], gt[:, :24])
+
+
+def test_rwkv6_decode_on_the_card(cuda):
+    """A small RWKV-6 model decoded on the card: BPD emits greedy's tokens,
+    each prefill scans through the kernel once per layer, and decode
+    iterations launch no scan."""
+    cfg = ModelConfig(name="t", num_layers=2, d_model=128, d_ff=256,
+                      vocab_size=1000, block_type="rwkv6",
+                      mlp_type="rwkv_channel_mix", rwkv_head_dim=32,
+                      num_heads=0, num_kv_heads=0, bpd_k=4, dtype="float32")
+    params = model.init(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, 1000, (4, 37), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    dec = DecodeConfig(max_new_tokens=16, block_k=4)
+    _build.reset_launches()
+    bt, bs = decode.bpd_decode(params, cfg, dec, {"tokens": prompt})
+    assert _build.LAUNCHES["rwkv6_scan"] == 2
+    assert _build.LAUNCHES["fused_verify"] == bs["iterations"]
+    assert _build.LAUNCHES["fused_heads"] == bs["iterations"] + 1
+    gt, _ = decode.greedy_decode(params, cfg, dec, {"tokens": prompt})
+    assert torch.equal(bt[:, :53], gt[:, :53])

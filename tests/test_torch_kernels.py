@@ -20,6 +20,7 @@ from repro_torch.kernels.block_attention import (  # noqa: E402
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
 from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_verify_attention_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
 from repro_torch.kernels.tree_mask import TreeTopology, default_tree  # noqa: E402
 
 torch.set_num_threads(2)
@@ -394,6 +395,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                torch.zeros((3, 8, 2, 64)),
                                torch.ones((1, 1), dtype=torch.int32), pos,
                                torch.zeros((1, 8), dtype=torch.int32))
+    rkv = torch.zeros((1, 3, 2, 16))
+    ops.rwkv6_scan(rkv, rkv, rkv, rkv, torch.zeros((2, 16)))
     assert _build.LAUNCHES == {name: 0 for name in _build.KERNELS}
 
 
@@ -405,7 +408,7 @@ def test_other_devices_raise():
 
 @pytest.mark.parametrize("call", ["verify_attention", "fused_verify",
                                   "fused_heads", "tree_verify_attention",
-                                  "paged_verify_attention"])
+                                  "paged_verify_attention", "rwkv6_scan"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers check their inputs before any launch: a CPU
     tensor is refused, never computed."""
@@ -425,6 +428,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
                                         torch.ones((1, 1), dtype=torch.int32),
                                         torch.zeros((1, 2), dtype=torch.int32),
                                         torch.zeros((1, 8), dtype=torch.int32))
+        elif call == "rwkv6_scan":
+            rkv = torch.zeros((1, 3, 2, 16))
+            rwkv6_scan_cuda(rkv, rkv, rkv, rkv, torch.zeros((2, 16)))
         elif call == "fused_verify":
             fused_verify_cuda(torch.zeros((1, 3, 16)),
                               torch.zeros((1, 3), dtype=torch.int32),

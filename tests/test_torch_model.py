@@ -312,4 +312,4 @@ def test_forward_hidden_and_decode_block_step(dense):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init(tconfig.ModelConfig(block_type="rwkv6"), device="cpu")
+        tmodel.init(tconfig.ModelConfig(block_type="hymba"), device="cpu")
