@@ -10,10 +10,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 (one nvcc per source, all started together).
   3. kernels  — each kernel against its plain PyTorch version at the decode
                 paths' shapes, bf16 and fp32 (tree shapes, 32-node trees,
-                shared and unmapped pages, rwkv6's untied lm_head, ragged
-                and strong-decay scans included); times kernel, plain
-                version, the one-call PyTorch yardstick where there is one,
-                and the bound (bytes / 3.35 TB/s or FLOPs / peak, the larger).
+                the split-KV plan's edges, a masked range, a query that
+                sees no key, head dims 32 and 64, kq·G 64, shared and
+                unmapped pages, rwkv6's untied lm_head, ragged and
+                strong-decay scans included); the split-KV attention
+                kernels bit for bit batch-invariant (kq 1 vs 8, B 1 vs 8,
+                the tree kernel on a chain vs verify_attention); times
+                kernel, plain version, the one-call PyTorch yardstick where
+                there is one (for attention the faster of SDPA on repeated
+                K/V and SDPA with enable_gqa), the fp32 time of the
+                attention kernels, and the bound (bytes / 3.35 TB/s or
+                FLOPs / peak, the larger).
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -34,7 +41,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
   6b. serve   — the same with --policy topk_tree --cache-backend paged.
   7. profile  — one bf16 BPD iteration of each serve (after 6 and after
                 6b): host wall time against the summed kernel time
-                torch.profiler sees (the device's idle share).
+                torch.profiler sees (the device's idle share), and the
+                attention kernels' share of it.
   8. rwkv     — granite freed; rwkv6-1.6b at full width in fp32 (random
                 weights, seed 0): greedy and BPD exact of 8 prompts x 512
                 tokens, 64 new each; BPD must emit greedy's tokens; launches
@@ -76,6 +84,7 @@ SCAN_TOL = 1e-4                           # relative, and of max|out| absolute:
 TIE_MARGIN = 1e-4                         # of max|logit|: BPD/greedy near-ties
 HEADS_TIE_MARGIN = 1e-3                   # of max|logit|: fused-heads near-ties
 BF16_TIE_ULPS = 8                         # bf16 ulps of max|logit|: reported
+SPIN_CYCLES = 2_000_000                   # about 1 ms of device clock
 
 
 class SmokeFailure(Exception):
@@ -107,13 +116,18 @@ def card_line() -> str:
 def time_ms(torch, fn, *, runs: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``runs`` calls, CUDA events around
     each; a 256 MB write before each call evicts the 50 MB L2, as the decode
-    path (which streams GBs of weights between two calls) finds it."""
+    path (which streams GBs of weights between two calls) finds it.  A spin
+    of about 1 ms on the device after the write keeps the stream busy while
+    the host enqueues the call, so the time is the device's, not the
+    wrapper's Python (a call whose host side takes longer than the spin,
+    like a plain version's chain of small ops, is still timed with it)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -159,27 +173,77 @@ def attention_case(torch, gen, b, kq, h, kvh, hd, l, dtype, *, length,
     return q, k, v, q_pos, kv_pos
 
 
+def sdpa_yardsticks(torch, q, k, v, mask):
+    """The one-call yardstick two ways: scaled_dot_product_attention on K/V
+    repeated per query head (the repeat outside the timed call), and with
+    enable_gqa on the unrepeated K/V.  Returns (repeat_ms, gqa_ms); the
+    faster is library_ms, the strongest single call."""
+    g = q.shape[2] // k.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    kr = kt.repeat_interleave(g, dim=1)
+    vr = vt.repeat_interleave(g, dim=1)
+    repeat_ms = time_ms(torch, lambda: sdpa(qt, kr, vr, attn_mask=mask))
+    gqa_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                         enable_gqa=True))
+    return repeat_ms, gqa_ms
+
+
+def check_invariance(torch, name, fn, args, *, queries: bool):
+    """Bit for bit: each batch row alone equals its row of the batch of 8,
+    and (``queries``) each query alone equals its row of the block of kq."""
+    full = fn(*args)
+    for r in range(full.shape[0]):
+        row = fn(*(t[r:r + 1].contiguous() for t in args))
+        check(torch.equal(row, full[r:r + 1]),
+              f"{name}: batch row {r} alone differs from its row at B = 8")
+    if queries:
+        q, k, v, q_pos, kv_pos = args
+        for i in range(q.shape[1]):
+            one = fn(q[:, i:i + 1].contiguous(), k, v,
+                     q_pos[:, i:i + 1].contiguous(), kv_pos)
+            check(torch.equal(one, full[:, i:i + 1]),
+                  f"{name}: query {i} at kq = 1 differs from its row at "
+                  f"kq = {q.shape[1]}")
+
+
 def check_attention(torch, gen, results):
-    from repro_torch.kernels.block_attention import (verify_attention_cuda,
+    from repro_torch.kernels.block_attention import (split_plan,
+                                                     verify_attention_cuda,
                                                      verify_attention_plain)
 
-    cases = []
+    cases = []   # (dtype, kq, L, window, meta, kind, H, hd)
     for dtype in ("bfloat16", "float32"):
         for kq in (1, 8):
             for l in (256, 4096):
-                cases.append((dtype, kq, l, 0, 0, "path"))
-        cases.append((dtype, 8, 256, 64, 4, "window+meta"))
-        cases.append((dtype, 8, 256, 0, 0, "all-stale"))
+                cases.append((dtype, kq, l, 0, 0, "path", 32, 128))
+        cases.append((dtype, 8, 256, 64, 4, "window+meta", 32, 128))
+        cases.append((dtype, 8, 256, 0, 0, "all-stale", 32, 128))
+        # the split plan's edges: one ragged range .. eight ranges
+        for l in (1, 15, 16, 17, 63, 64, 65, 300):
+            cases.append((dtype, 8, l, 0, 0, "split edge", 32, 128))
+        cases.append((dtype, 8, 256, 0, 0, "masked split", 32, 128))
+        cases.append((dtype, 8, 256, 0, 0, "blind row", 32, 128))
+        for hd in (32, 64):
+            cases.append((dtype, 8, 300, 48, 3, f"hd {hd}", 32, hd))
+        cases.append((dtype, 16, 300, 0, 0, "kq·G 64", 32, 128))
+        cases.append((dtype, 16, 4096, 0, 0, "kq·G 64", 32, 128))
     worst = 0.0
-    for dtype, kq, l, window, meta, kind in cases:
+    path = {}
+    for dtype, kq, l, window, meta, kind, h, hd in cases:
         length = [l - kq - 3 * i for i in range(8)]
-        q, k, v, q_pos, kv_pos = attention_case(torch, gen, 8, kq, 32, 8, 128,
+        q, k, v, q_pos, kv_pos = attention_case(torch, gen, 8, kq, h, 8, hd,
                                                 l, dtype, length=length,
                                                 stale=5)
         if kind == "all-stale":          # only the block itself is visible
             slot = torch.arange(l, dtype=torch.int32, device="cuda")[None]
             own = (slot >= q_pos[:, :1]) & (slot <= q_pos[:, -1:])
             kv_pos = torch.where(own, slot, -1).contiguous()
+        elif kind == "masked split":     # range 1 of 4 sees nothing
+            kv_pos[:, 64:128] = -1
+        elif kind == "blind row":        # query 0 sees no key: the mean of V
+            q_pos[:, 0] = -1
         got = verify_attention_cuda(q, k, v, q_pos, kv_pos, window=window,
                                     num_meta=meta)
         want = verify_attention_plain(q, k, v, q_pos, kv_pos, window=window,
@@ -189,39 +253,45 @@ def check_attention(torch, gen, results):
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[dtype]
         ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        log(f"  verify_attention {dtype} kq={kq} L={l} {kind}: "
-            f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
+        log(f"  verify_attention {dtype} kq={kq} H={h} hd={hd} L={l} "
+            f"(splits {split_plan(l)[0]}) {kind}: max_abs_err={err:.3g} "
+            f"{'ok' if ok else 'FAIL'}")
         check(ok, f"verify_attention {dtype} kq={kq} L={l} {kind} "
                   f"differs from its plain version by {err}")
         worst = max(worst, err)
-        if (dtype, kq, l, kind) == ("bfloat16", 8, 256, "path"):
-            timed = (q, k, v, q_pos, kv_pos)
+        if kind == "path" and kq == 8:
+            path[(dtype, l)] = (q, k, v, q_pos, kv_pos)
     log(f"  verify_attention: max_abs_err over all {len(cases)} cases "
         f"{worst:.3g}")
+    for (dtype, l), args in path.items():
+        check_invariance(torch, f"verify_attention {dtype} L={l}",
+                         verify_attention_cuda, args, queries=True)
+        log(f"  verify_attention {dtype} L={l}: kq 1 == kq 8 and B 1 == B 8 "
+            f"bit for bit ok")
 
     # time at the serve path's shape: bf16, B=8, kq=8, L=256
-    q, k, v, q_pos, kv_pos = timed
+    q, k, v, q_pos, kv_pos = path[("bfloat16", 256)]
     kernel_ms = time_ms(torch, lambda: verify_attention_cuda(q, k, v, q_pos, kv_pos))
     plain_ms = time_ms(torch, lambda: verify_attention_plain(q, k, v, q_pos, kv_pos))
+    f32 = path[("float32", 256)]
+    fp32_ms = time_ms(torch, lambda: verify_attention_cuda(*f32))
     # yardstick: one scaled_dot_product_attention call on the same values
-    # (heads-first views; K/V repeated per query head, the mask from the
-    # positions — input preparation, outside the timed call)
+    # (heads-first views, the mask from the positions: input preparation,
+    # outside the timed call)
     b, kq, h, hd = q.shape
-    l, kvh = k.shape[1], k.shape[2]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l = k.shape[1]
     mask = ((kv_pos[:, None, :] >= 0)
             & (kv_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
-    qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    repeat_ms, gqa_ms = sdpa_yardsticks(torch, q, k, v, mask)
     bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, q), 4 * b * kq * h * l * hd,
                     "bfloat16")
     results["verify_attention"] = dict(
         source="src/repro_torch/kernels/csrc/verify_attention.cu",
         replaces="src/repro/kernels/block_attention.py:83",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=library_ms,
+        bound_by=by, library_ms=min(repeat_ms, gqa_ms),
+        extra=f"fp32 kernel {fp32_ms:.4f} ms; SDPA repeated K/V "
+              f"{repeat_ms:.4f} ms, enable_gqa {gqa_ms:.4f} ms",
         shape="bf16 q (8,8,32,128), k/v (8,256,8,128)")
 
 
@@ -261,23 +331,31 @@ def check_tree_attention(torch, gen, results):
 
     chain = TreeTopology((-1,) + tuple(range(7)))
     chain32 = TreeTopology((-1,) + tuple(range(31)))
-    cases = []   # (dtype, topology name, topology, H, L, window, meta)
+    cases = []   # (dtype, topology name, topology, H, L, window, meta, hd)
     for dtype in ("bfloat16", "float32"):
         for name, topo in (("tree(8,2)", default_tree(8, 2)),
                            ("tree(8,4)", default_tree(8, 4)),
                            ("chain(8)", chain)):
             for l in (256, 4096):
-                cases.append((dtype, name, topo, 32, l, 0, 0))
+                cases.append((dtype, name, topo, 32, l, 0, 0, 128))
         cases.append((dtype, "tree(8,2) window+meta", default_tree(8, 2), 32,
-                      256, 64, 4))
+                      256, 64, 4, 128))
         # 32 nodes: node 31's bit is the int32 sign bit; kq·G <= 64, so G = 2
-        cases.append((dtype, "chain(32) bit 31", chain32, 16, 256, 0, 0))
+        cases.append((dtype, "chain(32) bit 31", chain32, 16, 256, 0, 0, 128))
         cases.append((dtype, "tree(32,4) bit 31", default_tree(32, 4), 16,
-                      4096, 0, 0))
+                      4096, 0, 0, 128))
+        # the split plan's edges, and the other head dims
+        for l in (72, 300):
+            cases.append((dtype, "tree(8,2)", default_tree(8, 2), 32, l, 0, 0,
+                          128))
+            cases.append((dtype, "chain(8)", chain, 32, l, 0, 0, 128))
+        for hd in (32, 64):
+            cases.append((dtype, "tree(8,4)", default_tree(8, 4), 32, 300, 0,
+                          0, hd))
     worst = 0.0
-    timed = None
-    for dtype, name, topo, h, l, window, meta in cases:
-        args = tree_case(torch, gen, 8, h, 8, 128, l, topo, dtype, stale=5)
+    timed = {}
+    for dtype, name, topo, h, l, window, meta, hd in cases:
+        args = tree_case(torch, gen, 8, h, 8, hd, l, topo, dtype, stale=5)
         got = tree_verify_attention_cuda(*args, window=window, num_meta=meta)
         want = tree_verify_attention_plain(*args, window=window, num_meta=meta)
         torch.cuda.synchronize()
@@ -291,44 +369,47 @@ def check_tree_attention(torch, gen, results):
         if name == "chain(8)":        # a chain's ancestor mask is causality
             chain_out = verify_attention_cuda(*args[:5], window=window,
                                               num_meta=meta)
-            same = torch.allclose(got.float(), chain_out.float(), rtol=1e-6,
-                                  atol=1e-6)
-            extra = f" vs verify_attention kernel {'ok' if same else 'FAIL'}"
+            same = torch.equal(got, chain_out)
+            extra = f", equal to verify_attention's bit for bit: {same}"
             ok = ok and same
-        log(f"  tree_verify_attention {dtype} {name} H={h} L={l}: "
+        log(f"  tree_verify_attention {dtype} {name} H={h} hd={hd} L={l}: "
             f"max_abs_err={err:.3g}{extra} {'ok' if ok else 'FAIL'}")
         check(ok, f"tree_verify_attention {dtype} {name} L={l} differs from "
-                  f"its plain version by {err}")
+                  f"its plain version by {err}{extra}")
         worst = max(worst, err)
-        if (dtype, name, l, window) == ("bfloat16", "tree(8,2)", 256, 0):
-            timed = args
+        if (name, l, window, hd) == ("tree(8,2)", 256, 0, 128):
+            timed[dtype] = args
     log(f"  tree_verify_attention: max_abs_err over all {len(cases)} cases "
         f"{worst:.3g}")
+    for dtype, args in timed.items():
+        check_invariance(torch, f"tree_verify_attention {dtype}",
+                         tree_verify_attention_cuda, args, queries=False)
+        log(f"  tree_verify_attention {dtype}: B 1 == B 8 bit for bit ok")
 
     # time at the topk_tree path's shape: bf16, B=8, kq=8 (default_tree(8, 2),
     # --top-k 2), H=32, KV=8, L=256
-    q, k, v, q_pos, kv_pos, kv_node, anc = timed
-    kernel_ms = time_ms(torch, lambda: tree_verify_attention_cuda(*timed))
-    plain_ms = time_ms(torch, lambda: tree_verify_attention_plain(*timed))
+    args = timed["bfloat16"]
+    q, k, v, q_pos, kv_pos, kv_node, anc = args
+    kernel_ms = time_ms(torch, lambda: tree_verify_attention_cuda(*args))
+    plain_ms = time_ms(torch, lambda: tree_verify_attention_plain(*args))
+    fp32_ms = time_ms(torch, lambda: tree_verify_attention_cuda(*timed["float32"]))
     # yardstick: scaled_dot_product_attention with the boolean tree mask
-    # precomputed (outside the timed call), K/V repeated per query head
+    # precomputed (outside the timed call)
     b, kq, h, hd = q.shape
-    l, kvh = k.shape[1], k.shape[2]
+    l = k.shape[1]
     qp, kp, kn = q_pos[:, :, None], kv_pos[:, None, :], kv_node[:, None, :]
     bit = (anc[:, :, None] >> kn.clamp(0, 31)) & 1
     mask = ((kp >= 0) & (kp <= qp) & ((kn < 0) | (bit != 0)))[:, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    repeat_ms, gqa_ms = sdpa_yardsticks(torch, q, k, v, mask)
     bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, kv_node, anc, q),
                     4 * b * kq * h * l * hd, "bfloat16")
     results["tree_verify_attention"] = dict(
         source="src/repro_torch/kernels/csrc/tree_verify_attention.cu",
         replaces="src/repro/kernels/block_attention.py:210",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=library_ms,
+        bound_by=by, library_ms=min(repeat_ms, gqa_ms),
+        extra=f"fp32 kernel {fp32_ms:.4f} ms; SDPA repeated K/V "
+              f"{repeat_ms:.4f} ms, enable_gqa {gqa_ms:.4f} ms",
         shape="bf16 q (8,8,32,128) default_tree(8,2), k/v (8,256,8,128)")
 
 
@@ -994,8 +1075,10 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label):
         log(f"[profile] one bf16 BPD iteration ({label}): wall {wall_ms:.2f} ms; the "
             f"profiler saw no kernels, device time not measured")
         return
+    attn_ms = sum(ms for name, ms in busy.items() if "attention_kernel" in name)
     log(f"[profile] one bf16 BPD iteration ({label}): wall {wall_ms:.2f} ms, "
-        f"{len(kernels)} kernels busy {busy_ms:.2f} ms, device idle share "
+        f"{len(kernels)} kernels busy {busy_ms:.2f} ms, of which attention "
+        f"kernels {attn_ms:.3f} ms; device idle share "
         f"{1 - busy_ms / wall_ms:.3f}")
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:8.3f} ms  {name[:90]}")
@@ -1171,9 +1254,10 @@ def main() -> int:
     check_rwkv6_scan(torch, gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        extra = f"; {r['extra']}" if "extra" in r else ""
         log(f"  {name} @ {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
     phase_decode(torch, results)
     gc.collect()                                  # granite's weights go first

@@ -3,13 +3,16 @@ as a chain (``verify_attention_cuda``) or as a candidate tree
 (``tree_verify_attention_cuda``).
 
 The CUDA kernels (``csrc/verify_attention.cu``, ``csrc/tree_verify_attention.cu``,
-sharing the body in ``csrc/attention.cuh``) replace the reference's
-``repro/kernels/block_attention.py::verify_attention_pallas`` and
-``tree_verify_attention_pallas``: one thread block per (batch row, KV head)
-holds the kq·G query rows of that head group and streams the cache through
-shared memory with an fp32 online softmax.  ``verify_attention_plain`` and
-``tree_verify_attention_plain`` (``kernels/ref.py``) are their plain
-versions.
+sharing the split-KV body in ``csrc/split_attention.cuh``) replace the
+reference's ``repro/kernels/block_attention.py::verify_attention_pallas``
+and ``tree_verify_attention_pallas``.  The KV axis is cut into
+``split_plan(L)`` ranges, one thread block per (batch row, KV head, range),
+the ranges of one (row, head) forming a thread-block cluster that combines
+its partial softmaxes through distributed shared memory in the same launch.
+bf16 products run on the tensor cores (``mma.sync``), fp32 on CUDA-core
+FMAs.  The plan depends on L alone, so a query's result does not depend on
+kq or B.  ``verify_attention_plain`` and ``tree_verify_attention_plain``
+(``kernels/ref.py``) are their plain versions.
 """
 from __future__ import annotations
 
@@ -25,13 +28,30 @@ from repro_torch.kernels.ref import verify_attention as verify_attention_plain
 HEAD_DIMS = (32, 64, 128)
 MAX_ROWS = 64                       # kq · G query rows per thread block
 MAX_TREE_NODES = 32                 # anc_bits is one int32 per node
+MAX_SPLITS = 8                      # the portable thread-block cluster size
+MIN_SPLIT_KEYS = 64
+SPLIT_ALIGN = 16                    # keys per range: a multiple of one k16 step
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
-_TREE_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
+_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]
+_TREE_ARGTYPES = [_P] * 8 + [_I] * 10 + [_P]
 
 __all__ = ["verify_attention_cuda", "verify_attention_plain",
            "tree_verify_attention_cuda", "tree_verify_attention_plain",
-           "check_attention_inputs", "launch_attention"]
+           "check_attention_inputs", "launch_attention", "split_plan"]
+
+
+def split_plan(kv_len: int) -> tuple:
+    """How the split-KV kernels cut a cache of ``kv_len`` keys: (splits,
+    keys per split).  Range i holds keys [i·keys, min(L, (i+1)·keys)); there
+    is one range per 64 keys of L, rounded up, at most 8, ``keys`` is a
+    multiple of 16, and no range is empty.  It depends on L alone, so a
+    query's arithmetic does not depend on kq or B.  ``csrc/split_attention.cuh``
+    has the same function and refuses a launch whose splits differ."""
+    if kv_len < 1:
+        raise ValueError(f"split_plan needs L >= 1, got {kv_len}")
+    s = min(MAX_SPLITS, -(-kv_len // MIN_SPLIT_KEYS))
+    keys = -(-(-(-kv_len // s)) // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-kv_len // keys), keys
 
 
 def check_attention_inputs(kernel: str, q, k, v, q_pos, kv_pos, *,
@@ -44,6 +64,10 @@ def check_attention_inputs(kernel: str, q, k, v, q_pos, kv_pos, *,
     require(q.dim() == 4 and k.dim() == 4, "q and k/v must be 4-d")
     b, kq, h, hd = q.shape
     kvh = k.shape[2]
+    require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
+    require(kvh >= 1 and h % kvh == 0, f"{h} heads over {kvh} KV heads")
+    require(kq * (h // kvh) <= MAX_ROWS,
+            f"kq·G = {kq * (h // kvh)} query rows exceed {MAX_ROWS}")
     tensors = {"q": q, "k": k, "v": v, "q_pos": q_pos, "kv_pos": kv_pos,
                **extra}
     for name, t in tensors.items():
@@ -55,11 +79,7 @@ def check_attention_inputs(kernel: str, q, k, v, q_pos, kv_pos, *,
             "q, k and v must share one dtype")
     require(v.shape == k.shape and k.shape[3] == hd,
             f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    require(kv_len >= 1 and kvh >= 1 and h % kvh == 0,
-            f"{h} heads over {kvh} KV heads, L={kv_len}")
-    require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
-    require(kq * (h // kvh) <= MAX_ROWS,
-            f"kq·G = {kq * (h // kvh)} query rows exceed {MAX_ROWS}")
+    require(kv_len >= 1, f"L={kv_len} keys")
     require(q_pos.dtype == torch.int32 and tuple(q_pos.shape) == (b, kq),
             "q_pos must be (B, kq) int32")
     require(kv_pos.dtype == torch.int32
@@ -67,6 +87,14 @@ def check_attention_inputs(kernel: str, q, k, v, q_pos, kv_pos, *,
             f"kv_pos must be (B, {kv_len}) int32")
     for name, t in extra.items():
         require(t.dtype == torch.int32, f"{name} must be int32")
+
+
+def _check_aligned(kernel: str, q, k, v) -> None:
+    """The split-KV kernels copy K/V rows in 16-byte pieces and read q in
+    4-byte pairs: each tensor must start on a 16-byte boundary."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.require(kernel, t.data_ptr() % 16 == 0,
+                       f"{name} must start on a 16-byte boundary")
 
 
 def launch_attention(kernel: str, argtypes, q, pointers, ints) -> torch.Tensor:
@@ -90,10 +118,12 @@ def verify_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
                            kv_len=k.shape[1] if k.dim() == 4 else 0)
     b, kq, h, hd = q.shape
     _build.require("verify_attention", k.shape[0] == b, "k/v batch != q batch")
+    _check_aligned("verify_attention", q, k, v)
+    l = k.shape[1]
     return launch_attention("verify_attention", _ARGTYPES, q,
                             (k, v, q_pos, kv_pos),
-                            (b, kq, h, k.shape[2], hd, k.shape[1], int(window),
-                             int(num_meta)))
+                            (b, kq, h, k.shape[2], hd, l, int(window),
+                             int(num_meta), split_plan(l)[0]))
 
 
 def tree_verify_attention_cuda(q, k, v, q_pos, kv_pos, kv_node, anc_bits, *,
@@ -117,7 +147,8 @@ def tree_verify_attention_cuda(q, k, v, q_pos, kv_pos, kv_node, anc_bits, *,
                    tuple(kv_node.shape) == (b, l)
                    and tuple(anc_bits.shape) == (b, kq),
                    "kv_node must be (B, L) and anc_bits (B, kq)")
+    _check_aligned("tree_verify_attention", q, k, v)
     return launch_attention("tree_verify_attention", _TREE_ARGTYPES, q,
                             (k, v, q_pos, kv_pos, kv_node, anc_bits),
                             (b, kq, h, k.shape[2], hd, l, int(window),
-                             int(num_meta)))
+                             int(num_meta), split_plan(l)[0]))

@@ -1,10 +1,14 @@
-// The body shared by the three BPD verify-attention kernels: k fresh queries
-// against a KV cache, with an fp32 online softmax.
+// The older verify-attention body, now run by paged_verify_attention.cu
+// alone: k fresh queries against a paged KV cache, with an fp32 online
+// softmax, one thread block per (batch row, KV head).
 //
-//   verify_attention.cu        dense rows k/v (B, L, KV, hd)
-//   tree_verify_attention.cu   dense rows, plus the tree's ancestor bit test
 //   paged_verify_attention.cu  a page pool kp/vp (num_pages, ps, KV, hd)
 //                              addressed through a block table tbl (B, P)
+//
+// verify_attention.cu and tree_verify_attention.cu moved to the split-KV
+// body in split_attention.cuh.  The paged kernel moves there next, as an
+// instantiation with ``PagedRows``, and this body goes.  ``DenseRows`` and
+// ``kTree`` below are no longer instantiated.
 //
 // Contract (repro/kernels/block_attention.py, paged_attention.py): q (B, kq,
 // H, hd) in f32 or bf16, q_pos (B, kq) and kv_pos (B, L) int32; head h =
@@ -16,8 +20,7 @@
 // NaN); the output is in q's dtype.
 //
 // What bounds it on an H100: reading K and V once, B * L * KV * hd * 2
-// tensors (8.4 MB in bf16 at B = 8, L = 256, KV = 8, hd = 128: 2.5 us at
-// 3.35 TB/s).  Its FLOPs (4 * B * kq * H * L * hd) are far below that line.
+// tensors.  Its FLOPs (4 * B * kq * H * L * hd) are far below that line.
 //
 // Design: one thread block per (batch row, KV head) owns the kq * G query
 // rows of that head group (32 at kq = 8, G = 4), so each K/V byte is read
@@ -27,14 +30,11 @@
 // memory, each row's running max / sum is updated, and every thread keeps
 // its slice of the (rows, hd) accumulator in registers.  Every row runs the
 // same tile loop whatever kq and B are, so a query's result does not depend
-// on the block size (BPD at kq = k and greedy at kq = 1 agree).  There is no
-// lane or row padding; keys past L are skipped.  What differs between the
-// kernels is only where key j of row b lives (``Rows``: a dense row, or
-// the page tbl[b, j / ps] looked up inside the kernel, so no dense copy of
-// the pool is made) and the tree's extra bit test (``kTree``).  B * KV = 64
-// blocks at the path's shape leaves part of the card's 132 SMs idle:
-// splitting the KV axis (flash-decoding, with a combine pass) and
-// tensor-core products are later work.
+// on the block size.  There is no lane or row padding; keys past L are
+// skipped.  Where key j of row b lives is ``Rows`` (the page tbl[b, j / ps]
+// looked up inside the kernel, so no dense copy of the pool is made).
+// B * KV blocks at the path's shape leave part of the card's 132 SMs idle;
+// split_attention.cuh is the fix.
 #pragma once
 
 #include "common.cuh"

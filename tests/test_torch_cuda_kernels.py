@@ -63,6 +63,83 @@ def test_verify_attention_kernel_matches_plain(cuda, kq, hd, window, meta, dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _chain_case(gen, dev, dtype, b, kq, h, kvh, hd, l):
+    """A cache of ``l`` slots: row r's queries at l - kq - 3r .. (clamped to
+    the cache, so at small l some queries precede every key), every 7th
+    slot stale (-1)."""
+    q = _randn(gen, (b, kq, h, hd), dtype, dev)
+    k = _randn(gen, (b, l, kvh, hd), dtype, dev)
+    v = _randn(gen, (b, l, kvh, hd), dtype, dev)
+    base = torch.tensor([l - kq - 3 * r for r in range(b)], dtype=torch.int32)
+    q_pos = base[:, None] + torch.arange(kq, dtype=torch.int32)
+    kv_pos = torch.arange(l, dtype=torch.int32).repeat(b, 1)
+    kv_pos[:, 3::7] = -1
+    return q, k, v, q_pos.to(dev), kv_pos.to(dev)
+
+
+def _assert_matches_plain(got, want, dtype):
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 15, 16, 17, 63, 64, 65, 300, 4096])
+def test_verify_attention_kernel_split_edges(cuda, l, dtype):
+    """Cache lengths at the split plan's edges: one ragged range, a range
+    boundary on, before and after a tile, eight ranges."""
+    gen = torch.Generator().manual_seed(l)
+    args = _chain_case(gen, cuda, dtype, 3, 8, 32, 8, 128, l)
+    _assert_matches_plain(verify_attention_cuda(*args),
+                          ref.verify_attention(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_attention_kernel_masked_split_and_blind_row(cuda, dtype):
+    """L 256 is four ranges of 64: the second range all masked (weight 0 in
+    the combine), and query 0 of every row sees no key at all (the mean of
+    V over the L keys, as the plain version gives)."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, q_pos, kv_pos = _chain_case(gen, cuda, dtype, 3, 8, 32, 8, 128, 256)
+    kv_pos[:, 64:128] = -1
+    q_pos[:, 0] = -1
+    got = verify_attention_cuda(q, k, v, q_pos, kv_pos)
+    want = ref.verify_attention(q, k, v, q_pos, kv_pos)
+    _assert_matches_plain(got, want, dtype)
+    mean_v = v.float().mean(dim=1).repeat_interleave(4, dim=1)   # (B, H, hd)
+    torch.testing.assert_close(got[:, 0].float(), mean_v, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kq,h,hd,l", [(8, 32, 32, 300), (8, 32, 64, 300),
+                                       (16, 32, 128, 300),    # kq·G = 64
+                                       (16, 32, 64, 4096)])
+def test_verify_attention_kernel_head_dims_and_full_rows(cuda, kq, h, hd, l,
+                                                         dtype):
+    gen = torch.Generator().manual_seed(kq * hd + l)
+    args = _chain_case(gen, cuda, dtype, 2, kq, h, 8, hd, l)
+    _assert_matches_plain(verify_attention_cuda(*args, window=40, num_meta=3),
+                          ref.verify_attention(*args, window=40, num_meta=3),
+                          dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [256, 4096])
+def test_verify_attention_kernel_is_batch_invariant(cuda, l, dtype):
+    """A query's output does not depend on the block or batch around it,
+    bit for bit: kq = 1 equals its row at kq = 8, B = 1 its row at B = 8."""
+    gen = torch.Generator().manual_seed(l + 1)
+    q, k, v, q_pos, kv_pos = _chain_case(gen, cuda, dtype, 8, 8, 32, 8, 128, l)
+    full = verify_attention_cuda(q, k, v, q_pos, kv_pos)
+    for i in range(8):
+        one = verify_attention_cuda(q[:, i:i + 1].contiguous(), k, v,
+                                    q_pos[:, i:i + 1].contiguous(), kv_pos)
+        assert torch.equal(one, full[:, i:i + 1]), f"query {i}"
+    for r in range(8):
+        row = verify_attention_cuda(*(t[r:r + 1].contiguous()
+                                      for t in (q, k, v, q_pos, kv_pos)))
+        assert torch.equal(row, full[r:r + 1]), f"row {r}"
+
+
 def _tree_case(gen, dev, dtype, b, h, kvh, hd, l, topo, window=0):
     kq = topo.num_nodes
     q = _randn(gen, (b, kq, h, hd), dtype, dev)
@@ -97,13 +174,39 @@ def test_tree_verify_attention_kernel_matches_plain(cuda, topo, h, window, dtype
 
 
 def test_tree_kernel_on_a_chain_equals_verify_kernel(cuda):
+    """On a chain the ancestor bits pass exactly the causal keys, so the
+    tree kernel gives verify_attention's output bit for bit."""
     topo = TreeTopology((-1,) + tuple(range(7)))
-    gen = torch.Generator().manual_seed(5)
-    q, k, v, q_pos, kv_pos, kv_node, anc = _tree_case(
-        gen, cuda, torch.float32, 2, 32, 8, 128, 256, topo)
-    got = tree_verify_attention_cuda(q, k, v, q_pos, kv_pos, kv_node, anc)
-    want = verify_attention_cuda(q, k, v, q_pos, kv_pos)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for dtype in (torch.float32, torch.bfloat16):
+        for l in (256, 300, 4096):
+            gen = torch.Generator().manual_seed(5 + l)
+            q, k, v, q_pos, kv_pos, kv_node, anc = _tree_case(
+                gen, cuda, dtype, 2, 32, 8, 128, l, topo)
+            got = tree_verify_attention_cuda(q, k, v, q_pos, kv_pos, kv_node, anc)
+            want = verify_attention_cuda(q, k, v, q_pos, kv_pos)
+            assert torch.equal(got, want), (dtype, l)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,hd", [(17, 128), (65, 128), (300, 64),
+                                  (4096, 128), (300, 32)])
+def test_tree_verify_attention_kernel_split_edges(cuda, l, hd, dtype):
+    topo = default_tree(8, 2)
+    gen = torch.Generator().manual_seed(l * hd)
+    args = _tree_case(gen, cuda, dtype, 3, 32, 8, hd, max(l, 8), topo)
+    _assert_matches_plain(tree_verify_attention_cuda(*args),
+                          ref.tree_verify_attention(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_verify_attention_kernel_is_batch_invariant(cuda, dtype):
+    """A batch row's output does not depend on the rows beside it."""
+    gen = torch.Generator().manual_seed(21)
+    args = _tree_case(gen, cuda, dtype, 8, 32, 8, 128, 256, default_tree(8, 4))
+    full = tree_verify_attention_cuda(*args)
+    for r in range(8):
+        row = tree_verify_attention_cuda(*(t[r:r + 1].contiguous() for t in args))
+        assert torch.equal(row, full[r:r + 1]), f"row {r}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,0 +1,91 @@
+"""The split-KV attention kernels' plan and refusals, on the CPU.
+
+``split_plan(L)`` says how ``csrc/split_attention.cuh`` cuts a cache of L
+keys into the ranges of one thread-block cluster; the kernel refuses a
+launch whose plan differs.  These tests need no card.
+"""
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import block_attention as ba  # noqa: E402
+
+SAMPLE = sorted(set(range(1, 8193))
+                | set(np.random.default_rng(0).integers(8193, 2 ** 22, 200).tolist())
+                | {2 ** 20, 2 ** 22, 2 ** 31 - 1})
+
+
+def _ranges(l):
+    splits, keys = ba.split_plan(l)
+    return splits, keys, [(i * keys, min(l, (i + 1) * keys)) for i in range(splits)]
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_split_plan_ranges_cover_every_key_once(chunk):
+    for l in SAMPLE[chunk::4]:
+        splits, keys, ranges = _ranges(l)
+        assert 1 <= splits <= ba.MAX_SPLITS, l
+        assert keys % ba.SPLIT_ALIGN == 0 and keys >= ba.SPLIT_ALIGN, l
+        assert ranges[0][0] == 0 and ranges[-1][1] == l, l
+        for (_, end), (start, _) in zip(ranges, ranges[1:]):
+            assert end == start, l                  # contiguous, no overlap
+        for start, end in ranges:
+            assert end > start or l < ba.SPLIT_ALIGN, (l, start, end)
+
+
+def test_split_plan_at_the_paths_lengths():
+    assert ba.split_plan(1) == (1, 16)
+    assert ba.split_plan(256) == (4, 64)          # granite's serve cache
+    assert ba.split_plan(4096) == (8, 512)
+    assert ba.split_plan(65) == (2, 48)
+    assert ba.split_plan(513) == (7, 80)          # no empty eighth range
+
+
+def test_split_plan_depends_on_l_alone():
+    """The plan takes L and nothing else, so a query's arithmetic cannot
+    depend on kq or B; the wrappers pass it k.shape[1] alone."""
+    params = list(inspect.signature(ba.split_plan).parameters)
+    assert params == ["kv_len"]
+    for name in ("verify_attention_cuda", "tree_verify_attention_cuda"):
+        assert "split_plan(l)[0]" in inspect.getsource(getattr(ba, name))
+
+
+def test_split_plan_refuses_an_empty_cache():
+    with pytest.raises(ValueError, match="L >= 1"):
+        ba.split_plan(0)
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Fail the test if anything tries to build or load a kernel."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a kernel build was attempted")
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "library", refuse)
+
+
+def _inputs(b=1, kq=2, h=4, kvh=2, hd=64, l=16):
+    q = torch.zeros((b, kq, h, hd))
+    kv = torch.zeros((b, l, kvh, hd))
+    return (q, kv, kv, torch.zeros((b, kq), dtype=torch.int32),
+            torch.zeros((b, l), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kernel", ["verify", "tree"])
+@pytest.mark.parametrize("case,match", [
+    (dict(), "CUDA device"),                       # a CPU tensor
+    (dict(hd=48), "head_dim 48"),
+    (dict(kq=65, h=2, kvh=2), "65 query rows exceed 64"),
+])
+def test_wrappers_refuse_before_any_build(no_build, kernel, case, match):
+    q, k, v, q_pos, kv_pos = _inputs(**case)
+    with pytest.raises(ValueError, match=match):
+        if kernel == "verify":
+            ba.verify_attention_cuda(q, k, v, q_pos, kv_pos)
+        else:
+            ba.tree_verify_attention_cuda(q, k, v, q_pos, kv_pos,
+                                          torch.full_like(kv_pos, -1), q_pos)
