@@ -12,15 +12,20 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 paths' shapes, bf16 and fp32 (tree shapes, 32-node trees,
                 the split-KV plan's edges, a masked range, a query that
                 sees no key, head dims 32 and 64, kq·G 64, shared and
-                unmapped pages, rwkv6's untied lm_head, ragged and
-                strong-decay scans included); the split-KV attention
-                kernels bit for bit batch-invariant (kq 1 vs 8, B 1 vs 8,
-                the tree kernel on a chain vs verify_attention); times
-                kernel, plain version, the one-call PyTorch yardstick where
-                there is one (for attention the faster of SDPA on repeated
-                K/V and SDPA with enable_gqa), the fp32 time of the
-                attention kernels, and the bound (bytes / 3.35 TB/s or
-                FLOPs / peak, the larger).
+                unmapped pages, fused_heads at T 1, 2, 4 and 8 on the tied
+                table view, on rwkv6's untied row-major lm_head and at N 1,
+                65 and 200, ragged and strong-decay scans included); the
+                three split-KV attention kernels bit for bit batch-invariant
+                (kq 1 vs 8, B 1 vs 8), the tree kernel on a chain and the
+                paged kernel on the gathered view kp[tbl] bit for bit equal
+                to verify_attention; times kernel, plain version, the
+                one-call PyTorch yardstick where there is one (for
+                attention the faster of SDPA on repeated K/V and SDPA with
+                enable_gqa), the fp32 time of the attention kernels and of
+                fused_heads, fused_heads at rwkv6's shape and beside a
+                two-call comparator (torch.mm, then torch.topk; not one
+                call, so not library_ms), and the bound (bytes / 3.35 TB/s
+                or FLOPs / peak, the larger).
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -37,12 +42,12 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 tokens, dense and paged.
   6. serve    — the weights cast for bf16 (model.cast_for_compute), served by
                 repro_torch.launch.serve (static batch, --full-config);
-                BPD/greedy agreement reported.
+                k̂, iterations and BPD/greedy agreement reported.
   6b. serve   — the same with --policy topk_tree --cache-backend paged.
   7. profile  — one bf16 BPD iteration of each serve (after 6 and after
                 6b): host wall time against the summed kernel time
                 torch.profiler sees (the device's idle share), and the
-                attention kernels' share of it.
+                attention kernels' and fused_heads' shares of it.
   8. rwkv     — granite freed; rwkv6-1.6b at full width in fp32 (random
                 weights, seed 0): greedy and BPD exact of 8 prompts x 512
                 tokens, 64 new each; BPD must emit greedy's tokens; launches
@@ -51,7 +56,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 slot 3 corrupted (k̂ = 3), each followed by a second
                 iteration on the committed recurrent state (greedy's tokens).
   9. serve    — rwkv6-1.6b cast for bf16 and served (--prompt-len 512);
-                BPD/greedy agreement reported; one iteration profiled.
+                k̂, iterations and BPD/greedy agreement reported; one
+                iteration profiled (fused_heads' share printed).
 
 Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
@@ -439,7 +445,18 @@ def paged_case(torch, gen, b, kq, h, kvh, hd, P, ps, dtype, *, ctx,
     return q, kp, vp, tbl, q_pos.int().contiguous(), kv_pos.contiguous()
 
 
+def paged_gathered(torch, q, kp, vp, tbl, q_pos, kv_pos):
+    """The dense (B, P·ps, KV, hd) view kp[tbl] the paged kernel reads
+    through its table."""
+    b, n_pages = tbl.shape
+    _, ps, kvh, hd = kp.shape
+    k = kp[tbl.long()].reshape(b, n_pages * ps, kvh, hd).contiguous()
+    v = vp[tbl.long()].reshape(b, n_pages * ps, kvh, hd).contiguous()
+    return q, k, v, q_pos, kv_pos
+
+
 def check_paged_attention(torch, gen, results):
+    from repro_torch.kernels.block_attention import verify_attention_cuda
     from repro_torch.kernels.paged_attention import (paged_verify_attention_cuda,
                                                      paged_verify_attention_plain)
 
@@ -453,7 +470,7 @@ def check_paged_attention(torch, gen, results):
         cases.append((dtype, 16, 8, 0, 0, "unmapped"))
         cases.append((dtype, 16, 8, 48, 4, "window+meta"))
     worst = 0.0
-    timed = None
+    timed = {}
     for dtype, ps, kq, window, meta, kind in cases:
         n = P * 16 // ps              # the same span of positions at any ps
         ctx = [n * ps - 3 * i for i in range(b)]
@@ -469,21 +486,48 @@ def check_paged_attention(torch, gen, results):
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[dtype]
         ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        # the same split body on the gathered view kp[tbl]: bit for bit
+        gathered = verify_attention_cuda(*paged_gathered(torch, *args),
+                                         window=window, num_meta=meta)
+        same = torch.equal(got, gathered)
         log(f"  paged_verify_attention {dtype} ps={ps} kq={kq} {kind}: "
-            f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
-        check(ok, f"paged_verify_attention {dtype} ps={ps} kq={kq} {kind} "
-                  f"differs from its plain version by {err}")
+            f"max_abs_err={err:.3g}, equal to verify_attention on kp[tbl] "
+            f"bit for bit: {same} {'ok' if ok and same else 'FAIL'}")
+        check(ok and same, f"paged_verify_attention {dtype} ps={ps} kq={kq} "
+                           f"{kind} differs from its plain version by {err} "
+                           f"or from verify_attention on the gathered view")
         worst = max(worst, err)
-        if (dtype, ps, kq, kind) == ("bfloat16", 16, 8, "path"):
-            timed = args
+        if (ps, kq, kind) == (16, 8, "path"):
+            timed[dtype] = args
     log(f"  paged_verify_attention: max_abs_err over all {len(cases)} cases "
         f"{worst:.3g}")
+    for dtype, args in timed.items():
+        q, kp, vp, tbl, q_pos, kv_pos = args
+        full = paged_verify_attention_cuda(*args)
+        for r in range(q.shape[0]):              # the pool is shared
+            row = paged_verify_attention_cuda(
+                q[r:r + 1].contiguous(), kp, vp, tbl[r:r + 1].contiguous(),
+                q_pos[r:r + 1].contiguous(), kv_pos[r:r + 1].contiguous())
+            check(torch.equal(row, full[r:r + 1]),
+                  f"paged_verify_attention {dtype}: batch row {r} alone "
+                  f"differs from its row at B = 8")
+        for i in range(q.shape[1]):
+            one = paged_verify_attention_cuda(q[:, i:i + 1].contiguous(), kp,
+                                              vp, tbl,
+                                              q_pos[:, i:i + 1].contiguous(),
+                                              kv_pos)
+            check(torch.equal(one, full[:, i:i + 1]),
+                  f"paged_verify_attention {dtype}: query {i} at kq = 1 "
+                  f"differs from its row at kq = 8")
+        log(f"  paged_verify_attention {dtype}: kq 1 == kq 8 and B 1 == B 8 "
+            f"bit for bit ok")
 
     # time at the paged path's shape: bf16, B=8, kq=8, P=9 pages of 16
-    # (64 + 64 + 8 positions), every page mapped
-    q, kp, vp, tbl, q_pos, kv_pos = timed
-    kernel_ms = time_ms(torch, lambda: paged_verify_attention_cuda(*timed))
-    plain_ms = time_ms(torch, lambda: paged_verify_attention_plain(*timed))
+    # (L 144: 3 ranges of 48 keys), every page mapped
+    q, kp, vp, tbl, q_pos, kv_pos = timed["bfloat16"]
+    kernel_ms = time_ms(torch, lambda: paged_verify_attention_cuda(*timed["bfloat16"]))
+    plain_ms = time_ms(torch, lambda: paged_verify_attention_plain(*timed["bfloat16"]))
+    fp32_ms = time_ms(torch, lambda: paged_verify_attention_cuda(*timed["float32"]))
     # bytes: the pages this table maps (each read once), not the whole pool
     mapped = int(torch.unique(tbl).numel())
     page_bytes = kp[0].numel() * kp.element_size()
@@ -495,7 +539,7 @@ def check_paged_attention(torch, gen, results):
         source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:87",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None,
+        bound_by=by, library_ms=None, extra=f"fp32 kernel {fp32_ms:.4f} ms",
         shape=f"bf16 q (8,8,32,128), {mapped} mapped pages of (16,8,128)")
 
 
@@ -580,30 +624,35 @@ def heads_ids_agree(torch, vals, ids, o, w, vocab, top_t):
 
 
 def check_fused_heads(torch, gen, results):
-    from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
+    from repro_torch.kernels.fused_heads import (fused_heads_topk_cuda,
+                                                 heads_topk_plain)
 
     n, d, vocab, vp = 56, 4096, 49155, 49408
-    timed = None
+    timed = {}
     worst = 0.0
+
+    def compare(label, dtype, o, w, voc, top_t):
+        vals, ids = fused_heads_topk_cuda(o, w, vocab=voc, top_t=top_t)
+        torch.cuda.synchronize()
+        ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, voc, top_t)
+        err = (vals - wv).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        vals_ok = torch.allclose(vals, wv, rtol=tol, atol=tol)
+        log(f"  fused_heads {dtype} T={top_t} {label}: max_abs_err={err:.3g} "
+            f"near-ties={ties} {'ok' if ok and vals_ok else 'FAIL'}")
+        check(ok and vals_ok, f"fused_heads {dtype} T={top_t} {label} differs "
+                              f"from its plain version (err {err})")
+        return err
+
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
         table = (torch.randn((vp, d), generator=gen, device="cuda") * 0.02).to(dt)
         w = table.t()                                  # the tied view, no copy
-        for top_t in (1, 4):
-            vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
-            torch.cuda.synchronize()
-            ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab, top_t)
-            err = (vals - wv).abs().max().item()
-            tol = ATTN_TOL[dtype]
-            vals_ok = torch.allclose(vals, wv, rtol=tol, atol=tol)
-            log(f"  fused_heads {dtype} T={top_t}: max_abs_err={err:.3g} "
-                f"near-ties={ties} {'ok' if ok and vals_ok else 'FAIL'}")
-            check(ok and vals_ok, f"fused_heads {dtype} T={top_t} differs "
-                                  f"from its plain version (err {err})")
-            worst = max(worst, err)
-            if dtype == "bfloat16" and top_t == 1:
-                timed = (o, w)
+        for top_t in (1, 2, 4, 8):
+            worst = max(worst, compare("tied (4096,49408)", dtype, o, w, vocab,
+                                       top_t))
+        timed[dtype] = (o, w)
         # pad lanes never win, even when they hold the largest logits
         huge = table.clone()
         huge[vocab:] = 1.0
@@ -611,37 +660,49 @@ def check_fused_heads(torch, gen, results):
                                            top_t=4)
         check(int(pad_ids.max()) < vocab, "fused_heads selected a pad lane")
         log(f"  fused_heads {dtype} pad-never-wins: ok")
+        del huge
         # rwkv6-1.6b: an untied, row-major lm_head (d 2048, Vp = V 65536)
         ro = torch.randn((n, 2048), generator=gen, device="cuda").to(dt)
         rw = (torch.randn((2048, 65536), generator=gen, device="cuda")
               * 0.02).to(dt)
         for top_t in (1, 4):
-            vals, ids = fused_heads_topk_cuda(ro, rw, vocab=65536, top_t=top_t)
-            torch.cuda.synchronize()
-            ok, ties, wv = heads_ids_agree(torch, vals, ids, ro, rw, 65536,
-                                           top_t)
-            err = (vals - wv).abs().max().item()
-            tol = ATTN_TOL[dtype]
-            vals_ok = torch.allclose(vals, wv, rtol=tol, atol=tol)
-            log(f"  fused_heads {dtype} T={top_t} untied lm_head (2048,65536): "
-                f"max_abs_err={err:.3g} near-ties={ties} "
-                f"{'ok' if ok and vals_ok else 'FAIL'}")
-            check(ok and vals_ok, f"fused_heads {dtype} T={top_t} untied "
-                                  f"lm_head differs from its plain version")
-            worst = max(worst, err)
-        del rw
-    o, w = timed
-    kernel_ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
-                                                             top_t=1))
-    from repro_torch.kernels.fused_heads import heads_topk_plain
+            worst = max(worst, compare("untied lm_head (2048,65536)", dtype,
+                                       ro, rw, 65536, top_t))
+        timed[dtype + " rwkv6"] = (ro, rw)
+        # rows past one 64-row tile
+        for rows in (1, 65, 200):
+            ob = torch.randn((rows, d), generator=gen, device="cuda").to(dt)
+            worst = max(worst, compare(f"N={rows}", dtype, ob, w, vocab, 4))
+
+    def heads(args, voc):
+        return lambda: fused_heads_topk_cuda(*args, vocab=voc, top_t=1)
+
+    o, w = timed["bfloat16"]
+    kernel_ms = time_ms(torch, heads(timed["bfloat16"], vocab))
     plain_ms = time_ms(torch, lambda: heads_topk_plain(o, w, vocab=vocab,
                                                        top_t=1))
+    fp32_ms = time_ms(torch, heads(timed["float32"], vocab))
+    ro, rw = timed["bfloat16 rwkv6"]
+    rwkv_ms = time_ms(torch, heads(timed["bfloat16 rwkv6"], 65536))
+    rwkv_fp32_ms = time_ms(torch, heads(timed["float32 rwkv6"], 65536))
+    # a two-call comparator, not one PyTorch call (library_ms stays null):
+    # the bf16 product (cuBLAS) writes the logits, then torch.topk reads them
+    two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w)[:, :vocab], 1))
+    rwkv_two_ms = time_ms(torch, lambda: torch.topk(torch.mm(ro, rw), 1))
+    rbms, _ = bound(nbytes(ro, rw) + n * 8, 2.0 * n * 2048 * 65536, "bfloat16")
+    log(f"  fused_heads two calls (torch.mm in bf16, then torch.topk; not one "
+        f"call, so not library_ms): granite {two_ms:.4f} ms, rwkv6 "
+        f"{rwkv_two_ms:.4f} ms")
     bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * vp, "bfloat16")
     results["fused_heads"] = dict(
         source="src/repro_torch/kernels/csrc/fused_heads.cu",
         replaces="src/repro/kernels/fused_heads.py:63",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None,
+        extra=f"fp32 kernel {fp32_ms:.4f} ms; rwkv6's (2048,65536) row-major "
+              f"lm_head: bf16 {rwkv_ms:.4f} ms (bound {rbms:.4f}), fp32 "
+              f"{rwkv_fp32_ms:.4f} ms; two calls (mm + topk) {two_ms:.4f} / "
+              f"{rwkv_two_ms:.4f} ms",
         shape="bf16 o (56,4096), tied table view (4096,49408), T=1")
 
 
@@ -986,7 +1047,8 @@ def phase_decode(torch, results):
     rows_equal = int(same.all(dim=1).sum())
     generated = int(s_stats["generated"].sum())
     log(f"[serve] bf16: {generated / out['wall_s']:.1f} tokens/s, "
-        f"k̂={s_stats['mean_accepted']:.4f}, invocations="
+        f"k̂={s_stats['mean_accepted']:.4f}, iterations="
+        f"{s_stats['iterations']}, invocations="
         f"{s_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; "
         f"BPD vs greedy agreement {agree:.4f} of tokens, {rows_equal}/8 rows "
         f"identical (reported, not required in bf16)")
@@ -1022,7 +1084,8 @@ def phase_decode(torch, results):
     same = (t_toks[:, prompt_len:n] == gt_toks[:, prompt_len:n])
     generated = int(t_stats["generated"].sum())
     log(f"[serve] bf16 topk_tree paged: {generated / out['wall_s']:.1f} "
-        f"tokens/s, k̂={t_stats['mean_accepted']:.4f}, invocations="
+        f"tokens/s, k̂={t_stats['mean_accepted']:.4f}, iterations={iters}, "
+        f"invocations="
         f"{t_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; "
         f"BPD vs greedy agreement {float(same.float().mean()):.4f} of tokens, "
         f"{int(same.all(dim=1).sum())}/8 rows identical (reported, not "
@@ -1076,10 +1139,16 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label):
             f"profiler saw no kernels, device time not measured")
         return
     attn_ms = sum(ms for name, ms in busy.items() if "attention_kernel" in name)
+    # fused_heads: its product-and-fold kernel (bf16 heads_tc_kernel, fp32
+    # chunk_topk_kernel) and the merge of the blocks' partials
+    heads_ms = sum(ms for name, ms in busy.items()
+                   if any(k in name for k in ("heads_tc_kernel",
+                                              "chunk_topk_kernel",
+                                              "merge_topk_kernel")))
     log(f"[profile] one bf16 BPD iteration ({label}): wall {wall_ms:.2f} ms, "
         f"{len(kernels)} kernels busy {busy_ms:.2f} ms, of which attention "
-        f"kernels {attn_ms:.3f} ms; device idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
+        f"kernels {attn_ms:.3f} ms, fused_heads {heads_ms:.3f} ms; device "
+        f"idle share {1 - busy_ms / wall_ms:.3f}")
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:8.3f} ms  {name[:90]}")
 
@@ -1202,7 +1271,7 @@ def phase_rwkv(torch, results):
     same = (s_toks[:, prompt_len:n] == gb_toks[:, prompt_len:n])
     generated = int(s_stats["generated"].sum())
     log(f"[rwkv serve] bf16: {generated / out['wall_s']:.1f} tokens/s, "
-        f"k̂={s_stats['mean_accepted']:.4f}, invocations="
+        f"k̂={s_stats['mean_accepted']:.4f}, iterations={iters}, invocations="
         f"{s_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; BPD vs "
         f"greedy agreement {float(same.float().mean()):.4f} of tokens, "
         f"{int(same.all(dim=1).sum())}/8 rows identical (reported, not "

@@ -1,11 +1,12 @@
 // The split-KV body of the BPD verify-attention kernels on Hopper: k fresh
-// queries against a KV cache, with an fp32 online softmax.
+// queries against a KV cache, with an fp32 online softmax.  It is the one
+// attention body of the port; its three instantiations differ in where key
+// j of row b lives (``Rows``) and in the tree's bit test (``kTree``):
 //
-//   verify_attention.cu        dense rows k/v (B, L, KV, hd)
-//   tree_verify_attention.cu   dense rows, plus the tree's ancestor bit test
-//
-// (paged_verify_attention.cu still runs the older body in attention.cuh;
-// moving it here is an instantiation with a paged ``Rows``.)
+//   verify_attention.cu        DenseRows: rows k/v (B, L, KV, hd)
+//   tree_verify_attention.cu   DenseRows, plus the tree's ancestor bit test
+//   paged_verify_attention.cu  PagedRows: a page pool kp/vp (num_pages, ps,
+//                              KV, hd) through a block table tbl (B, P)
 //
 // Contract (repro/kernels/block_attention.py): q (B, kq, H, hd) in f32 or
 // bf16, q_pos (B, kq) and kv_pos (B, L) int32; head h = kv * G + g; a key is
@@ -71,8 +72,9 @@
 // A query's result does not depend on kq or B: the split plan depends on L
 // alone, the tile loop is the same for every row, and each row's sums run
 // in the same order wherever the row sits in its block (BPD at kq = k and
-// greedy at kq = 1 agree bit for bit).  What differs between kernels is
-// where key j of row b lives (``Rows``) and the tree's bit test (``kTree``).
+// greedy at kq = 1 agree bit for bit).  Addressing never enters the
+// arithmetic, so the paged kernel equals the dense one on the gathered view
+// kp[tbl] bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -108,11 +110,50 @@ __host__ __device__ inline Plan split_plan(int L) {
   return Plan{(L + keys - 1) / keys, keys};
 }
 
-// Key j of batch row b lives at slot b * L + j of a (B, L, KV, hd) array.
+// Where key j of batch row b lives: a slot of the flattened (slots, KV, hd)
+// K/V arrays.  A block stages what it needs for its range [k_begin, k_end)
+// once at entry (``stage``, into kStaged ints of shared memory, then a
+// barrier), so ``slot``, called by the thread that issues a key's copy,
+// never waits on device memory.  ``fits`` says whether a range of ``keys``
+// keys fits the staging area; the launch refuses a plan that does not.
+
+// Slot b * L + j of a (B, L, KV, hd) array; nothing to stage.
 struct DenseRows {
+  static constexpr int kStaged = 0;
   int L;
-  __device__ __forceinline__ size_t slot(int b, int j) const {
+  __host__ __device__ bool fits(int) const { return true; }
+  __device__ __forceinline__ void stage(int, int, int, int*, int) const {}
+  __device__ __forceinline__ size_t slot(int b, int j, int, const int*) const {
     return size_t(b) * L + j;
+  }
+};
+
+// Slot page * ps + j % ps of the flattened (num_pages * ps, KV, hd) pool,
+// page = tbl[b, j / ps].  The block's pages k_begin / ps .. (k_end - 1) / ps
+// are staged at entry (a range of ``keys`` keys touches at most keys / ps + 2
+// pages: 3 at the path's L 144 with ps 16, 64 at L 4096 with ps 8), each
+// clamped into [0, num_pages) as the reference's gather clamps, so a bad
+// table never addresses memory outside the pool.  512 staged pages (2 KB)
+// take ranges of up to 4,080 keys at ps 8: L up to 32,640.
+struct PagedRows {
+  static constexpr int kStaged = 512;
+  const int* tbl;
+  int P, ps, num_pages;
+  __host__ __device__ bool fits(int keys) const {
+    return keys / ps + 2 <= kStaged;
+  }
+  __device__ __forceinline__ void stage(int b, int k_begin, int k_end,
+                                        int* s, int tid) const {
+    const int p0 = k_begin / ps;
+    const int n = (k_end - 1) / ps - p0 + 1;
+    for (int i = tid; i < n; i += kThreads) {
+      const int page = tbl[size_t(b) * P + p0 + i];
+      s[i] = min(max(page, 0), num_pages - 1);
+    }
+  }
+  __device__ __forceinline__ size_t slot(int, int j, int k_begin,
+                                         const int* s) const {
+    return size_t(s[j / ps - k_begin / ps]) * ps + j % ps;
   }
 };
 
@@ -313,6 +354,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ps = qs + kMaxRows * kLd;                     // fp32: [64][kPsLd]
   int* pos_s = reinterpret_cast<int*>(smem_raw + Lay::kRegion + Lay::kF32Extra);
   int* node_s = pos_s + 2 * kKeys;                     // tree: [2][kKeys]
+  int* rows_s = reinterpret_cast<int*>(smem_raw + Lay::kBytes);  // Rows::kStaged
 
   auto k_tile = [&](int st) { return stage_base + (2 * st) * Lay::kStageElems; };
   auto v_tile = [&](int st) { return stage_base + (2 * st + 1) * Lay::kStageElems; };
@@ -328,8 +370,8 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int t = e / kChunks, c = e % kChunks;
       const int j = base + t;
       const bool valid = j < k_end;
-      const size_t off =
-          (rows.slot(b, valid ? j : k_begin) * kv_heads + kvh) * HD + c * kVec;
+      const size_t slot = rows.slot(b, valid ? j : k_begin, k_begin, rows_s);
+      const size_t off = (slot * kv_heads + kvh) * HD + c * kVec;
       cp_async16(ks + t * kLd + c * kVec, k + off, valid);
       cp_async16(vs + t * kLd + c * kVec, v + off, valid);
     }
@@ -342,6 +384,10 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
+  if constexpr (Rows::kStaged > 0) {
+    rows.stage(b, k_begin, k_end, rows_s, tid);
+    __syncthreads();
+  }
   load_tile(0, k_begin);
   cp_async_commit();
 
@@ -729,7 +775,8 @@ template <typename T, int HD, typename Rows, bool kTree>
 cudaError_t launch(const Args& a, int splits, Rows rows, cudaStream_t stream) {
   using Lay = Layout<T, HD, kTree>;
   const Plan plan = split_plan(a.L);
-  if (splits != plan.splits) return cudaErrorInvalidValue;
+  if (splits != plan.splits || !rows.fits(plan.keys)) return cudaErrorInvalidValue;
+  constexpr size_t kBytes = Lay::kBytes + sizeof(int) * Rows::kStaged;
   auto kernel = split_attention_kernel<T, HD, Rows, kTree>;
   // The shared-memory limit is a per-device attribute of the instantiation:
   // set it on the first launch on each device, not on every launch.
@@ -742,14 +789,14 @@ cudaError_t launch(const Args& a, int splits, Rows rows, cudaStream_t stream) {
   if (!(configured.load() & bit)) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Lay::kBytes));
+                               static_cast<int>(kBytes));
     if (err != cudaSuccess) return err;
     configured.fetch_or(bit);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(a.B * a.kv_heads * plan.splits));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Lay::kBytes;
+  cfg.dynamicSmemBytes = kBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

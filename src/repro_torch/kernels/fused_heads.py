@@ -3,11 +3,16 @@
 The CUDA kernel (``csrc/fused_heads.cu``) replaces the reference's
 ``repro/kernels/fused_heads.py::fused_heads_topk_pallas``: the (N, d) ×
 (d, Vp) logits are computed in fp32 tile by tile and never written out.
-Thread blocks cannot carry a reduction across the grid, so it runs in two
-passes: blocks over (vocab chunk, row tile) keep a per-row top-T of their
-chunk in scratch, and a merge kernel reduces the chunks.  ``w_vocab`` is read
-by its strides, so the tied embedding's ``table.t()`` view needs no copy.
-``heads_topk_plain`` (``kernels/ref.py``) is its plain version.
+In bf16 the products run on the tensor cores (``wgmma``, the vocab as the
+M side) fed by a ring of TMA loads; persistent blocks walk contiguous
+ranges of 128-lane vocab tiles (``vocab_plan``), each carrying a per-row
+top-T across its tiles, and a small merge kernel reduces the blocks'
+partials.  fp32 runs the CUDA-core body (no TF32).  ``w_vocab`` is read by
+its strides, so the tied embedding's ``table.t()`` view needs no copy; in
+bf16 one of its strides must be 1 and the other a multiple of 16 bytes (a
+TMA tensor map's rule), which both the tied view and a row-major
+``lm_head`` meet.  ``heads_topk_plain`` (``kernels/ref.py``) is its plain
+version.
 """
 from __future__ import annotations
 
@@ -19,36 +24,76 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import heads_topk as heads_topk_plain
 
-VOCAB_CHUNK = 64                    # vocab columns per pass-1 thread block
+VOCAB_CHUNK = 64      # fp32 body: vocab columns per block
+VOCAB_TILE = 128      # bf16 body: vocab lanes per tile (two m64 products)
 MAX_TOP_T = 8
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 6 + [_L, _L] + [_I] * 7 + [_P]
 
 _require = functools.partial(_build.require, "fused_heads")
 
-__all__ = ["fused_heads_topk_cuda", "heads_topk_plain"]
+__all__ = ["fused_heads_topk_cuda", "heads_topk_plain", "vocab_plan",
+           "block_tiles"]
+
+
+def vocab_plan(vp: int, sms: int) -> tuple:
+    """How the bf16 kernel cuts Vp lanes over the card: (blocks, tiles).
+    ``tiles`` tiles of VOCAB_TILE lanes (the last ragged), one persistent
+    block per SM at most and never more blocks than tiles; block i walks
+    ``block_tiles(blocks, tiles, i)``.  ``csrc/fused_heads.cu`` computes
+    the same tiles and refuses a block count outside [1, tiles]."""
+    if vp < 1 or sms < 1:
+        raise ValueError(f"vocab_plan needs Vp >= 1 and SMs >= 1, got {vp}, {sms}")
+    tiles = -(-vp // VOCAB_TILE)
+    return min(tiles, sms), tiles
+
+
+def block_tiles(blocks: int, tiles: int, i: int) -> range:
+    """The contiguous tiles block ``i`` of ``blocks`` walks."""
+    return range(i * tiles // blocks, (i + 1) * tiles // blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fused_heads_topk_cuda(o, w_vocab, *, vocab: int, top_t: int = 4):
-    """o: (N, d) contiguous; w_vocab: (d, Vp), any strides (the tied
-    table's transpose view included).  Returns (vals (N, T) f32, ids (N, T)
-    int32) over the logical vocab: lanes >= ``vocab`` never win."""
+    """o: (N, d) contiguous; w_vocab: (d, Vp), any positive strides in fp32
+    (the tied table's transpose view included); in bf16 one stride 1 and
+    the other a multiple of 8 elements, d a multiple of 8, both tensors on
+    16-byte boundaries.  Returns (vals (N, T) f32, ids (N, T) int32) over
+    the logical vocab: lanes >= ``vocab`` never win."""
     _require(o.dim() == 2 and w_vocab.dim() == 2, "o and w_vocab must be 2-d")
     n, d = o.shape
     vp = w_vocab.shape[1]
-    _require(o.is_cuda and w_vocab.device == o.device,
-             "o and w_vocab must be on one CUDA device")
+    _require(n >= 1 and 1 <= top_t <= MAX_TOP_T and top_t <= vocab <= vp,
+             f"N={n}, top_t={top_t}, vocab={vocab}, Vp={vp}")
     _require(o.dtype in _build.DTYPE_CODES and w_vocab.dtype == o.dtype,
              f"dtypes {o.dtype}/{w_vocab.dtype}: need one of f32/bf16")
     _require(o.is_contiguous(), "o must be contiguous")
     _require(w_vocab.shape[0] == d, f"w_vocab {tuple(w_vocab.shape)} vs d={d}")
-    _require(min(w_vocab.stride()) >= 1, "w_vocab strides must be positive")
-    _require(n >= 1 and 1 <= top_t <= MAX_TOP_T and top_t <= vocab <= vp,
-             f"N={n}, top_t={top_t}, vocab={vocab}, Vp={vp}")
-    chunks = -(-vp // VOCAB_CHUNK)
+    ws0, ws1 = w_vocab.stride()
+    _require(min(ws0, ws1) >= 1, "w_vocab strides must be positive")
+    bf16 = o.dtype == torch.bfloat16
+    if bf16:
+        pitch = ws1 if ws0 == 1 else ws0
+        _require(1 in (ws0, ws1) and pitch % 8 == 0,
+                 f"bf16 w_vocab strides {(ws0, ws1)}: one must be 1 and the "
+                 f"other a multiple of 16 bytes (8 elements)")
+        _require(d % 8 == 0, f"bf16 d={d}: o's rows must be a multiple of 16 bytes")
+        _require(o.data_ptr() % 16 == 0 and w_vocab.data_ptr() % 16 == 0,
+                 "bf16 o and w_vocab must start on 16-byte boundaries")
+    _require(o.is_cuda and w_vocab.device == o.device,
+             "o and w_vocab must be on one CUDA device")
     dev = o.device
-    part_v = torch.empty((n, chunks, top_t), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n, chunks, top_t), dtype=torch.int32, device=dev)
+    if bf16:
+        parts, _ = vocab_plan(vp, _sm_count(dev.index if dev.index is not None
+                                            else torch.cuda.current_device()))
+    else:
+        parts = -(-vp // VOCAB_CHUNK)
+    part_v = torch.empty((n, parts, top_t), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n, parts, top_t), dtype=torch.int32, device=dev)
     vals = torch.empty((n, top_t), dtype=torch.float32, device=dev)
     ids = torch.empty((n, top_t), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -56,7 +101,6 @@ def fused_heads_topk_cuda(o, w_vocab, *, vocab: int, top_t: int = 4):
         _build.launch("fused_heads", "fused_heads_topk", _ARGTYPES,
                       o.data_ptr(), w_vocab.data_ptr(), part_v.data_ptr(),
                       part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                      w_vocab.stride(0), w_vocab.stride(1),
-                      _build.DTYPE_CODES[o.dtype], n, d, vp, int(vocab), top_t,
-                      chunks, stream)
+                      ws0, ws1, _build.DTYPE_CODES[o.dtype], n, d, vp,
+                      int(vocab), top_t, parts, stream)
     return vals, ids

@@ -232,6 +232,88 @@ def test_paged_verify_attention_kernel_matches_plain(cuda, ps, kq, window, dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _paged_case(gen, dev, dtype, b, kq, P, ps, *, h=32, kvh=8, hd=128,
+                unmapped=0):
+    """A pool of 1 + B·P pages under a shuffled table; row 1 shares row 0's
+    pages at even page indices (the split plan's edges included); the last
+    ``unmapped`` pages of the last row point at trash page 0 with pos -1;
+    row r holds positions 0 .. P·ps - 3r - 1."""
+    num_pages = 1 + b * P
+    q = _randn(gen, (b, kq, h, hd), dtype, dev)
+    kp = _randn(gen, (num_pages, ps, kvh, hd), dtype, dev)
+    vp = _randn(gen, (num_pages, ps, kvh, hd), dtype, dev)
+    tbl = 1 + torch.randperm(b * P, generator=gen).int().reshape(b, P)
+    if b > 1:
+        tbl[1, ::2] = tbl[0, ::2]
+    ctx = torch.tensor([max(kq, P * ps - 3 * r) for r in range(b)])
+    slot = torch.arange(P * ps)[None, :]
+    kv_pos = torch.where(slot < ctx[:, None], slot, -1).int()
+    if unmapped:
+        tbl[-1, P - unmapped:] = 0
+        kv_pos[-1, (P - unmapped) * ps:] = -1
+    q_pos = (ctx[:, None] - kq + torch.arange(kq)[None, :]).int()
+    return [q, kp, vp] + [t.contiguous().to(dev) for t in (tbl, q_pos, kv_pos)]
+
+
+def _gathered(q, kp, vp, tbl, q_pos, kv_pos):
+    """The dense view kp[tbl] the paged kernel reads through its table."""
+    b, P = tbl.shape
+    _, ps, kvh, hd = kp.shape
+    k = kp[tbl.long()].reshape(b, P * ps, kvh, hd).contiguous()
+    v = vp[tbl.long()].reshape(b, P * ps, kvh, hd).contiguous()
+    return q, k, v, q_pos, kv_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,ps", [(9, 16), (256, 16), (18, 8)])
+def test_paged_kernel_equals_verify_kernel_on_the_gathered_view(cuda, P, ps,
+                                                                dtype):
+    """L 144 (the path's) and 4096: the paged kernel gives
+    verify_attention's output on kp[tbl] bit for bit, shared and unmapped
+    pages included."""
+    gen = torch.Generator().manual_seed(P * ps)
+    args = _paged_case(gen, cuda, dtype, 8, 8, P, ps, unmapped=3)
+    got = paged_verify_attention_cuda(*args)
+    assert torch.equal(got, verify_attention_cuda(*_gathered(*args)))
+    _assert_matches_plain(got, ref.paged_verify_attention(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_verify_attention_kernel_is_batch_invariant(cuda, dtype):
+    """kq 1 equals its row at kq 8 and B 1 its row at B 8, bit for bit."""
+    gen = torch.Generator().manual_seed(31)
+    q, kp, vp, tbl, q_pos, kv_pos = _paged_case(gen, cuda, dtype, 8, 8, 9, 16,
+                                                unmapped=2)
+    full = paged_verify_attention_cuda(q, kp, vp, tbl, q_pos, kv_pos)
+    for i in range(8):
+        one = paged_verify_attention_cuda(q[:, i:i + 1].contiguous(), kp, vp,
+                                          tbl, q_pos[:, i:i + 1].contiguous(),
+                                          kv_pos)
+        assert torch.equal(one, full[:, i:i + 1]), f"query {i}"
+    for r in range(8):
+        row = paged_verify_attention_cuda(
+            q[r:r + 1].contiguous(), kp, vp, tbl[r:r + 1].contiguous(),
+            q_pos[r:r + 1].contiguous(), kv_pos[r:r + 1].contiguous())
+        assert torch.equal(row, full[r:r + 1]), f"row {r}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,ps", [(16, 16), (64, 16), (80, 16), (144, 16),
+                                  (528, 16), (144, 8), (544, 32)])
+def test_paged_verify_attention_kernel_split_edges(cuda, l, ps, dtype):
+    """Cache lengths at the split plan's edges (one range; a range of 64;
+    two ragged ranges; three of 48; seven of 80; at ps 32 ranges of 80 that
+    start inside pages), with shared and unmapped pages."""
+    gen = torch.Generator().manual_seed(l + 3)
+    args = _paged_case(gen, cuda, dtype, 3, 8, l // ps, ps,
+                       unmapped=1 if l > ps else 0)
+    got = paged_verify_attention_cuda(*args, window=40, num_meta=3)
+    _assert_matches_plain(got, ref.paged_verify_attention(*args, window=40,
+                                                          num_meta=3), dtype)
+    assert torch.equal(got, verify_attention_cuda(*_gathered(*args), window=40,
+                                                  num_meta=3))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("crit", CRITERIA)
 @pytest.mark.parametrize("k", [8, 1])
@@ -247,17 +329,89 @@ def test_fused_verify_kernel_matches_plain(cuda, k, crit, dtype):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("top_t", [1, 4])
-@pytest.mark.parametrize("tied", [True, False])
-def test_fused_heads_kernel_matches_plain(cuda, top_t, tied):
-    rng = np.random.default_rng(7)
-    o = torch.from_numpy(rng.standard_normal((56, 256)).astype(np.float32)).to(cuda)
-    table = torch.from_numpy(rng.standard_normal((1024, 256)).astype(np.float32)).to(cuda)
-    w = table.t() if tied else table.t().contiguous()
-    vals, ids = fused_heads_topk_cuda(o, w, vocab=1000, top_t=top_t)
-    wv, wi = ref.heads_topk(o, w, vocab=1000, top_t=top_t)
-    torch.testing.assert_close(vals, wv, rtol=1e-4, atol=1e-4)
-    assert torch.equal(ids, wi)
+HEADS_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: TOL[torch.bfloat16]}
+HEADS_TIE_MARGIN = 1e-3        # of max|logit|, as chip_smoke.py's near-ties
+
+
+def _heads_case(rng, dev, dtype, n, d, vp, layout):
+    """o (N, d) and w (d, Vp) from a seeded numpy generator: the tied
+    table's transpose view, or a row-major (d, Vp) lm_head."""
+    o = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    table = torch.from_numpy(rng.standard_normal((vp, d)).astype(np.float32))
+    o, table = o.to(dev, dtype), table.to(dev, dtype)
+    w = table.t() if layout == "tied" else table.t().contiguous()
+    return o, w
+
+
+def _assert_heads_match(o, w, vocab, top_t, dtype):
+    """Values at the tolerance; fp32 ids equal; bf16 ids equal, except where
+    the plain version's logit at the kernel's id is within HEADS_TIE_MARGIN
+    of max|logit| of the plain value at that rank (a near-tie that the
+    tensor cores sum in another order)."""
+    vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+    wv, wi = ref.heads_topk(o, w, vocab=vocab, top_t=top_t)
+    torch.testing.assert_close(vals, wv, **HEADS_TOL[dtype])
+    assert int(ids.max()) < vocab and int(ids.min()) >= 0
+    if dtype == torch.float32:
+        assert torch.equal(ids, wi)
+    elif not torch.equal(ids, wi):
+        logits = o.float() @ w.float()
+        margin = HEADS_TIE_MARGIN * logits[:, :vocab].abs().max()
+        at_kernel = torch.gather(logits, 1, ids.long())
+        assert bool(((at_kernel - wv).abs() <= margin)[ids != wi].all())
+    return ids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["tied", "row-major"])
+@pytest.mark.parametrize("top_t", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 56, 64, 65, 200])
+def test_fused_heads_kernel_matches_plain(cuda, n, top_t, layout, dtype):
+    """Rows 1 .. 200 (one row tile of 64 and past it), T 1 .. 8, both
+    layouts; Vp 1000 is not a multiple of the 128-lane tile."""
+    rng = np.random.default_rng(7 + n + top_t)
+    o, w = _heads_case(rng, cuda, dtype, n, 256, 1000, layout)
+    _assert_heads_match(o, w, 990, top_t, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["tied", "row-major"])
+@pytest.mark.parametrize("d,vp,vocab", [(200, 1000, 1000),    # d % 64 != 0
+                                        (64, 128, 5),         # one tile
+                                        (2048, 65536, 65536),  # rwkv6's head
+                                        (4096, 8192, 8000)])
+def test_fused_heads_kernel_shapes(cuda, d, vp, vocab, layout, dtype):
+    rng = np.random.default_rng(d + vp)
+    o, w = _heads_case(rng, cuda, dtype, 56, d, vp, layout)
+    _assert_heads_match(o, w, vocab, 4, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["tied", "row-major"])
+def test_fused_heads_kernel_pad_lanes_never_win(cuda, layout, dtype):
+    """vocab < Vp and the pad lanes hold the largest logits: none is ever
+    selected, and the lanes below vocab are ranked as the plain version
+    ranks them."""
+    rng = np.random.default_rng(3)
+    o, w = _heads_case(rng, cuda, dtype, 56, 256, 1024, layout)
+    o = o.abs()
+    w = w.clone() if layout == "row-major" else w.t().clone().t()
+    w[:, 900:] = 4.0
+    ids = _assert_heads_match(o, w, 900, 8, dtype)
+    assert int(ids.max()) < 900
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_heads_kernel_ties_take_the_lowest_id(cuda, dtype):
+    """Equal logits rank by id, as lax.top_k: a table of repeated columns."""
+    o = torch.ones((8, 64), device=cuda, dtype=dtype)
+    table = torch.zeros((640, 64), device=cuda, dtype=dtype)
+    table[300:310] = 1.0
+    table[500:505] = 1.0
+    vals, ids = fused_heads_topk_cuda(o, table.t(), vocab=640, top_t=8)
+    assert ids[0].tolist() == list(range(300, 308))
+    assert torch.equal(ids, ids[:1].expand(8, 8))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -2,7 +2,8 @@
 
 ``split_plan(L)`` says how ``csrc/split_attention.cuh`` cuts a cache of L
 keys into the ranges of one thread-block cluster; the kernel refuses a
-launch whose plan differs.  These tests need no card.
+launch whose plan differs.  The dense, tree and paged kernels share that
+body.  These tests need no card.
 """
 import inspect
 
@@ -13,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_attention as ba  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 
 SAMPLE = sorted(set(range(1, 8193))
                 | set(np.random.default_rng(0).integers(8193, 2 ** 22, 200).tolist())
@@ -52,6 +54,12 @@ def test_split_plan_depends_on_l_alone():
     assert params == ["kv_len"]
     for name in ("verify_attention_cuda", "tree_verify_attention_cuda"):
         assert "split_plan(l)[0]" in inspect.getsource(getattr(ba, name))
+    # the paged kernel: L = P·ps, the table's pages times the page size
+    src = inspect.getsource(pa.paged_verify_attention_cuda)
+    assert "l = n_pages_row * ps" in src
+    assert "splits, keys = split_plan(l)" in src
+    assert src.count("split_plan(") == 1
+    assert src.rstrip().endswith("int(num_meta), splits))")
 
 
 def test_split_plan_refuses_an_empty_cache():
@@ -89,3 +97,32 @@ def test_wrappers_refuse_before_any_build(no_build, kernel, case, match):
         else:
             ba.tree_verify_attention_cuda(q, k, v, q_pos, kv_pos,
                                           torch.full_like(kv_pos, -1), q_pos)
+
+
+def _paged_inputs(b=1, kq=2, h=4, kvh=2, hd=64, ps=8, P=2, pages=3):
+    q = torch.zeros((b, kq, h, hd))
+    pool = torch.zeros((pages, ps, kvh, hd))
+    return (q, pool, pool, torch.ones((b, P), dtype=torch.int32),
+            torch.zeros((b, kq), dtype=torch.int32),
+            torch.zeros((b, P * ps), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(), "CUDA device"),                       # a CPU tensor
+    (dict(hd=48), "head_dim 48"),
+    (dict(kq=65, h=2, kvh=2), "65 query rows exceed 64"),
+    (dict(ps=12), "page_size 12 must be a multiple of 8"),
+])
+def test_paged_wrapper_refuses_before_any_build(no_build, case, match):
+    with pytest.raises(ValueError, match=match):
+        pa.paged_verify_attention_cuda(*_paged_inputs(**case))
+
+
+def test_paged_staged_pages_bound_the_context():
+    """A block stages its range's table entries in shared memory
+    (PagedRows::kStaged); the longest cache it takes at ps 8 is 32,640
+    keys, ranges of 4,080 keys."""
+    def fits(l, ps):
+        return ba.split_plan(l)[1] // ps + 2 <= pa.MAX_STAGED_PAGES
+    assert fits(144, 16) and fits(4096, 8) and fits(32640, 8)
+    assert not fits(32768, 8) and fits(65280, 16) and not fits(65536, 16)
