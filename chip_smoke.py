@@ -14,7 +14,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 sees no key, head dims 32 and 64, kq·G 64, shared and
                 unmapped pages, fused_heads at T 1, 2, 4 and 8 on the tied
                 table view, on rwkv6's untied row-major lm_head and at N 1,
-                65 and 200, ragged and strong-decay scans included); the
+                65 and 200, scans at S 1, 16, 17 and 37 and at logw -8,
+                -20 and 0 beside -20, fused_verify on tie-heavy logits, on
+                unaligned rows (V 49155) and at B 1, k 32, T 8); the
                 three split-KV attention kernels bit for bit batch-invariant
                 (kq 1 vs 8, B 1 vs 8), the tree kernel on a chain and the
                 paged kernel on the gathered view kp[tbl] bit for bit equal
@@ -22,10 +24,12 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 one-call PyTorch yardstick where there is one (for
                 attention the faster of SDPA on repeated K/V and SDPA with
                 enable_gqa), the fp32 time of the attention kernels and of
-                fused_heads, fused_heads at rwkv6's shape and beside a
-                two-call comparator (torch.mm, then torch.topk; not one
-                call, so not library_ms), and the bound (bytes / 3.35 TB/s
-                or FLOPs / peak, the larger).
+                fused_heads, fused_verify and rwkv6_scan, fused_heads at
+                rwkv6's shape, fused_heads and fused_verify beside a
+                two-call comparator (torch.mm then torch.topk; torch.argmax
+                then the compare and scan; not one call, so not
+                library_ms), and the bound (bytes / 3.35 TB/s or FLOPs /
+                peak, the larger).
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -543,58 +547,100 @@ def check_paged_attention(torch, gen, results):
         shape=f"bf16 q (8,8,32,128), {mapped} mapped pages of (16,8,128)")
 
 
+def argmax_then_scan(torch, logits, props):
+    """The two-call comparator of fused_verify (exact): torch.argmax over
+    (B, k, V), then the compare and the prefix scan in PyTorch."""
+    greedy = torch.argmax(logits, -1).int()
+    acc = torch.ones_like(props, dtype=torch.bool)
+    acc[:, 1:] = props[:, 1:] == greedy[:, :-1]
+    khat = torch.cumprod(acc.int(), 1).sum(1).int()
+    slot = torch.arange(props.shape[1], device=props.device)[None, :]
+    toks = torch.where(slot < khat[:, None], props, 0)
+    nxt = torch.gather(greedy, 1, (khat - 1).long()[:, None])[:, 0]
+    return acc, khat, toks, nxt
+
+
 def check_fused_verify(torch, gen, results):
     from repro_torch.kernels.fused_verify import (fused_verify_cuda,
                                                   fused_verify_plain)
 
     b, k, vocab, vp = 8, 8, 49155, 49408
     kw = dict(top_k=3, epsilon=2.0)
-    timed = None
+
+    def compare(label, logits, pr, crits=("exact", "topk", "distance"), **kw):
+        """Each criterion's outputs, each equal to the plain version's."""
+        outs = {}
+        for crit in crits:
+            outs[crit] = got = fused_verify_cuda(logits, pr, criterion=crit,
+                                                 **kw)
+            want = fused_verify_plain(logits, pr, criterion=crit, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            log(f"  fused_verify {label} {crit}: k̂={got[1].tolist()} "
+                f"{'ok' if same else 'FAIL'}")
+            check(same, f"fused_verify {label} {crit} differs from its plain "
+                        f"version")
+        return outs
+
+    def proposals(logits, vocab):
+        greedy = torch.argmax(logits.float(), -1).int()
+        props = torch.randint(0, vocab, greedy.shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        n = min(3, greedy.shape[1] - 1)
+        props[:, 1:n + 1] = greedy[:, 0:n]           # accepted prefixes
+        return greedy, props
+
+    timed = {}
     for dtype in ("bfloat16", "float32"):
         logits = torch.randn((b, k, vp), generator=gen, device="cuda")
         logits[..., vocab:] = -1e9                   # as project_vocab pads
         logits = logits.to(getattr(torch, dtype))
-        greedy = torch.argmax(logits.float(), -1).int()
-        props = torch.randint(0, vocab, (b, k), generator=gen, device="cuda",
-                              dtype=torch.int32)
-        props[:, 1:4] = greedy[:, 0:3]               # accepted prefixes
+        greedy, props = proposals(logits, vocab)
         all_acc = torch.cat([greedy[:, :1], greedy[:, :k - 1]], 1).contiguous()
         all_rej = ((greedy + vocab // 2) % vocab).roll(1, 1).contiguous()
         for name, pr in (("random", props), ("all-accept", all_acc),
                          ("all-reject", all_rej)):
-            for crit in ("exact", "topk", "distance"):
-                got = fused_verify_cuda(logits, pr, criterion=crit, **kw)
-                want = fused_verify_plain(logits, pr, criterion=crit, **kw)
-                torch.cuda.synchronize()
-                same = all(torch.equal(g, w) for g, w in zip(got, want))
-                log(f"  fused_verify {dtype} {crit} {name}: k̂="
-                    f"{got[1].tolist()} {'ok' if same else 'FAIL'}")
-                check(same, f"fused_verify {dtype} {crit} {name} differs "
-                            f"from its plain version")
-                if name == "all-accept" and crit == "exact":
-                    check(bool((got[1] == k).all()), "all-accept k̂ != k")
-                if name == "all-reject" and crit == "exact":
-                    check(bool((got[1] == 1).all()), "all-reject k̂ != 1")
+            khat = compare(f"{dtype} {name}", logits, pr, **kw)["exact"][1]
+            if name == "all-accept":
+                check(bool((khat == k).all()), "all-accept k̂ != k")
+            if name == "all-reject":
+                check(bool((khat == 1).all()), "all-reject k̂ != 1")
         # a 1-slot block (--block-k 1) goes through the same kernel
         one = logits[:, :1].contiguous()
-        for crit in ("exact", "topk", "distance"):
-            got = fused_verify_cuda(one, props[:, :1].contiguous(),
-                                    criterion=crit, **kw)
-            want = fused_verify_plain(one, props[:, :1], criterion=crit, **kw)
-            torch.cuda.synchronize()
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
-            log(f"  fused_verify {dtype} {crit} k=1: "
-                f"{'ok' if same else 'FAIL'}")
-            check(same and bool((got[1] == 1).all()),
-                  f"fused_verify {dtype} {crit} k=1 differs from its plain "
-                  f"version")
-        if dtype == "bfloat16":
-            timed = (logits, props)
-    logits, props = timed
+        outs = compare(f"{dtype} k=1", one, props[:, :1].contiguous(), **kw)
+        check(all(bool((o[1] == 1).all()) for o in outs.values()),
+              f"fused_verify {dtype} k=1: k̂ != 1")
+        # logits quantised to four values: thousands of exact ties a row,
+        # and the -1e9 pad lanes tie among themselves
+        ties = (torch.randint(0, 4, (b, k, vp), generator=gen, device="cuda")
+                .float() * 0.5)
+        ties[..., vocab:] = -1e9
+        ties = ties.to(getattr(torch, dtype))
+        compare(f"{dtype} ties", ties, proposals(ties, vocab)[1], **kw)
+        compare(f"{dtype} ties T8", ties, proposals(ties, vocab)[1],
+                crits=("topk",), top_k=8)
+        # V 49155 unpadded: rows start off 16-byte boundaries
+        odd = logits[..., :vocab].contiguous()
+        compare(f"{dtype} V {vocab} unaligned", odd, proposals(odd, vocab)[1],
+                **kw)
+        # one batch row, the largest block, T 8
+        big = torch.randn((1, 32, vp), generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+        compare(f"{dtype} B 1 k 32 T 8", big, proposals(big, vp)[1],
+                crits=("topk",), top_k=8)
+        timed[dtype] = (logits, props)
+    logits, props = timed["bfloat16"]
     kernel_ms = time_ms(torch, lambda: fused_verify_cuda(logits, props,
                                                          criterion="exact"))
     plain_ms = time_ms(torch, lambda: fused_verify_plain(logits, props,
                                                          criterion="exact"))
+    got = argmax_then_scan(torch, logits, props)
+    want = fused_verify_plain(logits, props, criterion="exact")
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "fused_verify's two-call comparator differs from its plain version")
+    two_ms = time_ms(torch, lambda: argmax_then_scan(torch, logits, props))
+    fp32_ms = time_ms(torch, lambda: fused_verify_cuda(*timed["float32"],
+                                                       criterion="exact"))
     bms, by = bound(nbytes(logits, props) + b * k * 9 + b * 8, b * k * vp,
                     "bfloat16")
     results["fused_verify"] = dict(
@@ -602,6 +648,8 @@ def check_fused_verify(torch, gen, results):
         replaces="src/repro/kernels/fused_verify.py:109",
         max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None,
+        extra=f"fp32 kernel {fp32_ms:.4f} ms; two calls (argmax, then the "
+              f"compare and scan) {two_ms:.4f} ms",
         shape="bf16 logits (8,8,49408), exact")
 
 
@@ -714,18 +762,28 @@ def check_rwkv6_scan(torch, gen, results):
     for dtype in ("bfloat16", "float32"):
         cases += [(dtype, 8, 512, 32, 64, "path"),
                   (dtype, 8, 37, 32, 64, "ragged S"),
+                  (dtype, 8, 1, 32, 64, "S 1"),
+                  (dtype, 8, 16, 32, 64, "S 16"),
+                  (dtype, 8, 17, 32, 64, "S 17"),
                   (dtype, 2, 64, 8, 16, "D 16"),
                   (dtype, 2, 64, 8, 32, "D 32"),
                   (dtype, 2, 64, 8, 128, "D 128"),
-                  (dtype, 1, 48, 4, 64, "strong decay")]
+                  (dtype, 1, 48, 4, 64, "strong decay"),
+                  (dtype, 2, 64, 8, 64, "logw -20"),
+                  (dtype, 2, 64, 8, 64, "mixed decay")]
     worst = 0.0
-    timed = None
+    timed = {}
     for dtype, b, s, h, d, kind in cases:
         dt = getattr(torch, dtype)
         r, k, v = (torch.randn((b, s, h, d), generator=gen,
                                device="cuda").to(dt) for _ in range(3))
         if kind == "strong decay":               # w = e^-8: near-total decay
             logw = torch.full((b, s, h, d), -8.0, device="cuda")
+        elif kind == "logw -20":                 # past the reference's range
+            logw = torch.full((b, s, h, d), -20.0, device="cuda")
+        elif kind == "mixed decay":              # w = 1 beside w = e^-20
+            logw = torch.zeros((b, s, h, d), device="cuda")
+            logw[..., 1::2] = -20.0
         else:
             logw = -torch.exp(torch.randn((b, s, h, d), generator=gen,
                                           device="cuda") * 0.5 - 1.0)
@@ -744,11 +802,13 @@ def check_rwkv6_scan(torch, gen, results):
         check(ok, f"rwkv6_scan {dtype} S={s} D={d} {kind} differs from its "
                   f"plain version by {err}")
         worst = max(worst, err)
-        if (dtype, kind) == ("bfloat16", "path"):
-            timed = (r, k, v, logw, u)
+        if kind == "path":
+            timed[dtype] = (r, k, v, logw, u)
     log(f"  rwkv6_scan: max_abs_err over all {len(cases)} cases {worst:.3g}")
 
     # time at the rwkv6 serve path's prefill: bf16, B=8, S=512, H=32, D=64
+    fp32_ms = time_ms(torch, lambda: rwkv6_scan_cuda(*timed["float32"]))
+    timed = timed["bfloat16"]
     kernel_ms = time_ms(torch, lambda: rwkv6_scan_cuda(*timed))
     plain_ms = time_ms(torch, lambda: rwkv6_scan_plain(*timed), runs=5,
                        warmup=1)
@@ -760,7 +820,7 @@ def check_rwkv6_scan(torch, gen, results):
         source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:100",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None,
+        bound_by=by, library_ms=None, extra=f"fp32 kernel {fp32_ms:.4f} ms",
         shape="bf16 r/k/v (8,512,32,64), logw f32, u (32,64)")
 
 

@@ -13,6 +13,7 @@ and then adds one to the kernel's count in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,6 +49,17 @@ def require(kernel: str, cond: bool, msg: str) -> None:
     """A wrapper's input check: raise, naming the kernel, before any launch."""
     if not cond:
         raise ValueError(f"{kernel} kernel: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (the wrappers' plans size to them)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def nvcc() -> str:

@@ -1,12 +1,13 @@
-// Shared device helpers for the BPD kernels: dtype conversion, the
-// (value desc, id asc) ordering every top-T uses, and a block-wide merge of
-// per-thread top-T lists.  Lowest id wins ties, as jnp.argmax / lax.top_k
+// Shared helpers for the BPD kernels: dtype conversion, the (value desc,
+// id asc) ordering every top-T uses, a block-wide merge of per-thread top-T
+// lists, cp.async copies and the once-per-device shared-memory limit.  Lowest id wins ties, as jnp.argmax / lax.top_k
 // (and the plain versions' argmax / stable sort) give.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 
 #define BPD_EXPORT extern "C" __attribute__((visibility("default")))
@@ -96,6 +97,41 @@ __device__ void block_merge_top(float* sv, int* si, int n) {
     }
   }
   __syncthreads();
+}
+
+// 16 bytes from device to shared memory, bypassing L1; zero-filled when
+// !valid (the source is then not read, but must be a mapped address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Set a kernel's dynamic shared-memory limit once per device (the
+// attribute belongs to the instantiation and the device, not the launch).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       std::atomic<unsigned long long>& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << dev;
+  if (configured.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) configured.fetch_or(bit);
+  return err;
 }
 
 BPD_EXPORT const char* bpd_error_string(int err) {

@@ -76,23 +76,6 @@ constexpr int kMaxTopT = 8;
 constexpr float kNegInf = -1e30f;
 constexpr int kMergeThreads = 256;
 
-// Set a kernel's dynamic shared-memory limit once per device (the
-// attribute belongs to the instantiation and the device, not the launch).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes,
-                       std::atomic<unsigned long long>& configured) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned long long bit = 1ull << dev;
-  if (configured.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) configured.fetch_or(bit);
-  return err;
-}
-
 // ---------------------------------------------------------------------------
 // merge: a block per row reduces the partial lists of its row
 // ---------------------------------------------------------------------------

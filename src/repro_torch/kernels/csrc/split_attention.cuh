@@ -205,14 +205,6 @@ struct Layout {
 // device helpers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -221,14 +213,6 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                "l"(gmem), "r"(n)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -778,21 +762,9 @@ cudaError_t launch(const Args& a, int splits, Rows rows, cudaStream_t stream) {
   if (splits != plan.splits || !rows.fits(plan.keys)) return cudaErrorInvalidValue;
   constexpr size_t kBytes = Lay::kBytes + sizeof(int) * Rows::kStaged;
   auto kernel = split_attention_kernel<T, HD, Rows, kTree>;
-  // The shared-memory limit is a per-device attribute of the instantiation:
-  // set it on the first launch on each device, not on every launch.
   static std::atomic<unsigned long long> configured{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem(kernel, static_cast<int>(kBytes), configured);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned long long bit = 1ull << dev;
-  if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kBytes));
-    if (err != cudaSuccess) return err;
-    configured.fetch_or(bit);
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(a.B * a.kv_heads * plan.splits));
   cfg.blockDim = dim3(kThreads);

@@ -53,11 +53,6 @@ def block_tiles(blocks: int, tiles: int, i: int) -> range:
     return range(i * tiles // blocks, (i + 1) * tiles // blocks)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def fused_heads_topk_cuda(o, w_vocab, *, vocab: int, top_t: int = 4):
     """o: (N, d) contiguous; w_vocab: (d, Vp), any positive strides in fp32
     (the tied table's transpose view included); in bf16 one stride 1 and
@@ -88,8 +83,7 @@ def fused_heads_topk_cuda(o, w_vocab, *, vocab: int, top_t: int = 4):
              "o and w_vocab must be on one CUDA device")
     dev = o.device
     if bf16:
-        parts, _ = vocab_plan(vp, _sm_count(dev.index if dev.index is not None
-                                            else torch.cuda.current_device()))
+        parts, _ = vocab_plan(vp, _build.sm_count(dev))
     else:
         parts = -(-vp // VOCAB_CHUNK)
     part_v = torch.empty((n, parts, top_t), dtype=torch.float32, device=dev)

@@ -70,8 +70,8 @@ def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 16):
     """RWKV-6 wkv scan from a zero state (see kernels.rwkv6_scan).  Returns
     (y (B, S, H, D) f32, final state (B, H, D, D) f32).  ``chunk`` is the
     reference's tile length, taken for call compatibility; the result does
-    not depend on it (the kernel stages 16 steps at a time, the plain
-    version runs step by step)."""
+    not depend on it (the kernel runs the closed form on 8-step
+    sub-chunks, the plain version runs step by step)."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     fn = rwkv6_scan_cuda if _on_card(r) else ref.rwkv6_scan

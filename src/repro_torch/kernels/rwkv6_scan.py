@@ -1,11 +1,17 @@
 """The RWKV-6 wkv scan on Hopper: the prefill's recurrence from a zero state.
 
 The CUDA kernel (``csrc/rwkv6_scan.cu``) replaces the reference's
-``repro/kernels/rwkv6_scan.py::rwkv6_scan_pallas``: one thread block per
-(batch row, head) runs the whole time loop, thread j keeping column j of
-the (D, D) state in registers, 16 steps of r/k/v/w staged in shared memory
-at a time.  ``rwkv6_scan_plain`` (``kernels/ref.py``: the sequential fp32
-recurrence) is its plain version.
+``repro/kernels/rwkv6_scan.py::rwkv6_scan_pallas`` with its closed chunk
+form on the tensor cores: tiles of ``STAGE_STEPS`` steps, each two
+sub-chunks of ``SUB_CHUNK`` with their own midpoint renormalisation, a
+step's log-decay floored at ``LOGW_FLOOR`` (so every factor fits in fp32
+however strong the decay), products on ``mma.sync`` TF32 split three ways
+for fp32 accuracy.  One warp-specialised block per (batch row, head):
+consumer warps own 16 columns of the (D, D) state each, in mma
+accumulators; producer warps copy r/k/v/logw ahead with ``cp.async`` and
+form each tile's decays, exponentials and score partials while the
+consumers multiply the last.  ``rwkv6_scan_plain`` (``kernels/ref.py``:
+the sequential fp32 recurrence) is its plain version.
 """
 from __future__ import annotations
 
@@ -18,6 +24,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rwkv6_scan as rwkv6_scan_plain
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+# twins of csrc/rwkv6_scan.cu's kSub, kTile and kLogwFloor
+SUB_CHUNK = 8
+STAGE_STEPS = 16
+LOGW_FLOOR = -16.0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 5 + [_P]
 
@@ -47,6 +57,8 @@ def rwkv6_scan_cuda(r, k, v, logw, u):
     _require(all(t.is_contiguous() for t in ins), "inputs must be contiguous")
     _require(d in HEAD_DIMS, f"head dim {d} not one of {HEAD_DIMS}")
     _require(s >= 1, "the sequence is empty")
+    _require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, logw)),
+             "r/k/v/logw must start on 16-byte boundaries")
     dev = r.device
     y = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
     state = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)

@@ -329,6 +329,39 @@ def test_fused_verify_kernel_matches_plain(cuda, k, crit, dtype):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ties", "ties T8", "unaligned V",
+                                  "B 1 k 32 T 8", "k 3 split"])
+def test_fused_verify_kernel_ties_and_splits(cuda, case, dtype):
+    """Bit for bit equal to the plain version on logits quantised to four
+    values (thousands of exact ties a row, -1e9 pad lanes), on rows that
+    start off 16-byte boundaries (V 4099 unpadded), at the largest block
+    and T, and where verify_plan cuts each slot into eight ranges."""
+    rng = np.random.default_rng(8)
+    b, k, vp, kw = 8, 8, 4352, dict(top_k=3, epsilon=2.0)
+    if case == "B 1 k 32 T 8":
+        b, k, kw = 1, 32, dict(top_k=8)
+    elif case == "k 3 split":
+        k, vp = 3, 20000
+    lg = rng.normal(size=(b, k, vp)).astype(np.float32)
+    if case.startswith("ties"):
+        lg = rng.integers(0, 4, (b, k, vp)).astype(np.float32) * 0.5
+        lg[..., 4099:] = -1e9
+    if case == "ties T8":
+        kw = dict(top_k=8)
+    if case == "unaligned V":
+        lg = lg[..., :4099]
+    lg = torch.from_numpy(np.ascontiguousarray(lg)).to(cuda, dtype)
+    props = torch.from_numpy(rng.integers(0, lg.shape[-1], (b, k)).astype(np.int32)).to(cuda)
+    props[:, 1:] = torch.argmax(lg.float(), -1).int()[:, :k - 1]
+    props[:, k // 2] += 1                          # reject half-way
+    for crit in CRITERIA:
+        got = fused_verify_cuda(lg, props, criterion=crit, **kw)
+        want = ref.fused_verify(lg, props, criterion=crit, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), crit
+
+
 HEADS_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: TOL[torch.bfloat16]}
 HEADS_TIE_MARGIN = 1e-3        # of max|logit|, as chip_smoke.py's near-ties
@@ -443,10 +476,41 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, b, s, h, d, strong, dtype):
                                    atol=1e-4 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["logw -20", "mixed"])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_rwkv6_scan_kernel_extreme_decay(cuda, d, kind, dtype):
+    """Decay past the reference's chunk range (logw -20 everywhere, or w =
+    1 beside w = e^-20 channel by channel): within the same tolerance."""
+    gen = torch.Generator().manual_seed(d)
+    b, s, h = 2, 41, 2
+    r, k, v = (_randn(gen, (b, s, h, d), dtype, cuda) for _ in range(3))
+    logw = torch.full((b, s, h, d), -20.0, device=cuda)
+    if kind == "mixed":
+        logw[..., ::2] = 0.0
+    u = _randn(gen, (h, d), torch.float32, cuda) * 0.1
+    y, state = rwkv6_scan_cuda(r, k, v, logw, u)
+    wy, ws = ref.rwkv6_scan(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    for got, want in ((y, wy), (state, ws)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
 def test_rwkv6_scan_kernel_refuses_other_head_dims(cuda):
     x = torch.zeros((1, 4, 1, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim 48"):
         rwkv6_scan_cuda(x, x, x, x, torch.zeros((1, 48), device=cuda))
+
+
+def test_rwkv6_scan_kernel_refuses_misaligned_inputs(cuda):
+    """cp.async copies 16 bytes at a time: a view that starts off a 16-byte
+    boundary is refused before any launch."""
+    x = torch.zeros((1 * 4 * 1 * 16 + 1,), device=cuda)[1:].view(1, 4, 1, 16)
+    ok = torch.zeros((1, 4, 1, 16), device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        rwkv6_scan_cuda(x, ok, ok, ok, torch.zeros((1, 16), device=cuda))
 
 
 def test_every_launch_is_counted(cuda):
