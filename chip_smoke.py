@@ -29,7 +29,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 two-call comparator (torch.mm then torch.topk; torch.argmax
                 then the compare and scan; not one call, so not
                 library_ms), and the bound (bytes / 3.35 TB/s or FLOPs /
-                peak, the larger).
+                peak, the larger); at head_dim 16 (the trained sweep
+                model) the three split-KV kernels in bf16 and fp32, bit for
+                bit batch-invariant, timed; verify_attention as the
+                encoder-decoder's cross attention calls it (q_pos 0, the
+                source at 0, masked tails at -1; kq 1 and 8, Se 24 and 64,
+                heads 8 of 64 and 4 of 16), paper-mt-base's call timed
+                beside SDPA.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -62,6 +68,25 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
   9. serve    — rwkv6-1.6b cast for bf16 and served (--prompt-len 512);
                 k̂, iterations and BPD/greedy agreement reported; one
                 iteration profiled (fused_heads' share printed).
+  10. mt      — rwkv6 freed; paper-mt-base (6 + 6 layers, d 512, 8 heads of
+                64, vocab 32000) at full width in fp32 (random weights,
+                seed 0): greedy_decode_seq2seq and bpd_decode_seq2seq under
+                exact, adaptive, input_copy and topk_tree of 8 MarkovLM
+                sources x 64 tokens, 64 new each; each must emit greedy's
+                tokens; launches exact (self and cross attention once per
+                layer and forward); hand-made accepts (k̂ = 8, slot 3
+                corrupted k̂ = 3) and a second iteration.
+  10b. mt bf16 — the same weights cast for bf16, exact and input_copy:
+                k̂, iterations, tokens/s, agreement with bf16 greedy; one
+                iteration of each profiled.
+  10c. fixture — the trained policy-sweep model (tests/data/policy_sweep,
+                head_dim 16) in fp32, each of its 16 sources decoded alone
+                under exact, topk, distance, adaptive, input_copy and
+                topk_tree: tokens, iterations and generated counts equal to
+                reference.json (the JAX reference's decode of the same
+                checkpoint) except at reported near-ties; the lossless
+                policies emit exact's tokens; each k̂ beside the
+                reference's.
 
 Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
@@ -547,6 +572,115 @@ def check_paged_attention(torch, gen, results):
         shape=f"bf16 q (8,8,32,128), {mapped} mapped pages of (16,8,128)")
 
 
+def check_head_dim_16(torch, gen, results):
+    """The three split-KV kernels at head_dim 16 (the trained policy-sweep
+    model: 4 heads of 16), bf16 and fp32, against their plain versions and
+    bit for bit batch-invariant; then verify_attention as the
+    encoder-decoder's cross attention calls it (every query at position 0,
+    the source's keys at 0 and a masked tail at -1), at paper-mt-base's
+    heads (8 of 64) and the sweep model's (4 of 16).  The errors join each
+    kernel's max_abs_err; the times are printed (PERF.md §6)."""
+    from repro_torch.kernels.block_attention import (tree_verify_attention_cuda,
+                                                     tree_verify_attention_plain,
+                                                     verify_attention_cuda,
+                                                     verify_attention_plain)
+    from repro_torch.kernels.paged_attention import (paged_verify_attention_cuda,
+                                                     paged_verify_attention_plain)
+    from repro_torch.kernels.tree_mask import default_tree
+
+    b, kq, h, hd, l, P, ps = 8, 8, 4, 16, 300, 9, 16
+    for dtype in ("bfloat16", "float32"):
+        tol = ATTN_TOL[dtype]
+        cases = (
+            ("verify_attention", verify_attention_cuda, verify_attention_plain,
+             attention_case(torch, gen, b, kq, h, h, hd, l, dtype,
+                            length=[l - kq - 3 * i for i in range(b)],
+                            stale=5)),
+            ("tree_verify_attention", tree_verify_attention_cuda,
+             tree_verify_attention_plain,
+             tree_case(torch, gen, b, h, h, hd, l, default_tree(kq, 2), dtype,
+                       stale=5)),
+            ("paged_verify_attention", paged_verify_attention_cuda,
+             paged_verify_attention_plain,
+             paged_case(torch, gen, b, kq, h, h, hd, P, ps, dtype,
+                        ctx=[P * ps - 3 * i for i in range(b)])))
+        for name, fn, plain, args in cases:
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            check(not torch.isnan(got).any(), f"{name} hd 16 NaN")
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            check(ok, f"{name} {dtype} hd 16 differs from its plain version "
+                      f"by {err}")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            if name == "paged_verify_attention":        # the pool is shared
+                q, kp, vp, tbl, q_pos, kv_pos = args
+                for r in range(b):
+                    row = fn(q[r:r + 1].contiguous(), kp, vp,
+                             tbl[r:r + 1].contiguous(),
+                             q_pos[r:r + 1].contiguous(),
+                             kv_pos[r:r + 1].contiguous())
+                    check(torch.equal(row, got[r:r + 1]),
+                          f"{name} {dtype} hd 16: batch row {r} alone "
+                          f"differs from its row at B = 8")
+            else:
+                check_invariance(torch, f"{name} {dtype} hd 16", fn, args,
+                                 queries=name == "verify_attention")
+            ms = time_ms(torch, lambda: fn(*args))
+            plain_ms = time_ms(torch, lambda: plain(*args))
+            log(f"  {name} {dtype} hd 16 (B {b}, kq {kq}, H {h}, L "
+                f"{l if name != 'paged_verify_attention' else P * ps}): "
+                f"max_abs_err={err:.3g}, B 1 == B 8 bit for bit, kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms ok")
+
+    # the cross attention call: q_pos 0, source keys at 0, masked tails
+    tails = [0, 3, 5, 0, 7, 1, 0, 2]
+    worst = 0.0
+    for heads, hdim in ((8, 64), (4, 16)):
+        for dtype in ("bfloat16", "float32"):
+            tol = ATTN_TOL[dtype]
+            dt = getattr(torch, dtype)
+            for kq_ in (1, 8):
+                for se in (24, 64):
+                    q = torch.randn((b, kq_, heads, hdim), generator=gen,
+                                    device="cuda").to(dt)
+                    k = torch.randn((b, se, heads, hdim), generator=gen,
+                                    device="cuda").to(dt)
+                    v = torch.randn((b, se, heads, hdim), generator=gen,
+                                    device="cuda").to(dt)
+                    q_pos = torch.zeros((b, kq_), dtype=torch.int32,
+                                        device="cuda")
+                    slot = torch.arange(se, device="cuda")[None, :]
+                    tail = torch.tensor(tails, device="cuda")[:, None]
+                    kv_pos = torch.where(slot < se - tail, 0, -1).int()
+                    got = verify_attention_cuda(q, k, v, q_pos, kv_pos)
+                    want = verify_attention_plain(q, k, v, q_pos, kv_pos)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                         atol=tol),
+                          f"cross attention {dtype} H {heads} hd {hdim} "
+                          f"kq {kq_} Se {se} differs by {err}")
+                    worst = max(worst, err)
+                    if (heads, dtype, kq_, se) == (8, "bfloat16", 8, 64):
+                        timed = (q, k, v, q_pos, kv_pos)
+    results["verify_attention"]["max_abs_err"] = max(
+        results["verify_attention"]["max_abs_err"], worst)
+    q, k, v, q_pos, kv_pos = timed
+    ms = time_ms(torch, lambda: verify_attention_cuda(*timed))
+    plain_ms = time_ms(torch, lambda: verify_attention_plain(*timed))
+    mask = (kv_pos[:, None, :] >= 0).expand(b, 8, -1)[:, None]
+    repeat_ms, gqa_ms = sdpa_yardsticks(torch, q, k, v, mask)
+    bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, q),
+                    4 * b * 8 * 8 * 64 * 64, "bfloat16")
+    log(f"  cross attention (verify_attention, q_pos 0, masked tails): "
+        f"max_abs_err={worst:.3g} over 16 cases ok; paper-mt-base's call "
+        f"bf16 q (8,8,8,64), k/v (8,64,8,64): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {min(repeat_ms, gqa_ms):.4f} ms, bound "
+        f"{bms:.5f} ms ({by})")
+
+
 def argmax_then_scan(torch, logits, props):
     """The two-call comparator of fused_verify (exact): torch.argmax over
     (B, k, V), then the compare and the prefix scan in PyTorch."""
@@ -754,6 +888,89 @@ def check_fused_heads(torch, gen, results):
         shape="bf16 o (56,4096), tied table view (4096,49408), T=1")
 
 
+def check_mt_heads_verify(torch, gen):
+    """fused_heads and fused_verify at the shapes phases 10-10c give them:
+    paper-mt-base's untied row-major lm_head (512, 32000) and (8, 8, 32000)
+    p_1 logits, bf16 and fp32; the trained fixture's (64, 256) lm_head
+    (vocab 48, pad lanes -1e9) and (1, 8, 256) logits, fp32 as phase 10c
+    runs it.  A chain drafts B x 7 heads at T 1, a tree B x 4 depths at
+    T 4 (default_tree(8, 4)); verification as DecodeConfig(top_k=2,
+    epsilon=2.0) asks."""
+    from repro_torch.kernels.fused_heads import (fused_heads_topk_cuda,
+                                                 heads_topk_plain)
+    from repro_torch.kernels.fused_verify import (fused_verify_cuda,
+                                                  fused_verify_plain)
+
+    kw = dict(top_k=2, epsilon=2.0)
+    cases = [("paper-mt-base", "bfloat16", 8, 512, 32000, 32000),
+             ("paper-mt-base", "float32", 8, 512, 32000, 32000),
+             ("fixture", "float32", 1, 64, 48, 256)]
+    for name, dtype, b, d, vocab, vp in cases:
+        dt = getattr(torch, dtype)
+        w = (torch.randn((d, vp), generator=gen, device="cuda") * 0.02).to(dt)
+        for rows, top_t in ((b * 7, 1), (b * 4, 4)):
+            o = torch.randn((rows, d), generator=gen, device="cuda").to(dt)
+            vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+            torch.cuda.synchronize()
+            ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab, top_t)
+            err = (vals - wv).abs().max().item()
+            tol = ATTN_TOL[dtype]
+            ok = ok and torch.allclose(vals, wv, rtol=tol, atol=tol)
+            log(f"  fused_heads {name} {dtype} ({rows},{d})x({d},{vp}) "
+                f"T={top_t}: max_abs_err={err:.3g} near-ties={ties} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"fused_heads {name} {dtype} N={rows} T={top_t} differs "
+                      f"from its plain version (err {err})")
+        logits = torch.randn((b, 8, vp), generator=gen, device="cuda")
+        ties = (torch.randint(0, 4, (b, 8, vp), generator=gen, device="cuda")
+                .float() * 0.5)
+        for lg in (logits, ties):
+            lg[..., vocab:] = -1e9                    # as project_vocab pads
+        logits, ties = logits.to(dt), ties.to(dt)
+        greedy = torch.argmax(logits.float(), -1).int()
+        props = torch.randint(0, vocab, greedy.shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        props[:, 1:4] = greedy[:, 0:3]                # accepted prefixes
+        all_acc = torch.cat([greedy[:, :1], greedy[:, :7]], 1).contiguous()
+        all_rej = ((greedy + vocab // 2) % vocab).roll(1, 1).contiguous()
+        for label, lg, pr in (("random", logits, props),
+                              ("all-accept", logits, all_acc),
+                              ("all-reject", logits, all_rej),
+                              ("ties", ties, props)):
+            for crit in ("exact", "topk", "distance"):
+                got = fused_verify_cuda(lg, pr, criterion=crit, **kw)
+                want = fused_verify_plain(lg, pr, criterion=crit, **kw)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                log(f"  fused_verify {name} {dtype} ({b},8,{vp}) {label} "
+                    f"{crit}: k̂={got[1].tolist()} {'ok' if same else 'FAIL'}")
+                check(same, f"fused_verify {name} {dtype} {label} {crit} "
+                            f"differs from its plain version")
+                if crit == "exact" and label in ("all-accept", "all-reject"):
+                    want_k = 8 if label == "all-accept" else 1
+                    check(bool((got[1] == want_k).all()),
+                          f"fused_verify {name} {label}: k̂ != {want_k}")
+        if name == "paper-mt-base" and dtype == "bfloat16":
+            o = torch.randn((b * 7, d), generator=gen, device="cuda").to(dt)
+            heads_ms = time_ms(torch, lambda: fused_heads_topk_cuda(
+                o, w, vocab=vocab, top_t=1))
+            heads_plain = time_ms(torch, lambda: heads_topk_plain(
+                o, w, vocab=vocab, top_t=1))
+            verify_ms = time_ms(torch, lambda: fused_verify_cuda(
+                logits, props, criterion="exact"))
+            verify_plain = time_ms(torch, lambda: fused_verify_plain(
+                logits, props, criterion="exact"))
+            heads_bound, _ = bound(nbytes(o, w) + b * 7 * 8,
+                                   2.0 * b * 7 * d * vp, dtype)
+            verify_bound, _ = bound(nbytes(logits, props) + b * 8 * 9 + b * 8,
+                                    b * 8 * vp, dtype)
+            log(f"  paper-mt-base bf16: fused_heads ({b * 7},{d})x({d},{vp}) "
+                f"T=1 kernel {heads_ms:.4f} ms, plain {heads_plain:.4f} ms, "
+                f"bound {heads_bound:.4f} ms; fused_verify ({b},8,{vp}) exact "
+                f"kernel {verify_ms:.4f} ms, plain {verify_plain:.4f} ms, "
+                f"bound {verify_bound:.4f} ms")
+
+
 def check_rwkv6_scan(torch, gen, results):
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
                                                 rwkv6_scan_plain)
@@ -837,12 +1054,16 @@ def p1_logits_after(torch, M, params, cfg, prefix):
     return M.base_logits(params, cfg, hidden[:, -1])[0, :cfg.vocab_size].float()
 
 
+def top2_gap(torch, logits) -> float:
+    """The top-2 gap of ``logits`` (V,), as a fraction of max|logit|."""
+    top2 = torch.topk(logits, 2).values
+    return float((top2[0] - top2[1]) / logits.abs().max())
+
+
 def near_tie(torch, M, params, cfg, prefix) -> float:
     """Greedy's top-2 p_1 logit gap after ``prefix``, as a fraction of
     max|logit|."""
-    logits = p1_logits_after(torch, M, params, cfg, prefix)
-    top2 = torch.topk(logits, 2).values
-    return float((top2[0] - top2[1]) / logits.abs().max())
+    return top2_gap(torch, p1_logits_after(torch, M, params, cfg, prefix))
 
 
 def bf16_ulp(x: float) -> float:
@@ -851,11 +1072,10 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def divergence_at(torch, M, params, cfg, prefix, bpd_tok, greedy_tok):
-    """Where BPD's and greedy's tokens first differ: the full forward's top-2
-    gap, and the rank and gap below the top of each side's token, the gaps
-    in bf16 ulps of max|logit|."""
-    logits = p1_logits_after(torch, M, params, cfg, prefix)
+def divergence_at(torch, logits, bpd_tok, greedy_tok):
+    """Where BPD's and greedy's tokens first differ, from the full forward's
+    p_1 ``logits`` there: the top-2 gap, and the rank and gap below the top
+    of each side's token, the gaps in bf16 ulps of max|logit|."""
     ulp = bf16_ulp(float(logits.abs().max()))
     top2 = torch.topk(logits, 2).values
     out = {"top2_ulps": float(top2[0] - top2[1]) / ulp}
@@ -865,9 +1085,16 @@ def divergence_at(torch, M, params, cfg, prefix, bpd_tok, greedy_tok):
     return out
 
 
-def compare_rows(torch, M, params, cfg, bpd, greedy, text_len, prompt_len):
+def causal_logits_after(torch, M, params, cfg):
+    """``logits_after(row, prefix)`` of the decoder-only model: p_1's
+    logits after the 1-d token ``prefix``."""
+    return lambda r, prefix: p1_logits_after(torch, M, params, cfg, prefix)
+
+
+def compare_rows(torch, logits_after, bpd, greedy, text_len, prompt_len):
     """BPD rows must equal greedy's, except a row that diverges at a
-    position where greedy's top-2 gap is below TIE_MARGIN."""
+    position where greedy's top-2 gap is below TIE_MARGIN
+    (``logits_after(row, prefix)``: p_1's logits after a row's prefix)."""
     diverged = []
     for r in range(bpd.shape[0]):
         n = int(text_len[r])
@@ -875,7 +1102,7 @@ def compare_rows(torch, M, params, cfg, bpd, greedy, text_len, prompt_len):
         if torch.equal(a, g):
             continue
         p = int((a != g).nonzero()[0])
-        gap = near_tie(torch, M, params, cfg, g[:p])
+        gap = top2_gap(torch, logits_after(r, g[:p]))
         log(f"    row {r} diverges at position {p} (new token {p - prompt_len}): "
             f"greedy top-2 gap {gap:.3g} of max|logit|")
         check(gap < TIE_MARGIN, f"row {r}: BPD differs from greedy at "
@@ -884,7 +1111,7 @@ def compare_rows(torch, M, params, cfg, bpd, greedy, text_len, prompt_len):
     return diverged
 
 
-def report_divergences(torch, M, params, cfg, bpd, greedy, prompt_len, end):
+def report_divergences(torch, logits_after, bpd, greedy, prompt_len, end):
     """bf16: each row's first BPD/greedy divergence, reported and counted
     as a near-tie when BPD's token lies within BF16_TIE_ULPS of the full
     forward's top logit (its rank is printed, but several logits can tie
@@ -895,7 +1122,7 @@ def report_divergences(torch, M, params, cfg, bpd, greedy, prompt_len, end):
         if torch.equal(a, g):
             continue
         p = int((a != g).nonzero()[0])
-        d = divergence_at(torch, M, params, cfg, g[:p], int(a[p]), int(g[p]))
+        d = divergence_at(torch, logits_after(r, g[:p]), int(a[p]), int(g[p]))
         d["tie"] = d["bpd_ulps"] <= BF16_TIE_ULPS
         log(f"    row {r} diverges at new token {p - prompt_len}: full-forward "
             f"top-2 gap {d['top2_ulps']:.3g} ulp; BPD's token rank "
@@ -961,7 +1188,8 @@ def phase_decode(torch, results):
     check(b_launch["fused_heads"] == b_stats["iterations"] + 1,
           "bpd: fused_heads not launched once per iteration + prefill")
     check(bool((b_stats["generated"] == max_new).all()), "bpd: short rows")
-    diverged = compare_rows(torch, M, params, cfg, b_toks, g_toks,
+    after = causal_logits_after(torch, M, params, cfg)
+    diverged = compare_rows(torch, after, b_toks, g_toks,
                             b_stats["text_len"], prompt_len)
     log(f"[decode] fp32 BPD tokens == greedy tokens in "
         f"{8 - len(diverged)}/8 rows (others at near-ties)")
@@ -997,7 +1225,8 @@ def phase_decode(torch, results):
             f"launches {launch}")
         check(launch == want, f"{label}: launches {launch}, expected {want}")
         check(bool((stats["generated"] == max_new).all()), f"{label}: short rows")
-        diverged = compare_rows(torch, M, params, cfg, toks, g_toks,
+        after = causal_logits_after(torch, M, params, cfg)
+        diverged = compare_rows(torch, after, toks, g_toks,
                                 stats["text_len"], prompt_len)
         log(f"[paths] {label}: tokens == greedy tokens in "
             f"{8 - len(diverged)}/8 rows (others at near-ties)")
@@ -1073,7 +1302,8 @@ def phase_decode(torch, results):
                 state = D.bpd_iteration(params, cfg, tdec,
                                         D.causal_lm_backend(cfg), state,
                                         prefix_offset=prefix, max_new=max_new)
-            diverged = compare_rows(torch, M, params, cfg, state.tokens, g_toks,
+            after = causal_logits_after(torch, M, params, cfg)
+            diverged = compare_rows(torch, after, state.tokens, g_toks,
                                     state.text_len, prompt_len)
             log(f"[tree] {backend} cache, {case}, second iteration: k̂ per row "
                 f"{(state.text_len - prompt_len - torch.tensor(khat, device='cuda')).tolist()}; "
@@ -1112,8 +1342,8 @@ def phase_decode(torch, results):
         f"{s_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; "
         f"BPD vs greedy agreement {agree:.4f} of tokens, {rows_equal}/8 rows "
         f"identical (reported, not required in bf16)")
-    div = report_divergences(torch, M, params, scfg, s_toks, gb_toks,
-                             prompt_len, n)
+    after = causal_logits_after(torch, M, params, scfg)
+    div = report_divergences(torch, after, s_toks, gb_toks, prompt_len, n)
     log(f"[serve] bf16 first divergences: {len(div)} rows, "
         f"{sum(d['tie'] for d in div)} at near-ties (BPD's token <= "
         f"{BF16_TIE_ULPS} ulp below the top); BPD's token ranks "
@@ -1150,8 +1380,8 @@ def phase_decode(torch, results):
         f"BPD vs greedy agreement {float(same.float().mean()):.4f} of tokens, "
         f"{int(same.all(dim=1).sum())}/8 rows identical (reported, not "
         f"required in bf16)")
-    div = report_divergences(torch, M, params, tcfg, t_toks, gt_toks,
-                             prompt_len, n)
+    after = causal_logits_after(torch, M, params, tcfg)
+    div = report_divergences(torch, after, t_toks, gt_toks, prompt_len, n)
     log(f"[serve] bf16 topk_tree paged first divergences: {len(div)} rows, "
         f"{sum(d['tie'] for d in div)} at near-ties; BPD's token ranks "
         f"{[d['bpd_rank'] for d in div]}, ulps below the top "
@@ -1159,15 +1389,21 @@ def phase_decode(torch, results):
     profile_iteration(torch, D, params, tcfg, tdec, tbatch, "topk_tree paged")
 
 
-def profile_iteration(torch, D, params, cfg, dec, batch, label):
+def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
+                      seq2seq=False):
     """One bf16 BPD iteration under torch.profiler: host wall time against
-    the kernels' summed device time (the device's idle share)."""
+    the kernels' summed device time (the device's idle share).  ``seq2seq``:
+    an encoder-decoder, ``batch`` holding the sources."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
-                                            max_new=dec.max_new_tokens)
-    be = D.causal_lm_backend(cfg)
+    if seq2seq:
+        state, be = D.bpd_prefill_seq2seq(params, cfg, dec, batch)
+        prefix = 0
+    else:
+        state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
+                                                max_new=dec.max_new_tokens)
+        be = D.causal_lm_backend(cfg)
 
     def step(s):
         with torch.no_grad():
@@ -1266,7 +1502,8 @@ def phase_rwkv(torch, results):
         runs[label] = (toks, stats)
     g_toks = runs["greedy"][0]
     b_toks, b_stats = runs["bpd exact"]
-    diverged = compare_rows(torch, M, params, cfg, b_toks, g_toks,
+    after = causal_logits_after(torch, M, params, cfg)
+    diverged = compare_rows(torch, after, b_toks, g_toks,
                             b_stats["text_len"], prompt_len)
     log(f"[rwkv] fp32 BPD tokens == greedy tokens in {8 - len(diverged)}/8 "
         f"rows (others at near-ties)")
@@ -1299,7 +1536,8 @@ def phase_rwkv(torch, results):
         with torch.no_grad():           # the next block on the committed state
             state = D.bpd_iteration(params, cfg, dec, be, state,
                                     prefix_offset=prefix, max_new=max_new)
-        diverged = compare_rows(torch, M, params, cfg, state.tokens, g_toks,
+        after = causal_logits_after(torch, M, params, cfg)
+        diverged = compare_rows(torch, after, state.tokens, g_toks,
                                 state.text_len, prompt_len)
         log(f"[rwkv accepts] second iteration: k̂ per row "
             f"{(state.text_len - prompt_len - torch.tensor(khat, device='cuda')).tolist()}; "
@@ -1336,13 +1574,255 @@ def phase_rwkv(torch, results):
         f"greedy agreement {float(same.float().mean()):.4f} of tokens, "
         f"{int(same.all(dim=1).sum())}/8 rows identical (reported, not "
         f"required in bf16)")
-    div = report_divergences(torch, M, params, scfg, s_toks, gb_toks,
-                             prompt_len, n)
+    after = causal_logits_after(torch, M, params, scfg)
+    div = report_divergences(torch, after, s_toks, gb_toks, prompt_len, n)
     log(f"[rwkv serve] bf16 first divergences: {len(div)} rows, "
         f"{sum(d['tie'] for d in div)} at near-ties; BPD's token ranks "
         f"{[d['bpd_rank'] for d in div]}, ulps below the top "
         f"{[round(d['bpd_ulps'], 3) for d in div]}")
     profile_iteration(torch, D, params, scfg, sdec, sbatch, "rwkv6 exact")
+
+
+# ---------------------------------------------------------------------------
+# phases 10-10c: the paper's encoder-decoder MT model
+# ---------------------------------------------------------------------------
+
+
+def mt_logits_after(torch, S, params, cfg, src):
+    """``logits_after(row, prefix)`` of an encoder-decoder: p_1's logits
+    (V,) in fp32 after BOS + the output ``prefix``, by encoding source row
+    ``row`` of ``src`` and one full decoder forward."""
+    def after(r, prefix):
+        enc = S.encode(params, cfg, src[r:r + 1])
+        bos = torch.zeros((1,), dtype=torch.int32, device=src.device)
+        tgt = torch.cat([bos, prefix.to(torch.int32)])[None]
+        hidden, _ = S.forward_hidden(params, cfg, tgt, enc)
+        return S.base_logits(params, cfg, hidden[:, -1])[0, :cfg.vocab_size].float()
+    return after
+
+
+def mt_launches(iters, layers, policy, greedy=False):
+    """The kernels one seq2seq decode of ``iters`` iterations launches: self
+    and cross attention once per layer and forward (a tree's self attention
+    on tree_verify_attention), fused_verify once per iteration, fused_heads
+    once per iteration and prefill when the heads draft."""
+    want = dict(verify_attention=2 * layers * iters, fused_verify=iters,
+                fused_heads=0 if greedy or policy == "input_copy" else iters + 1)
+    if policy == "topk_tree":
+        want.update(verify_attention=layers * iters,
+                    tree_verify_attention=layers * iters)
+    return want
+
+
+def phase_mt(torch, results):
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.models import seq2seq as S
+
+    cfg = get_config("paper-mt-base").replace(dtype="float32")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[mt] paper-mt-base fp32: {n_params / 1e6:.1f} M parameters, init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    task = MarkovLM(vocab=255, temperature=0.2, seed=0)
+    src_len, max_new, block_k = 64, 64, cfg.bpd_k
+    # token 0 is BOS, kept out of the sources
+    src = torch.as_tensor(task.sample(np.random.default_rng(1), 8, src_len) + 1,
+                          dtype=torch.int32, device="cuda")
+    batch = {"src": src}
+    dec = DecodeConfig(max_new_tokens=max_new, block_k=block_k, top_k=2)
+    layers = cfg.num_layers
+    after = mt_logits_after(torch, S, params, cfg, src)
+
+    # ---- phase 10: fp32 greedy, then BPD under four policies ---------------
+    runs = {}
+    for label in ("greedy", "exact", "adaptive", "input_copy", "topk_tree"):
+        greedy = label == "greedy"
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        if greedy:
+            toks, stats = D.greedy_decode_seq2seq(params, cfg, dec, batch)
+        else:
+            toks, stats = D.bpd_decode_seq2seq(params, cfg,
+                                               dec.replace(policy=label), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launch = dict(_build.LAUNCHES)
+        iters = stats["iterations"]
+        want = {name: 0 for name in launch}
+        want.update(mt_launches(iters, layers, label, greedy))
+        log(f"[mt] {label}: k̂={stats['mean_accepted']:.4f} iterations={iters} "
+            f"invocations={stats['invocations']}, {wall:.2f}s, launches {launch}")
+        check(launch == want, f"mt {label}: launches {launch}, expected {want}")
+        check(bool((stats["generated"] == max_new).all()), f"mt {label}: short rows")
+        runs[label] = (toks, stats)
+    g_toks = runs["greedy"][0]
+    check(runs["greedy"][1]["iterations"] == max_new, "mt greedy: not one "
+                                                      "token an iteration")
+    for label in ("exact", "adaptive", "input_copy", "topk_tree"):
+        toks, stats = runs[label]
+        diverged = compare_rows(torch, after, toks, g_toks, stats["generated"], 0)
+        log(f"[mt] fp32 {label}: tokens == greedy tokens in "
+            f"{8 - len(diverged)}/8 rows (others at near-ties)")
+
+    # hand-made accepts: greedy's continuation (k̂ 8), slot 3 corrupted (3),
+    # then a second iteration on the committed cache
+    cont = g_toks[:, :block_k].contiguous()
+    for corrupt in (None, 3):
+        state, be = D.bpd_prefill_seq2seq(params, cfg, dec, batch)
+        check(torch.equal(state.proposals[:, 0], cont[:, 0]),
+              "mt prefill's verified slot 0 != greedy's first token")
+        props = cont.clone()
+        if corrupt is not None:
+            props[:, corrupt] = (props[:, corrupt] + 1) % cfg.vocab_size
+        state = state._replace(proposals=props)
+        with torch.no_grad():
+            state = D.bpd_iteration(params, cfg, dec, be, state,
+                                    prefix_offset=0, max_new=max_new)
+        khat = (state.text_len - 1).tolist()
+        want = block_k if corrupt is None else corrupt
+        log(f"[mt accepts] proposals = greedy continuation"
+            f"{'' if corrupt is None else f' with slot {corrupt} corrupted'}: "
+            f"k̂ per row {khat}")
+        for r, kh in enumerate(khat):
+            if kh != want:
+                gap = top2_gap(torch, after(r, g_toks[r, :kh]))
+                check(kh < want and gap < TIE_MARGIN,
+                      f"mt row {r}: k̂={kh}, expected {want} (gap {gap})")
+        with torch.no_grad():
+            state = D.bpd_iteration(params, cfg, dec, be, state,
+                                    prefix_offset=0, max_new=max_new)
+        diverged = compare_rows(torch, after, state.tokens[:, 1:], g_toks,
+                                state.text_len - 1, 0)
+        log(f"[mt accepts] second iteration: k̂ per row "
+            f"{(state.text_len - 1 - torch.tensor(khat, device='cuda')).tolist()}; "
+            f"tokens == greedy tokens in {8 - len(diverged)}/8 rows")
+    del state, be
+
+    # ---- phase 10b: the weights cast for bf16, exact and input_copy ---------
+    bcfg = cfg.replace(dtype="bfloat16")
+    M.cast_for_compute(params, bcfg)
+    torch.cuda.empty_cache()
+    after = mt_logits_after(torch, S, params, bcfg, src)
+    gb_toks, _ = D.greedy_decode_seq2seq(params, bcfg, dec, batch)
+    for policy in ("exact", "input_copy"):
+        pdec = dec.replace(policy=policy)
+        D.bpd_decode_seq2seq(params, bcfg, pdec, batch)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, stats = D.bpd_decode_seq2seq(params, bcfg, pdec, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = toks[:, :max_new] == gb_toks[:, :max_new]
+        generated = int(stats["generated"].sum())
+        log(f"[mt bf16] {policy}: {generated / wall:.1f} tokens/s, "
+            f"k̂={stats['mean_accepted']:.4f}, iterations={stats['iterations']}, "
+            f"wall {wall * 1e3:.1f} ms; BPD vs greedy agreement "
+            f"{float(same.float().mean()):.4f} of tokens, "
+            f"{int(same.all(dim=1).sum())}/8 rows identical (reported, not "
+            f"required in bf16)")
+        div = report_divergences(torch, after, toks, gb_toks, 0, max_new)
+        log(f"[mt bf16] {policy} first divergences: {len(div)} rows, "
+            f"{sum(d['tie'] for d in div)} at near-ties; BPD's token ranks "
+            f"{[d['bpd_rank'] for d in div]}, ulps below the top "
+            f"{[round(d['bpd_ulps'], 3) for d in div]}")
+        profile_iteration(torch, D, params, bcfg, pdec, batch,
+                          f"paper-mt-base {policy}", seq2seq=True)
+
+
+FIXTURE = ROOT / "tests" / "data" / "policy_sweep"
+FIXTURE_POLICIES = ("exact", "topk", "distance", "adaptive", "input_copy",
+                    "topk_tree")
+
+
+def phase_fixture(torch):
+    """Phase 10c: the trained policy-sweep model on the card, fp32, each
+    source row decoded alone at B 1 as the reference did; tokens,
+    iterations and generated counts equal to ``reference.json``'s.  A row
+    may leave them only where its tokens first differ at a near-tie of
+    p_1, which is reported; with equal tokens the counts must be equal."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.config import DecodeConfig, ModelConfig
+    from repro_torch.core import decode as D
+    from repro_torch.models import seq2seq as S
+
+    with open(FIXTURE / "config.json") as f:
+        fields = json.load(f)
+    fields["global_attn_layers"] = tuple(fields["global_attn_layers"])
+    cfg = ModelConfig(**fields)
+    with open(FIXTURE / "reference.json") as f:
+        ref = json.load(f)
+    params = bridge.load_checkpoint(str(FIXTURE / "checkpoint"), cfg,
+                                    device="cuda")
+    src = torch.as_tensor(np.load(FIXTURE / "src.npy"), device="cuda")
+    n_rows, se = src.shape
+    log(f"[fixture] {cfg.name}: {sum(p.numel() for p in params.parameters())} "
+        f"parameters (head_dim {cfg.resolved_head_dim}), {n_rows} rows of {se}")
+    after = mt_logits_after(torch, S, params, cfg, src)
+
+    def tie(r, tokens, want):
+        """p_1's top-2 gap where ``tokens`` first leave ``want``, and there."""
+        p = next(i for i, (a, b) in enumerate(zip(tokens, want)) if a != b)
+        want_t = torch.tensor(want[:p], dtype=torch.int32, device="cuda")
+        return top2_gap(torch, after(r, want_t)), p
+
+    decoded = {}
+    t0 = time.perf_counter()
+    for policy in FIXTURE_POLICIES:
+        dec = DecodeConfig(max_new_tokens=se, block_k=8, policy=policy,
+                           top_k=2, epsilon=2.0)
+        rows = []
+        for r in range(n_rows):
+            toks, stats = D.bpd_decode_seq2seq(params, cfg, dec,
+                                               {"src": src[r:r + 1]})
+            rows.append({"tokens": toks[0, :se].tolist(),
+                         "iterations": stats["iterations"],
+                         "generated": int(stats["generated"][0])})
+        decoded[policy] = rows
+        equal = 0
+        for r, (row, want) in enumerate(zip(rows, ref[policy]["rows"])):
+            if row == want:
+                equal += 1
+                continue
+            # equal tokens leave no room for a tie to excuse other counts
+            check(row["tokens"] != want["tokens"],
+                  f"fixture {policy} row {r}: reference.json's tokens in "
+                  f"{row['iterations']} iterations, {row['generated']} "
+                  f"generated; reference {want['iterations']}, "
+                  f"{want['generated']}")
+            gap, p = tie(r, row["tokens"], want["tokens"])
+            log(f"    {policy} row {r}: tokens leave reference.json's at "
+                f"{p}, p_1's top-2 gap there {gap:.3g} of max|logit|; card "
+                f"{row['iterations']} iterations, reference "
+                f"{want['iterations']}")
+            check(gap < TIE_MARGIN, f"fixture {policy} row {r} differs from "
+                                    f"reference.json with no near-tie")
+        khat = float(np.mean([r["generated"] / max(r["iterations"], 1)
+                              for r in rows]))
+        log(f"[fixture] {policy}: k̂ {khat:.4f} (reference.json "
+            f"{ref[policy]['mean_khat']:.4f}); {equal}/{n_rows} rows equal to "
+            f"the reference's (others at reported near-ties)")
+    for policy in ("adaptive", "input_copy", "topk_tree"):
+        for r in range(n_rows):
+            got, want = decoded[policy][r]["tokens"], decoded["exact"][r]["tokens"]
+            if got != want:
+                gap, p = tie(r, got, want)
+                log(f"    {policy} row {r} leaves exact's tokens at {p}; "
+                    f"p_1's top-2 gap there {gap:.3g} of max|logit|")
+                check(gap < TIE_MARGIN, f"fixture {policy} row {r}: not "
+                                        f"exact's tokens, no near-tie")
+    log(f"[fixture] lossless policies emit exact's tokens; "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:
@@ -1380,7 +1860,9 @@ def main() -> int:
     check_fused_heads(torch, gen, results)
     check_tree_attention(torch, gen, results)
     check_paged_attention(torch, gen, results)
+    check_head_dim_16(torch, gen, results)
     check_rwkv6_scan(torch, gen, results)
+    check_mt_heads_verify(torch, gen)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         extra = f"; {r['extra']}" if "extra" in r else ""
@@ -1394,6 +1876,10 @@ def main() -> int:
     log(f"[rwkv] granite freed: {torch.cuda.memory_allocated() / 2 ** 30:.1f} "
         f"GiB allocated")
     phase_rwkv(torch, results)
+    gc.collect()                                  # then rwkv6's
+    torch.cuda.empty_cache()
+    phase_mt(torch, results)
+    phase_fixture(torch)
 
     kernels = []
     for name in _build.KERNELS:

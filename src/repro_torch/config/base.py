@@ -126,6 +126,10 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: d_model={self.d_model} not divisible by "
                 f"rwkv_head_dim={self.rwkv_head_dim}")
+        if self.is_encoder_decoder and self.num_encoder_layers < 1:
+            raise ValueError(
+                f"{self.name}: an encoder-decoder needs num_encoder_layers "
+                f">= 1, got {self.num_encoder_layers}")
 
 
 @dataclasses.dataclass(frozen=True)

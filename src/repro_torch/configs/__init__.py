@@ -1,3 +1,4 @@
 """Registered architectures (importing this package registers them)."""
 from repro_torch.configs import granite_3_8b  # noqa: F401
+from repro_torch.configs import paper_mt_base  # noqa: F401
 from repro_torch.configs import rwkv6_1_6b  # noqa: F401

@@ -1,5 +1,7 @@
 """Blockwise parallel decoding (paper §3–§5) and the greedy baseline, as in
-``repro.core.decode`` (decoder-only chain path).
+``repro.core.decode``: the decoder-only model (``bpd_decode``,
+``greedy_decode``) and the encoder-decoder (``bpd_decode_seq2seq``,
+``greedy_decode_seq2seq``).
 
 One model invocation per iteration verifies the current block and drafts
 the next (§4 combined scoring), so an output of length m costs
@@ -28,6 +30,7 @@ from repro_torch.core import policy as policy_lib
 from repro_torch.core.policy import DecodePolicy, DraftInputs, PolicyState
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models import seq2seq as seq2seq_lib
 from repro_torch.models.attention import tree_tables
 from repro_torch.models.blocks import check_tree_supported
 from repro_torch.models.layers import embed_apply
@@ -54,6 +57,23 @@ def causal_lm_backend(cfg: ModelConfig) -> Backend:
         p1_logits=lambda p, h: model_lib.base_logits(p, cfg, h),
         head_topk=lambda p, h, n, top_t=1: model_lib.head_topk(p, cfg, h, n,
                                                                top_t),
+    )
+
+
+def seq2seq_backend(cfg: ModelConfig, enc_kvs, block_k: int) -> Backend:
+    """The encoder-decoder's ``Backend`` over one encoded source
+    (``seq2seq.encode``).  The cross attention's (B, block_k) zero
+    ``q_pos`` is made here, once per decode."""
+    k0 = enc_kvs[0].k
+    q_pos = torch.zeros((k0.shape[0], block_k), dtype=I32, device=k0.device)
+    return Backend(
+        embed_tokens=lambda p, t: embed_apply(p["embed"], t).to(cfg.compute_dtype),
+        decode_block=lambda p, h, c, ln, tree=None: seq2seq_lib.decode_block_step(
+            p, cfg, h, c, ln, enc_kvs, q_pos, tree=tree),
+        commit=lambda c, kh: model_lib.commit_caches(cfg, c, kh),
+        p1_logits=lambda p, h: seq2seq_lib.base_logits(p, cfg, h),
+        head_topk=lambda p, h, n, top_t=1: seq2seq_lib.head_topk(p, cfg, h, n,
+                                                                 top_t),
     )
 
 
@@ -313,6 +333,70 @@ def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
         state = bpd_iteration(params, cfg, dec, be, state,
                               prefix_offset=prefix, max_new=budget, policy=pol)
     return state.tokens, decode_stats(state)
+
+
+# ---------------------------------------------------------------------------
+# Seq2seq decode (the paper's MT experiments): encode once, BPD the decoder.
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def bpd_prefill_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
+                        batch: Dict, *,
+                        policy: Optional[DecodePolicy] = None):
+    """Encode ``batch["src"]`` (B, Se), prefill the decoder's caches with BOS
+    (token 0, decoder position 0) and draft the first block.  Returns
+    (state, backend); the source's device is the decode's device."""
+    pol = policy_lib.resolve_policy(dec, policy)
+    block_k = dec.block_k or cfg.bpd_k
+    max_new = dec.max_new_tokens
+    src = batch["src"]
+    b = src.shape[0]
+    dev = src.device
+    enc_kvs = seq2seq_lib.encode(params, cfg, src)
+    be = seq2seq_backend(cfg, enc_kvs, block_k)
+    caches = seq2seq_lib.init_caches(cfg, b, 1 + max_new, block_k, device=dev)
+    bos = torch.zeros((b, 1), dtype=I32, device=dev)
+    hidden, caches = seq2seq_lib.forward_hidden(params, cfg, bos, enc_kvs,
+                                                caches=caches)
+    last = hidden[:, -1, :]
+    ps = pol.init_state(cfg, dec, batch, b)
+    # the committed token at text_len - 1 is BOS
+    proposals, dstate = initial_draft(
+        pol, last, be.p1_logits(params, last), 1, block_k, ps.drafter,
+        head_topk=functools.partial(be.head_topk, params))
+    state = BPDState(
+        tokens=torch.zeros((b, 1 + max_new + block_k), dtype=I32, device=dev),
+        text_len=torch.ones((b,), dtype=I32, device=dev),
+        proposals=proposals,
+        caches=caches,
+        finished=torch.zeros((b,), dtype=torch.bool, device=dev),
+        iters=0,
+        generated=torch.zeros((b,), dtype=I32, device=dev),
+        policy_state=ps._replace(drafter=dstate),
+    )
+    return state, be
+
+
+@torch.no_grad()
+def bpd_decode_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
+                       batch: Dict, *, policy=None) -> Tuple[torch.Tensor, Dict]:
+    """batch: {"src": (B, Se) int32}.  The decoder stream is BOS + output;
+    returns (tokens (B, max_new + block_k) without BOS, stats).  Source
+    drafters (``input_copy``) draw their state from ``batch["src"]``."""
+    pol = policy_lib.resolve_policy(dec, policy)
+    max_new = dec.max_new_tokens
+    state, be = bpd_prefill_seq2seq(params, cfg, dec, batch, policy=pol)
+    while not bool(state.finished.all()) and state.iters < max_new:
+        state = bpd_iteration(params, cfg, dec, be, state, prefix_offset=0,
+                              max_new=max_new, policy=pol)
+    return state.tokens[:, 1:], decode_stats(state)
+
+
+def greedy_decode_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
+                          batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The greedy baseline through the BPD machinery at block size 1."""
+    return bpd_decode_seq2seq(params, cfg, dec.replace(block_k=1), batch)
 
 
 # ---------------------------------------------------------------------------

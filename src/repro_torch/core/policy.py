@@ -9,6 +9,7 @@
     caps k̂ per row from the running acceptance rate.
   * ``Drafter``       — the next block of k proposals from the verify
     forward.  ``HeadsDrafter`` is the paper's prediction heads;
+    ``InputCopyDrafter`` copies the source (seq2seq);
     ``TopKTreeDrafter`` drafts a candidate tree verified in one forward.
 
 Index convention (0-based within a block): ``proposals[:, i]`` proposes the
@@ -16,8 +17,8 @@ token at ``text_len + i``, and slot 0 of a fresh draft is the model's own
 verified greedy token (k̂ >= 1 is unconditional), so drafts change
 iteration counts, never tokens.
 
-Registered: ``exact``, ``topk``, ``distance``, ``adaptive`` and
-``topk_tree``.  The reference's ``input_copy``, ``locality`` and
+Registered: ``exact``, ``topk``, ``distance``, ``adaptive``,
+``input_copy`` and ``topk_tree``.  The reference's ``locality`` and
 ``draft_model`` are not ported yet and raise ``NotImplementedError``
 (see ROADMAP.md).
 """
@@ -263,6 +264,35 @@ class HeadsDrafter(Drafter):
 
 
 @dataclasses.dataclass(frozen=True)
+class InputCopyDrafter(Drafter):
+    """Aggressive-Decoding-style drafts for seq2seq (arXiv:2205.10350):
+    slot 0 is p_1's argmax at the accepted slot, as in ``HeadsDrafter``;
+    slot i >= 1 copies the source token aligned with its output position,
+    ``src[text_len - 1 + offset + i]`` clipped into the source (decoder
+    position 0 is BOS, so output index = position - 1).  Lossless under
+    exact acceptance."""
+
+    offset: int = 0
+
+    def init_state(self, cfg, dec, batch, b):
+        if batch is None or "src" not in batch:
+            raise ValueError(
+                "InputCopyDrafter drafts from batch['src'] and is only "
+                "meaningful for seq2seq decoding — use HeadsDrafter (or a "
+                "custom drafter) for decoder-only models")
+        return {"src": batch["src"].to(I32)}
+
+    def draft(self, inputs: DraftInputs, state):
+        src = state["src"]
+        k = inputs.old_proposals.shape[1]
+        first = greedy_token(_gather_slot(inputs.p1_logits, inputs.slot))
+        out_idx = (inputs.text_len[:, None] - 1 + self.offset
+                   + torch.arange(k, dtype=I32, device=src.device)[None, :])
+        copied = torch.gather(src, 1, out_idx.clamp(0, src.shape[1] - 1).long())
+        return torch.cat([first[:, None], copied[:, 1:]], dim=1), state
+
+
+@dataclasses.dataclass(frozen=True)
 class TopKTreeDrafter(Drafter):
     """Drafts a candidate tree that the verifier scores in one forward
     (tree verification, arXiv:2404.09221): node 0 is p_1's argmax at the
@@ -309,7 +339,7 @@ class DecodePolicy:
 
     def init_state(self, cfg, dec: DecodeConfig, batch: Optional[Dict],
                    b: int) -> PolicyState:
-        device = batch["tokens"].device if batch else None
+        device = next(iter(batch.values())).device if batch else None
         return PolicyState(
             drafter=self.drafter.init_state(cfg, dec, batch, b),
             schedule=self.schedule.init_state(b, device))
@@ -317,7 +347,7 @@ class DecodePolicy:
 
 POLICY_BUILDERS: Dict[str, Callable[[DecodeConfig], DecodePolicy]] = {}
 # the reference's other registered policies -> their ROADMAP modules item
-NOT_PORTED = {"input_copy": 4, "locality": 4, "draft_model": 6}
+NOT_PORTED = {"locality": 4, "draft_model": 4}
 
 
 def register_policy(name: str,
@@ -374,6 +404,9 @@ register_policy("distance", lambda dec: DecodePolicy(
 register_policy("adaptive", lambda dec: DecodePolicy(
     HeadsDrafter(), _maybe_fused(ExactAcceptor(), dec),
     AdaptiveSchedule(min_block=dec.min_block), name="adaptive"))
+register_policy("input_copy", lambda dec: DecodePolicy(
+    InputCopyDrafter(), _maybe_fused(ExactAcceptor(), dec), _schedule_for(dec),
+    name="input_copy"))
 register_policy("topk_tree", lambda dec: DecodePolicy(
     TopKTreeDrafter(fanout=max(dec.top_k, 2)),
     _maybe_fused(ExactAcceptor(), dec), _schedule_for(dec), name="topk_tree"))

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import tree_verify_attention as tree_verify_attention_plain
 from repro_torch.kernels.ref import verify_attention as verify_attention_plain
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_ROWS = 64                       # kq · G query rows per thread block
 MAX_TREE_NODES = 32                 # anc_bits is one int32 per node
 MAX_SPLITS = 8                      # the portable thread-block cluster size

@@ -56,7 +56,8 @@
 //    the fp32 decode gates hold the card to the reference at 2e-5):
 //    CUDA-core FMAs, each thread a register tile of 4 rows x 4 keys
 //    (scores) and 4 rows x hd / 8 columns (outputs), fed by float4
-//    shared-memory loads, about ten FMAs a load.
+//    shared-memory loads (a float2 for the output columns at hd 16), about
+//    ten FMAs a load.
 // 3. Serial softmax.  Each row's max and sum are reduced across the threads
 //    that hold it with __shfl_xor_sync (4 in a quad for bf16, 8 lanes for
 //    fp32); there are two block barriers per tile, both around the copy.
@@ -75,6 +76,11 @@
 // greedy at kq = 1 agree bit for bit).  Addressing never enters the
 // arithmetic, so the paged kernel equals the dense one on the gathered view
 // kp[tbl] bit for bit.
+//
+// Head dims 16, 32, 64 and 128.  At 16 (the trained policy-sweep model) a
+// bf16 row is one k16 step of Q.K^T and two n8 output tiles, a staged row
+// two 16-byte copies (four in fp32), and each fp32 thread holds two output
+// columns of its rows instead of four.
 #pragma once
 
 #include "common.cuh"
@@ -256,6 +262,28 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, float x, float y,
   v.x = *reinterpret_cast<const uint32_t*>(&lo);
   v.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(o) = v;
+}
+
+// kW consecutive floats of shared memory in one access (a float4, or a
+// float2 at hd 16).
+template <int kW>
+__device__ __forceinline__ void load_cols(float (&x)[kW], const float* p) {
+  static_assert(kW == 4 || kW == 2, "four or two columns a piece");
+  if constexpr (kW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
+}
+template <int kW>
+__device__ __forceinline__ void store_cols(float* p, const float (&x)[kW]) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
 }
 
 // What one query row needs to test a key.
@@ -535,7 +563,10 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   } else {
     // ---- fp32: CUDA-core FMAs, thread (rg, kg) owns rows 4rg..4rg+3 -------
     constexpr int kSK = kKeys / 8;    // score columns per thread
-    constexpr int kOC = HD / 32;      // float4 output columns per thread
+    // output columns: pieces of kOW consecutive columns, thread kg holding
+    // columns kg * kOW + 8 * kOW * c of its rows for c < kOC
+    constexpr int kOW = HD >= 32 ? 4 : HD / 8;
+    constexpr int kOC = HD / (8 * kOW);
     constexpr int kPsLd = Lay::kPsLd;
     const int kg = tid & 7;
     // a warp's 4 row groups hold one row tile of 16: whole warps sit out, so
@@ -558,13 +589,15 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ri[i] = row_info<kTree>(q_pos, anc_bits, b, kq, G, rb + i, R);
 
     float m[4], l[4];
-    float4 acc[4][kOC];
+    float acc[4][kOC][kOW];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       m[i] = -INFINITY;
       l[i] = 0.f;
 #pragma unroll
-      for (int c = 0; c < kOC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = 0; c < kOC; ++c)
+#pragma unroll
+        for (int w = 0; w < kOW; ++w) acc[i][c][w] = 0.f;
     }
 
     for (int it = 0; it < n_tiles; ++it) {
@@ -641,12 +674,9 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
           l[i] = fmaf(l[i], alpha, sum);
 #pragma unroll
-          for (int c = 0; c < kOC; ++c) {
-            acc[i][c].x *= alpha;
-            acc[i][c].y *= alpha;
-            acc[i][c].z *= alpha;
-            acc[i][c].w *= alpha;
-          }
+          for (int c = 0; c < kOC; ++c)
+#pragma unroll
+            for (int w = 0; w < kOW; ++w) acc[i][c][w] *= alpha;
         }
       }
       __syncwarp();    // a row group's probabilities are its own warp's
@@ -659,15 +689,13 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int i = 0; i < 4; ++i) p[i] = ps[(rb + i) * kPsLd + t];
 #pragma unroll
           for (int c = 0; c < kOC; ++c) {
-            const float4 vv =
-                *reinterpret_cast<const float4*>(vs + t * kLd + kg * 4 + 32 * c);
+            float vv[kOW];
+            load_cols<kOW>(vv, vs + t * kLd + kg * kOW + 8 * kOW * c);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              acc[i][c].x = fmaf(p[i], vv.x, acc[i][c].x);
-              acc[i][c].y = fmaf(p[i], vv.y, acc[i][c].y);
-              acc[i][c].z = fmaf(p[i], vv.z, acc[i][c].z);
-              acc[i][c].w = fmaf(p[i], vv.w, acc[i][c].w);
-            }
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int w = 0; w < kOW; ++w)
+                acc[i][c][w] = fmaf(p[i], vv[w], acc[i][c][w]);
           }
         }
       }
@@ -683,7 +711,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = rb + i;
 #pragma unroll
         for (int c = 0; c < kOC; ++c)
-          *reinterpret_cast<float4*>(part + r * HD + kg * 4 + 32 * c) = acc[i][c];
+          store_cols<kOW>(part + r * HD + kg * kOW + 8 * kOW * c, acc[i][c]);
         if (kg == 0) {
           part_m[r] = m[i];
           part_l[r] = l[i];
@@ -790,6 +818,7 @@ template <typename T, typename Rows, bool kTree>
 cudaError_t dispatch_hd(int hd, const Args& a, int splits, Rows rows,
                         cudaStream_t s) {
   switch (hd) {
+    case 16: return launch<T, 16, Rows, kTree>(a, splits, rows, s);
     case 32: return launch<T, 32, Rows, kTree>(a, splits, rows, s);
     case 64: return launch<T, 64, Rows, kTree>(a, splits, rows, s);
     case 128: return launch<T, 128, Rows, kTree>(a, splits, rows, s);

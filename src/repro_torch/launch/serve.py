@@ -14,8 +14,10 @@ of the kernels on the CPU).  Every registered decode policy runs
 paged --page-size 16``).  ``--arch rwkv6-1.6b`` serves the RWKV-6 family:
 its recurrent caches have no KV layout, so ``--cache-backend paged`` leaves
 them as they are, and ``topk_tree`` raises (tree verification needs
-attention blocks).  The continuous-batching engine, HTTP serving and
-meshes are not ported yet (ROADMAP.md).
+attention blocks).  An encoder-decoder ``--arch`` (paper-mt-base) is
+refused, as the reference's serve has no seq2seq path: its entry point is
+``repro_torch.core.decode.bpd_decode_seq2seq``.  The continuous-batching
+engine, HTTP serving and meshes are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -78,9 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> Optional[str]:
     if args.engine or args.http:
-        return "--engine / --http (the serving stack: ROADMAP.md item 7)"
+        return "--engine / --http (the serving stack: ROADMAP.md item 5)"
     if args.mesh_data or args.mesh_model > 1 or args.mesh_pod > 1:
-        return "--mesh-* (multi-GPU: ROADMAP.md item 10)"
+        return "--mesh-* (multi-GPU: ROADMAP.md item 8)"
     return None
 
 
@@ -98,6 +100,11 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         raise NotImplementedError(f"{missing} is not ported yet")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full_config)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: this launcher serves "
+            f"decoder-only prompts, as the reference's does; decode a source "
+            f"with repro_torch.core.decode.bpd_decode_seq2seq")
     if not args.full_config:
         cfg = cfg.replace(dtype="float32")
     if params is None:

@@ -1,9 +1,10 @@
 """GQA attention with RoPE, sliding windows and a BPD-aware KV cache, dense
 or paged.
 
-Entry points, as in ``repro.models.attention`` (decoder-only path):
-  * ``attn_full``   — parallel forward over a whole sequence (prefill); a
-                      plain tensor path, as in the reference.
+Entry points, as in ``repro.models.attention``:
+  * ``attn_full``   — parallel forward over a whole sequence (prefill, or
+                      the encoder with ``bidirectional``); a plain tensor
+                      path, as in the reference.
   * ``attn_cached`` — scores a block of ``k`` fresh tokens against the cache
                       and each other (the paper's verify substep), as a
                       chain or as a candidate tree, through the kernels of
@@ -17,6 +18,11 @@ Entry points, as in ``repro.models.attention`` (decoder-only path):
                                                then tree_verify_attention
   * ``tree_commit_attn`` — after a tree forward, moves the accepted
                       root-to-leaf path's K/V into chain slots.
+  * ``cross_kv`` / ``cross_attn_full`` / ``cross_attn_apply`` — the
+                      encoder-decoder's cross attention (the paper's MT
+                      setting): the encoder's K/V once per source, then
+                      the plain path for whole sequences and
+                      ``verify_attention`` for a cached block.
 
 Masking is computed from absolute positions, so the BPD rollback ("length
 decreases by up to k-1") moves no data.  Caches are written in place (the
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -55,16 +61,18 @@ def attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32,
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x, positions):
-    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd); RoPE applied."""
+def _project_qkv(p, cfg: ModelConfig, x, positions, *, rope: bool = True):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd); RoPE applied unless
+    ``rope`` is False (the encoder)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     if "q_norm" in p:
         q = norm_apply(p["q_norm"], q)
         k = norm_apply(p["k_norm"], k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -88,11 +96,15 @@ def _gqa_attend(q, k, v, mask, *, head_dim: int):
     return ctx.reshape(b, sq, h, hd)
 
 
-def make_causal_mask(q_pos, kv_pos, *, window: int = 0, num_meta: int = 0):
+def make_causal_mask(q_pos, kv_pos, *, window: int = 0, num_meta: int = 0,
+                     bidirectional: bool = False):
     """q_pos: (..., Sq), kv_pos: (..., Sk) absolute positions ->
-    (..., Sq, Sk) bool.  Leading dims broadcast."""
+    (..., Sq, Sk) bool.  Leading dims broadcast.  ``bidirectional`` keeps
+    only ``kv_pos >= 0``."""
     q = q_pos[..., :, None]
     s = kv_pos[..., None, :]
+    if bidirectional:
+        return (s >= 0).expand(torch.broadcast_shapes(q.shape, s.shape))
     m = (s >= 0) & (s <= q)
     if window:
         m = m & ((q - s < window) | (s < num_meta))
@@ -104,14 +116,17 @@ def _window(cfg: ModelConfig, layer_idx: int) -> int:
 
 
 def attn_full(p, cfg: ModelConfig, x, *, layer_idx: int = 0, positions=None,
-              return_kv: bool = False):
-    """Parallel causal attention over the full sequence (prefill)."""
+              bidirectional: bool = False, return_kv: bool = False):
+    """Parallel attention over the full sequence: causal (prefill), or
+    ``bidirectional`` with no RoPE and no window (the encoder)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    mask = make_causal_mask(positions, positions, window=_window(cfg, layer_idx),
-                            num_meta=cfg.num_meta_tokens)[None]
+    q, k, v = _project_qkv(p, cfg, x, positions, rope=not bidirectional)
+    window = 0 if bidirectional else _window(cfg, layer_idx)
+    mask = make_causal_mask(positions, positions, window=window,
+                            num_meta=cfg.num_meta_tokens,
+                            bidirectional=bidirectional)[None]
     ctx = _gqa_attend(q, k, v, mask, head_dim=cfg.resolved_head_dim)
     y = _out_proj(p, ctx)
     if return_kv:
@@ -354,3 +369,69 @@ def tree_commit_attn(cache: Dict, cfg: ModelConfig, layer_idx: int,
         buf = cache[name]
         buf[rows, dst] = buf[rows, src]    # the gather copies before the write
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (the paper's encoder-decoder MT setting)
+# ---------------------------------------------------------------------------
+
+
+class CrossKV(NamedTuple):
+    """One decoder layer's view of the encoded source: K/V (B, Se, KV, hd)
+    and ``kv_pos`` (B, Se) int32, 0 for a visible source key and -1 for a
+    masked one (one tensor shared by every layer)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    kv_pos: torch.Tensor
+
+
+def source_positions(src_mask, b: int, se: int, device) -> torch.Tensor:
+    """The (B, Se) int32 ``kv_pos`` of a source: 0 where ``src_mask``
+    (B, Se) bool is True, -1 where it is False; all 0 for None."""
+    if src_mask is None:
+        return torch.zeros((b, se), dtype=torch.int32, device=device)
+    return torch.where(src_mask.to(device=device, dtype=torch.bool), 0,
+                       -1).to(torch.int32)
+
+
+def cross_attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32,
+                    device=None) -> Dict:
+    return attn_init(gen, cfg, dtype=dtype, device=device)
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out, kv_pos) -> CrossKV:
+    """The encoder's K/V for one decoder layer, once per source (no RoPE
+    across modalities; ``k_norm`` where the config has it)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(enc_out.dtype))
+    if "k_norm" in p:
+        k = norm_apply(p["k_norm"], k)
+    return CrossKV(k.contiguous(), v.contiguous(), kv_pos)
+
+
+def _cross_q(p, x):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if "q_norm" in p:
+        q = norm_apply(p["q_norm"], q)
+    return q
+
+
+def cross_attn_full(p, cfg: ModelConfig, x, enc_kv: CrossKV):
+    """x: (B, Sq, d) against the source, on the plain path (whole
+    sequences: the BOS prefill, teacher forcing)."""
+    mask = (enc_kv.kv_pos >= 0)[:, None, :]                      # (B, 1, Se)
+    ctx = _gqa_attend(_cross_q(p, x), enc_kv.k, enc_kv.v, mask,
+                      head_dim=cfg.resolved_head_dim)
+    return _out_proj(p, ctx)
+
+
+def cross_attn_apply(p, cfg: ModelConfig, x, enc_kv: CrossKV, q_pos):
+    """x: (B, kq, d) fresh tokens against the source, through
+    ``ops.verify_attention``: with every query at position 0 its mask
+    (``kv_pos >= 0 and kv_pos <= q_pos``) is the source mask.  ``q_pos``
+    is that (B, kq) int32 zero tensor, made once per decode by the
+    caller."""
+    ctx = ops.verify_attention(_cross_q(p, x).contiguous(), enc_kv.k,
+                               enc_kv.v, q_pos, enc_kv.kv_pos)
+    return _out_proj(p, ctx)

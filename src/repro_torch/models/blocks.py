@@ -1,6 +1,7 @@
 """Per-layer block: attention + dense MLP, or the RWKV-6 time mix + channel
 mix (the ``attn`` × ``dense`` and ``rwkv6`` × ``rwkv_channel_mix`` paths of
-``repro.models.blocks``).
+``repro.models.blocks``).  An encoder-decoder's decoder blocks add cross
+attention between self attention and the MLP.
 
 Two execution modes:
   * full   — whole-sequence parallel forward (prefill); optionally fills the
@@ -18,7 +19,16 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.attention import attn_cached, attn_full, attn_init, cache_write
+from repro_torch.models.attention import (
+    CrossKV,
+    attn_cached,
+    attn_full,
+    attn_init,
+    cache_write,
+    cross_attn_apply,
+    cross_attn_full,
+    cross_attn_init,
+)
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.models.rwkv6 import (
     rwkv_cm_apply,
@@ -31,16 +41,21 @@ SUPPORTED_BLOCKS = (("attn", "dense"), ("rwkv6", "rwkv_channel_mix"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoder-only text models with attention + dense MLP
-    blocks or RWKV-6 blocks; other families raise here, before any work."""
-    if (cfg.block_type, cfg.mlp_type) not in SUPPORTED_BLOCKS \
-            or cfg.modality != "text" or cfg.is_encoder_only \
-            or cfg.is_encoder_decoder or cfg.num_meta_tokens:
+    """The port runs text models: decoder-only with attention + dense MLP
+    blocks or RWKV-6 blocks, and encoder-decoders with attention + dense
+    MLP blocks; other families raise here, before any work."""
+    pair = (cfg.block_type, cfg.mlp_type)
+    ok = pair == SUPPORTED_BLOCKS[0] if cfg.is_encoder_decoder \
+        else pair in SUPPORTED_BLOCKS
+    if not ok or cfg.modality != "text" or cfg.is_encoder_only \
+            or cfg.num_meta_tokens:
         raise NotImplementedError(
             f"{cfg.name}: block_type={cfg.block_type!r}, mlp_type="
-            f"{cfg.mlp_type!r}, modality={cfg.modality!r} is not ported yet "
-            f"(see ROADMAP.md, 'Modules to port'); the port runs decoder-only "
-            f"text models with (block_type, mlp_type) in {SUPPORTED_BLOCKS}")
+            f"{cfg.mlp_type!r}, modality={cfg.modality!r}, "
+            f"is_encoder_decoder={cfg.is_encoder_decoder} is not ported yet "
+            f"(see ROADMAP.md, 'Modules to port'); the port runs text models "
+            f"with (block_type, mlp_type) in {SUPPORTED_BLOCKS}, "
+            f"encoder-decoders with {SUPPORTED_BLOCKS[0]}")
 
 
 def check_tree_supported(cfg: ModelConfig) -> None:
@@ -55,7 +70,7 @@ def check_tree_supported(cfg: ModelConfig) -> None:
 
 
 def block_init(gen, cfg: ModelConfig, layer_idx: int, *, dtype=torch.float32,
-               device=None) -> Dict:
+               device=None, cross_attention: bool = False) -> Dict:
     check_supported(cfg)
     kw = dict(dtype=dtype, device=device)
     p: Dict = {"ln1": norm_init(cfg.d_model, kind=cfg.norm_type, **kw)}
@@ -63,6 +78,9 @@ def block_init(gen, cfg: ModelConfig, layer_idx: int, *, dtype=torch.float32,
         p["attn"] = attn_init(gen, cfg, **kw)
     else:
         p["tm"] = rwkv_tm_init(gen, cfg, **kw)
+    if cross_attention:
+        p["ln_cross"] = norm_init(cfg.d_model, kind=cfg.norm_type, **kw)
+        p["cross"] = cross_attn_init(gen, cfg, **kw)
     p["ln2"] = norm_init(cfg.d_model, kind=cfg.norm_type, **kw)
     if cfg.mlp_type == "dense":
         p["mlp"] = mlp_init(gen, cfg, **kw)
@@ -88,9 +106,11 @@ def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
 
 
 def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
+               bidirectional: bool = False, enc_kv: Optional[CrossKV] = None,
                cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (y, cache_out); cache_out is filled when a cache is passed in
-    (prefill)."""
+    (prefill).  ``bidirectional``: an encoder block; ``enc_kv``: a decoder
+    block's source, attended on the plain path."""
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
     cache_out = dict(cache) if cache is not None else None
     if cfg.block_type == "rwkv6":
@@ -111,8 +131,11 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
                                         positions)
     else:
         y = attn_full(p["attn"], cfg, h, layer_idx=layer_idx,
-                      positions=positions)
+                      positions=positions, bidirectional=bidirectional)
     x = x + y
+    if enc_kv is not None:
+        h = norm_apply(p["ln_cross"], x, kind=cfg.norm_type)
+        x = x + cross_attn_full(p["cross"], cfg, h, enc_kv)
     h = norm_apply(p["ln2"], x, kind=cfg.norm_type)
     if cfg.mlp_type == "dense":
         return x + mlp_apply(p["mlp"], h, act=cfg.activation), cache_out
@@ -123,13 +146,18 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
 
 
 def block_cached(p, cfg: ModelConfig, layer_idx: int, x, cache: Dict,
-                 length, *, tree=None) -> Tuple[torch.Tensor, Dict]:
+                 length, *, enc_kv: Optional[CrossKV] = None, q_pos=None,
+                 tree=None) -> Tuple[torch.Tensor, Dict]:
     """x: (B, k, d) fresh tokens at positions length..length+k-1 (or the
     nodes of draft tree ``tree``, see ``attention.attn_cached``; attention
     blocks only).  Returns (y, cache): the attention cache is written in
     place; an RWKV-6 cache comes back staged, its per-step shifts (the
     normed block inputs) and states stacked along axis 1 beside the old
-    entries, for ``commit_cache``."""
+    entries, for ``commit_cache``.  ``enc_kv``: a decoder block's source,
+    attended through ``cross_attn_apply`` with the (B, k) zero ``q_pos``,
+    which it then needs (every tree node attends to the whole source)."""
+    if enc_kv is not None and q_pos is None:
+        raise ValueError("block_cached: enc_kv needs the (B, k) zero q_pos")
     if tree is not None:
         check_tree_supported(cfg)
     new_cache = dict(cache)
@@ -150,6 +178,9 @@ def block_cached(p, cfg: ModelConfig, layer_idx: int, x, cache: Dict,
                                            length, layer_idx=layer_idx,
                                            tree=tree)
     x = x + y
+    if enc_kv is not None:
+        h = norm_apply(p["ln_cross"], x, kind=cfg.norm_type)
+        x = x + cross_attn_apply(p["cross"], cfg, h, enc_kv, q_pos)
     h = norm_apply(p["ln2"], x, kind=cfg.norm_type)
     if cfg.mlp_type == "dense":
         return x + mlp_apply(p["mlp"], h, act=cfg.activation), new_cache

@@ -1,4 +1,5 @@
-"""Model assembly: the decoder-only text ``CausalLM`` of ``repro.models.model``.
+"""Model assembly: the decoder-only text ``CausalLM`` of ``repro.models.model``
+(the encoder-decoder lives in ``seq2seq``; ``init`` sends its configs there).
 
 Parameters live in a ``ParamTree``: the reference's nested dict / list
 pytree as an ``nn.Module``, so ``state_dict()`` keys are the reference's key
@@ -74,7 +75,12 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     """Random parameters in ``cfg.param_dtype`` from a seeded
     ``torch.Generator`` on ``device`` (default the card; ``"meta"`` gives
     shapes only).  Same distributions as the reference's ``init``; the
-    numbers differ, as the two frameworks' generators do."""
+    numbers differ, as the two frameworks' generators do.  An
+    encoder-decoder config goes to ``seq2seq.init``."""
+    if cfg.is_encoder_decoder:
+        from repro_torch.models import seq2seq   # seq2seq imports this module
+
+        return seq2seq.init(cfg, seed=seed, device=device)
     check_supported(cfg)
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
@@ -93,7 +99,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
 
 # Leaves the reference reads in fp32 whatever the compute dtype: every
 # norm's scale / bias (models/layers.py:46,49,61 there: ln1, ln2,
-# final_norm, tm.ln_x) and RWKV-6's decay weights and bonus
+# final_norm, tm.ln_x, and the encoder-decoder's ln_cross and enc_norm) and
+# RWKV-6's decay weights and bonus
 # (models/rwkv6.py:105,166-168 there).
 FP32_READ_LEAVES = ("scale", "bias")
 FP32_READ_TM = ("w0", "decay_A", "decay_B", "u")

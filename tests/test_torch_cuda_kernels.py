@@ -611,3 +611,90 @@ def test_rwkv6_decode_on_the_card(cuda):
     assert _build.LAUNCHES["fused_heads"] == bs["iterations"] + 1
     gt, _ = decode.greedy_decode(params, cfg, dec, {"tokens": prompt})
     assert torch.equal(bt[:, :53], gt[:, :53])
+
+
+# ---------------------------------------------------------------------------
+# head_dim 16 (the trained policy-sweep model) and cross attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["verify", "tree", "paged"])
+def test_attention_kernels_at_head_dim_16(cuda, kernel, dtype):
+    """The three split-KV kernels at head_dim 16: equal to their plain
+    versions, and a batch row alone equal to its row at B = 4 bit for
+    bit."""
+    gen = torch.Generator().manual_seed(16)
+    if kernel == "verify":
+        fn, plain = verify_attention_cuda, ref.verify_attention
+        args = _chain_case(gen, cuda, dtype, 4, 8, 4, 4, 16, 300)
+    elif kernel == "tree":
+        fn, plain = tree_verify_attention_cuda, ref.tree_verify_attention
+        args = _tree_case(gen, cuda, dtype, 4, 4, 4, 16, 300, default_tree(8, 2))
+    else:
+        fn, plain = paged_verify_attention_cuda, ref.paged_verify_attention
+        args = _paged_case(gen, cuda, dtype, 4, 8, 9, 16, h=4, kvh=4, hd=16)
+    full = fn(*args)
+    _assert_matches_plain(full, plain(*args), dtype)
+    if kernel == "paged":
+        q, kp, vp, tbl, q_pos, kv_pos = args
+        rows = [fn(q[r:r + 1].contiguous(), kp, vp, tbl[r:r + 1].contiguous(),
+                   q_pos[r:r + 1].contiguous(), kv_pos[r:r + 1].contiguous())
+                for r in range(4)]
+    else:
+        rows = [fn(*(t[r:r + 1].contiguous() for t in args)) for r in range(4)]
+    for r, row in enumerate(rows):
+        assert torch.equal(row, full[r:r + 1]), f"row {r}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kq,se,hd", [(1, 24, 16), (8, 24, 16), (8, 64, 64)])
+def test_cross_attention_call_matches_plain(cuda, kq, se, hd, dtype):
+    """verify_attention as the decoder's cross attention calls it: every
+    query at position 0, source keys at 0, a masked tail at -1."""
+    gen = torch.Generator().manual_seed(kq + se)
+    b, h = 3, 8
+    q = _randn(gen, (b, kq, h, hd), dtype, cuda)
+    k = _randn(gen, (b, se, h, hd), dtype, cuda)
+    v = _randn(gen, (b, se, h, hd), dtype, cuda)
+    q_pos = torch.zeros((b, kq), dtype=torch.int32, device=cuda)
+    kv_pos = torch.zeros((b, se), dtype=torch.int32)
+    kv_pos[1, se - 5:] = -1
+    kv_pos = kv_pos.to(cuda)
+    got = verify_attention_cuda(q, k, v, q_pos, kv_pos)
+    _assert_matches_plain(got, ref.verify_attention(q, k, v, q_pos, kv_pos),
+                          dtype)
+    short = verify_attention_cuda(q[1:2].contiguous(), k[1:2, :se - 5].contiguous(),
+                                  v[1:2, :se - 5].contiguous(), q_pos[1:2].contiguous(),
+                                  kv_pos[1:2, :se - 5].contiguous())
+    torch.testing.assert_close(got[1:2].float(), short.float(), **TOL[dtype])
+
+
+def test_seq2seq_decode_on_the_card(cuda):
+    """A small encoder-decoder at head_dim 16 decoded on the card: BPD under
+    exact, input_copy and topk_tree emits greedy's tokens, and each forward
+    ran self and cross attention through the kernels in every layer."""
+    from repro_torch.models import seq2seq
+
+    cfg = ModelConfig(name="t", family="seq2seq", is_encoder_decoder=True,
+                      num_encoder_layers=1, num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=4, d_ff=128, vocab_size=48,
+                      bpd_k=8, dtype="float32")
+    params = seq2seq.init(cfg, seed=0, device=cuda)
+    src = torch.randint(1, 48, (4, 24), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(5)).to(cuda)
+    dec = DecodeConfig(max_new_tokens=24, block_k=8)
+    gt, _ = decode.greedy_decode_seq2seq(params, cfg, dec, {"src": src})
+    for policy in ("exact", "input_copy", "topk_tree"):
+        _build.reset_launches()
+        bt, bs = decode.bpd_decode_seq2seq(params, cfg,
+                                           dec.replace(policy=policy),
+                                           {"src": src})
+        layers, iters = cfg.num_layers, bs["iterations"]
+        if policy == "topk_tree":
+            assert _build.LAUNCHES["tree_verify_attention"] == layers * iters
+            assert _build.LAUNCHES["verify_attention"] == layers * iters
+        else:
+            assert _build.LAUNCHES["verify_attention"] == 2 * layers * iters
+        assert _build.LAUNCHES["fused_verify"] == iters
+        assert torch.equal(bt[:, :24], gt[:, :24]), policy
