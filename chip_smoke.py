@@ -50,10 +50,35 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 wrong and node 2 right (k̂ = 2), node 1's chain right
                 (k̂ = 8 - fanout + 1); a second iteration gives greedy's
                 tokens, dense and paged.
+  5c. engine  — the same fp32 weights, before the bf16 cast, served by
+                repro_torch.serving.ContinuousBatchingEngine with
+                an exact and a topk_tree slot group of 4 slots each: 16
+                requests (phase 4's 8 prompts, the first 32 tokens of four
+                of them and the first 48 of the other four; budgets 16-64;
+                arrivals in virtual time, so slots are evicted and
+                refilled), once unified on the managed page pool (page
+                size 16, one iteration per host read; copy-on-write prefix
+                hits required and printed), once disaggregated (prefill
+                batches of 4) on the dense slab with windows of 4
+                iterations.  Each request's tokens must be greedy's (phase
+                4's greedy for the 64-token prompts, one greedy_decode per
+                shorter length), except at reported near-ties; launches
+                exactly as the engine's own forwards and prefills imply;
+                every serving function built once; host reads equal group
+                steps plus harvest reads.  k̂ per group, host wall, and one
+                scheduler step's host wall and device busy printed.
   6. serve    — the weights cast for bf16 (model.cast_for_compute), served by
                 repro_torch.launch.serve (static batch, --full-config);
                 k̂, iterations and BPD/greedy agreement reported.
   6b. serve   — the same with --policy topk_tree --cache-backend paged.
+  6c. engine  — the same 16 requests through the engine on the
+                bf16 weights and the paged pool: tokens/s beside phase 6's
+                static serve, one scheduler step profiled; then
+                repro_torch.serving.server on 127.0.0.1 (port 0) answers 8
+                concurrent streamed requests from a client in this
+                process: each stream must be byte-identical to its finish
+                record; TTFT p50/p99 and agreement with the direct engine
+                run reported.
   7. profile  — one bf16 BPD iteration of each serve (after 6 and after
                 6b): host wall time against the summed kernel time
                 torch.profiler sees (the device's idle share), and the
@@ -92,7 +117,13 @@ Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
 fused_heads from phase 6, tree_verify_attention from phase 6b,
 paged_verify_attention from phase 4b's BPD exact run on the paged cache,
-rwkv6_scan from phase 9.
+rwkv6_scan from phase 9.  The engine's path (phase 5c) is read the same
+way, each of its two runs between a reset and a read, and checked exactly:
+its group's attention kernel (paged_verify_attention or verify_attention
+for exact, tree_verify_attention for topk_tree) 40 times per forward the
+group dispatched, fused_verify once per forward, fused_heads once per
+forward and per prefill forward; each of those five kernels must have run
+in one of the two.
 
 Any failure exits non-zero.  The second-to-last lines are the kernels' JSON
 and the card's name and power limit; the last line is
@@ -1309,6 +1340,9 @@ def phase_decode(torch, results):
                 f"{(state.text_len - prompt_len - torch.tensor(khat, device='cuda')).tolist()}; "
                 f"tokens == greedy tokens in {8 - len(diverged)}/8 rows")
 
+    # ---- phase 5c: the fp32 engine ------------------------------------------
+    phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks)
+
     # ---- phase 6: bf16 serve ------------------------------------------------
     del state
     # in place (frees the fp32 copy), the fp32-read leaves kept in fp32
@@ -1336,7 +1370,8 @@ def phase_decode(torch, results):
     agree = float(same.float().mean())
     rows_equal = int(same.all(dim=1).sum())
     generated = int(s_stats["generated"].sum())
-    log(f"[serve] bf16: {generated / out['wall_s']:.1f} tokens/s, "
+    static_tps = generated / out["wall_s"]
+    log(f"[serve] bf16: {static_tps:.1f} tokens/s, "
         f"k̂={s_stats['mean_accepted']:.4f}, iterations="
         f"{s_stats['iterations']}, invocations="
         f"{s_stats['invocations']}, wall {out['wall_s'] * 1e3:.1f} ms; "
@@ -1387,6 +1422,329 @@ def phase_decode(torch, results):
         f"{[d['bpd_rank'] for d in div]}, ulps below the top "
         f"{[round(d['bpd_ulps'], 3) for d in div]}")
     profile_iteration(torch, D, params, tcfg, tdec, tbatch, "topk_tree paged")
+
+    # ---- phase 6c: the bf16 engine and the HTTP server ---------------------
+    phase_engine_bf16(torch, params, scfg, sdec, prompts, static_tps)
+
+
+# ---------------------------------------------------------------------------
+# phases 5c and 6c: the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+ENGINE_GROUPS = {"exact": 4, "topk_tree": 4}
+ENGINE_BUDGETS = (64, 16, 40, 56, 24, 48, 32, 64, 16, 64, 32, 48, 56, 24, 40, 16)
+
+
+def engine_plan():
+    """The engine phases' 16 requests: (rid, prompt row, prompt length,
+    budget, arrival, policy).  Phase 4's 8 prompts at 64 tokens arrive at
+    0; the first 32 tokens of prompts 0-3 and the first 48 of prompts 4-7
+    arrive later in virtual time, each in its source prompt's group, so
+    their pages can be copy-on-write hits of the source's prefix pages."""
+    plan = [(i, i, 64, ENGINE_BUDGETS[i], 0.0) for i in range(8)]
+    plan += [(8 + j, j, 32, ENGINE_BUDGETS[8 + j], 2.0 * (j + 1))
+             for j in range(4)]
+    plan += [(12 + j, 4 + j, 48, ENGINE_BUDGETS[12 + j], 2.0 * (j + 5))
+             for j in range(4)]
+    return [(rid, row, plen, budget, t, ("exact", "topk_tree")[row % 2])
+            for rid, row, plen, budget, t in plan]
+
+
+def engine_requests(serving, prompts):
+    host = prompts.cpu().numpy()
+    return [serving.Request(rid=rid, prompt=host[row, :plen], max_new=budget,
+                            arrival=t, policy=policy)
+            for rid, row, plen, budget, t, policy in engine_plan()]
+
+
+def profiled_busy(torch, fn):
+    """Run ``fn`` once under torch.profiler: (its result, the kernels' summed
+    device ms, kernel count, {name: ms}); the times are None when the
+    profiler sees no device activity or is unavailable (a measurement, not
+    the path: ``fn`` runs either way)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    except (RuntimeError, AttributeError) as exc:
+        log(f"[profile] torch.profiler unavailable ({exc}); not measured")
+        return fn(), None, 0, {}
+    out = fn()
+    torch.cuda.synchronize()
+    try:
+        prof.__exit__(None, None, None)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except (RuntimeError, AttributeError) as exc:
+        log(f"[profile] torch.profiler failed ({exc}); not measured")
+        return out, None, 0, {}
+    busy = {}
+    for e in kernels:
+        busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out, (sum(busy.values()) if kernels else None), len(kernels), busy
+
+
+def drive_engine(torch, serving, engine, reqs, label, *, profile_step=6):
+    """Serve ``reqs`` through ``engine`` with a virtual clock (one scheduler
+    step per second of arrival time).  Scheduler step ``profile_step`` is
+    timed alone (host wall, synced) and the next one profiled (device
+    busy), so the sample's idle share is 1 - busy / wall.  Returns (the
+    finished requests, host wall s, harvest reads, the sample)."""
+    sched = serving.Scheduler(engine)
+    for r in reqs:
+        sched.submit(r)
+    now, done, pulls, sample = 0.0, [], 0, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not sched.drained():
+        step = int(now)
+        if step == profile_step:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            got = sched.step(now=now)
+            torch.cuda.synchronize()
+            sample["wall_ms"] = (time.perf_counter() - ts) * 1e3
+        elif step == profile_step + 1:
+            got, busy, n_kernels, names = profiled_busy(
+                torch, lambda: sched.step(now=now))
+            sample.update(busy_ms=busy, kernels=n_kernels, names=names)
+        else:
+            got = sched.step(now=now)
+        pulls += len({f.policy for f in got})
+        done += got
+        now += 1.0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    groups = {g.name: g for g in engine.groups}
+    # k̂ per group: accepted tokens per request iteration (invocations less
+    # the admission prefill)
+    khat = {name: sum(f.generated for f in done if f.policy == name)
+            / max(sum(f.invocations - 1 for f in done if f.policy == name), 1)
+            for name in groups}
+    tokens = sum(f.generated for f in done)
+    busy = sample.get("busy_ms")
+    log(f"[engine] {label}: {len(done)} requests, {tokens} tokens in "
+        f"{wall:.2f}s ({tokens / wall:.1f} tokens/s); k̂ per group "
+        f"{ {n: round(k, 4) for n, k in khat.items()} }; group steps "
+        f"{ {n: g.num_forwards // engine.ecfg.steps_per_sync for n, g in groups.items()} }"
+        f", iterations {engine.num_steps}, forwards {engine.num_forwards}, "
+        f"prefills { {n: g.num_prefills for n, g in groups.items()} }, host "
+        f"reads {engine.num_host_syncs} ({pulls} harvest); sampled scheduler "
+        f"step: host wall {sample.get('wall_ms', float('nan')):.2f} ms, "
+        + ("device busy not measured" if busy is None else
+           f"{sample['kernels']} kernels busy {busy:.2f} ms, idle share "
+           f"{1 - busy / sample['wall_ms']:.3f}"))
+    return done, wall, pulls, sample
+
+
+def check_engine_launches(engine, launches, label, *, paged):
+    """Each kernel launched exactly as the engine's own accounting implies:
+    its group's attention kernel once per layer and forward dispatched
+    (masked no-op forwards of a window included), fused_verify once per
+    forward, fused_heads once per forward and per prefill forward."""
+    layers = engine.cfg.num_layers
+    fwd = {g.name: g.num_forwards for g in engine.groups}
+    pre = {g.name: g.num_prefills for g in engine.groups}
+    want = {name: 0 for name in launches}
+    chain = "paged_verify_attention" if paged else "verify_attention"
+    want[chain] = layers * fwd["exact"]
+    want["tree_verify_attention"] = layers * fwd["topk_tree"]
+    want["fused_verify"] = sum(fwd.values())
+    want["fused_heads"] = sum(fwd.values()) + sum(pre.values())
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    log(f"[engine] {label}: launches {launches} (exact)")
+
+
+def compare_engine(torch, after, done, greedy_rows, plan, label):
+    """Each request's tokens equal greedy's truncated to its budget, except
+    a request that leaves greedy where greedy's top-2 gap is below
+    TIE_MARGIN (reported).  ``greedy_rows[(row, plen)]`` is greedy's row
+    (prompt + 64 new tokens)."""
+    by_rid = {f.rid: f for f in done}
+    check(sorted(by_rid) == [p[0] for p in plan], f"{label}: requests lost")
+    diverged = []
+    for rid, row, plen, budget, _, _ in plan:
+        f = by_rid[rid]
+        g = greedy_rows[(row, plen)]
+        want = g[plen:plen + budget].tolist()
+        got = f.tokens.tolist()
+        check(f.generated == budget == len(got),
+              f"{label}: request {rid} generated {f.generated} of {budget}")
+        if got == want:
+            continue
+        p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        gap = top2_gap(torch, after(rid, g[:plen + p]))
+        log(f"    request {rid} (prompt row {row}, {plen} tokens) diverges at "
+            f"new token {p}: greedy top-2 gap {gap:.3g} of max|logit|")
+        check(gap < TIE_MARGIN, f"{label}: request {rid} differs from greedy "
+                                f"at new token {p} with no near-tie ({gap})")
+        diverged.append(rid)
+    log(f"[engine] {label}: tokens == greedy tokens in "
+        f"{len(plan) - len(diverged)}/{len(plan)} requests (others at "
+        f"near-ties)")
+    return diverged
+
+
+def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks):
+    """Phase 5c: the fp32 engine, twice — unified on the managed page pool
+    (page size 16, one iteration per host read), then disaggregated
+    (prefill batches of 4) on the dense slab with windows of 4."""
+    from repro_torch import serving
+    from repro_torch.kernels import _build
+
+    plan = engine_plan()
+    greedy_rows = {(row, 64): g_toks[row] for row in range(8)}
+    for plen, rows in ((32, range(0, 4)), (48, range(4, 8))):
+        gt, _ = D.greedy_decode(params, cfg, dec,
+                                {"tokens": prompts[list(rows), :plen].contiguous()})
+        for i, row in enumerate(rows):
+            greedy_rows[(row, plen)] = gt[i]
+    after = causal_logits_after(torch, M, params, cfg)
+    edec = dec.replace(top_k=2, page_size=16)
+    runs = (("unified, paged, steps_per_sync 1",
+             edec.replace(cache_backend="paged"), dict(steps_per_sync=1)),
+            ("disaggregated (prefill_slots 4), dense, steps_per_sync 4",
+             edec.replace(cache_backend="dense"),
+             dict(prefill_slots=4, steps_per_sync=4)))
+    seen = {name: 0 for name in _build.KERNELS}
+    for label, rdec, kw in runs:
+        ecfg = serving.EngineConfig(num_slots=8, max_prompt_len=64,
+                                    max_new_cap=64, **kw)
+        engine = serving.ContinuousBatchingEngine(params, cfg, rdec, ecfg,
+                                                  policies=ENGINE_GROUPS)
+        _build.reset_launches()
+        done, wall, pulls, _ = drive_engine(
+            torch, serving, engine, engine_requests(serving, prompts), label)
+        launches = dict(_build.LAUNCHES)
+        paged = rdec.cache_backend == "paged"
+        check_engine_launches(engine, launches, label, paged=paged)
+        for name, n in launches.items():
+            seen[name] += n
+        counts = engine.compile_counts()
+        check(counts and all(v == 1 for v in counts.values()),
+              f"{label}: builds {counts}")
+        steps = engine.num_forwards // ecfg.steps_per_sync
+        check(engine.num_host_syncs == steps + pulls,
+              f"{label}: {engine.num_host_syncs} host reads for {steps} group "
+              f"steps and {pulls} harvests")
+        if paged:
+            hits = sum(g.pages.cow_hits for g in engine.groups)
+            log(f"[engine] {label}: copy-on-write prefix pages "
+                f"{ {g.name: g.pages.cow_hits for g in engine.groups} }")
+            check(hits > 0, f"{label}: no copy-on-write prefix hit")
+        if kw["steps_per_sync"] > 1:
+            log(f"[engine] {label}: {engine.num_forwards - engine.num_steps} "
+                f"of {engine.num_forwards} forwards were masked no-ops "
+                f"(windows after a harvestable row)")
+        compare_engine(torch, after, done, greedy_rows, plan, label)
+    for name in ("verify_attention", "paged_verify_attention",
+                 "tree_verify_attention", "fused_verify", "fused_heads"):
+        check(seen[name] > 0, f"engine: {name} never launched")
+
+
+def phase_engine_bf16(torch, params, cfg, dec, prompts, static_tps):
+    """Phase 6c: the bf16 engine on the managed page pool (tokens/s beside
+    the static serve's, one scheduler step profiled), then the HTTP server
+    on 127.0.0.1 answering 8 concurrent streamed requests from a client in
+    this process: each stream must be byte-identical to its finish
+    record."""
+    import asyncio
+    import http.client
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import serving
+
+    edec = dec.replace(top_k=2, page_size=16, cache_backend="paged")
+    ecfg = serving.EngineConfig(num_slots=8, max_prompt_len=64, max_new_cap=64)
+    engine = serving.ContinuousBatchingEngine(params, cfg, edec, ecfg,
+                                              policies=ENGINE_GROUPS)
+    done, wall, _, sample = drive_engine(
+        torch, serving, engine, engine_requests(serving, prompts),
+        "bf16 unified, paged")
+    tokens = sum(f.generated for f in done)
+    log(f"[engine] bf16: {tokens / wall:.1f} tokens/s through the engine "
+        f"(16 requests, budgets 16-64) beside {static_tps:.1f} tokens/s of "
+        f"phase 6's static serve (8 x 64)")
+    names = sample.get("names") or {}
+    attn_ms = sum(ms for n, ms in names.items() if "attention_kernel" in n)
+    for n, ms in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:8.3f} ms  {n[:90]}")
+    if names:
+        log(f"[engine] bf16 sampled step: attention kernels {attn_ms:.3f} ms "
+            f"of the busy time")
+    direct = {f.rid: f.tokens.tolist() for f in done}
+
+    # ---- the HTTP server: 8 concurrent streamed requests -------------------
+    engine = serving.ContinuousBatchingEngine(params, cfg, edec, ecfg,
+                                              policies=ENGINE_GROUPS)
+    frontend = serving.Frontend(serving.Scheduler(engine), max_queue=16)
+    srv = serving.HTTPServer(frontend, host="127.0.0.1", port=0)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    asyncio.run_coroutine_threadsafe(srv.start(), loop).result(timeout=300)
+    host = prompts.cpu().numpy()
+    plan = [p for p in engine_plan() if p[0] < 8]
+
+    def client(p):
+        rid, row, plen, budget, _, policy = p
+        body = json.dumps({"prompt": host[row, :plen].tolist(),
+                           "max_new": budget, "policy": policy})
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/generate", body=body)
+        resp = conn.getresponse()
+        check(resp.status == 200, f"http: status {resp.status}")
+        toks, done_ev, ttft, event = [], None, None, None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: "):
+                data = json.loads(line[6:])
+                if event == "token":
+                    if ttft is None:
+                        ttft = time.perf_counter() - t0
+                    toks.extend(data["tokens"])
+                elif event == "done":
+                    done_ev = data
+        conn.close()
+        return rid, toks, done_ev, ttft
+
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            streams = list(ex.map(client, plan))
+        http_wall = time.perf_counter() - t0
+    finally:
+        asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(timeout=300)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)
+    records = {f.rid: f for f in frontend.scheduler.finished}
+    ttfts, same, total = [], 0, 0
+    for (rid, toks, done_ev, ttft), p in zip(streams, plan):
+        check(done_ev is not None, f"http: stream {rid} has no done event")
+        f = records[done_ev["rid"]]
+        check(toks == f.tokens.tolist() == done_ev["tokens"],
+              f"http: stream of request {rid} differs from its finish record")
+        check(len(toks) == p[3], f"http: request {rid} streamed {len(toks)} "
+                                 f"of {p[3]} tokens")
+        ttfts.append(ttft)
+        want = direct[rid]
+        same += sum(a == b for a, b in zip(toks, want))
+        total += len(want)
+    q = lambda x: float(sorted(ttfts)[min(len(ttfts) - 1,  # noqa: E731
+                                          int(round(x * (len(ttfts) - 1))))])
+    log(f"[http] 8 concurrent streamed requests in {http_wall:.2f}s: every "
+        f"stream byte-identical to its finish record; TTFT p50 "
+        f"{q(0.5) * 1e3:.1f} ms, p99 {q(0.99) * 1e3:.1f} ms; agreement with "
+        f"the direct engine run {same / total:.4f} of tokens (reported, not "
+        f"required in bf16); builds {engine.compile_counts()}")
 
 
 def profile_iteration(torch, D, params, cfg, dec, batch, label, *,

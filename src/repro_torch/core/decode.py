@@ -236,8 +236,9 @@ def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
     ``hidden`` (B, d) and ``p1_logits`` (B, Vp) at the last context
     position are presented to the drafter as a single pseudo block slot
     (slot 0, k̂ = 1), so the same ``draft`` covers prefill and loop
-    iterations.  ``head_topk`` is ``Backend.head_topk`` with the params
-    bound.
+    iterations.  ``text_len`` is an int or a (B,) tensor of per-row
+    lengths (the serving engine's padded admission prefill).
+    ``head_topk`` is ``Backend.head_topk`` with the params bound.
     """
     b = hidden.shape[0]
     dev = hidden.device
@@ -271,6 +272,40 @@ def decode_stats(final) -> Dict:
 
 
 @torch.no_grad()
+def prefill_and_draft(params, cfg: ModelConfig, dec: DecodeConfig,
+                      pol: DecodePolicy, batch: Dict, caches, plens,
+                      block_k: int):
+    """Prefill ``caches`` from ``batch["tokens"]`` (B, S) in one forward and
+    draft each row's first block from its last real position,
+    ``prefix + plens - 1``: ``plens`` is an int (every row holds S real
+    tokens) or a (B,) int32 tensor (rows padded past their lengths, as the
+    serving engine's admission prefill pads them; padded positions write
+    K/V that stays masked until decode overwrites it).  The policy state
+    is fresh, built from ``batch``.  Returns (caches, proposals (B, k),
+    policy state)."""
+    prompt = batch["tokens"]
+    b = prompt.shape[0]
+    dev = prompt.device
+    prefix = model_lib.prefix_len(cfg, batch)
+    h = model_lib.embed_inputs(params, cfg, batch)          # (B, S, d)
+    positions = torch.arange(h.shape[1], dtype=I32, device=dev)
+    hidden, caches = model_lib.forward_hidden(params, cfg, h,
+                                              positions=positions,
+                                              caches=caches)
+    if isinstance(plens, int):
+        last = hidden[:, prefix + plens - 1, :]
+    else:
+        rows = torch.arange(b, device=dev)
+        last = hidden[rows, (prefix + plens - 1).long()]
+    be = causal_lm_backend(cfg)
+    ps = pol.init_state(cfg, dec, batch, b)
+    proposals, dstate = initial_draft(
+        pol, last, be.p1_logits(params, last), plens, block_k,
+        ps.drafter, head_topk=functools.partial(be.head_topk, params))
+    return caches, proposals, ps._replace(drafter=dstate)
+
+
+@torch.no_grad()
 def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
                           batch: Dict, *, max_new: int,
                           policy: Optional[DecodePolicy] = None):
@@ -285,18 +320,8 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
     context_len = prefix + prompt_len + max_new
     caches = model_lib.init_caches(cfg, b, context_len, block_k, device=dev,
                                    backend=cache_lib.get_backend(dec))
-
-    h = model_lib.embed_inputs(params, cfg, batch)          # (B, P, d)
-    positions = torch.arange(h.shape[1], dtype=I32, device=dev)
-    hidden, caches = model_lib.forward_hidden(params, cfg, h,
-                                              positions=positions,
-                                              caches=caches)
-    last = hidden[:, -1, :]                                 # context = full prompt
-    be = causal_lm_backend(cfg)
-    ps = pol.init_state(cfg, dec, batch, b)
-    proposals, dstate = initial_draft(
-        pol, last, be.p1_logits(params, last), prompt_len, block_k,
-        ps.drafter, head_topk=functools.partial(be.head_topk, params))
+    caches, proposals, ps = prefill_and_draft(params, cfg, dec, pol, batch,
+                                              caches, prompt_len, block_k)
 
     buf = prompt_len + max_new + block_k
     tokens = torch.zeros((b, buf), dtype=I32, device=dev)
@@ -309,7 +334,7 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
         finished=torch.zeros((b,), dtype=torch.bool, device=dev),
         iters=0,
         generated=torch.zeros((b,), dtype=I32, device=dev),
-        policy_state=ps._replace(drafter=dstate),
+        policy_state=ps,
     )
     return state, prefix
 

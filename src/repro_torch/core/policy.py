@@ -339,15 +339,39 @@ class DecodePolicy:
 
     def init_state(self, cfg, dec: DecodeConfig, batch: Optional[Dict],
                    b: int) -> PolicyState:
+        """Fresh per-row state for ``b`` rows.  ``batch`` is the decode's
+        batch, or the serving engine's zeroed ``{"tokens", "src"}`` of its
+        admission geometry (the state's device and shapes come from it)."""
         device = next(iter(batch.values())).device if batch else None
         return PolicyState(
             drafter=self.drafter.init_state(cfg, dec, batch, b),
             schedule=self.schedule.init_state(b, device))
 
+    @property
+    def cache_key(self):
+        """Hashable structural identity: two policies with equal drafter /
+        acceptor / schedule parameters share the serving functions built
+        for them, while ``topk(top_k=2)`` and ``topk(top_k=3)`` (same
+        ``name``) key apart."""
+        return policy_cache_key(self)
+
+
+def policy_cache_key(obj):
+    """Reduce a policy (or any of its components) to a hashable tuple:
+    frozen dataclasses flatten to ``(type, (field, value), ...)``
+    recursively; everything else must already be hashable."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,) + tuple(
+            (f.name, policy_cache_key(getattr(obj, f.name)))
+            for f in dataclasses.fields(obj))
+    if isinstance(obj, (list, tuple)):
+        return tuple(policy_cache_key(x) for x in obj)
+    return obj
+
 
 POLICY_BUILDERS: Dict[str, Callable[[DecodeConfig], DecodePolicy]] = {}
 # the reference's other registered policies -> their ROADMAP modules item
-NOT_PORTED = {"locality": 4, "draft_model": 4}
+NOT_PORTED = {"locality": 5, "draft_model": 5}
 
 
 def register_policy(name: str,

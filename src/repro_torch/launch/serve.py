@@ -1,9 +1,14 @@
-"""Serving launcher, static-batch path: decode one batch of synthetic
-requests with blockwise parallel decoding (``repro.launch.serve``'s static
-path, on the card).
+"""Serving launcher: decode synthetic requests with blockwise parallel
+decoding, as one static batch, through the continuous-batching engine, or
+over HTTP (``repro.launch.serve`` on one card).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --full-config --batch 8 --prompt-len 64 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        --full-config --engine --policies exact=4,topk_tree=4 \
+        --cache-backend paged [--prefill-slots 4] [--steps-per-sync 4]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        --full-config --http [--port 8000 --max-queue 16] [--http-demo]
 
 Without ``--full-config`` the registered smoke config runs in fp32, as the
 reference serves it; with it the full config runs in its own compute dtype.
@@ -16,12 +21,30 @@ its recurrent caches have no KV layout, so ``--cache-backend paged`` leaves
 them as they are, and ``topk_tree`` raises (tree verification needs
 attention blocks).  An encoder-decoder ``--arch`` (paper-mt-base) is
 refused, as the reference's serve has no seq2seq path: its entry point is
-``repro_torch.core.decode.bpd_decode_seq2seq``.  The continuous-batching
-engine, HTTP serving and meshes are not ported yet (ROADMAP.md).
+``repro_torch.core.decode.bpd_decode_seq2seq``.
+
+``--engine`` schedules 2 × ``--batch`` mixed-length requests through
+``--batch`` slots of ``repro_torch.serving.ContinuousBatchingEngine`` with
+mid-flight admission (``--sched fcfs|sjf``), and prints per-request stats
+and the aggregate tokens/s and latency.  ``--policies name=slots,...``
+partitions the slots into per-policy groups, each request carrying a
+policy drawn from them; ``--cache-backend paged`` serves from a managed
+page pool with copy-on-write prefix sharing; ``--prefill-slots W``
+disaggregates prefill into batches of W behind a handoff queue of
+``--handoff-cap``; ``--steps-per-sync N`` runs N iterations per host read.
+``--http`` serves the engine over HTTP/SSE (``repro_torch.serving.server``:
+POST /v1/generate, /drain; GET /healthz /readyz /metrics) on ``--host`` /
+``--port`` with a wait queue of ``--max-queue``; ``--http-demo`` streams one
+request through it and exits.  The engine serves attention models only,
+as the reference's does (rwkv6-1.6b raises).  ``--mesh-*`` (ROADMAP.md §1
+item 8) and ``--policy draft_model`` (item 5) are not ported and raise.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import json
+import signal
 import time
 from typing import Dict, Optional, Sequence
 
@@ -34,6 +57,9 @@ from repro_torch.core.decode import bpd_decode
 from repro_torch.core.policy import list_policies
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.models import model as M
+from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,
+                                 Frontend, HTTPServer, Request, Scheduler,
+                                 aggregate_stats)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,33 +97,92 @@ def build_parser() -> argparse.ArgumentParser:
                          "(at least 2)")
     ap.add_argument("--epsilon", type=float, default=2.0,
                     help="distance acceptance radius in token ids")
-    for flag in ("--engine", "--http"):
-        ap.add_argument(flag, action="store_true")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve through the continuous-batching engine "
+                         "(slots + admission) instead of one static batch")
+    ap.add_argument("--policies", default="",
+                    help="engine per-policy slot groups, e.g. "
+                         "'exact=4,topk_tree=4' (must partition --batch)")
+    ap.add_argument("--sched", default="fcfs", choices=["fcfs", "sjf"],
+                    help="engine admission order")
+    ap.add_argument("--prefill-slots", type=int, default=0,
+                    help="disaggregated prefill: prompts per prefill "
+                         "forward (0 = unified engine)")
+    ap.add_argument("--handoff-cap", type=int, default=0,
+                    help="bound on requests staged for / parked in the "
+                         "KV-handoff queue (0 = auto)")
+    ap.add_argument("--steps-per-sync", type=int, default=1,
+                    help="decode iterations per engine step (one host read "
+                         "each)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve the engine over HTTP/SSE")
+    ap.add_argument("--host", default="127.0.0.1", help="--http bind address")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="--http bind port (0 = ephemeral, printed)")
+    ap.add_argument("--max-queue", type=int, default=16,
+                    help="--http wait-queue bound (beyond it: 429)")
+    ap.add_argument("--http-demo", action="store_true",
+                    help="with --http: stream one request end to end, check "
+                         "/healthz and /readyz, then exit")
     for flag in ("--mesh-data", "--mesh-model", "--mesh-pod"):
         ap.add_argument(flag, type=int, default=0)
     return ap
 
 
 def _not_ported(args) -> Optional[str]:
-    if args.engine or args.http:
-        return "--engine / --http (the serving stack: ROADMAP.md item 5)"
     if args.mesh_data or args.mesh_model > 1 or args.mesh_pod > 1:
-        return "--mesh-* (multi-GPU: ROADMAP.md item 8)"
+        return "--mesh-* (multi-GPU: ROADMAP.md §1 item 8)"
+    if args.policy == "draft_model":
+        return "--policy draft_model (ROADMAP.md §1 item 5)"
     return None
 
 
+def parse_policy_groups(spec: str):
+    """'exact=2,topk_tree=2' -> {"exact": 2, "topk_tree": 2} (None when
+    empty), every error naming its fix at the flag."""
+    if not spec:
+        return None
+    known = list_policies()
+    groups = {}
+    for part in spec.split(","):
+        name, sep, n = part.strip().partition("=")
+        if not sep or not name or not n.lstrip("+-").isdigit():
+            raise SystemExit(f"--policies entry {part!r}: expected "
+                             f"name=slots, e.g. exact=2")
+        if name not in known:
+            raise SystemExit(f"--policies names unknown policy {name!r}: "
+                             f"registered policies are "
+                             f"{', '.join(sorted(known))}")
+        if name in groups:
+            raise SystemExit(f"--policies names {name!r} twice: one slot "
+                             f"group per policy")
+        if int(n) <= 0:
+            raise SystemExit(f"--policies entry {part.strip()!r}: slot "
+                             f"count must be a positive integer")
+        groups[name] = int(n)
+    return groups
+
+
 def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
-    """Parse ``argv``, decode one static batch and print the summary.
+    """Parse ``argv``, serve (a static batch, ``--engine`` or ``--http``)
+    and print the summary.
 
     ``params`` (a ``ParamTree`` for the chosen config) skips the random
     init / checkpoint load; it is cast for the compute dtype in place
-    (``model.cast_for_compute``).
-    Returns the tokens, stats, wall time and the batch.
+    (``model.cast_for_compute``).  The static path returns the tokens,
+    stats, wall time and the batch; ``--engine`` the finished requests,
+    aggregate stats and the engine; ``--http`` the engine (and the demo's
+    done payload).
     """
     args = build_parser().parse_args(argv)
     missing = _not_ported(args)
     if missing:
         raise NotImplementedError(f"{missing} is not ported yet")
+    groups = parse_policy_groups(args.policies)
+    if groups and not (args.engine or args.http):
+        raise SystemExit("--policies configures slot groups of the "
+                         "continuous-batching engine: add --engine (or "
+                         "--http)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full_config)
     if cfg.is_encoder_decoder:
@@ -124,6 +209,10 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
                        fused_verify=args.fused_verify)
     task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
                     seed=args.seed)
+    if args.http:
+        return serve_http(params, cfg, dec, args, groups)
+    if args.engine:
+        return serve_engine(params, cfg, dec, args, task, groups)
     prompts = task.sample(np.random.default_rng(args.seed + 1), args.batch,
                           args.prompt_len)
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
@@ -153,6 +242,134 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         print(f"    row {r}: {rows[r][args.prompt_len:text_len[r]]}")
     return {"tokens": toks, "stats": stats, "wall_s": dt, "batch": batch,
             "cfg": cfg, "dec": dec, "params": params}
+
+
+def _engine_config(args) -> EngineConfig:
+    return EngineConfig(num_slots=args.batch, max_prompt_len=args.prompt_len,
+                        max_new_cap=args.max_new,
+                        prefill_slots=args.prefill_slots,
+                        handoff_cap=args.handoff_cap,
+                        steps_per_sync=args.steps_per_sync)
+
+
+def serve_engine(params, cfg, dec, args, task, groups) -> Dict:
+    """Mixed-length (and, with ``groups``, mixed-policy) traffic through the
+    continuous-batching engine: 2 × ``--batch`` requests, all arrived at
+    the start."""
+    engine = ContinuousBatchingEngine(params, cfg, dec, _engine_config(args),
+                                      policies=groups)
+    sched = Scheduler(engine, policy=args.sched)
+    rng = np.random.default_rng(args.seed + 2)
+    names = engine.policy_names()
+    n = 2 * args.batch
+    for rid in range(n):
+        plen = int(rng.integers(max(args.prompt_len // 2, 1),
+                                args.prompt_len + 1))
+        sched.submit(Request(
+            rid=rid, prompt=task.sample(rng, 1, plen)[0],
+            max_new=int(rng.integers(max(args.max_new // 4, 1),
+                                     args.max_new + 1)),
+            policy=str(rng.choice(names)) if groups else None))
+    t0 = time.perf_counter()
+    finished = sched.run()
+    wall = time.perf_counter() - t0
+    stats = aggregate_stats(finished, wall)
+    print(f"[serve] engine: {n} requests over {args.batch} slots "
+          f"(sched={args.sched}, "
+          f"{'groups=' + str(groups) if groups else 'policy=' + engine.policy.name}"
+          f", {dec.cache_backend} cache, prefill_slots={args.prefill_slots}, "
+          f"steps_per_sync={args.steps_per_sync}) on {engine.session.device}")
+    print(f"[serve] {stats['total_tokens']} tokens in "
+          f"{stats['total_invocations']} invocations, "
+          f"{stats['tokens_per_sec']:.1f} tok/s, "
+          f"p50 {stats['latency_p50_s'] * 1e3:.0f}ms / "
+          f"p95 {stats['latency_p95_s'] * 1e3:.0f}ms, "
+          f"builds {engine.compile_counts()}")
+    for f in sorted(finished, key=lambda f: f.rid):
+        print(f"    req {f.rid} [{f.policy}]: k̂={f.mean_accepted:.2f} "
+              f"gen={f.generated} inv={f.invocations} "
+              f"out={[int(x) for x in f.tokens]}")
+    return {"finished": finished, "stats": stats, "engine": engine,
+            "cfg": cfg, "dec": dec, "params": params}
+
+
+def serve_http(params, cfg, dec, args, groups) -> Dict:
+    """Serve the engine over HTTP/SSE until drained (SIGTERM, SIGINT or
+    POST /drain); ``--http-demo`` streams one request and exits."""
+    engine = ContinuousBatchingEngine(params, cfg, dec, _engine_config(args),
+                                      policies=groups)
+    frontend = Frontend(Scheduler(engine, policy=args.sched),
+                        max_queue=args.max_queue)
+    srv = HTTPServer(frontend, host=args.host, port=args.port)
+    out: Dict = {"engine": engine}
+
+    async def run():
+        await srv.start()
+        loop = asyncio.get_running_loop()
+        try:
+            loop.add_signal_handler(signal.SIGTERM, srv.begin_drain)
+            loop.add_signal_handler(signal.SIGINT, srv.begin_drain)
+        except (NotImplementedError, RuntimeError):   # not the main thread
+            pass
+        mode = (f"disaggregated prefill_slots={args.prefill_slots}"
+                if args.prefill_slots else "unified")
+        print(f"[serve] http on {srv.host}:{srv.port} — POST /v1/generate "
+              f"/drain, GET /healthz /readyz /metrics (slots={args.batch}, "
+              f"sched={args.sched}, max_queue={args.max_queue}, {mode}) on "
+              f"{engine.session.device}", flush=True)
+        if args.http_demo:
+            out["demo"] = await _http_demo(srv)
+            await srv.stop()
+        else:
+            await srv.serve_forever()
+            print("[serve] drained — exiting", flush=True)
+
+    asyncio.run(run())
+    return out
+
+
+async def _http_demo(srv) -> Dict:
+    """One streamed request against the live server over a real socket;
+    raises SystemExit unless /healthz and /readyz answer 200 and the SSE
+    token events equal the done payload."""
+    async def fetch(raw: bytes) -> str:
+        r, w = await asyncio.open_connection(srv.host, srv.port)
+        w.write(raw)
+        await w.drain()
+        data = await r.read()
+        w.close()
+        return data.decode()
+
+    for path in ("/healthz", "/readyz"):
+        status = (await fetch(f"GET {path} HTTP/1.1\r\nHost: {srv.host}"
+                              f"\r\n\r\n".encode())).splitlines()[0]
+        print(f"[serve] {path} -> {status}")
+        if "200" not in status:
+            raise SystemExit(f"--http-demo: {path} returned {status!r}")
+    body = json.dumps({"prompt": [5, 6, 7, 8], "max_new": 12,
+                       "stream": True}).encode()
+    raw = await fetch(b"POST /v1/generate HTTP/1.1\r\n"
+                      + f"Host: {srv.host}\r\n".encode()
+                      + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                      + body)
+    print("[serve] SSE stream:")
+    print("    " + "\n    ".join(ln for ln in raw.splitlines() if ln))
+    events, cur = [], None
+    for ln in raw.splitlines():
+        if ln.startswith("event: "):
+            cur = ln[7:]
+        elif ln.startswith("data: ") and cur is not None:
+            events.append((cur, json.loads(ln[6:])))
+    tokens = [t for kind, d in events if kind == "token" for t in d["tokens"]]
+    dones = [d for kind, d in events if kind == "done"]
+    if not tokens or not dones:
+        raise SystemExit("--http-demo: stream missing token/done SSE events")
+    if tokens != dones[0]["tokens"]:
+        raise SystemExit("--http-demo: streamed tokens disagree with the "
+                         "done payload")
+    print(f"[serve] demo ok: {dones[0]['generated']} tokens streamed, "
+          f"k̂={dones[0]['mean_accepted']:.2f}")
+    return dones[0]
 
 
 if __name__ == "__main__":

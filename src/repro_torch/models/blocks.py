@@ -91,7 +91,7 @@ def block_init(gen, cfg: ModelConfig, layer_idx: int, *, dtype=torch.float32,
 
 def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
                      context_len: int, block_k: int, dtype, device=None,
-                     backend: Optional[cache_lib.DenseBackend] = None) -> Dict:
+                     backend: Optional[cache_lib.KVCacheBackend] = None) -> Dict:
     """Static cache buffers for one layer (decode path): the attention cache
     in the layout of ``backend`` (dense when None), or the RWKV-6 recurrent
     cache, which every backend leaves as it is."""

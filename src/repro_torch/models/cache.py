@@ -22,8 +22,15 @@ overwritten, under either layout.  Windowed layers keep the dense ring
 buffer under the paged backend (their buffers are window-bounded already).
 The run-to-completion decode paths lay the block tables out as the
 identity ``1 + b·P + i`` over a pool of ``1 + B·P`` pages, so they need no
-allocator; the serving engine's allocator, managed tables and ``row_init``
-are not ported (ROADMAP.md).
+allocator.  The serving engine builds ``PagedBackend(managed=True)``: its
+tables start at the trash page 0 and ``serving.pages.PageAllocator`` maps
+pages at admission, with copy-on-write prefix sharing.
+
+Backend selection: ``get_backend(dec)`` reads ``DecodeConfig.cache_backend``
+and ``page_size``; a ``KVCacheBackend`` also owns the serving engine's slot
+lifecycle (``row_init``, ``reset_rows``, ``scatter_or_alloc``).  Unlike the
+reference, which returns new caches, every lifecycle operation here writes
+the slot slab in place, as the decode paths' cache writes do.
 """
 from __future__ import annotations
 
@@ -50,13 +57,21 @@ def attn_cache_init(batch: int, buf_len: int, kv_heads: int, head_dim: int,
 
 def paged_attn_cache_init(batch: int, pages_per_row: int, page_size: int,
                           num_pages: int, kv_heads: int, head_dim: int,
-                          dtype, device=None) -> Dict:
-    """Paged pool + block table for one full-attention layer, laid out as
-    the identity: row b's logical page i is physical page ``1 + b * P + i``
-    (the reference's ``identity_tbl=True``; the engine's all-trash tables
-    wait for its allocator)."""
-    tbl = (1 + torch.arange(batch * pages_per_row, dtype=torch.int32,
-                            device=device)).reshape(batch, pages_per_row)
+                          dtype, device=None, *,
+                          identity_tbl: bool = True) -> Dict:
+    """Paged pool + block table for one full-attention layer.
+
+    ``identity_tbl`` maps row b's logical page i to physical page
+    ``1 + b * P + i``, the allocator-free layout of the run-to-completion
+    decode paths.  Serving starts all-trash (``tbl = 0``) and maps pages at
+    admission through ``serving.pages.PageAllocator``.
+    """
+    if identity_tbl:
+        tbl = (1 + torch.arange(batch * pages_per_row, dtype=torch.int32,
+                                device=device)).reshape(batch, pages_per_row)
+    else:
+        tbl = torch.zeros((batch, pages_per_row), dtype=torch.int32,
+                          device=device)
     shape = (num_pages, page_size, kv_heads, head_dim)
     return {
         "kp": torch.zeros(shape, dtype=dtype, device=device),
@@ -78,6 +93,85 @@ def rwkv_cache_init(batch: int, d_model: int, num_heads: int, head_dim: int,
         "state": torch.zeros((batch, num_heads, head_dim, head_dim),
                              dtype=torch.float32, device=device),
     }
+
+
+def _rows(idx):
+    """An index that keeps the leading lane axis: ``i:i+1`` for an int,
+    the index tensor itself for a (n,) tensor of rows."""
+    return slice(idx, idx + 1) if isinstance(idx, int) else idx
+
+
+def _masked_zero_(t: torch.Tensor, mask: torch.Tensor, value) -> None:
+    t.masked_fill_(mask.reshape((-1,) + (1,) * (t.dim() - 1)), value)
+
+
+def reset_rows(cache: Dict, mask: torch.Tensor) -> Dict:
+    """Invalidate, in place, the cache rows selected by ``mask`` ((B,) bool
+    on the cache's device): the slot-recycling primitive of the serving
+    engine.  An evicted row's KV slots get ``pos = -1`` (masked out of
+    every attention) and its recurrent state returns to zero; K/V values
+    stay, unreachable, until the next admission overwrites the row.  Paged
+    rows also drop their block table to the trash page (``tbl = 0``), so a
+    later speculative write from the retired row cannot touch pages the
+    host allocator has handed to another slot."""
+    if "attn" in cache:
+        a = cache["attn"]
+        _masked_zero_(a["pos"], mask, -1)
+        if "tbl" in a:
+            _masked_zero_(a["tbl"], mask, 0)
+    if "tm" in cache:
+        for v in cache["tm"].values():
+            _masked_zero_(v, mask, 0)
+    return cache
+
+
+def _scatter_tree(full, row, slot, src_row) -> None:
+    if isinstance(full, dict):
+        for key, val in full.items():
+            _scatter_tree(val, row[key], slot, src_row)
+        return
+    full[_rows(slot)] = row[_rows(src_row)].to(full.dtype)
+
+
+def scatter_row(cache: Dict, row_cache: Dict, slot, *, row=0) -> Dict:
+    """Write row ``row`` of ``row_cache`` into row ``slot`` of ``cache``, in
+    place: how the engine installs an admitted request's prefilled caches
+    into a freed slot while the other slots keep their state.  ``slot`` and
+    ``row`` are ints, or (n,) index tensors on the cache's device that
+    install n rows in one indexed write.  Leaf structures must match."""
+    _scatter_tree(cache, row_cache, slot, row)
+    return cache
+
+
+def scatter_row_paged(cache: Dict, row_cache: Dict, slot, tbl_row,
+                      write_mask, *, row=0) -> Dict:
+    """Paged admission: install prefilled dense rows into the page pool, in
+    place.
+
+    ``row_cache``'s attention buffers are exactly ``P * page_size`` long
+    (``PagedBackend.row_init``), so logical page i of a row is its keys
+    ``[i*ps, (i+1)*ps)``.  ``tbl_row`` ((P,) or (n, P) int32) is the host
+    allocator's physical mapping of each slot and ``write_mask`` (same
+    shape, bool) the pages to write: False entries are copy-on-write prefix
+    hits (their bytes already live in the pool) or unmapped tail pages.
+    Masked pages are redirected to the trash page 0, so a shared page is
+    never written by an admission.  ``slot`` / ``row`` as in
+    ``scatter_row``.  Non-attention parts scatter densely.
+    """
+    a, r = cache["attn"], row_cache["attn"]
+    num_pages, ps, kvh, hd = a["kp"].shape
+    n_pages = a["tbl"].shape[1]
+    tbl_row = tbl_row.reshape(-1, n_pages).to(torch.int32)
+    dst = torch.where(write_mask.reshape(-1, n_pages), tbl_row, 0).reshape(-1).long()
+    for name, src in (("kp", "k"), ("vp", "v")):
+        pages = r[src][_rows(row)].reshape(-1, ps, kvh, hd)
+        a[name][dst] = pages.to(a[name].dtype)
+    a["tbl"][_rows(slot)] = tbl_row
+    a["pos"][_rows(slot)] = r["pos"][_rows(row)]
+    for key in cache:
+        if key != "attn":
+            _scatter_tree(cache[key], row_cache[key], slot, row)
+    return cache
 
 
 def is_paged(layer_cache: Dict) -> bool:
@@ -107,7 +201,62 @@ def pages_per_row(context_len: int, block_k: int, page_size: int) -> int:
     return -(-(context_len + block_k) // page_size)
 
 
-class DenseBackend:
+class KVCacheBackend:
+    """The construction and slot-lifecycle surface of the decode caches.
+
+      init(cfg, batch, context_len, block_k, dtype=None)  -> caches
+      row_init(cfg, context_len, block_k, dtype=None)     -> dense rows
+                  (sized so a row scatters into ``init``'s buffers: the
+                  admission prefill's workspace)
+      reset_rows(caches, mask)                            -> caches
+      scatter_or_alloc(caches, row_caches, slot, ...)     -> caches
+
+    plus the per-layer hook ``layer_attn_init`` that
+    ``blocks.block_cache_init`` dispatches through.  The lifecycle
+    operations write in place and return the same caches.
+    """
+
+    name = "abstract"
+
+    def layer_attn_init(self, cfg: ModelConfig, layer_idx: int, batch: int,
+                        context_len: int, block_k: int, dtype,
+                        device=None) -> Dict:
+        raise NotImplementedError
+
+    def init(self, cfg: ModelConfig, batch: int, context_len: int,
+             block_k: int, dtype=None, *, device=None):
+        from repro_torch.models import model as model_lib  # cache <- model
+
+        return model_lib.init_caches(cfg, batch, context_len, block_k, dtype,
+                                     device=device, backend=self)
+
+    def row_init(self, cfg: ModelConfig, context_len: int, block_k: int,
+                 dtype=None, *, batch: int = 1, device=None):
+        """Admission-prefill workspace: ``batch`` rows in the dense layout
+        (batch > 1 is a prefill worker's whole packet)."""
+        from repro_torch.models import model as model_lib
+
+        return model_lib.init_caches(cfg, batch, context_len, block_k, dtype,
+                                     device=device, backend=DenseBackend())
+
+    def reset_rows(self, caches, mask):
+        from repro_torch.models import model as model_lib
+
+        return model_lib.reset_cache_rows(caches, mask)
+
+    def scatter_or_alloc(self, caches, row_caches, slot, *, row=0,
+                         tbl_row=None, write_mask=None):
+        """Install prefilled rows: dense layers scatter, paged layers also
+        bind the allocator's page mapping (``tbl_row`` / ``write_mask``,
+        one mapping for every layer)."""
+        from repro_torch.models import model as model_lib
+
+        return model_lib.scatter_cache_row(caches, row_caches, slot, row=row,
+                                           tbl_row=tbl_row,
+                                           write_mask=write_mask)
+
+
+class DenseBackend(KVCacheBackend):
     """One padded ``buf_len`` KV row per batch slot."""
 
     name = "dense"
@@ -120,16 +269,41 @@ class DenseBackend:
                                cfg.resolved_head_dim, dtype, device)
 
 
+class _PagedRowBackend(DenseBackend):
+    """Dense rows whose full-attention buffers are exactly ``P * page_size``
+    long, so an admission prefill's output reshapes page-aligned into the
+    pool (``scatter_row_paged``)."""
+
+    name = "paged_row"
+
+    def __init__(self, page_size: int):
+        self.page_size = int(page_size)
+
+    def layer_attn_init(self, cfg: ModelConfig, layer_idx: int, batch: int,
+                        context_len: int, block_k: int, dtype,
+                        device=None) -> Dict:
+        if _is_window_layer(cfg, layer_idx):
+            return super().layer_attn_init(cfg, layer_idx, batch, context_len,
+                                           block_k, dtype, device)
+        P = pages_per_row(context_len, block_k, self.page_size)
+        return attn_cache_init(batch, P * self.page_size, cfg.num_kv_heads,
+                               cfg.resolved_head_dim, dtype, device)
+
+
 class PagedBackend(DenseBackend):
     """Paged pool layout for full-attention layers (windowed layers stay
     dense).  ``num_pages = 0`` sizes the pool to the identity layout's
-    ``1 + batch * P`` pages."""
+    ``1 + batch * P`` pages.  ``managed=True`` (the serving engine, with
+    an explicit pool size) starts every table at the trash page 0 for
+    ``serving.pages.PageAllocator`` to map."""
 
     name = "paged"
 
-    def __init__(self, page_size: int = 16, num_pages: int = 0):
+    def __init__(self, page_size: int = 16, num_pages: int = 0,
+                 managed: bool = False):
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
+        self.managed = bool(managed)
 
     def layer_attn_init(self, cfg: ModelConfig, layer_idx: int, batch: int,
                         context_len: int, block_k: int, dtype,
@@ -141,15 +315,27 @@ class PagedBackend(DenseBackend):
         pool = self.num_pages or (1 + batch * P)
         return paged_attn_cache_init(batch, P, self.page_size, pool,
                                      cfg.num_kv_heads, cfg.resolved_head_dim,
-                                     dtype, device)
+                                     dtype, device,
+                                     identity_tbl=not self.managed)
+
+    def row_init(self, cfg: ModelConfig, context_len: int, block_k: int,
+                 dtype=None, *, batch: int = 1, device=None):
+        from repro_torch.models import model as model_lib
+
+        return model_lib.init_caches(
+            cfg, batch, context_len, block_k, dtype, device=device,
+            backend=_PagedRowBackend(self.page_size))
 
 
-def get_backend(dec=None) -> DenseBackend:
-    """Reads ``DecodeConfig.cache_backend`` (and ``page_size``)."""
+def get_backend(dec=None, *, num_pages: int = 0,
+                managed: bool = False) -> KVCacheBackend:
+    """Reads ``DecodeConfig.cache_backend`` (and ``page_size``); serving
+    passes its pool size and ``managed=True``."""
     name = getattr(dec, "cache_backend", "dense") if dec is not None else "dense"
     if name in ("", "dense"):
         return DenseBackend()
     if name == "paged":
-        return PagedBackend(getattr(dec, "page_size", 16))
+        return PagedBackend(getattr(dec, "page_size", 16),
+                            num_pages=num_pages, managed=managed)
     raise ValueError(
         f"unknown cache_backend {name!r}: expected 'dense' or 'paged'")

@@ -190,11 +190,33 @@ def commit_tree_path(cfg: ModelConfig, caches, path_nodes, khat, length,
 
 def init_caches(cfg: ModelConfig, batch: int, context_len: int, block_k: int,
                 dtype=None, *, device=None,
-                backend: Optional[cache_lib.DenseBackend] = None):
+                backend: Optional[cache_lib.KVCacheBackend] = None):
     dtype = dtype or cfg.compute_dtype
     return tuple(block_cache_init(cfg, i, batch, context_len, block_k, dtype,
                                   device, backend=backend)
                  for i in range(cfg.num_layers))
+
+
+def reset_cache_rows(caches, mask):
+    """Invalidate rows ``mask`` ((B,) bool) of every layer's cache, in
+    place: slot eviction for the continuous-batching engine."""
+    return tuple(cache_lib.reset_rows(c, mask) for c in caches)
+
+
+def scatter_cache_row(caches, row_caches, slot, *, row=0, tbl_row=None,
+                      write_mask=None):
+    """Install prefilled rows into slots of batched caches, in place:
+    prefill-into-freed-slot for the continuous-batching engine (see
+    ``cache.scatter_row``; ``slot`` / ``row`` ints or (n,) index tensors).
+    Paged layers take the host allocator's page mapping ``tbl_row`` /
+    ``write_mask``, one mapping for every layer (``cache.scatter_row_paged``)."""
+    for c, rc in zip(caches, row_caches):
+        if cache_lib.is_paged(c):
+            cache_lib.scatter_row_paged(c, rc, slot, tbl_row, write_mask,
+                                        row=row)
+        else:
+            cache_lib.scatter_row(c, rc, slot, row=row)
+    return caches
 
 
 # ---------------------------------------------------------------------------

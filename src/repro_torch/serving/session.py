@@ -1,0 +1,382 @@
+"""The engine's device functions for one (policy, geometry): a
+``DecodeSession`` owns the parameters and builds, once per (policy,
+``EngineConfig``), the serving functions of ``repro.serving.session`` on
+one device.
+
+The reference jits each function once and donates the slot state between
+calls.  Here each function is plain PyTorch, built (closed over its
+geometry and policy) once per key and cached; ``builds`` counts the builds
+per key, the twin of the reference's one-compile-per-geometry guard.  The
+slot state's caches are written in place, as every cache of the port is;
+the small per-slot tensors are replaced by each step and written in place
+by ``attach`` / ``evict``.  Capturing ``step`` as a CUDA graph is ROADMAP.md
+§1 item 1; until then each call launches its kernels from the host.
+
+A mesh is not ported (ROADMAP.md §1 item 8), nor auxiliary model bundles
+(the ``draft_model`` policy, item 5).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import DecodeConfig, ModelConfig
+from repro_torch.core import decode as decode_lib
+from repro_torch.core import policy as policy_lib
+from repro_torch.models import cache as cache_lib
+from repro_torch.models import model as model_lib
+from repro_torch.serving.types import EngineConfig, SlotBatch
+
+I32 = torch.int32
+
+
+class PagedGeometry(NamedTuple):
+    """Static page-pool geometry of a serving slot group: what the engine's
+    host-side ``serving.pages.PageAllocator`` needs to mirror the device
+    block tables."""
+
+    page_size: int      # tokens per KV page
+    pages_per_row: int  # block-table width P
+    num_pages: int      # physical pool size (incl. trash page 0)
+    prefix_len: int     # model prefix (meta tokens) before the prompt
+
+
+class PrefillPacket(NamedTuple):
+    """Finished prefill state of a batch of prompts before any slot is
+    chosen: the unit of work a prefill worker hands to a decode group
+    through the engine's KV-handoff queue.  Every leaf leads with the
+    prefill width W; row i is one request's complete admission state."""
+
+    tokens: Any        # (W, buf_len) slot token buffer rows (padded prompt)
+    prompt_len: Any    # (W,) real prompt lengths
+    proposals: Any     # (W, k) first-block draft proposals
+    caches: Any        # prefilled caches, batch dim = W (dense row layout)
+    policy_state: Any  # fresh per-row DecodePolicy state (W-leading leaves)
+
+
+class ServingFn:
+    """One built serving function and the number of times it was called
+    (``compile_counts`` lists only the functions a run called)."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.calls = 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.fn(*args, **kwargs)
+
+
+class ServingFns(NamedTuple):
+    """The engine's device functions, built once per (policy, geometry).
+
+    ``admit`` is ``attach ∘ prefill`` at width 1, so the unified engine's
+    admission and the disaggregated engine's prefill-worker path run the
+    same prefill body and the same scatter.  Host arrays go in (numpy,
+    ints); each call makes one host-to-device copy of them.
+    """
+
+    init: Callable      # (gid) -> SlotBatch
+    admit: Callable     # (params, state, slot, prompt (P,), plen, max_new,
+                        #  src (P,)[, tbl_row (Pg,), write_mask (Pg,)])
+                        #  -> state
+    step: Callable      # (params, state) -> (state, status (S,) int8,
+                        #  iterations () int32), all on the device
+    evict: Callable     # (state, mask (S,) bool) -> state
+    prefill: Callable   # (params, prompts (W, P), plens (W,), srcs (W, P))
+                        #  -> PrefillPacket
+    attach: Callable    # (state, packet, row, slot, max_new[, tbl_row,
+                        #  write_mask]) -> state
+    attach_many: Callable  # (state, packet, rows (W,), slots (W,),
+                        #  max_news (W,), valid (W,)[, tbl_rows (W, Pg),
+                        #  write_masks (W, Pg)]) -> state: the valid lanes
+                        #  in one indexed write
+    paged: Optional[PagedGeometry] = None   # page-pool geometry (None=dense)
+    key: Any = None                         # the session's cache key
+
+
+def _map(fn, *trees):
+    """``fn`` over the tensor leaves of policy-state trees of one structure
+    (tensors, dicts, tuples and NamedTuples)."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if isinstance(first, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    vals = [_map(fn, *leaves) for leaves in zip(*trees)]
+    return type(first)(*vals) if hasattr(first, "_fields") else type(first)(vals)
+
+
+class DecodeSession:
+    """Owner of the parameters and the engine's built serving functions.
+
+    ``policy`` fixes the session's default decode policy; ``serving_fns(
+    policy=...)`` builds functions for another policy's slot group, cached
+    per (``DecodePolicy.cache_key``, ``EngineConfig``), so two groups that
+    run equal policies at one geometry share one set.  The device is the
+    parameters' device.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, dec: DecodeConfig, *,
+                 mesh=None, policy=None, bundles=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh-sharded DecodeSession is not ported yet (ROADMAP.md, "
+                "'Modules to port', item 8: multi-GPU)")
+        if bundles:
+            raise NotImplementedError(
+                "auxiliary model bundles (the draft_model policy) are not "
+                "ported yet (ROADMAP.md, 'Modules to port', item 5)")
+        self.params = params
+        self.cfg = cfg
+        self.dec = dec
+        self.policy = policy_lib.resolve_policy(dec, policy)
+        self.device = next(params.parameters()).device
+        self._fns: Dict[Any, ServingFns] = {}
+        self.builds: Dict[Any, int] = {}   # serving-fns key -> builds
+
+    def bound_policy(self, policy=None):
+        """Resolve ``policy`` (a registered name, a DecodePolicy, or None
+        for the session default): the form every serving slot group runs."""
+        if policy is None:
+            return self.policy
+        return policy_lib.resolve_policy(self.dec, policy)
+
+    def serving_fns(self, ecfg: EngineConfig, *, policy=None) -> ServingFns:
+        """The engine's functions for ``policy`` at geometry ``ecfg``, built
+        on first use and cached per (policy identity, geometry)."""
+        pol = self.bound_policy(policy)
+        key = ("serving", pol.cache_key, ecfg)
+        fns = self._fns.get(key)
+        if fns is None:
+            fns = self._build_serving_fns(ecfg, pol)._replace(key=key)
+            self._fns[key] = fns
+            self.builds[key] = self.builds.get(key, 0) + 1
+        return fns
+
+    def _build_serving_fns(self, ecfg: EngineConfig, pol) -> ServingFns:
+        cfg, dec, dev = self.cfg, self.dec, self.device
+        block_k = dec.block_k or cfg.bpd_k
+        prefix = cfg.num_meta_tokens
+        plen_max = ecfg.max_prompt_len
+        context_len = prefix + plen_max + ecfg.max_new_cap
+        buf_len = plen_max + ecfg.max_new_cap + block_k
+        backend = decode_lib.causal_lm_backend(cfg)
+        s = ecfg.num_slots
+
+        paged_geom = None
+        if dec.cache_backend == "paged":
+            ps = dec.page_size
+            n_pages = cache_lib.pages_per_row(context_len, block_k, ps)
+            pool = ecfg.page_pool_pages or (1 + s * n_pages)
+            kv_backend = cache_lib.get_backend(dec, num_pages=pool,
+                                               managed=True)
+            paged_geom = PagedGeometry(page_size=ps, pages_per_row=n_pages,
+                                       num_pages=pool, prefix_len=prefix)
+        else:
+            kv_backend = cache_lib.get_backend(dec)
+
+        def slots_batch(n: int) -> Dict:
+            """The zeroed ``{"tokens", "src"}`` batch of the admission
+            geometry that policy-state builders see, so state shapes are
+            the same at init, admission and eviction."""
+            z = torch.zeros((n, plen_max), dtype=I32, device=dev)
+            return {"tokens": z, "src": z}
+
+        # eviction's fresh per-row policy state (made once: it is constant)
+        fresh = pol.init_state(cfg, dec, slots_batch(s), s)
+
+        def to_device(*arrays) -> list:
+            """The host arrays in one host-to-device copy, as int32 device
+            tensors of their own shapes."""
+            flat = [np.asarray(a).astype(np.int32).reshape(-1) for a in arrays]
+            packed = torch.from_numpy(np.concatenate(flat)).to(dev)
+            out, at = [], 0
+            for a, f in zip(arrays, flat):
+                out.append(packed[at:at + f.size].reshape(np.shape(a)))
+                at += f.size
+            return out
+
+        def init_slots(gid) -> SlotBatch:
+            zeros = lambda: torch.zeros((s,), dtype=I32, device=dev)  # noqa: E731
+            return SlotBatch(
+                tokens=torch.zeros((s, buf_len), dtype=I32, device=dev),
+                text_len=zeros(),
+                prompt_len=zeros(),
+                proposals=torch.zeros((s, block_k), dtype=I32, device=dev),
+                caches=model_lib.init_caches(cfg, s, context_len, block_k,
+                                             device=dev, backend=kv_backend),
+                active=torch.zeros((s,), dtype=torch.bool, device=dev),
+                finished=torch.ones((s,), dtype=torch.bool, device=dev),
+                generated=zeros(),
+                max_new=zeros(),
+                invocations=zeros(),
+                policy_state=pol.init_state(cfg, dec, slots_batch(s), s),
+                group=torch.full((s,), int(gid), dtype=I32, device=dev),
+            )
+
+        @torch.no_grad()
+        def prefill(params, prompts, plens, srcs) -> PrefillPacket:
+            """The slot-free half of admission: prefill W padded prompts in
+            one forward and return their handoff packet.  Rows never mix,
+            so a packet row attached later is the state ``admit`` would
+            install directly.  The per-row policy state is fresh and the
+            policy's drafter proposes the first block from each row's last
+            real position."""
+            w = np.shape(prompts)[0]
+            prompts_d, srcs_d, plens_d = to_device(prompts, srcs, plens)
+            row_caches = kv_backend.row_init(cfg, context_len, block_k,
+                                             batch=w, device=dev)
+            row_caches, proposals, row_ps = decode_lib.prefill_and_draft(
+                params, cfg, dec, pol, {"tokens": prompts_d, "src": srcs_d},
+                row_caches, plens_d, block_k)
+            tokens = torch.zeros((w, buf_len), dtype=I32, device=dev)
+            tokens[:, :plen_max] = prompts_d
+            return PrefillPacket(tokens=tokens, prompt_len=plens_d,
+                                 proposals=proposals, caches=row_caches,
+                                 policy_state=row_ps)
+
+        def install(state: SlotBatch, packet: PrefillPacket, rows, slots,
+                    max_news, tbl_rows=None, write_masks=None) -> SlotBatch:
+            """Copy packet ``rows`` into slots ``slots`` (ints, or (n,)
+            device index tensors), in place.  Every write copies out of
+            the packet, so no slot aliases a packet row another lane still
+            reads."""
+            plen = packet.prompt_len[rows]
+            state.tokens[slots] = packet.tokens[rows]
+            state.text_len[slots] = plen
+            state.prompt_len[slots] = plen
+            state.proposals[slots] = packet.proposals[rows]
+            model_lib.scatter_cache_row(
+                state.caches, packet.caches, slots, row=rows,
+                tbl_row=tbl_rows, write_mask=write_masks)
+            state.active[slots] = True
+            state.finished[slots] = False
+            state.generated[slots] = 0
+            state.max_new[slots] = max_news
+            state.invocations[slots] = 1          # the prefill call
+
+            def put(full, row_vals):
+                full[slots] = row_vals[rows].to(full.dtype)
+
+            _map(put, state.policy_state, packet.policy_state)
+            return state
+
+        def attach(state: SlotBatch, packet: PrefillPacket, row: int,
+                   slot: int, max_new: int, tbl_row=None,
+                   write_mask=None) -> SlotBatch:
+            """The scatter-only half of admission: install packet ``row``
+            into slot ``slot`` (the prefill→decode KV handoff).  Under the
+            paged backend ``tbl_row`` / ``write_mask`` are the host
+            allocator's mapping for this slot; copy-on-write prefix hits
+            arrive with ``write_mask`` False and are left untouched."""
+            tbl = mask = None
+            if tbl_row is not None:
+                tbl, mask = to_device(tbl_row, write_mask)
+                mask = mask.bool()
+            return install(state, packet, int(row), int(slot), int(max_new),
+                           tbl, mask)
+
+        def attach_many(state: SlotBatch, packet: PrefillPacket, rows, slots,
+                        max_news, valid, tbl_rows=None,
+                        write_masks=None) -> SlotBatch:
+            """Batched KV handoff: the valid lanes' packet rows go into
+            their slots in one indexed write per tensor (invalid lanes
+            write nothing)."""
+            lanes = np.nonzero(np.asarray(valid))[0]
+            if lanes.size == 0:
+                return state
+            arrays = [np.asarray(rows)[lanes], np.asarray(slots)[lanes],
+                      np.asarray(max_news)[lanes]]
+            if tbl_rows is not None:
+                arrays += [np.asarray(tbl_rows)[lanes],
+                           np.asarray(write_masks)[lanes]]
+            dev_arrays = to_device(*arrays)
+            rows_d, slots_d, max_d = (a.long() for a in dev_arrays[:3])
+            tbl = mask = None
+            if tbl_rows is not None:
+                tbl, mask = dev_arrays[3], dev_arrays[4].bool()
+            return install(state, packet, rows_d, slots_d, max_d.to(I32),
+                           tbl, mask)
+
+        def admit(params, state: SlotBatch, slot, prompt, prompt_len,
+                  max_new, src, tbl_row=None, write_mask=None) -> SlotBatch:
+            """Unified admission: ``attach ∘ prefill`` at width 1."""
+            packet = prefill(params, np.asarray(prompt)[None],
+                             np.asarray([prompt_len]), np.asarray(src)[None])
+            return attach(state, packet, 0, slot, max_new, tbl_row,
+                          write_mask)
+
+        def one_step(params, state: SlotBatch, go):
+            """One BPD iteration over the slot batch.  ``go`` (a () bool
+            device tensor, or None for True) masks every row: with go
+            False all rows are frozen and the iteration changes nothing but
+            speculative cache entries at positions >= text_len, which the
+            next live iteration rewrites before it attends."""
+            active = state.active if go is None else state.active & go
+            bst = decode_lib.BPDState(
+                tokens=state.tokens, text_len=state.text_len,
+                proposals=state.proposals, caches=state.caches,
+                finished=state.finished, iters=0,
+                generated=state.generated, policy_state=state.policy_state)
+            out = decode_lib.bpd_iteration(
+                params, cfg, dec, backend, bst, prefix_offset=prefix,
+                max_new=state.max_new, active=active, policy=pol)
+            stepped = active & ~state.finished
+            new_state = state._replace(
+                tokens=out.tokens, text_len=out.text_len,
+                proposals=out.proposals, caches=out.caches,
+                finished=out.finished, generated=out.generated,
+                invocations=state.invocations + stepped.to(I32),
+                policy_state=out.policy_state)
+            # the fused harvest decision: bit 0 = active, bit 1 = harvestable
+            status = (state.active.to(torch.int8)
+                      + 2 * (state.active & out.finished).to(torch.int8))
+            return new_state, status
+
+        k_win = ecfg.steps_per_sync
+
+        @torch.no_grad()
+        def step_windowed(params, state: SlotBatch):
+            """``steps_per_sync`` iterations in one call with no host read
+            between them.  The reference's window is a device while_loop
+            that exits once a row can be harvested; here every iteration
+            after that point runs with all rows frozen (``go`` False,
+            computed on the device), so tokens, statuses and counts are
+            those of the early exit.  Returns (state, status, iterations
+            that did work), the last two on the device."""
+            state, status = one_step(params, state, None)
+            iters = torch.ones((), dtype=I32, device=dev)
+            for _ in range(k_win - 1):
+                go = ~torch.any((status & 2) > 0)
+                state, status = one_step(params, state, go)
+                iters = iters + go.to(I32)
+            return state, status, iters
+
+        def evict(state: SlotBatch, mask) -> SlotBatch:
+            """Retire rows ``mask``: inactive, KV rows invalidated in place
+            (``pos`` -1, paged tables to the trash page) and the policy
+            state of those rows fresh, so no slot leaks drafter or schedule
+            history into its next request."""
+            if not isinstance(mask, torch.Tensor):
+                mask = torch.from_numpy(np.asarray(mask, bool)).to(dev)
+            model_lib.reset_cache_rows(state.caches, mask)
+
+            def reset(full, init):
+                rows = mask.reshape((-1,) + (1,) * (init.dim() - 1))
+                return torch.where(rows, init, full)
+
+            return state._replace(
+                active=state.active & ~mask,
+                policy_state=_map(reset, state.policy_state, fresh))
+
+        return ServingFns(init=ServingFn(init_slots),
+                          admit=ServingFn(admit),
+                          step=ServingFn(step_windowed),
+                          evict=ServingFn(evict),
+                          prefill=ServingFn(prefill),
+                          attach=ServingFn(attach),
+                          attach_many=ServingFn(attach_many),
+                          paged=paged_geom)

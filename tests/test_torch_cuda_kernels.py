@@ -592,6 +592,53 @@ def test_tree_and_paged_decode_on_the_card(cuda, policy, backend):
     assert torch.equal(bt[:, :24], gt[:, :24])
 
 
+@pytest.mark.parametrize("backend,spd", [("paged", 1), ("dense", 3)])
+def test_two_group_engine_on_the_card(cuda, backend, spd):
+    """The continuous-batching engine on the card: an exact and a
+    topk_tree slot group, 8 requests through 4 slots (eviction and
+    re-admission), on the managed page pool or the dense slab; each
+    request's tokens are greedy's, every group step launched its group's
+    kernels in every layer, and each function was built once."""
+    from repro_torch import serving
+
+    cfg = ModelConfig(name="t", num_layers=2, d_model=256, num_heads=8,
+                      num_kv_heads=2, d_ff=512, vocab_size=1000, bpd_k=8,
+                      dtype="float32")
+    params = model.init(cfg, seed=3, device=cuda)
+    dec = DecodeConfig(max_new_tokens=16, block_k=8, top_k=2,
+                       cache_backend=backend)
+    eng = serving.ContinuousBatchingEngine(
+        params, cfg, dec, serving.EngineConfig(num_slots=4, max_prompt_len=8,
+                                               max_new_cap=16,
+                                               steps_per_sync=spd),
+        policies={"exact": 2, "topk_tree": 2})
+    sched = serving.Scheduler(eng)
+    gen = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, 1000, (8, 8), dtype=torch.int32, generator=gen)
+    for i in range(8):
+        sched.submit(serving.Request(rid=i, prompt=prompts[i].numpy(),
+                                     max_new=8 + i, arrival=0.0,
+                                     policy=("exact", "topk_tree")[i % 2]))
+    _build.reset_launches()
+    now, done = 0.0, []
+    while not sched.drained():
+        done += sched.step(now=now)
+        now += 1.0
+    assert len(done) == 8
+    fwd = {g.name: g.num_forwards for g in eng.groups}
+    pre = {g.name: g.num_prefills for g in eng.groups}
+    attn = "paged_verify_attention" if backend == "paged" else "verify_attention"
+    assert _build.LAUNCHES[attn] == 2 * fwd["exact"]
+    assert _build.LAUNCHES["tree_verify_attention"] == 2 * fwd["topk_tree"]
+    assert _build.LAUNCHES["fused_verify"] == sum(fwd.values())
+    assert _build.LAUNCHES["fused_heads"] == sum(fwd.values()) + sum(pre.values())
+    assert all(v == 1 for v in eng.compile_counts().values())
+    gt, _ = decode.greedy_decode(params, cfg, dec,
+                                 {"tokens": prompts.to(cuda)})
+    for f in done:
+        assert f.tokens.tolist() == gt[f.rid, 8:8 + 8 + f.rid].tolist(), f.rid
+
+
 def test_rwkv6_decode_on_the_card(cuda):
     """A small RWKV-6 model decoded on the card: BPD emits greedy's tokens,
     each prefill scans through the kernel once per layer, and decode

@@ -228,7 +228,9 @@ def test_serve_static_path_on_cpu(capsys):
     assert _rows(out["tokens"].numpy(), out["stats"]) == _rows(gt.numpy(), gs)
 
 
-@pytest.mark.parametrize("argv", [["--engine"], ["--http"], ["--mesh-data", "2"],
+@pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2"],
+                                  ["--http", "--policy", "draft_model"],
+                                  ["--mesh-data", "2"],
                                   ["--policy", "locality"],
                                   ["--policy", "draft_model"]])
 def test_unported_serving_options_raise(argv):
