@@ -112,6 +112,40 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 checkpoint) except at reported near-ties; the lossless
                 policies emit exact's tokens; each k̂ beside the
                 reference's.
+  11. train   — everything earlier freed; the training path (make_train_step:
+                the paper's §6 loss, backward, AdamW), fp32:
+                11a: granite's attention width (d 4096, 32/8 heads of
+                128) at 2 layers, d_ff, bpd_hidden and vocab 1024 / 1024 /
+                4096, B 2 x S 64: one step on the card and one on the CPU
+                from the same weights and batch, head index and swap mask
+                injected, frozen (scheduled sampling, self targets) and
+                fine-tuned: loss, gradient norm and every gradient agree
+                (rtol 1e-4, atol 1e-5 of each leaf's max), and every leaf
+                the card updated equals the CPU's optimizer applied to the
+                card's gradients; elements where AdamW's g/(|g| + eps)
+                takes the card further from the CPU's own step are counted.
+                11b: granite-3-8b at full width and depth rebuilt from
+                seed 0 (phase 4's weights), frozen base (§6.1, only the
+                heads train, freeze_mask), B 4 x S 256 MarkovLM, 20 steps,
+                then 20 with scheduled sampling and self targets: every
+                base leaf bit for bit unchanged (checksums), the loss
+                falls, greedy equals phase 4's tokens, BPD exact on the
+                trained heads emits them (launches counted as in phase 4);
+                k̂ before and after, step ms, tokens/s, peak memory, and
+                one step of each run profiled (device busy, idle share,
+                top kernels).
+                11c: granite-3-8b at full width, depth cut to 4 layers
+                (full depth's AdamW state does not fit in 80 GB), fine-
+                tuned, 20 steps: the loss falls, embed/table and trunk
+                leaves move; step ms, tokens/s, peak memory.
+                11d: paper-mt-base at full size through
+                repro_torch.launch.train (PhraseMT, seq2seq_loss, 20
+                steps at --lr 3e-4, --ckpt-dir in a temporary directory):
+                the restored
+                checkpoint equals the trained weights bit for bit and
+                decodes the same tokens (bpd_decode_seq2seq, 8 sources);
+                a second run resumes from its step; then the launcher's
+                step timed and one step profiled outside it.
 
 Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
@@ -1425,6 +1459,8 @@ def phase_decode(torch, results):
 
     # ---- phase 6c: the bf16 engine and the HTTP server ---------------------
     phase_engine_bf16(torch, params, scfg, sdec, prompts, static_tps)
+    return {"prompts": prompts.cpu(), "greedy": g_toks.cpu(),
+            "khat": b_stats["mean_accepted"], "iterations": b_stats["iterations"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2183,6 +2219,383 @@ def phase_fixture(torch):
         f"{time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training (the paper's §6 loss, AdamW, checkpoints, the launcher)
+# ---------------------------------------------------------------------------
+
+
+TRAIN_TOL = {"rtol": 1e-4, "atol_of_max": 1e-5}   # card vs CPU, fp32, per leaf
+TRAIN_STEPS = 20                                   # per run of 11b and 11c
+TRAIN_LR = 3e-5      # 11b / 11c, constant: in trials on the card, higher
+                     # rates made these 20-step runs diverge
+
+
+def leaf_checksums(torch, params, names):
+    """One int64 per leaf: the sum of its fp32 words as integers, so any
+    changed bit of a leaf changes it (almost surely)."""
+    leaves = dict(_named(params))
+    return torch.stack([leaves[n].detach().view(torch.int32).sum(dtype=torch.int64)
+                        for n in names]).cpu()
+
+
+def _named(params):
+    from repro_torch.utils.tree import flatten_with_names
+    return flatten_with_names(params)
+
+
+def run_steps(torch, step, params, opt, batches, gen, n, label):
+    """``n`` training steps, each synced and timed on the host clock, the
+    last one also under torch.profiler (device busy against the median
+    step, the top kernels); returns (params, opt, losses, per-step ms of
+    the first n - 1, last metrics)."""
+    losses, ms = [], []
+    for _ in range(n - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, next(batches), gen)
+        losses.append(float(m["loss"]))            # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    batch = next(batches)
+    torch.cuda.synchronize()
+    (params, opt, m), busy_ms, count, busy = profiled_busy(
+        torch, lambda: step(params, opt, batch, gen))
+    losses.append(float(m["loss"]))
+    log(f"[train] {label}: losses {[round(x, 4) for x in losses]}")
+    if busy_ms is not None:
+        steady = median_after_warmup(ms)
+        gemm = sum(t for k, t in busy.items() if "gemm" in k or "nvjet" in k)
+        log(f"[train] {label}: one step profiled: {count} kernels, device busy "
+            f"{busy_ms:.1f} ms against the median step's {steady:.1f} ms (idle "
+            f"share {1 - busy_ms / steady:.3f}); cuBLAS products {gemm:.1f} ms")
+        for name, t in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {t:8.3f} ms  {name[:90]}")
+    return params, opt, losses, ms, m
+
+
+def median_after_warmup(ms):
+    steady = sorted(ms[2:])
+    return steady[len(steady) // 2]
+
+
+def step_report(torch, label, ms, tokens, card):
+    """Step ms (median after 2 warm-up steps), tokens/s and peak memory."""
+    med = median_after_warmup(ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] {label}: step {med:.1f} ms (median of {len(ms) - 2} after 2 "
+        f"warm-up; first {ms[0]:.1f} ms), {tokens / med * 1e3:,.0f} training "
+        f"tokens/s ({tokens} a step), peak {peak:.2f} GiB allocated; {card}")
+
+
+def check_loss_falls(losses, label):
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"{label}: loss did not fall (first 5 mean {first:.4f}, "
+                        f"last 5 mean {last:.4f})")
+    log(f"[train] {label}: loss falls, first 5 mean {first:.4f} -> last 5 "
+        f"mean {last:.4f}")
+
+
+def leaf_within(name, got, want, label):
+    """``got`` within TRAIN_TOL of ``want`` (the atol a fraction of
+    ``want``'s max |value|); returns the worst share of the tolerance."""
+    rtol, arel = TRAIN_TOL["rtol"], TRAIN_TOL["atol_of_max"]
+    err = (got - want).abs()
+    tol = arel * float(want.abs().max()) + rtol * want.abs()
+    over = err > tol
+    check(not bool(over.any()), f"{label}: {name} differs by up to "
+                                f"{float(err.max()):.3g} at {int(over.sum())} elements")
+    return float((err / tol.clamp(min=1e-30)).max())
+
+
+def phase_train_card_vs_cpu(torch, card):
+    """11a: one make_train_step on the card and on the CPU from the same
+    fp32 weights and batch, head index and swap mask injected: the loss,
+    the gradient norm and every gradient agree within TRAIN_TOL, and every
+    leaf the card updated equals the CPU's optimizer applied to the card's
+    gradients.  Against the CPU's own step an AdamW element may differ more
+    where |g| is near eps: g/(|g| + eps) amplifies the gradients' fp32
+    difference there (and a gradient within its tolerance of zero can take
+    either sign); such elements are counted."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import freeze_mask, optimizer_init, optimizer_update
+
+    cfg = get_config("granite-3-8b").replace(
+        num_layers=2, d_ff=1024, bpd_hidden=1024, vocab_size=4096,
+        dtype="float32")
+    tokens = MarkovLM(vocab=256, temperature=0.2, seed=0).sample(
+        np.random.default_rng(2), 2, 64)
+    swap = torch.as_tensor(np.random.default_rng(3).random((2, 64)) < 0.5)
+    rtol, arel = TRAIN_TOL["rtol"], TRAIN_TOL["atol_of_max"]
+    runs = {
+        "frozen, scheduled sampling (self targets)": (
+            TrainConfig(freeze_base=True, scheduled_sampling=True,
+                        ss_self_targets=True, lr=1e-4, warmup_steps=1), 3, True),
+        "fine-tuned": (TrainConfig(lr=1e-4, warmup_steps=1), 2, False),
+    }
+    for label, (tc, head, frozen) in runs.items():
+        t0 = time.perf_counter()
+        cpu = M.init(cfg, seed=0, device="cpu")
+        dev = copy.deepcopy(cpu).to("cuda")
+        mask = freeze_mask(cpu, train_only_heads=True) if frozen else None
+        out = {}
+        for side, params in (("cpu", cpu), ("cuda", dev)):
+            step = make_train_step(cfg, tc, mask)
+            batch = {"tokens": torch.as_tensor(tokens, device=side)}
+            _, _, m = step(params, optimizer_init(params, tc, mask), batch, None,
+                           head_idx=head, swap=swap)
+            grads = {n: p.grad.cpu() for n, p in _named(params) if p.grad is not None}
+            out[side] = (float(m["loss"]), float(m["grad_norm"]), grads)
+        (l_cpu, n_cpu, g_cpu), (l_card, n_card, g_card) = out["cpu"], out["cuda"]
+        log(f"[train] 11a {label}: loss card {l_card:.6f} / cpu {l_cpu:.6f}, "
+            f"grad norm {n_card:.6f} / {n_cpu:.6f}, head {head}")
+        check(abs(l_card - l_cpu) <= rtol * abs(l_cpu),
+              f"11a {label}: loss {l_card} on the card, {l_cpu} on the CPU")
+        check(abs(n_card - n_cpu) <= rtol * abs(n_cpu),
+              f"11a {label}: grad norm {n_card} on the card, {n_cpu} on the CPU")
+        check(sorted(g_card) == sorted(g_cpu), f"11a {label}: other leaves "
+                                               f"got gradients on the card")
+        worst = max((leaf_within(f"grad {n}", g_card[n], g, f"11a {label}"), n)
+                    for n, g in g_cpu.items())
+        replay = M.init(cfg, seed=0, device="cpu")     # the step's start
+        optimizer_update(g_card, optimizer_init(replay, tc, mask), replay, tc,
+                         mask=mask)
+        amplified = 0
+        cpu_leaves, replay_leaves = dict(_named(cpu)), dict(_named(replay))
+        for n, p in _named(dev):
+            got = p.detach().cpu()
+            worst = max(worst, (leaf_within(n, got, replay_leaves[n].detach(),
+                                            f"11a {label} (update)"), n))
+            want = cpu_leaves[n].detach()
+            amplified += int(((got - want).abs() > arel * float(want.abs().max())
+                              + rtol * want.abs()).sum())
+        log(f"[train] 11a {label}: {len(g_cpu)} gradients agree with the CPU's "
+            f"and {len(replay_leaves)} updated leaves with the CPU's update of "
+            f"the card's gradients (rtol {rtol}, atol {arel} of each leaf's "
+            f"max; worst {worst[1]} at {worst[0]:.3f} of its tolerance); "
+            f"{amplified} elements beyond it from the CPU's own step "
+            f"(AdamW near eps); {time.perf_counter() - t0:.1f}s")
+        del cpu, dev, replay, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[train] 11a passed; {card}")
+
+
+def phase_train_frozen(torch, phase4, card):
+    """11b: the paper's frozen-base setting on granite-3-8b at full width
+    and depth: only the heads train; the base stays bit for bit, so greedy
+    is phase 4's and BPD (exact) emits it; k̂ before and after."""
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, TrainConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import freeze_mask, optimizer_init
+    from repro_torch.utils.tree import tree_size
+
+    cfg = get_config("granite-3-8b").replace(dtype="float32")
+    params = M.init(cfg, seed=0, device="cuda")         # phase 4's weights
+    mask = freeze_mask(params, train_only_heads=True)
+    heads = sum(p.numel() for n, p in _named(params) if mask[n] > 0)
+    log(f"[train] 11b granite-3-8b fp32, frozen base: {tree_size(params) / 1e9:.3f} "
+        f"B parameters, {heads / 1e9:.3f} B in the heads")
+    base = [n for n, _ in _named(params) if mask[n] == 0]
+    before = leaf_checksums(torch, params, base)
+    prompts = phase4["prompts"].to("cuda")
+    dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
+    layers = cfg.num_layers
+
+    def bpd(label):
+        _build.reset_launches()
+        toks, stats = D.bpd_decode(params, cfg, dec, {"tokens": prompts})
+        launches = dict(_build.LAUNCHES)
+        iters = stats["iterations"]
+        check(launches["verify_attention"] == layers * iters
+              and launches["fused_verify"] == iters
+              and launches["fused_heads"] == iters + 1,
+              f"11b bpd {label}: launches {launches} for {iters} iterations")
+        log(f"[train] 11b BPD exact {label}: k̂={stats['mean_accepted']:.4f} "
+            f"iterations={iters}, launches {launches}")
+        return toks, stats
+
+    log(f"[train] 11b BPD exact before training: k̂={phase4['khat']:.4f} "
+        f"iterations={phase4['iterations']} (phase 4's run on these weights)")
+    tc = TrainConfig(freeze_base=True, head_loss="random", lr=TRAIN_LR,
+                     warmup_steps=1, schedule="constant")
+    opt = optimizer_init(params, tc, mask)
+    gen = torch.Generator().manual_seed(0)
+    batches = prefetch(MarkovLM(vocab=256, temperature=0.2, seed=0).batches(
+        batch=4, seq_len=256, seed=1), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, tc, mask)
+    params, opt, losses, ms, m = run_steps(torch, step, params, opt, batches,
+                                           gen, TRAIN_STEPS, "11b frozen")
+    step_report(torch, "11b frozen, B 4 x S 256", ms, 4 * 256, card)
+    log(f"[train] 11b grad norm (last step) {float(m['grad_norm']):.4f}")
+    check_loss_falls(losses, "11b frozen")
+    check(torch.equal(leaf_checksums(torch, params, base), before),
+          "11b: a base parameter changed under the frozen base")
+    log(f"[train] 11b: all {len(base)} base leaves bit for bit unchanged")
+
+    g_toks, _ = D.greedy_decode(params, cfg, dec, {"tokens": prompts})
+    check(torch.equal(g_toks.cpu(), phase4["greedy"]),
+          "11b: greedy tokens after frozen training differ from phase 4's")
+    log("[train] 11b: greedy tokens equal phase 4's in 8/8 rows")
+    after = causal_logits_after(torch, M, params, cfg)
+    b_toks, b_stats = bpd("after training")
+    diverged = compare_rows(torch, after, b_toks, g_toks, b_stats["text_len"], 64)
+    log(f"[train] 11b: BPD exact on the trained heads == greedy in "
+        f"{8 - len(diverged)}/8 rows (others at near-ties)")
+
+    tc_ss = tc.replace(scheduled_sampling=True, ss_self_targets=True)
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, tc_ss, mask)
+    params, opt, losses, ms, m = run_steps(torch, step, params, opt, batches,
+                                           gen, TRAIN_STEPS, "11b frozen, ss_self_targets")
+    batches.close()
+    step_report(torch, "11b frozen + scheduled sampling (self targets)", ms,
+                4 * 256, card)
+    check(torch.equal(leaf_checksums(torch, params, base), before),
+          "11b: a base parameter changed under scheduled sampling")
+    b_toks, b_stats = bpd("after ss_self_targets")
+    diverged = compare_rows(torch, after, b_toks, g_toks, b_stats["text_len"], 64)
+    log(f"[train] 11b: BPD exact after ss_self_targets == greedy in "
+        f"{8 - len(diverged)}/8 rows (k̂ reported, not gated)")
+
+
+def phase_train_finetune(torch, card):
+    """11c: the fine-tuned base at granite's full width, 4 of 40 layers."""
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer_init
+    from repro_torch.utils.tree import tree_size
+
+    full = get_config("granite-3-8b")
+    cfg = full.replace(num_layers=4, dtype="float32")
+    params = M.init(cfg, seed=0, device="cuda")
+    n = tree_size(params)
+    n_full = tree_size(M.init(full, device="meta"))
+    log(f"[train] 11c granite-3-8b fp32 fine-tuned, depth cut from 40 to 4 "
+        f"layers: full depth's parameters, gradients and AdamW moments "
+        f"({n_full / 1e9:.3f} B x 16 bytes = {n_full * 16 / 2 ** 30:.1f} GiB) "
+        f"do not fit in 80 GB; at 4 layers {n / 1e9:.3f} B parameters, "
+        f"{n * 16 / 2 ** 30:.1f} GiB for them")
+    watch = ["embed/table", "blocks/0/attn/wq", "blocks/3/mlp/w2/w"]
+    before = leaf_checksums(torch, params, watch)
+    tc = TrainConfig(head_loss="random", lr=TRAIN_LR, warmup_steps=1,
+                     schedule="constant")
+    opt = optimizer_init(params, tc)
+    gen = torch.Generator().manual_seed(1)
+    batches = prefetch(MarkovLM(vocab=256, temperature=0.2, seed=0).batches(
+        batch=4, seq_len=256, seed=2), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, tc)
+    params, opt, losses, ms, m = run_steps(torch, step, params, opt, batches,
+                                           gen, TRAIN_STEPS, "11c fine-tuned")
+    batches.close()
+    step_report(torch, "11c fine-tuned, 4 layers, B 4 x S 256", ms, 4 * 256, card)
+    check_loss_falls(losses, "11c fine-tuned")
+    moved = leaf_checksums(torch, params, watch) != before
+    check(bool(moved.all()), f"11c: leaves that did not move: "
+                             f"{[w for w, mv in zip(watch, moved) if not mv]}")
+    log(f"[train] 11c: {watch} moved")
+
+
+def phase_train_launcher(torch, card):
+    """11d: paper-mt-base at full size through the entry point, checkpoint
+    restored bit for bit and decoded, then a resumed run."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.config import DecodeConfig, TrainConfig
+    from repro_torch.core import decode as D
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.data.synthetic import PhraseMT
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import optimizer_init
+
+    steps, more = 20, 10
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        argv = ["--arch", "paper-mt-base", "--full-config", "--batch", "8",
+                "--seq", "64", "--lr", "3e-4", "--log-every", "5",
+                "--ckpt-dir", ckpt_dir]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_launch.main(argv + ["--steps", str(steps)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cfg, params = out["cfg"], out["params"]
+        log(f"[train] 11d paper-mt-base: {steps} steps through "
+            f"repro_torch.launch.train in {wall:.1f}s (init and checkpoint "
+            f"included), peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+            f"GiB allocated; {card}")
+        check(latest_step(ckpt_dir) == steps, "11d: no final checkpoint")
+        restored, extra = restore(ckpt_dir, params)
+        check(extra == {"arch": "paper-mt-base"}, f"11d: extra {extra}")
+        same = [torch.equal(a, b) for (_, a), (_, b) in zip(_named(restored),
+                                                            _named(params))]
+        check(all(same) and len(same) == len(_named(params)),
+              "11d: a restored parameter differs from the trained one")
+        log(f"[train] 11d: {len(same)} restored leaves equal the trained ones "
+            f"bit for bit")
+        task = PhraseMT(vocab=cfg.vocab_size, expand=2, seed=1)
+        src = torch.as_tensor(task.make_pair(np.random.default_rng(5), 8, 32)[0],
+                              device="cuda")
+        dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
+        a, sa = D.bpd_decode_seq2seq(params, cfg, dec, {"src": src})
+        b, sb = D.bpd_decode_seq2seq(restored, cfg, dec, {"src": src})
+        check(torch.equal(a, b) and sa["iterations"] == sb["iterations"],
+              "11d: the restored weights decode other tokens")
+        log(f"[train] 11d: bpd_decode_seq2seq on the restored weights == on "
+            f"the trained ones (8 sources x 32, 64 new tokens, k̂="
+            f"{sa['mean_accepted']:.4f}, {sa['iterations']} iterations)")
+        again = train_launch.main(argv + ["--steps", str(steps + more)])
+        check(again["start"] == steps and latest_step(ckpt_dir) == steps + more,
+              f"11d: the second run started at {again['start']}")
+        log(f"[train] 11d: a second run resumed at step {again['start']} and "
+            f"saved step {latest_step(ckpt_dir)}")
+    # the launcher's step, timed and profiled outside it on the trained weights
+    tc = TrainConfig(global_batch=8, seq_len=64, lr=3e-4, steps=steps,
+                     warmup_steps=10)
+    batches = prefetch(train_launch.data_for(cfg, 8, 64, 1), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params, _, _, ms, _ = run_steps(torch, make_train_step(cfg, tc), params,
+                                    optimizer_init(params, tc), batches,
+                                    torch.Generator().manual_seed(2), 8,
+                                    "11d paper-mt-base")
+    batches.close()
+    step_report(torch, "11d paper-mt-base, B 8 x (32 + 64)", ms, 8 * 64, card)
+
+
+def phase_train(torch, phase4):
+    card = card_line()
+    t0 = time.perf_counter()
+    phase_train_card_vs_cpu(torch, card)
+    phase_train_frozen(torch, phase4, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_finetune(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_launcher(torch, card)
+    log(f"[train] phase 11 {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the repo "
@@ -2228,7 +2641,7 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
-    phase_decode(torch, results)
+    phase4 = phase_decode(torch, results)
     gc.collect()                                  # granite's weights go first
     torch.cuda.empty_cache()
     log(f"[rwkv] granite freed: {torch.cuda.memory_allocated() / 2 ** 30:.1f} "
@@ -2238,6 +2651,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_mt(torch, results)
     phase_fixture(torch)
+    gc.collect()                                  # every earlier phase's
+    torch.cuda.empty_cache()
+    phase_train(torch, phase4)
 
     kernels = []
     for name in _build.KERNELS:

@@ -2,23 +2,21 @@
 
 ``from_jax_params`` takes the reference's parameter pytree as numpy arrays
 (``params["blocks"][3]["attn"]["wq"]`` becomes ``blocks.3.attn.wq``);
-``load_checkpoint`` reads the reference's ``step_N/arrays.npz`` checkpoints
-with numpy alone.  Both check every key and shape against ``cfg``.
+``load_checkpoint`` reads ``step_N/arrays.npz`` checkpoints (the
+reference's layout, ``repro_torch.checkpoint``) with numpy alone.  Both
+check every key and shape against ``cfg``.
 """
 from __future__ import annotations
 
-import os
-import re
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.config import ModelConfig
 from repro_torch.models import model as model_lib
-
-_SEP = "\x1f"  # the reference checkpoint's key joiner (checkpoint/ckpt.py)
 
 
 def _to_torch(tree, device):
@@ -47,38 +45,10 @@ def from_jax_params(np_tree: Dict, cfg: ModelConfig, device=None):
     return params
 
 
-def _nest(flat: Dict[str, np.ndarray]) -> Dict:
-    """{"blocks\\x1f0\\x1fattn\\x1fwq": a, ...} -> nested dicts, with the
-    dicts whose keys are all list indices turned back into lists."""
-    root: Dict = {}
-    for key, arr in flat.items():
-        node = root
-        *path, leaf = key.split(_SEP)
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = arr
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [lists(node[k]) for k in sorted(node, key=int)]
-        return {k: lists(v) for k, v in node.items()}
-
-    return lists(root)
-
-
 def load_checkpoint(ckpt_dir: str, cfg: ModelConfig, device=None, *,
                     step: Optional[int] = None):
-    """Read the reference's ``<ckpt_dir>/step_<N>/arrays.npz`` (the latest
-    step unless ``step`` is given) into the port's ``ParamTree``."""
-    if step is None:
-        steps = [int(m.group(1)) for d in os.listdir(ckpt_dir)
-                 if (m := re.fullmatch(r"step_(\d+)", d))]
-        if not steps:
-            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-        step = max(steps)
-    path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
-    with np.load(path) as arrays:
-        flat = {k: arrays[k] for k in arrays.files}
-    return from_jax_params(_nest(flat), cfg, device)
+    """Read ``<ckpt_dir>/step_<N>/arrays.npz`` (the latest step unless
+    ``step`` is given), written by the reference or by
+    ``repro_torch.checkpoint.save``, into the port's ``ParamTree``."""
+    path = ckpt_lib.step_path(ckpt_dir, step)
+    return from_jax_params(ckpt_lib.nest(ckpt_lib.read_arrays(path)), cfg, device)

@@ -1,8 +1,9 @@
 """Config dataclasses, field for field those of ``repro.config.base``.
 
 ``ModelConfig`` describes the architecture, ``DecodeConfig`` the
-blockwise-parallel-decoding parameters.  ``DTYPES`` maps the dtype names to
-torch dtypes.
+blockwise-parallel-decoding parameters, ``TrainConfig`` the training run
+(optimizer, schedule, the paper's §6 head loss, scheduled sampling).
+``DTYPES`` maps the dtype names to torch dtypes.
 """
 from __future__ import annotations
 
@@ -157,4 +158,54 @@ class DecodeConfig:
     locality_stride: int = 4
 
     def replace(self, **kw) -> "DecodeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    seed: int = 0
+    global_batch: int = 32
+    seq_len: int = 256
+    steps: int = 200
+    # optimizer
+    optimizer: str = "adamw"       # adamw | adafactor
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    schedule: str = "inv_sqrt"     # inv_sqrt | cosine | constant
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.98
+    eps: float = 1e-9
+    grad_clip: float = 1.0
+    # BPD head training (paper §6)
+    head_loss: str = "random"      # random (paper) | mean
+    freeze_base: bool = False      # §6.1 frozen base
+    detach_head_residual: bool = False  # stabilized fine-tuning (see heads.py)
+    label_smoothing: float = 0.0
+    z_loss: float = 1e-4
+    # Parallel scheduled sampling (arXiv:1906.04331): one extra no-grad
+    # forward predicts every position; the conditioning prefix is mixed
+    # gold -> model per position with probability ss_ratio (annealed over
+    # ss_anneal_steps); targets stay gold unless ss_self_targets, which
+    # supervises the heads with the frozen base's own chain predictions.
+    scheduled_sampling: bool = False
+    ss_ratio: float = 0.5          # peak probability of a model-token swap
+    ss_anneal_steps: int = 0       # linear 0 -> ss_ratio ramp (0 = constant)
+    ss_self_targets: bool = False
+
+    def __post_init__(self):
+        valid_head_loss = ("random", "mean")
+        if self.head_loss not in valid_head_loss:
+            raise ValueError(
+                f"TrainConfig.head_loss must be one of {valid_head_loss}, "
+                f"got {self.head_loss!r}")
+        if not 0.0 <= self.ss_ratio <= 1.0:
+            raise ValueError(
+                f"TrainConfig.ss_ratio must be in [0, 1], got {self.ss_ratio}")
+        if self.ss_anneal_steps < 0:
+            raise ValueError(
+                f"TrainConfig.ss_anneal_steps must be >= 0, "
+                f"got {self.ss_anneal_steps}")
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

@@ -55,3 +55,21 @@ def head_apply_single(p, cfg: ModelConfig, hidden, head_idx: int, *,
     b2 = p["b2"][head_idx].to(dt)
     h = F.relu(hidden @ w1 + b1)
     return h @ w2 + b2 + hidden
+
+
+def head_apply_dynamic(p, cfg: ModelConfig, hidden, head_idx: int, *,
+                       identity_p1: bool = True,
+                       detach_residual: bool = False) -> torch.Tensor:
+    """Head ``head_idx`` for training (§6's one random sub-loss per
+    minibatch).  The index is a host int drawn per step; with
+    ``identity_p1`` head 0 is ``hidden`` itself (the reference selects it
+    with a ``where``, whose other branch gets a zero gradient: the same
+    value and gradients).  ``detach_residual`` detaches only the
+    ``+ hidden`` residual of the head, so a future-token loss reaches the
+    trunk only through the head's FFN (``repro.core.heads``)."""
+    if identity_p1 and head_idx == 0:
+        return hidden
+    dt = hidden.dtype
+    h = F.relu(hidden @ p["w1"][:, head_idx].to(dt) + p["b1"][head_idx].to(dt))
+    res = hidden.detach() if detach_residual else hidden
+    return h @ p["w2"][head_idx].to(dt) + p["b2"][head_idx].to(dt) + res

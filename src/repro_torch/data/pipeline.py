@@ -1,0 +1,93 @@
+"""Host batches to the device, as ``repro.data.pipeline``: numpy batches
+become tensors on an explicit device (through pinned host memory and a
+non-blocking copy on a card), and ``prefetch`` makes the next batches on a
+bounded background thread while the device trains on this one.  Sharding a
+batch over several cards is ROADMAP.md §1 item 8 (multi-GPU) and is
+refused here."""
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _refuse_sharding(sharding) -> None:
+    if sharding is not None:
+        raise NotImplementedError(
+            "sharding a batch over several devices is not ported yet "
+            "(ROADMAP.md §1 item 8, multi-GPU); pass device= instead")
+
+
+def to_device(batch: Dict[str, np.ndarray], device=None, *,
+              sharding=None) -> Dict[str, torch.Tensor]:
+    """``batch``'s arrays as tensors on ``device`` (default the card)."""
+    _refuse_sharding(sharding)
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return {k: torch.as_tensor(np.asarray(v), device=dev)
+                for k, v in batch.items()}
+    return {k: torch.as_tensor(np.asarray(v)).pin_memory().to(
+        dev, non_blocking=True) for k, v in batch.items()}
+
+
+class _Failed:
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+_END = object()
+
+
+def prefetch(it: Iterator[Dict], depth: int = 2, *, device=None,
+             sharding=None) -> Iterator[Dict]:
+    """Yield ``it``'s batches on ``device`` in order, made and copied by a
+    background thread that runs at most ``depth`` batches ahead.  An
+    exception in ``it`` is raised here; closing the generator stops the
+    thread."""
+    _refuse_sharding(sharding)
+    dev = resolve_device(device)
+    slots: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                slots.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def work():
+        try:
+            for batch in it:
+                if not put(to_device(batch, dev)):
+                    return
+        except Exception as exc:              # handed to the consumer
+            put(_Failed(exc))
+            return
+        put(_END)
+
+    worker = threading.Thread(target=work, name="prefetch", daemon=True)
+    worker.start()
+    try:
+        while True:
+            item = slots.get()
+            if item is _END:
+                return
+            if isinstance(item, _Failed):
+                raise item.exc
+            yield item
+    finally:
+        stop.set()
+        worker.join(timeout=10)
+
+
+def take(it: Iterator, n: int):
+    return list(itertools.islice(it, n))

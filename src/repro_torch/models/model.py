@@ -42,6 +42,7 @@ from repro_torch.models.layers import (
     norm_init,
     unembed_apply,
 )
+from repro_torch.utils.tree import flatten_with_names
 
 
 class ParamTree(nn.Module):
@@ -122,6 +123,17 @@ def cast_for_compute(params: ParamTree, cfg: ModelConfig) -> ParamTree:
             dtype = torch.float32 if reads_fp32(key) else cfg.compute_dtype
             if p.dtype != dtype:
                 p.data = p.data.to(dtype)
+    return params
+
+
+def set_trainable(params: ParamTree, mask) -> ParamTree:
+    """Turn ``requires_grad`` on for the leaves ``mask`` trains ({'/'-path
+    name: value}, nonzero trains; None trains all) and off for the rest,
+    so autograd records no graph for a frozen leaf.  Every leaf starts
+    off (``ParamTree``), and the decode functions run under
+    ``torch.no_grad()`` whatever this says.  Returns ``params``."""
+    for name, p in flatten_with_names(params):
+        p.requires_grad_(mask is None or float(mask.get(name, 0.0)) > 0)
     return params
 
 
