@@ -35,7 +35,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 encoder-decoder's cross attention calls it (q_pos 0, the
                 source at 0, masked tails at -1; kq 1 and 8, Se 24 and 64,
                 heads 8 of 64 and 4 of 16), paper-mt-base's call timed
-                beside SDPA.
+                beside SDPA; at head_dim 24 (computed at width 32) the
+                three split-KV kernels at quickstart's heads (B 8, kq 4,
+                4 over 2 KV heads) and the superres grid model's (4 over
+                4), L 60 and 200, bf16 and fp32, bit for bit
+                batch-invariant, each timed at quickstart's L 200 beside
+                SDPA and the bound; fused_heads and fused_verify at vocab
+                32 and 16 padded to 256 lanes.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -112,6 +118,32 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 checkpoint) except at reported near-ties; the lossless
                 policies emit exact's tokens; each k̂ beside the
                 reference's.
+  12. quickstart — examples/quickstart.py's model (head_dim 24): the
+                pinned fixture tests/data/quickstart decoded in fp32, its
+                8 prompts as one batch, greedy and BPD exact, tokens equal
+                to reference.json under the near-tie rule, with equal
+                tokens equal iterations, generated counts and k̂; then the
+                port trains quickstart's recipe on the card (fp32, 300
+                steps) and decodes: BPD emits greedy's tokens, k̂ > 1.5,
+                fewer invocations than greedy.
+  13. locality — the pinned image fixture tests/data/locality (8 x 8
+                fields, stride 2, 16 levels; lattice and raster arms):
+                13a fp32, each of 8 fields decoded alone under locality,
+                locality_exact and locality_raster, rows equal to
+                reference.json under the near-tie rule (with all rows
+                equal: MAE, iterations per token and k̂ too), locality
+                emitting locality_exact's tokens in fewer iterations than
+                locality_raster; 13b the lattice model in bf16 (k̂ and
+                iterations recorded); 13c the engine with a locality and an
+                exact group of 2 slots, 16 requests, each equal to its
+                static decode.
+  14. kv_chunk — run inside phase_decode, on phase 4's fp32 granite-3-8b
+                weights before the bf16 cast: a 2048-token prefill with
+                kv_chunk 512 and without (hidden states within 1e-4 of
+                max|h|, each prefill's peak memory printed), greedy's 16
+                new tokens equal, then BPD exact through
+                DecodeSession(kv_chunk=512) on phase 4's batch emits phase
+                4's tokens.
   11. train   — everything earlier freed; the training path (make_train_step:
                 the paper's §6 loss, backward, AdamW), fp32:
                 11a: granite's attention width (d 4096, 32/8 heads of
@@ -637,14 +669,16 @@ def check_paged_attention(torch, gen, results):
         shape=f"bf16 q (8,8,32,128), {mapped} mapped pages of (16,8,128)")
 
 
-def check_head_dim_16(torch, gen, results):
-    """The three split-KV kernels at head_dim 16 (the trained policy-sweep
-    model: 4 heads of 16), bf16 and fp32, against their plain versions and
-    bit for bit batch-invariant; then verify_attention as the
-    encoder-decoder's cross attention calls it (every query at position 0,
-    the source's keys at 0 and a masked tail at -1), at paper-mt-base's
-    heads (8 of 64) and the sweep model's (4 of 16).  The errors join each
-    kernel's max_abs_err; the times are printed (PERF.md §6)."""
+def check_split_kv(torch, gen, results, *, model, hd, h, kvh, kq, l, dtype,
+                   timed):
+    """The three split-KV kernels at one head_dim and shape (B 8, ``kq``
+    queries, ``h`` heads over ``kvh`` KV heads, L ``l``; the paged kernel
+    over ceil(L / 16) pages of 16, one page shared and one unmapped)
+    against their plain versions, and bit for bit batch-invariant: kq 1 vs
+    ``kq`` for the chain kernels, B 1 vs 8 for all three, the paged kernel
+    equal to verify_attention on the gathered view.  The errors join each
+    kernel's max_abs_err; with ``timed`` each call is timed beside its
+    plain version, SDPA and the bound (``time_split_kv``)."""
     from repro_torch.kernels.block_attention import (tree_verify_attention_cuda,
                                                      tree_verify_attention_plain,
                                                      verify_attention_cuda,
@@ -653,51 +687,72 @@ def check_head_dim_16(torch, gen, results):
                                                      paged_verify_attention_plain)
     from repro_torch.kernels.tree_mask import default_tree
 
-    b, kq, h, hd, l, P, ps = 8, 8, 4, 16, 300, 9, 16
+    b, ps = 8, 16
+    P = -(-l // ps)
+    tol = ATTN_TOL[dtype]
+    tag = f"{dtype} hd {hd} {model}"
+    cases = (
+        ("verify_attention", verify_attention_cuda, verify_attention_plain,
+         attention_case(torch, gen, b, kq, h, kvh, hd, l, dtype,
+                        length=[l - kq - 3 * i for i in range(b)], stale=5)),
+        ("tree_verify_attention", tree_verify_attention_cuda,
+         tree_verify_attention_plain,
+         tree_case(torch, gen, b, h, kvh, hd, l, default_tree(kq, 2), dtype,
+                   stale=5 if l > 64 else 0)),
+        ("paged_verify_attention", paged_verify_attention_cuda,
+         paged_verify_attention_plain,
+         paged_case(torch, gen, b, kq, h, kvh, hd, P, ps, dtype,
+                    ctx=[P * ps - 3 * i for i in range(b)], share=True,
+                    unmapped=1)))
+    for name, fn, plain, args in cases:
+        got = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        check(not torch.isnan(got).any(), f"{name} {tag} NaN")
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        check(ok, f"{name} {tag} L {l} differs from its plain version by "
+                  f"{err}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        if name == "paged_verify_attention":            # the pool is shared
+            q, kp, vp, tbl, q_pos, kv_pos = args
+            check(torch.equal(got, verify_attention_cuda(
+                *paged_gathered(torch, *args))),
+                  f"{name} {tag}: not verify_attention on the gathered view "
+                  f"bit for bit")
+            for r in range(b):
+                row = fn(q[r:r + 1].contiguous(), kp, vp,
+                         tbl[r:r + 1].contiguous(),
+                         q_pos[r:r + 1].contiguous(),
+                         kv_pos[r:r + 1].contiguous())
+                check(torch.equal(row, got[r:r + 1]),
+                      f"{name} {tag}: batch row {r} alone differs from its "
+                      f"row at B = 8")
+        else:
+            check_invariance(torch, f"{name} {tag}", fn, args,
+                             queries=name == "verify_attention")
+        log(f"  {name} {tag} (B {b}, kq {kq}, {h}/{kvh} heads, L "
+            f"{P * ps if name == 'paged_verify_attention' else l}): "
+            f"max_abs_err={err:.3g}, invariant bit for bit ok")
+        if timed:
+            time_split_kv(torch, name, fn, plain, args, dtype, model)
+
+
+def check_head_dim_16(torch, gen, results):
+    """The three split-KV kernels at head_dim 16 (the trained policy-sweep
+    model: 4 heads of 16, kq 8, L 300), bf16 and fp32 (``check_split_kv``);
+    then verify_attention as the encoder-decoder's cross attention calls it
+    (every query at position 0, the source's keys at 0 and a masked tail at
+    -1), at paper-mt-base's heads (8 of 64) and the sweep model's (4 of 16).
+    The errors join each kernel's max_abs_err; the times are printed
+    (PERF.md §6)."""
+    from repro_torch.kernels.block_attention import (verify_attention_cuda,
+                                                     verify_attention_plain)
+
+    b = 8
     for dtype in ("bfloat16", "float32"):
-        tol = ATTN_TOL[dtype]
-        cases = (
-            ("verify_attention", verify_attention_cuda, verify_attention_plain,
-             attention_case(torch, gen, b, kq, h, h, hd, l, dtype,
-                            length=[l - kq - 3 * i for i in range(b)],
-                            stale=5)),
-            ("tree_verify_attention", tree_verify_attention_cuda,
-             tree_verify_attention_plain,
-             tree_case(torch, gen, b, h, h, hd, l, default_tree(kq, 2), dtype,
-                       stale=5)),
-            ("paged_verify_attention", paged_verify_attention_cuda,
-             paged_verify_attention_plain,
-             paged_case(torch, gen, b, kq, h, h, hd, P, ps, dtype,
-                        ctx=[P * ps - 3 * i for i in range(b)])))
-        for name, fn, plain, args in cases:
-            got = fn(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            check(not torch.isnan(got).any(), f"{name} hd 16 NaN")
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-            check(ok, f"{name} {dtype} hd 16 differs from its plain version "
-                      f"by {err}")
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-            if name == "paged_verify_attention":        # the pool is shared
-                q, kp, vp, tbl, q_pos, kv_pos = args
-                for r in range(b):
-                    row = fn(q[r:r + 1].contiguous(), kp, vp,
-                             tbl[r:r + 1].contiguous(),
-                             q_pos[r:r + 1].contiguous(),
-                             kv_pos[r:r + 1].contiguous())
-                    check(torch.equal(row, got[r:r + 1]),
-                          f"{name} {dtype} hd 16: batch row {r} alone "
-                          f"differs from its row at B = 8")
-            else:
-                check_invariance(torch, f"{name} {dtype} hd 16", fn, args,
-                                 queries=name == "verify_attention")
-            ms = time_ms(torch, lambda: fn(*args))
-            plain_ms = time_ms(torch, lambda: plain(*args))
-            log(f"  {name} {dtype} hd 16 (B {b}, kq {kq}, H {h}, L "
-                f"{l if name != 'paged_verify_attention' else P * ps}): "
-                f"max_abs_err={err:.3g}, B 1 == B 8 bit for bit, kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms ok")
+        check_split_kv(torch, gen, results, model="policy-sweep", hd=16, h=4,
+                       kvh=4, kq=8, l=300, dtype=dtype, timed=True)
 
     # the cross attention call: q_pos 0, source keys at 0, masked tails
     tails = [0, 3, 5, 0, 7, 1, 0, 2]
@@ -743,6 +798,102 @@ def check_head_dim_16(torch, gen, results):
         f"max_abs_err={worst:.3g} over 16 cases ok; paper-mt-base's call "
         f"bf16 q (8,8,8,64), k/v (8,64,8,64): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, SDPA {min(repeat_ms, gqa_ms):.4f} ms, bound "
+        f"{bms:.5f} ms ({by})")
+
+
+def check_head_dim_24(torch, gen, results):
+    """The three split-KV kernels at head_dim 24 (computed at the width 32,
+    lanes 24-31 zero, scale 1/√24), ``check_split_kv`` at quickstart's
+    heads (B 8, kq 4, 4 heads over 2 KV heads) and the superres grid
+    model's (4 over 4), L 60 and 200, bf16 and fp32, each timed at
+    quickstart's shape, L 200.  Then fused_heads and fused_verify at those
+    models' vocabularies, 32 and 16 padded to 256 lanes (-1e9 past the
+    vocab), against their plain versions.  The errors join each kernel's
+    max_abs_err; the times are printed (PERF.md §6)."""
+    from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
+    from repro_torch.kernels.fused_verify import (fused_verify_cuda,
+                                                  fused_verify_plain)
+
+    b, kq = 8, 4
+    for model, h, kvh in (("quickstart", 4, 2), ("superres", 4, 4)):
+        for dtype in ("bfloat16", "float32"):
+            for l in (60, 200):
+                check_split_kv(torch, gen, results, model=model, hd=24, h=h,
+                               kvh=kvh, kq=kq, l=l, dtype=dtype,
+                               timed=model == "quickstart" and l == 200)
+
+    # fused_heads / fused_verify at vocab 32 (quickstart, d 96) and 16
+    # (superres, d 64), both padded to 256 lanes
+    for model, d, vocab in (("quickstart", 96, 32), ("superres", 64, 16)):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            w = (torch.randn((d, 256), generator=gen, device="cuda") * 0.1).to(dt)
+            o = torch.randn((b * (kq - 1), d), generator=gen,
+                            device="cuda").to(dt)
+            vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=1)
+            torch.cuda.synchronize()
+            ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab, 1)
+            err = (vals - wv).abs().max().item()
+            tol = ATTN_TOL[dtype]
+            ok = ok and torch.allclose(vals, wv, rtol=tol, atol=tol)
+            check(ok and int(ids.max()) < vocab,
+                  f"fused_heads {model} {dtype} vocab {vocab} differs from "
+                  f"its plain version (err {err})")
+            results["fused_heads"]["max_abs_err"] = max(
+                results["fused_heads"]["max_abs_err"], err)
+            logits = torch.randn((b, kq, 256), generator=gen, device="cuda")
+            logits[..., vocab:] = -1e9                  # as project_vocab pads
+            logits = logits.to(dt)
+            greedy = torch.argmax(logits.float(), -1).int()
+            props = torch.randint(0, vocab, greedy.shape, generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            props[:, 1:3] = greedy[:, 0:2]
+            for crit in ("exact", "topk", "distance"):
+                got = fused_verify_cuda(logits, props, criterion=crit, top_k=2,
+                                        epsilon=2.0)
+                want = fused_verify_plain(logits, props, criterion=crit,
+                                          top_k=2, epsilon=2.0)
+                torch.cuda.synchronize()
+                check(all(torch.equal(g, x) for g, x in zip(got, want)),
+                      f"fused_verify {model} {dtype} vocab {vocab} {crit} "
+                      f"differs from its plain version")
+            heads_ms = time_ms(torch, lambda: fused_heads_topk_cuda(
+                o, w, vocab=vocab, top_t=1))
+            verify_ms = time_ms(torch, lambda: fused_verify_cuda(
+                logits, props, criterion="exact"))
+            log(f"  fused_heads {model} {dtype} ({b * (kq - 1)},{d})x({d},256) "
+                f"vocab {vocab}: max_abs_err={err:.3g} near-ties={ties}, "
+                f"kernel {heads_ms:.4f} ms; fused_verify ({b},{kq},256) bit for "
+                f"bit under exact/topk/distance, kernel {verify_ms:.4f} ms ok")
+
+
+def time_split_kv(torch, name, fn, plain, args, dtype, model):
+    """Kernel, plain version, SDPA (the chain and tree kernels) and bound of
+    one split-KV call, printed for PERF.md's rows 1, 4 and 5."""
+    ms = time_ms(torch, lambda: fn(*args))
+    plain_ms = time_ms(torch, lambda: plain(*args))
+    if name == "paged_verify_attention":
+        q, kp, vp, tbl, q_pos, kv_pos = args
+        k = v = None
+        l = tbl.shape[1] * kp.shape[1]
+        moved = nbytes(q, kp[tbl.long()], vp[tbl.long()], tbl, q_pos, kv_pos, q)
+        lib = "n/a (no one call gathers pages)"
+    else:
+        q, k, v, q_pos, kv_pos = args[:5]
+        l = k.shape[1]
+        moved = nbytes(*args, q)
+        qp, kp_ = q_pos[:, :, None], kv_pos[:, None, :]
+        mask = (kp_ >= 0) & (kp_ <= qp)
+        if name == "tree_verify_attention":
+            kn, anc = args[5][:, None, :], args[6]
+            bit = (anc[:, :, None] >> kn.clamp(0, 31)) & 1
+            mask = mask & ((kn < 0) | (bit != 0))
+        repeat_ms, gqa_ms = sdpa_yardsticks(torch, q, k, v, mask[:, None])
+        lib = f"{min(repeat_ms, gqa_ms):.4f} ms"
+    b, kq, h, hd = q.shape
+    bms, by = bound(moved, 4 * b * kq * h * l * hd, dtype)
+    log(f"  {name} {dtype} hd {hd} {model} (B {b}, kq {kq}, L {l}): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib}, bound "
         f"{bms:.5f} ms ({by})")
 
 
@@ -1376,6 +1527,9 @@ def phase_decode(torch, results):
 
     # ---- phase 5c: the fp32 engine ------------------------------------------
     phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks)
+
+    # ---- phase 14: kv_chunk on the fp32 weights ----------------------------
+    phase_kv_chunk(torch, params, cfg, dec, batch, g_toks, prompt_len)
 
     # ---- phase 6: bf16 serve ------------------------------------------------
     del state
@@ -2132,6 +2286,51 @@ def phase_mt(torch, results):
                           f"paper-mt-base {policy}", seq2seq=True)
 
 
+def fixture_config(path: Path):
+    """A fixture's ``config.json`` as the port's ``ModelConfig``."""
+    from repro_torch.config import ModelConfig
+
+    with open(path / "config.json") as f:
+        fields = json.load(f)
+    fields["global_attn_layers"] = tuple(fields["global_attn_layers"])
+    return ModelConfig(**fields)
+
+
+def match_reference(torch, after, rows, want_rows, label) -> int:
+    """Each row of ``rows`` (lists of tokens) equals ``want_rows``' except
+    a row that first leaves it where p_1's top-2 gap after the reference's
+    prefix is below TIE_MARGIN (``after(row, prefix)``), which is reported.
+    Returns the number of equal rows."""
+    equal = 0
+    for r, (got, want) in enumerate(zip(rows, want_rows)):
+        if got == want:
+            equal += 1
+            continue
+        p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        prefix = torch.tensor(want[:p], dtype=torch.int32, device="cuda")
+        gap = top2_gap(torch, after(r, prefix))
+        log(f"    {label} row {r}: leaves the reference's tokens at {p}, "
+            f"p_1's top-2 gap there {gap:.3g} of max|logit|")
+        check(gap < TIE_MARGIN, f"{label} row {r} differs from the reference "
+                                f"with no near-tie ({gap})")
+    return equal
+
+
+def match_rows(torch, after, rows, want_rows, label) -> int:
+    """``match_reference`` on the rows' tokens; a row whose tokens equal
+    the reference's must equal it in its counts too (equal tokens leave no
+    room for a tie to excuse other counts).  Returns the equal rows."""
+    equal = match_reference(torch, after, [r["tokens"] for r in rows],
+                            [w["tokens"] for w in want_rows], label)
+    for r, (row, want) in enumerate(zip(rows, want_rows)):
+        if row["tokens"] == want["tokens"]:
+            check(row == want, f"{label} row {r}: the reference's tokens in "
+                               f"{row['iterations']} iterations, "
+                               f"{row['generated']} generated; reference "
+                               f"{want['iterations']}, {want['generated']}")
+    return equal
+
+
 FIXTURE = ROOT / "tests" / "data" / "policy_sweep"
 FIXTURE_POLICIES = ("exact", "topk", "distance", "adaptive", "input_copy",
                     "topk_tree")
@@ -2146,14 +2345,11 @@ def phase_fixture(torch):
     import numpy as np
 
     from repro_torch import bridge
-    from repro_torch.config import DecodeConfig, ModelConfig
+    from repro_torch.config import DecodeConfig
     from repro_torch.core import decode as D
     from repro_torch.models import seq2seq as S
 
-    with open(FIXTURE / "config.json") as f:
-        fields = json.load(f)
-    fields["global_attn_layers"] = tuple(fields["global_attn_layers"])
-    cfg = ModelConfig(**fields)
+    cfg = fixture_config(FIXTURE)
     with open(FIXTURE / "reference.json") as f:
         ref = json.load(f)
     params = bridge.load_checkpoint(str(FIXTURE / "checkpoint"), cfg,
@@ -2163,13 +2359,6 @@ def phase_fixture(torch):
     log(f"[fixture] {cfg.name}: {sum(p.numel() for p in params.parameters())} "
         f"parameters (head_dim {cfg.resolved_head_dim}), {n_rows} rows of {se}")
     after = mt_logits_after(torch, S, params, cfg, src)
-
-    def tie(r, tokens, want):
-        """p_1's top-2 gap where ``tokens`` first leave ``want``, and there."""
-        p = next(i for i, (a, b) in enumerate(zip(tokens, want)) if a != b)
-        want_t = torch.tensor(want[:p], dtype=torch.int32, device="cuda")
-        return top2_gap(torch, after(r, want_t)), p
-
     decoded = {}
     t0 = time.perf_counter()
     for policy in FIXTURE_POLICIES:
@@ -2183,39 +2372,357 @@ def phase_fixture(torch):
                          "iterations": stats["iterations"],
                          "generated": int(stats["generated"][0])})
         decoded[policy] = rows
-        equal = 0
-        for r, (row, want) in enumerate(zip(rows, ref[policy]["rows"])):
-            if row == want:
-                equal += 1
-                continue
-            # equal tokens leave no room for a tie to excuse other counts
-            check(row["tokens"] != want["tokens"],
-                  f"fixture {policy} row {r}: reference.json's tokens in "
-                  f"{row['iterations']} iterations, {row['generated']} "
-                  f"generated; reference {want['iterations']}, "
-                  f"{want['generated']}")
-            gap, p = tie(r, row["tokens"], want["tokens"])
-            log(f"    {policy} row {r}: tokens leave reference.json's at "
-                f"{p}, p_1's top-2 gap there {gap:.3g} of max|logit|; card "
-                f"{row['iterations']} iterations, reference "
-                f"{want['iterations']}")
-            check(gap < TIE_MARGIN, f"fixture {policy} row {r} differs from "
-                                    f"reference.json with no near-tie")
+        equal = match_rows(torch, after, rows, ref[policy]["rows"],
+                           f"fixture {policy}")
         khat = float(np.mean([r["generated"] / max(r["iterations"], 1)
                               for r in rows]))
         log(f"[fixture] {policy}: k̂ {khat:.4f} (reference.json "
             f"{ref[policy]['mean_khat']:.4f}); {equal}/{n_rows} rows equal to "
             f"the reference's (others at reported near-ties)")
     for policy in ("adaptive", "input_copy", "topk_tree"):
-        for r in range(n_rows):
-            got, want = decoded[policy][r]["tokens"], decoded["exact"][r]["tokens"]
-            if got != want:
-                gap, p = tie(r, got, want)
-                log(f"    {policy} row {r} leaves exact's tokens at {p}; "
-                    f"p_1's top-2 gap there {gap:.3g} of max|logit|")
-                check(gap < TIE_MARGIN, f"fixture {policy} row {r}: not "
-                                        f"exact's tokens, no near-tie")
+        match_reference(torch, after,
+                        [r["tokens"] for r in decoded[policy]],
+                        [r["tokens"] for r in decoded["exact"]],
+                        f"fixture {policy} vs exact")
     log(f"[fixture] lossless policies emit exact's tokens; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: trained weights (quickstart, locality) and kv_chunk
+# ---------------------------------------------------------------------------
+
+
+QUICKSTART = ROOT / "tests" / "data" / "quickstart"
+LOCALITY = ROOT / "tests" / "data" / "locality"
+LOCALITY_ROWS = {"locality": ("locality", "locality"),   # row -> (arm, policy)
+                 "locality_exact": ("locality", "exact"),
+                 "locality_raster": ("raster", "exact")}
+QUICKSTART_STEPS = 300
+KV_CHUNK, KV_PROMPT, KV_NEW = 512, 2048, 16
+KV_SHORT_CHUNK = 24  # phase 4's 64-token prompts in chunks of 24, 24 and 16
+KV_TOL = 1e-4        # of max|hidden|: fp32 softmax sums in another order, 40 layers
+
+
+def phase_quickstart(torch, card):
+    """Phase 12: examples/quickstart.py's model (head_dim 24) on the card.
+    12a: the pinned fixture (tests/data/quickstart), fp32, its 8 prompts as
+    one batch, greedy and BPD exact: tokens equal to reference.json under
+    the near-tie rule, and with equal tokens equal iterations, generated
+    counts and k̂.  12b: the port trains quickstart's recipe on the card
+    (fp32, 300 steps) and decodes the same prompts: BPD emits greedy's
+    tokens, k̂ > 1.5, fewer invocations than greedy's."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.config import DecodeConfig, TrainConfig
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer_init
+
+    t0 = time.perf_counter()
+    cfg = fixture_config(QUICKSTART)
+    with open(QUICKSTART / "reference.json") as f:
+        ref = json.load(f)
+    params = bridge.load_checkpoint(str(QUICKSTART / "checkpoint"), cfg,
+                                    device="cuda")
+    prompts = torch.as_tensor(np.load(QUICKSTART / "prompts.npy"),
+                              device="cuda")
+    plen = prompts.shape[1]
+    max_new = len(ref["bpd"]["tokens"][0]) - plen
+    dec = DecodeConfig(max_new_tokens=max_new, block_k=cfg.bpd_k,
+                       criterion="exact")
+    batch = {"tokens": prompts}
+    log(f"[quickstart] {cfg.name}: {sum(p.numel() for p in params.parameters())}"
+        f" parameters, head_dim {cfg.resolved_head_dim}, {prompts.shape[0]} "
+        f"prompts of {plen}, {max_new} new tokens")
+    after = causal_logits_after(torch, M, params, cfg)
+    for label, run in (("bpd", D.bpd_decode), ("greedy", D.greedy_decode)):
+        _build.reset_launches()
+        toks, stats = run(params, cfg, dec, batch)
+        torch.cuda.synchronize()
+        launch = dict(_build.LAUNCHES)
+        want = ref[label]
+        rows = toks[:, :plen + max_new].tolist()
+        equal = match_reference(torch, after, rows, want["tokens"],
+                                f"quickstart {label}")
+        if equal == len(rows):
+            check(stats["iterations"] == want["iterations"]
+                  and stats["generated"].tolist() == want["generated"]
+                  and abs(stats["mean_accepted"] - want["mean_accepted"]) < 1e-6,
+                  f"quickstart {label}: reference.json's tokens in "
+                  f"{stats['iterations']} iterations, reference "
+                  f"{want['iterations']}")
+        check(launch["verify_attention"] == cfg.num_layers * stats["iterations"],
+              f"quickstart {label}: verify_attention launches {launch}")
+        log(f"[quickstart] 12a fixture {label}: k̂ {stats['mean_accepted']:.4f} "
+            f"in {stats['iterations']} iterations (reference.json "
+            f"{want['mean_accepted']:.4f} in {want['iterations']}); "
+            f"{equal}/{len(rows)} rows equal to the reference's (others at "
+            f"reported near-ties); launches {launch}")
+
+    # 12b: quickstart's recipe trained by the port on the card
+    tc = TrainConfig(global_batch=16, seq_len=48, lr=3e-3, warmup_steps=30,
+                     head_loss="mean")
+    task = MarkovLM(vocab=cfg.vocab_size, temperature=0.12, seed=3)
+    params = M.init(cfg, seed=0, device="cuda")
+    opt = optimizer_init(params, tc)
+    step = steps.make_train_step(cfg, tc)
+    data = task.batches(batch=tc.global_batch, seq_len=tc.seq_len, seed=1)
+    gen = torch.Generator().manual_seed(1)
+    t1 = time.perf_counter()
+    losses = []
+    for _ in range(QUICKSTART_STEPS):
+        b = {k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
+        params, opt, metrics = step(params, opt, b, gen)
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    bt, bs = D.bpd_decode(params, cfg, dec, batch)
+    gt, gs = D.greedy_decode(params, cfg, dec, batch)
+    torch.cuda.synchronize()
+    after = causal_logits_after(torch, M, params, cfg)
+    diverged = compare_rows(torch, after, bt, gt, bs["text_len"], plen)
+    log(f"[quickstart] 12b trained on the card: {QUICKSTART_STEPS} steps in "
+        f"{train_s:.1f}s ({train_s / QUICKSTART_STEPS * 1e3:.1f} ms a step), "
+        f"loss {np.mean(losses[:10]):.4f} -> {np.mean(losses[-10:]):.4f} "
+        f"(first / last 10); BPD k̂ {bs['mean_accepted']:.4f}, invocations "
+        f"{bs['invocations']} vs greedy {gs['invocations']}; BPD == greedy in "
+        f"{8 - len(diverged)}/8 rows (others at near-ties); {card}")
+    check(bs["mean_accepted"] > 1.5,
+          f"quickstart trained on the card: k̂ {bs['mean_accepted']} <= 1.5")
+    check(bs["invocations"] < gs["invocations"],
+          "quickstart trained on the card: BPD needs no fewer invocations")
+    log(f"[quickstart] phase 12 {time.perf_counter() - t0:.1f}s")
+
+
+def decode_field_rows(torch, D, params, cfg, dec, stream, start):
+    """Each row decoded alone from its coarse prompt (B 1), as the
+    reference's ``policy_sweep._decode_field``: [{tokens, iterations,
+    generated}] and the decoded streams."""
+    n = stream.shape[1]
+    rows = []
+    for r in range(stream.shape[0]):
+        prompt = torch.as_tensor(stream[r:r + 1, :start], device="cuda")
+        toks, stats = D.bpd_decode(params, cfg, dec, {"tokens": prompt})
+        rows.append({"tokens": toks[0, :n].tolist(),
+                     "iterations": stats["iterations"],
+                     "generated": int(stats["generated"].sum())})
+    return rows
+
+
+def field_summary(field, rows, grids):
+    """iterations per token, k̂ and MAE of decoded rows, as
+    ``_decode_field`` computes them."""
+    import numpy as np
+
+    iters = sum(r["iterations"] for r in rows)
+    gen = sum(r["generated"] for r in rows)
+    toks = np.asarray([r["tokens"] for r in rows])
+    mae = float(np.abs(field.to_grid(toks).astype(int)
+                       - grids.astype(int)).mean())
+    return {"iters_per_token": iters / max(gen, 1),
+            "mean_khat": gen / max(iters, 1), "mae": mae}
+
+
+def phase_locality(torch, card):
+    """Phase 13: the locality image policy on the pinned fixture
+    (tests/data/locality: 8 x 8 fields, stride 2, 16 levels; the lattice
+    and raster arms).  13a, fp32: each of the 8 evaluation rows decoded
+    alone under locality, locality_exact and locality_raster; tokens,
+    iterations and generated counts equal to reference.json under the
+    near-tie rule, and with all rows equal the MAE, iterations per token
+    and k̂ too; locality emits locality_exact's tokens and takes fewer
+    iterations than locality_raster.  13b: the lattice model cast for
+    bf16, locality and exact: k̂ and iterations recorded, not gated.  13c:
+    the fp32 lattice model served by the engine with a locality and an
+    exact group of 2 slots, the 8 prompts under each: every request equal
+    to its static decode of 13a."""
+    import numpy as np
+
+    from repro_torch import bridge, serving
+    from repro_torch.config import DecodeConfig
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import OrdinalField
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    with open(LOCALITY / "reference.json") as f:
+        ref = json.load(f)
+    grids = np.load(LOCALITY / "grids.npy")
+    arms = {}
+    for arm in ("locality", "raster"):
+        cfg = fixture_config(LOCALITY / arm)
+        params = bridge.load_checkpoint(str(LOCALITY / arm / "checkpoint"),
+                                        cfg, device="cuda")
+        field = OrdinalField(levels=cfg.vocab_size, height=grids.shape[1],
+                             width=grids.shape[2], n_waves=2, stride=2,
+                             order=arm, bilinear=True)
+        check(np.array_equal(field.sample_grid(np.random.default_rng(42),
+                                               grids.shape[0]), grids),
+              f"locality: the port's OrdinalField ({arm}) does not draw "
+              f"grids.npy")
+        arms[arm] = (cfg, params, field)
+    field = arms["locality"][2]
+    h, w = grids.shape[1:]
+    start, n = field.coarse_len, h * w
+    dec = DecodeConfig(max_new_tokens=n - start, block_k=arms["locality"][0].bpd_k,
+                       image_height=h, image_width=w, locality_stride=2)
+    log(f"[locality] {grids.shape[0]} fields of {h} x {w}, coarse prompts of "
+        f"{start}, {n - start} new tokens, head_dim "
+        f"{arms['locality'][0].resolved_head_dim}")
+    decoded = {}
+    for name, (arm, policy) in LOCALITY_ROWS.items():
+        cfg, params, fld = arms[arm]
+        stream = fld.serialize(grids)
+        rows = decode_field_rows(torch, D, params, cfg,
+                                 dec.replace(policy=policy), stream, start)
+        decoded[name] = rows
+        want = ref[name]
+        after = causal_logits_after(torch, M, params, cfg)
+        equal = match_rows(torch, after, rows, want["rows"], name)
+        summary = field_summary(fld, rows, grids)
+        if equal == len(rows):
+            check(all(abs(summary[k] - want[k]) < 1e-9 for k in summary),
+                  f"{name}: {summary} against reference.json's")
+        log(f"[locality] 13a {name}: iterations/token "
+            f"{summary['iters_per_token']:.4f}, k̂ {summary['mean_khat']:.4f}, "
+            f"MAE {summary['mae']:.4f} (reference.json "
+            f"{want['iters_per_token']:.4f}, {want['mean_khat']:.4f}, "
+            f"{want['mae']:.4f}); {equal}/{len(rows)} rows equal")
+    cfg, params, _ = arms["locality"]
+    after = causal_logits_after(torch, M, params, cfg)
+    match_reference(torch, after, [r["tokens"] for r in decoded["locality"]],
+                    [r["tokens"] for r in decoded["locality_exact"]],
+                    "locality vs locality_exact")
+    its = {k: sum(r["iterations"] for r in v) for k, v in decoded.items()}
+    check(its["locality"] < its["locality_raster"],
+          f"locality took {its['locality']} iterations, raster "
+          f"{its['locality_raster']}")
+    log(f"[locality] 13a: locality emits locality_exact's tokens; iterations "
+        f"locality {its['locality']} < raster {its['locality_raster']} "
+        f"(exact on the lattice model {its['locality_exact']})")
+
+    # 13b: bf16, recorded
+    stream = field.serialize(grids)
+    bcfg = cfg.replace(dtype="bfloat16")
+    bparams = M.cast_for_compute(
+        bridge.load_checkpoint(str(LOCALITY / "locality" / "checkpoint"), cfg,
+                               device="cuda"), bcfg)
+    for policy in ("locality", "exact"):
+        rows = decode_field_rows(torch, D, bparams, bcfg,
+                                 dec.replace(policy=policy), stream, start)
+        s = field_summary(field, rows, grids)
+        agree = sum(r["tokens"] == f["tokens"] for r, f in
+                    zip(rows, decoded["locality" if policy == "locality"
+                                      else "locality_exact"]))
+        log(f"[locality] 13b bf16 {policy}: k̂ {s['mean_khat']:.4f}, "
+            f"iterations {sum(r['iterations'] for r in rows)}, MAE "
+            f"{s['mae']:.4f}; {agree}/{len(rows)} rows equal to fp32's "
+            f"(recorded, not gated)")
+
+    # 13c: the engine with a locality and an exact group
+    engine = serving.ContinuousBatchingEngine(
+        params, cfg, dec, serving.EngineConfig(num_slots=4, max_prompt_len=start,
+                                               max_new_cap=n - start),
+        policies={"locality": 2, "exact": 2})
+    sched = serving.Scheduler(engine)
+    plan = {}
+    for r in range(grids.shape[0]):
+        for j, policy in enumerate(("locality", "exact")):
+            rid = 2 * r + j
+            plan[rid] = (r, "locality" if j == 0 else "locality_exact")
+            sched.submit(serving.Request(rid=rid, prompt=stream[r, :start],
+                                         max_new=n - start, policy=policy))
+    done = sched.run()
+    check(sorted(f.rid for f in done) == sorted(plan), "engine lost requests")
+    got, want = [], []
+    for f in sorted(done, key=lambda f: f.rid):
+        r, name = plan[f.rid]
+        got.append(stream[r, :start].tolist() + f.tokens.tolist())
+        want.append(decoded[name][r]["tokens"])
+    equal = match_reference(torch, after, got, want, "engine")
+    log(f"[locality] 13c engine (locality 2 + exact 2 slots, 16 requests): "
+        f"{equal}/16 requests equal to their static decodes (others at "
+        f"reported near-ties); builds {engine.compile_counts()}")
+    check(all(v == 1 for v in engine.compile_counts().values()),
+          f"engine built a serving function twice: {engine.compile_counts()}")
+    log(f"[locality] phase 13 {time.perf_counter() - t0:.1f}s; {card}")
+
+
+def phase_kv_chunk(torch, params, cfg, dec, batch, g_toks, prompt_len):
+    """Phase 14: kv_chunk on granite-3-8b at full width and depth, fp32
+    (phase 4's weights).  A 2048-token MarkovLM prompt prefilled with
+    kv_chunk 512 and without: final hidden states within KV_TOL of
+    max|hidden|, each prefill's peak memory above the weights printed,
+    and greedy's 16 new tokens equal (near-tie rule); then BPD exact
+    through DecodeSession(kv_chunk=512) on that prompt emits the unchunked
+    greedy's tokens, and through DecodeSession(kv_chunk=24) on phase 4's
+    batch (64-token prompts, three chunks) phase 4's greedy tokens (both
+    under the near-tie rule)."""
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    task = MarkovLM(vocab=256, temperature=0.2, seed=0)
+    long = torch.as_tensor(task.sample(np.random.default_rng(14), 1, KV_PROMPT),
+                           device="cuda")
+    h = M.embed_inputs(params, cfg, {"tokens": long})
+    pos = torch.arange(KV_PROMPT, dtype=torch.int32, device="cuda")
+    hidden, peak = {}, {}
+    for chunk in (0, KV_CHUNK):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            hidden[chunk], _ = M.forward_hidden(params, cfg, h, positions=pos,
+                                                kv_chunk=chunk)
+        torch.cuda.synchronize()
+        peak[chunk] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    scale = float(hidden[0].abs().max())
+    err = float((hidden[KV_CHUNK] - hidden[0]).abs().max())
+    log(f"[kv_chunk] prefill of {KV_PROMPT} tokens: max|h| {scale:.4g}, "
+        f"kv_chunk {KV_CHUNK} vs none max abs diff {err:.3g} "
+        f"({err / scale:.3g} of max|h|, tolerance {KV_TOL}); peak above the "
+        f"weights: none {peak[0]:.1f} MiB, kv_chunk {KV_CHUNK} "
+        f"{peak[KV_CHUNK]:.1f} MiB")
+    check(err <= KV_TOL * scale, f"kv_chunk prefill differs by {err}")
+    del hidden, h
+    gdec = dec.replace(max_new_tokens=KV_NEW)
+    toks = {chunk: D.greedy_decode(params, cfg, gdec, {"tokens": long},
+                                   kv_chunk=chunk)[0]
+            for chunk in (0, KV_CHUNK)}
+    after = causal_logits_after(torch, M, params, cfg)
+    match_reference(torch, after, toks[KV_CHUNK][:, :KV_PROMPT + KV_NEW].tolist(),
+                    toks[0][:, :KV_PROMPT + KV_NEW].tolist(), "kv_chunk greedy")
+    log(f"[kv_chunk] greedy {KV_NEW} new tokens after the {KV_PROMPT}-token "
+        f"prompt: kv_chunk {KV_CHUNK} == none")
+    sess = serving.DecodeSession(params, cfg, gdec, kv_chunk=KV_CHUNK)
+    l_toks, l_stats = sess.decode({"tokens": long})
+    torch.cuda.synchronize()
+    diverged = compare_rows(torch, after, l_toks, toks[0],
+                            l_stats["text_len"], KV_PROMPT)
+    log(f"[kv_chunk] DecodeSession(kv_chunk={KV_CHUNK}).decode of the "
+        f"{KV_PROMPT}-token prompt: k̂ {l_stats['mean_accepted']:.4f} in "
+        f"{l_stats['iterations']} iterations; tokens == unchunked greedy's: "
+        f"{not diverged} (else at a near-tie)")
+    sess = serving.DecodeSession(params, cfg, dec, kv_chunk=KV_SHORT_CHUNK)
+    b_toks, b_stats = sess.decode(batch)
+    torch.cuda.synchronize()
+    diverged = compare_rows(torch, after, b_toks, g_toks, b_stats["text_len"],
+                            prompt_len)
+    log(f"[kv_chunk] DecodeSession(kv_chunk={KV_SHORT_CHUNK}).decode of "
+        f"phase 4's batch: k̂ {b_stats['mean_accepted']:.4f} in "
+        f"{b_stats['iterations']} iterations; tokens == phase 4's greedy in "
+        f"{8 - len(diverged)}/8 rows (others at near-ties); "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -2632,6 +3139,7 @@ def main() -> int:
     check_tree_attention(torch, gen, results)
     check_paged_attention(torch, gen, results)
     check_head_dim_16(torch, gen, results)
+    check_head_dim_24(torch, gen, results)
     check_rwkv6_scan(torch, gen, results)
     check_mt_heads_verify(torch, gen)
     for name, r in results.items():
@@ -2651,6 +3159,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_mt(torch, results)
     phase_fixture(torch)
+    phase_quickstart(torch, card)
+    phase_locality(torch, card)
     gc.collect()                                  # every earlier phase's
     torch.cuda.empty_cache()
     phase_train(torch, phase4)

@@ -16,7 +16,16 @@ the drafter takes their argmax.  Here ``Backend.head_logits`` is replaced by
 and ``head_topk`` (heads p_2.. at the accepted slot only, through the
 fused-heads kernel, logits never written).  The tokens are the reference's:
 the heads act per position, and slot 0 is the argmax of the same p_1
-logits greedy decoding reads.
+logits greedy decoding reads.  A drafter that needs the heads' full logits
+(``locality``'s window re-ranking) calls ``Backend.head_logits`` on the
+accepted slot's hidden state alone, (B, K, V): the other policies never
+call it, so they launch what they launched before.
+
+``kv_chunk`` > 0 (``bpd_decode``, ``greedy_decode``, ``prefill_and_draft``)
+bounds the prefill's attention to (S, kv_chunk) scores a layer, as the
+reference's long-prefill path.  The verify blocks stay on the verify
+kernels: their (k, L) scores need no bound.  A tree-drafting policy with
+``kv_chunk`` raises, as the reference's does.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ class Backend(NamedTuple):
     commit: Callable        # (caches, khat) -> caches
     p1_logits: Callable     # (params, hidden (..., d)) -> (..., Vp)
     head_topk: Callable     # (params, hidden (B, d), n, top_t=1) -> (B, n, top_t) int32
+    head_logits: Callable   # (params, hidden (..., d)) -> (..., K, Vp)
 
 
 def causal_lm_backend(cfg: ModelConfig) -> Backend:
@@ -57,6 +67,7 @@ def causal_lm_backend(cfg: ModelConfig) -> Backend:
         p1_logits=lambda p, h: model_lib.base_logits(p, cfg, h),
         head_topk=lambda p, h, n, top_t=1: model_lib.head_topk(p, cfg, h, n,
                                                                top_t),
+        head_logits=lambda p, h: model_lib.all_head_logits(p, cfg, h),
     )
 
 
@@ -74,6 +85,7 @@ def seq2seq_backend(cfg: ModelConfig, enc_kvs, block_k: int) -> Backend:
         p1_logits=lambda p, h: seq2seq_lib.base_logits(p, cfg, h),
         head_topk=lambda p, h, n, top_t=1: seq2seq_lib.head_topk(p, cfg, h, n,
                                                                  top_t),
+        head_logits=lambda p, h: model_lib.all_head_logits(p, cfg, h),
     )
 
 
@@ -178,11 +190,15 @@ def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
         # the accepted slot is the path's node at depth k̂-1 (root for k̂=0)
         slot = torch.gather(path_nodes, 1, slot.long()[:, None])[:, 0]
         slot = torch.clamp(slot, min=0)
+    # the committed token at the new text_len - 1 (the last accepted slot)
+    prev_token = torch.gather(commit_tokens, 1,
+                              torch.clamp(khat - 1, min=0).long()[:, None])[:, 0]
     draft_in = DraftInputs(
         hidden=hidden, p1_logits=p1_logits, khat=khat,
         slot=slot, text_len=state.text_len + khat,
-        old_proposals=commit_tokens,
-        head_topk=functools.partial(backend.head_topk, params))
+        old_proposals=commit_tokens, prev_token=prev_token,
+        head_topk=functools.partial(backend.head_topk, params),
+        head_logits=functools.partial(backend.head_logits, params))
     proposals, draft_state = pol.drafter.draft(
         draft_in, state.policy_state.drafter)
     proposals = torch.where(frozen[:, None], state.proposals, proposals)
@@ -230,15 +246,17 @@ def _tree_accepts(pol: DecodePolicy, topo, proposals, p1_logits):
 
 def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
                   p1_logits: torch.Tensor, text_len, block_k: int, state, *,
-                  head_topk: Callable):
+                  prev_token, head_topk: Callable, head_logits: Callable):
     """Draft the FIRST block from a prefill's last position.
 
     ``hidden`` (B, d) and ``p1_logits`` (B, Vp) at the last context
     position are presented to the drafter as a single pseudo block slot
     (slot 0, k̂ = 1), so the same ``draft`` covers prefill and loop
     iterations.  ``text_len`` is an int or a (B,) tensor of per-row
-    lengths (the serving engine's padded admission prefill).
-    ``head_topk`` is ``Backend.head_topk`` with the params bound.
+    lengths (the serving engine's padded admission prefill);
+    ``prev_token`` (B,) the committed token at ``text_len - 1`` (the last
+    prompt token; BOS for seq2seq).  ``head_topk`` / ``head_logits`` are
+    the ``Backend``'s with the params bound.
     """
     b = hidden.shape[0]
     dev = hidden.device
@@ -248,7 +266,8 @@ def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
         slot=torch.zeros((b,), dtype=I32, device=dev),
         text_len=torch.as_tensor(text_len, dtype=I32, device=dev).expand(b),
         old_proposals=torch.zeros((b, block_k), dtype=I32, device=dev),
-        head_topk=head_topk)
+        prev_token=prev_token.to(I32),
+        head_topk=head_topk, head_logits=head_logits)
     proposals, new_state = pol.drafter.draft(din, state)
     return proposals.to(I32), new_state
 
@@ -274,15 +293,21 @@ def decode_stats(final) -> Dict:
 @torch.no_grad()
 def prefill_and_draft(params, cfg: ModelConfig, dec: DecodeConfig,
                       pol: DecodePolicy, batch: Dict, caches, plens,
-                      block_k: int):
+                      block_k: int, *, kv_chunk: int = 0):
     """Prefill ``caches`` from ``batch["tokens"]`` (B, S) in one forward and
     draft each row's first block from its last real position,
     ``prefix + plens - 1``: ``plens`` is an int (every row holds S real
     tokens) or a (B,) int32 tensor (rows padded past their lengths, as the
     serving engine's admission prefill pads them; padded positions write
     K/V that stays masked until decode overwrites it).  The policy state
-    is fresh, built from ``batch``.  Returns (caches, proposals (B, k),
-    policy state)."""
+    is fresh, built from ``batch``.  ``kv_chunk`` > 0 runs the prefill's
+    attention in chunks of that many keys.  Returns (caches, proposals
+    (B, k), policy state)."""
+    if kv_chunk and pol.drafter.tree_topology(block_k) is not None:
+        raise ValueError(
+            "tree verification is incompatible with kv_chunk, as in the "
+            "reference (its chunked attention has no per-column mask "
+            "override for a tree's nodes)")
     prompt = batch["tokens"]
     b = prompt.shape[0]
     dev = prompt.device
@@ -291,23 +316,27 @@ def prefill_and_draft(params, cfg: ModelConfig, dec: DecodeConfig,
     positions = torch.arange(h.shape[1], dtype=I32, device=dev)
     hidden, caches = model_lib.forward_hidden(params, cfg, h,
                                               positions=positions,
-                                              caches=caches)
+                                              caches=caches, kv_chunk=kv_chunk)
     if isinstance(plens, int):
         last = hidden[:, prefix + plens - 1, :]
+        last_tok = prompt[:, plens - 1]
     else:
         rows = torch.arange(b, device=dev)
         last = hidden[rows, (prefix + plens - 1).long()]
+        last_tok = prompt[rows, torch.clamp(plens - 1, min=0).long()]
     be = causal_lm_backend(cfg)
     ps = pol.init_state(cfg, dec, batch, b)
     proposals, dstate = initial_draft(
         pol, last, be.p1_logits(params, last), plens, block_k,
-        ps.drafter, head_topk=functools.partial(be.head_topk, params))
+        ps.drafter, prev_token=last_tok,
+        head_topk=functools.partial(be.head_topk, params),
+        head_logits=functools.partial(be.head_logits, params))
     return caches, proposals, ps._replace(drafter=dstate)
 
 
 @torch.no_grad()
 def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
-                          batch: Dict, *, max_new: int,
+                          batch: Dict, *, max_new: int, kv_chunk: int = 0,
                           policy: Optional[DecodePolicy] = None):
     """Prefill the caches from the prompt and produce the first proposals.
     The prompt's device is the decode's device."""
@@ -321,7 +350,8 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
     caches = model_lib.init_caches(cfg, b, context_len, block_k, device=dev,
                                    backend=cache_lib.get_backend(dec))
     caches, proposals, ps = prefill_and_draft(params, cfg, dec, pol, batch,
-                                              caches, prompt_len, block_k)
+                                              caches, prompt_len, block_k,
+                                              kv_chunk=kv_chunk)
 
     buf = prompt_len + max_new + block_k
     tokens = torch.zeros((b, buf), dtype=I32, device=dev)
@@ -341,16 +371,19 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
 
 @torch.no_grad()
 def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
-               max_new_rows=None, policy=None) -> Tuple[torch.Tensor, Dict]:
+               max_new_rows=None, policy=None,
+               kv_chunk: int = 0) -> Tuple[torch.Tensor, Dict]:
     """Full blockwise parallel decode for the decoder-only model.
 
     Returns (tokens (B, buf), stats).  max_new_rows: optional (B,) per-row
     budgets <= dec.max_new_tokens (buffers stay sized by max_new_tokens).
+    kv_chunk: > 0 bounds the prefill's score matrix (see the module).
     """
     max_new = dec.max_new_tokens
     pol = policy_lib.resolve_policy(dec, policy)
     state, prefix = bpd_prefill_causal_lm(params, cfg, dec, batch,
-                                          max_new=max_new, policy=pol)
+                                          max_new=max_new, kv_chunk=kv_chunk,
+                                          policy=pol)
     be = causal_lm_backend(cfg)
     budget = max_new if max_new_rows is None else torch.as_tensor(
         max_new_rows, dtype=I32, device=state.text_len.device)
@@ -389,7 +422,8 @@ def bpd_prefill_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
     # the committed token at text_len - 1 is BOS
     proposals, dstate = initial_draft(
         pol, last, be.p1_logits(params, last), 1, block_k, ps.drafter,
-        head_topk=functools.partial(be.head_topk, params))
+        prev_token=bos[:, 0], head_topk=functools.partial(be.head_topk, params),
+        head_logits=functools.partial(be.head_logits, params))
     state = BPDState(
         tokens=torch.zeros((b, 1 + max_new + block_k), dtype=I32, device=dev),
         text_len=torch.ones((b,), dtype=I32, device=dev),
@@ -441,7 +475,9 @@ class GreedyState(NamedTuple):
 
 @torch.no_grad()
 def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
-                  batch: Dict) -> Tuple[torch.Tensor, Dict]:
+                  batch: Dict, *, kv_chunk: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """Greedy decoding with p_1 (the paper's baseline); ``kv_chunk`` as in
+    ``bpd_decode``."""
     max_new = dec.max_new_tokens
     prompt = batch["tokens"]
     b, prompt_len = prompt.shape
@@ -455,7 +491,7 @@ def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
     positions = torch.arange(h.shape[1], dtype=I32, device=dev)
     hidden, caches = model_lib.forward_hidden(params, cfg, h,
                                               positions=positions,
-                                              caches=caches)
+                                              caches=caches, kv_chunk=kv_chunk)
     logits = model_lib.base_logits(params, cfg, hidden[:, -1, :])
 
     buf = prompt_len + max_new + 1

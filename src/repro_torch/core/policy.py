@@ -10,7 +10,9 @@
   * ``Drafter``       — the next block of k proposals from the verify
     forward.  ``HeadsDrafter`` is the paper's prediction heads;
     ``InputCopyDrafter`` copies the source (seq2seq);
-    ``TopKTreeDrafter`` drafts a candidate tree verified in one forward.
+    ``TopKTreeDrafter`` drafts a candidate tree verified in one forward;
+    ``LocalityDrafter`` interpolates an image's committed neighbours
+    (with ``LocalitySchedule``, the ``locality`` policy).
 
 Index convention (0-based within a block): ``proposals[:, i]`` proposes the
 token at ``text_len + i``, and slot 0 of a fresh draft is the model's own
@@ -18,18 +20,21 @@ verified greedy token (k̂ >= 1 is unconditional), so drafts change
 iteration counts, never tokens.
 
 Registered: ``exact``, ``topk``, ``distance``, ``adaptive``,
-``input_copy`` and ``topk_tree``.  The reference's ``locality`` and
-``draft_model`` are not ported yet and raise ``NotImplementedError``
-(see ROADMAP.md).
+``input_copy``, ``topk_tree`` and ``locality``.  The reference's
+``draft_model`` (a second model as the drafter) is not ported yet and
+raises ``NotImplementedError`` (ROADMAP.md §1 item 5).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.config import DecodeConfig
+from repro_torch.data.synthetic import locality_plan
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.tree_mask import default_tree
 from repro_torch.models.attention import tree_tables
@@ -53,7 +58,10 @@ class DraftInputs(NamedTuple):
     hands them the verify forward's hidden states and p_1 logits, plus
     ``head_topk``, which projects heads p_2.. at one position through the
     fused-heads kernel and returns their top-T ids, so the heads' logits
-    are never materialized.
+    are never materialized, and ``head_logits``, which computes every
+    head's logits at the positions it is given (the reference's
+    ``all_head_logits``) for a drafter that needs them: only the
+    accepted slot's, (B, K, Vp), and only when the drafter calls it.
     """
 
     hidden: torch.Tensor        # (B, k, d) final hidden states at every slot
@@ -64,6 +72,10 @@ class DraftInputs(NamedTuple):
     old_proposals: torch.Tensor  # (B, k) the block that was just verified
     head_topk: Callable         # (hidden (B, d), n, top_t=1) -> (B, n, top_t)
                                 # top-T ids of heads p_2..p_{n+1}
+    prev_token: Optional[torch.Tensor] = None  # (B,) committed token at
+                                # text_len - 1
+    head_logits: Optional[Callable] = None  # (hidden (B, d)) -> (B, K, Vp)
+                                # logits of heads p_1..p_K
 
 
 def _gather_slot(x: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -324,6 +336,144 @@ class TopKTreeDrafter(Drafter):
 
 
 # ---------------------------------------------------------------------------
+# Locality-aware image decoding (arXiv:2507.01957)
+# ---------------------------------------------------------------------------
+
+
+class _LocalityTables(NamedTuple):
+    order: np.ndarray          # (H*W,) generation slot -> raster index
+    boundaries: np.ndarray     # class-end offsets (block cut points)
+    next_boundary: np.ndarray  # (H*W + 1,) smallest boundary > p
+    n1: np.ndarray             # (H*W,) committed-neighbor generation index
+    n2: np.ndarray
+    coarse_len: int            # boundaries[0] — the coarse-lattice prefix
+
+
+@functools.lru_cache(maxsize=None)
+def _locality_tables(height: int, width: int, stride: int) -> _LocalityTables:
+    order, bounds, n1, n2 = locality_plan(height, width, stride)
+    n = order.size
+    nb = np.full(n + 1, n + (1 << 20), np.int64)   # "no boundary left"
+    for p in range(n + 1):
+        j = int(np.searchsorted(bounds, p, side="right"))
+        if j < bounds.size:
+            nb[p] = bounds[j]
+    return _LocalityTables(order, bounds, nb.astype(np.int32), n1, n2,
+                           int(bounds[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def _locality_device_tables(height: int, width: int, stride: int,
+                            device) -> Dict[str, torch.Tensor]:
+    """``n1``, ``n2`` and ``next_boundary`` as int64 tensors on ``device``,
+    made once per geometry and device (callers never write to them)."""
+    t = _locality_tables(height, width, stride)
+    return {name: torch.as_tensor(getattr(t, name), dtype=torch.int64,
+                                  device=device)
+            for name in ("n1", "n2", "next_boundary")}
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalityDrafter(Drafter):
+    """Locality-aware image drafts (arXiv:2507.01957).
+
+    The token stream is an (height, width) raster serialized in the
+    progressive-lattice order of ``data.synthetic.locality_plan`` (coarse
+    lattice first, then non-adjacent refinement classes), so every
+    refinement position has committed spatial neighbours: the drafter
+    proposes their rounded average, then (``window`` > 0) re-ranks the
+    ±window neighbourhood of that average by each slot's head logits at
+    the accepted slot (``DraftInputs.head_logits``; head p_{i+1} scores
+    slot i, the last head the slots beyond).  State is the committed
+    stream in generation order, ``grid`` (B, H*W + k), re-built from each
+    verified block.  Slot 0 stays p_1's argmax, so exact acceptance is
+    lossless on any prompt.
+    """
+
+    height: int = 0
+    width: int = 0
+    stride: int = 4
+    window: int = 1
+
+    def init_state(self, cfg, dec, batch, b):
+        n = self.height * self.width
+        k = dec.block_k or getattr(cfg, "bpd_k", 1)
+        dev = batch["tokens"].device if batch and "tokens" in batch else None
+        buf = torch.zeros((b, n + max(int(k), 1)), dtype=I32, device=dev)
+        if batch is not None and "tokens" in batch:
+            toks = batch["tokens"][:, :n]
+            buf[:, :toks.shape[1]] = toks
+        return {"grid": buf}
+
+    def draft(self, inputs: DraftInputs, state):
+        buf = state["grid"]
+        b, k = inputs.old_proposals.shape
+        cap = buf.shape[1]
+        dev = buf.device
+        tables = _locality_device_tables(self.height, self.width, self.stride,
+                                         dev)
+        n1, n2 = tables["n1"], tables["n2"]
+        # 1. commit the just-verified block into the generation-order
+        #    buffer; slot k̂-1 carries prev_token (on the prefill call, with
+        #    the old proposals zero and k̂ = 1, the last prompt token)
+        offs = torch.arange(k, device=dev)[None, :]
+        khat = inputs.khat.long()[:, None]
+        idx = torch.clamp(inputs.text_len.long()[:, None] - khat + offs,
+                          0, cap - 1)
+        vals = torch.where(offs == khat - 1, inputs.prev_token[:, None].to(I32),
+                           inputs.old_proposals.to(I32))
+        buf = buf.scatter(1, idx, torch.where(offs < khat, vals,
+                                              buf.gather(1, idx)))
+        # 2. propose: each next position interpolates its committed parents
+        pos = torch.clamp(inputs.text_len.long()[:, None] + offs, 0,
+                          n1.shape[0] - 1)
+        a = buf.gather(1, torch.clamp(n1[pos], 0, cap - 1))
+        c = buf.gather(1, torch.clamp(n2[pos], 0, cap - 1))
+        proposals = torch.div(a + c + 1, 2, rounding_mode="floor")
+        if self.window:
+            hl = inputs.head_logits(_gather_slot(inputs.hidden, inputs.slot))
+            hl = hl[:, :k]                                   # (B, heads, Vp)
+            vocab = hl.shape[-1]
+            hidx = torch.clamp(torch.arange(k, device=dev), max=hl.shape[1] - 1)
+            deltas = torch.arange(-self.window, self.window + 1, device=dev)
+            cands = torch.clamp(proposals[..., None] + deltas, 0, vocab - 1)
+            scores = torch.gather(hl[:, hidx, :], -1, cands.long())
+            pick = torch.argmax(scores, dim=-1, keepdim=True)   # first max
+            proposals = torch.gather(cands, -1, pick)[..., 0]
+        first = greedy_token(_gather_slot(inputs.p1_logits, inputs.slot))
+        proposals = torch.cat([first[:, None], proposals[:, 1:].to(I32)], dim=1)
+        return proposals, {"grid": buf}
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalitySchedule(BlockSchedule):
+    """Clamps each accepted block at the next offset-class boundary of the
+    progressive-lattice order, so a block never commits positions whose
+    spatial parents are still uncommitted.  State: a per-row generation
+    cursor ``pos`` starting at ``start`` (the coarse prompt length in the
+    image workload; another prompt length only cuts blocks at other
+    places, still lossless under exact acceptance)."""
+
+    height: int = 0
+    width: int = 0
+    stride: int = 4
+    start: int = 0
+
+    def init_state(self, b: int, device=None) -> Any:
+        return {"pos": torch.full((b,), self.start, dtype=I32, device=device)}
+
+    def block_size(self, accepts, remaining, state):
+        nb = _locality_device_tables(self.height, self.width, self.stride,
+                                     accepts.device)["next_boundary"]
+        pos = state["pos"]
+        room = nb[torch.clamp(pos, 0, nb.shape[0] - 1).long()] - pos
+        khat = torch.minimum(_prefix_len(accepts),
+                             torch.minimum(remaining, room))
+        khat = torch.clamp(khat, min=1).to(I32)
+        return khat, {"pos": (pos + khat).to(I32)}
+
+
+# ---------------------------------------------------------------------------
 # The composed policy + registry
 # ---------------------------------------------------------------------------
 
@@ -370,8 +520,8 @@ def policy_cache_key(obj):
 
 
 POLICY_BUILDERS: Dict[str, Callable[[DecodeConfig], DecodePolicy]] = {}
-# the reference's other registered policies -> their ROADMAP modules item
-NOT_PORTED = {"locality": 5, "draft_model": 5}
+# the reference's other registered policy -> its ROADMAP.md §1 item
+NOT_PORTED = {"draft_model": 5}
 
 
 def register_policy(name: str,
@@ -434,3 +584,22 @@ register_policy("input_copy", lambda dec: DecodePolicy(
 register_policy("topk_tree", lambda dec: DecodePolicy(
     TopKTreeDrafter(fanout=max(dec.top_k, 2)),
     _maybe_fused(ExactAcceptor(), dec), _schedule_for(dec), name="topk_tree"))
+
+
+def _locality_policy(dec: DecodeConfig) -> DecodePolicy:
+    h, w = dec.image_height, dec.image_width
+    if h <= 0 or w <= 0:
+        raise ValueError(
+            "policy 'locality' needs the 2-D raster geometry: set "
+            "DecodeConfig.image_height / image_width (and optionally "
+            "locality_stride) to the grid shape of the token stream")
+    tables = _locality_tables(h, w, dec.locality_stride)
+    return DecodePolicy(
+        LocalityDrafter(height=h, width=w, stride=dec.locality_stride),
+        _maybe_fused(ExactAcceptor(), dec),
+        LocalitySchedule(height=h, width=w, stride=dec.locality_stride,
+                         start=tables.coarse_len),
+        name="locality")
+
+
+register_policy("locality", _locality_policy)

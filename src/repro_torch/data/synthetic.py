@@ -1,9 +1,14 @@
 """Synthetic tasks of ``repro.data.synthetic`` (pure numpy, the same seeds
-give the same arrays): the order-2 Markov LM, and the seq2seq tasks
-``CipherMT`` and ``PhraseMT`` the MT model trains on."""
+give the same arrays): the order-2 Markov LM; the seq2seq tasks
+``CipherMT`` and ``PhraseMT`` the MT model trains on; and the ordinal
+("super-resolution") data of the paper's image setting: ``OrdinalCurves``
+(1-D smooth curves quantized to ``levels`` tokens) and ``OrdinalField``
+(2-D smooth fields, serialized row-major or in the locality-aware
+progressive-lattice order of ``locality_plan`` that the ``locality`` decode
+policy consumes)."""
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -94,3 +99,220 @@ class PhraseMT:
     def batches(self, *, batch: int, src_len: int, seed: int = 0
                 ) -> Iterator[Dict[str, np.ndarray]]:
         return _pair_batches(self, batch, src_len, seed)
+
+
+# ---------------------------------------------------------------------------
+# Ordinal ("super-resolution") sequences
+# ---------------------------------------------------------------------------
+
+
+class OrdinalCurves:
+    """Token sequences quantizing smooth random curves into [0, levels)."""
+
+    def __init__(self, levels: int = 256, *, n_waves: int = 3, seed: int = 0):
+        self.levels = levels
+        self.n_waves = n_waves
+
+    def sample(self, rng: np.random.Generator, batch: int,
+               seq_len: int) -> np.ndarray:
+        t = np.linspace(0, 1, seq_len)[None, :]
+        y = np.zeros((batch, seq_len))
+        for _ in range(self.n_waves):
+            freq = rng.uniform(0.5, 4.0, (batch, 1))
+            phase = rng.uniform(0, 2 * np.pi, (batch, 1))
+            amp = rng.uniform(0.2, 1.0, (batch, 1))
+            y += amp * np.sin(2 * np.pi * freq * t + phase)
+        y = y - y.min(1, keepdims=True)
+        y = y / np.maximum(y.max(1, keepdims=True), 1e-9)
+        return np.clip((y * (self.levels - 1)).round(), 0,
+                       self.levels - 1).astype(np.int32)
+
+    def batches(self, *, batch: int, seq_len: int, seed: int = 0
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(seed)
+        while True:
+            yield {"tokens": self.sample(rng, batch, seq_len)}
+
+
+# ---------------------------------------------------------------------------
+# 2-D ordinal fields + the locality-aware generation order
+# ---------------------------------------------------------------------------
+
+
+def _locality_parents(y, x, off_y, off_x, half, height, width):
+    """Committed-lattice neighbour pair of a refinement-class position."""
+    if off_y and off_x:            # (half, half): diagonal lattice parents
+        cands = [(y - half, x - half), (y - half, x + half),
+                 (y + half, x - half), (y + half, x + half)]
+    elif off_y:                    # (half, 0): vertical lattice parents
+        cands = [(y - half, x), (y + half, x)]
+    else:                          # (0, half): horizontal lattice parents
+        cands = [(y, x - half), (y, x + half)]
+    ok = [(a, b) for a, b in cands if 0 <= a < height and 0 <= b < width]
+    if not ok:
+        ok = [(y, x)]
+    if len(ok) == 1:
+        ok = ok * 2
+    return ok[0], ok[1]
+
+
+def locality_plan(height: int, width: int, stride: int):
+    """Progressive-lattice generation order of an (height, width) raster
+    (arXiv:2507.01957-style), plus the tables the ``locality`` policy
+    drafts from.
+
+    Phase 0 emits the coarse lattice (y % stride == 0 and x % stride == 0)
+    in raster order; each refinement level ``cur = stride, stride/2, …, 2``
+    then emits three offset classes, (half, half), (half, 0) and
+    (0, half) with ``half = cur // 2``, each in raster order.  Within a
+    class consecutive positions are >= 2 apart in both axes, so a block cut
+    inside one class is spatially non-adjacent, and every class member has
+    committed lattice neighbours to interpolate from.
+
+    Returns ``(order, boundaries, n1, n2)``, int32: the raster index of
+    each generation slot (H*W,); the class-end offsets into the order
+    (``boundaries[0]`` is the coarse prefix length); and the GENERATION
+    indices of the two committed neighbours each position interpolates
+    between (H*W,) (coarse positions extrapolate from their up / left
+    lattice neighbours).
+    """
+    if stride < 1 or (stride & (stride - 1)):
+        raise ValueError(
+            f"locality stride must be a power of two >= 1, got {stride}")
+    gen_of = np.full((height, width), -1, np.int64)
+    order, boundaries, n1, n2 = [], [], [], []
+
+    def emit(step, off_y, off_x, half):
+        for y in range(off_y, height, step):
+            for x in range(off_x, width, step):
+                if gen_of[y, x] >= 0:
+                    continue
+                g = len(order)
+                gen_of[y, x] = g
+                order.append(y * width + x)
+                if half == 0:      # coarse lattice: extrapolate up / left
+                    up = gen_of[y - step, x] if y >= step else g
+                    left = gen_of[y, x - step] if x >= step else g
+                    a = up if up != g else left
+                    b = left if left != g else a
+                    n1.append(max(int(a) if a != g else g - 1, 0))
+                    n2.append(max(int(b) if b != g else g - 1, 0))
+                else:
+                    (ay, ax), (by, bx) = _locality_parents(
+                        y, x, off_y, off_x, half, height, width)
+                    n1.append(max(int(gen_of[ay, ax]), 0))
+                    n2.append(max(int(gen_of[by, bx]), 0))
+        boundaries.append(len(order))
+
+    emit(stride, 0, 0, 0)                       # coarse lattice, raster
+    cur = stride
+    while cur > 1:
+        half = cur // 2
+        for off_y, off_x in ((half, half), (half, 0), (0, half)):
+            emit(cur, off_y, off_x, half)
+        cur = half
+    return (np.asarray(order, np.int32), np.asarray(boundaries, np.int32),
+            np.asarray(n1, np.int32), np.asarray(n2, np.int32))
+
+
+def locality_order(height: int, width: int, stride: int):
+    """(order, boundaries) of ``locality_plan``."""
+    order, boundaries, _, _ = locality_plan(height, width, stride)
+    return order, boundaries
+
+
+class OrdinalField:
+    """2-D smooth integer fields: sums of low-frequency 2-D sinusoids
+    quantized to [0, levels).  ``order`` serializes the (H, W) grid as
+    ``"raster"`` (row-major) or ``"locality"`` (``locality_plan``'s
+    progressive lattice, the training stream of the ``locality`` policy).
+    ``bilinear=True`` samples the waves on the stride lattice only and
+    upsamples bilinearly before quantizing, so every refinement position
+    is the midpoint of its lattice parents up to quantization.
+    """
+
+    def __init__(self, levels: int = 32, height: int = 16, width: int = 16,
+                 *, n_waves: int = 3, stride: int = 4, order: str = "raster",
+                 bilinear: bool = False, seed: int = 0):
+        if order not in ("raster", "locality"):
+            raise ValueError(
+                f"OrdinalField order must be 'raster' or 'locality', "
+                f"got {order!r}")
+        self.levels, self.height, self.width = levels, height, width
+        self.n_waves, self.stride, self.order_name = n_waves, stride, order
+        self.bilinear = bilinear
+        ord_idx, bounds, _, _ = locality_plan(height, width, stride)
+        self.gen_index = ord_idx                # generation slot -> raster
+        self.boundaries = bounds
+        self.coarse_len = int(bounds[0])
+        inv = np.empty(ord_idx.size, np.int64)
+        inv[ord_idx] = np.arange(ord_idx.size)
+        self.raster_index = inv                 # raster -> generation slot
+
+    def _waves(self, rng: np.random.Generator, batch: int,
+               ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
+        yy = (ys / max(self.height - 1, 1))[None, :, None]
+        xx = (xs / max(self.width - 1, 1))[None, None, :]
+        z = np.zeros((batch, ys.size, xs.size))
+        # bilinear fields keep variation between lattice knots: the band
+        # spans about one knot-to-knot period at the default stride
+        lo, hi = (0.35, 1.05) if self.bilinear else (0.3, 1.2)
+        for _ in range(self.n_waves):
+            fy = rng.uniform(lo, hi, (batch, 1, 1))
+            fx = rng.uniform(lo, hi, (batch, 1, 1))
+            phase = rng.uniform(0, 2 * np.pi, (batch, 1, 1))
+            amp = rng.uniform(0.3, 1.0, (batch, 1, 1))
+            z += amp * np.sin(2 * np.pi * (fy * yy + fx * xx) + phase)
+        return z
+
+    def sample_grid(self, rng: np.random.Generator, batch: int) -> np.ndarray:
+        if self.bilinear:
+            # waves on the stride lattice -> bilinear upsample (edge clamp
+            # past the last knot) -> quantize
+            s = self.stride
+            ly = np.arange(0, self.height, s)
+            lx = np.arange(0, self.width, s)
+            z = self._waves(rng, batch, ly, lx)
+            fy = np.minimum(np.arange(self.height) / s, ly.size - 1)
+            fx = np.minimum(np.arange(self.width) / s, lx.size - 1)
+            y0 = np.floor(fy).astype(int)
+            y1 = np.minimum(y0 + 1, ly.size - 1)
+            x0 = np.floor(fx).astype(int)
+            x1 = np.minimum(x0 + 1, lx.size - 1)
+            wy = (fy - y0)[None, :, None]
+            wx = (fx - x0)[None, None, :]
+            z = ((1 - wy) * (1 - wx) * z[:, y0][:, :, x0]
+                 + (1 - wy) * wx * z[:, y0][:, :, x1]
+                 + wy * (1 - wx) * z[:, y1][:, :, x0]
+                 + wy * wx * z[:, y1][:, :, x1])
+        else:
+            z = self._waves(rng, batch, np.arange(self.height),
+                            np.arange(self.width))
+        z = z - z.min((1, 2), keepdims=True)
+        z = z / np.maximum(z.max((1, 2), keepdims=True), 1e-9)
+        return np.clip((z * (self.levels - 1)).round(), 0,
+                       self.levels - 1).astype(np.int32)
+
+    def serialize(self, grid: np.ndarray) -> np.ndarray:
+        flat = grid.reshape(grid.shape[0], -1)
+        if self.order_name == "locality":
+            return np.ascontiguousarray(flat[:, self.gen_index])
+        return flat
+
+    def to_grid(self, tokens: np.ndarray) -> np.ndarray:
+        """Invert ``serialize``: token stream(s) back to (B, H, W)."""
+        toks = np.asarray(tokens)[:, :self.height * self.width]
+        if self.order_name == "locality":
+            toks = toks[:, self.raster_index]
+        return toks.reshape(-1, self.height, self.width)
+
+    def sample(self, rng: np.random.Generator, batch: int,
+               seq_len: Optional[int] = None) -> np.ndarray:
+        toks = self.serialize(self.sample_grid(rng, batch))
+        return toks if seq_len is None else toks[:, :seq_len]
+
+    def batches(self, *, batch: int, seq_len: Optional[int] = None,
+                seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(seed)
+        while True:
+            yield {"tokens": self.sample(rng, batch, seq_len)}

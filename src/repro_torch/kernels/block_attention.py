@@ -11,7 +11,10 @@ the ranges of one (row, head) forming a thread-block cluster that combines
 its partial softmaxes through distributed shared memory in the same launch.
 bf16 products run on the tensor cores (``mma.sync``), fp32 on CUDA-core
 FMAs.  The plan depends on L alone, so a query's result does not depend on
-kq or B.  ``verify_attention_plain`` and ``tree_verify_attention_plain``
+kq or B.  head_dim 24 is computed at the width 32 with the padded lanes
+zero in shared memory, as the reference pads head_dim to its lane width;
+the tensors keep their 24 lanes and the softmax scale stays 1/√24.
+``verify_attention_plain`` and ``tree_verify_attention_plain``
 (``kernels/ref.py``) are their plain versions.
 """
 from __future__ import annotations
@@ -25,7 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import tree_verify_attention as tree_verify_attention_plain
 from repro_torch.kernels.ref import verify_attention as verify_attention_plain
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 24, 32, 64, 128)   # 24 computed at width 32, lanes 24-31 zero
 MAX_ROWS = 64                       # kq · G query rows per thread block
 MAX_TREE_NODES = 32                 # anc_bits is one int32 per node
 MAX_SPLITS = 8                      # the portable thread-block cluster size

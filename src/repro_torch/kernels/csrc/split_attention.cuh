@@ -77,10 +77,17 @@
 // arithmetic, so the paged kernel equals the dense one on the gathered view
 // kp[tbl] bit for bit.
 //
-// Head dims 16, 32, 64 and 128.  At 16 (the trained policy-sweep model) a
+// Head dims 16, 24, 32, 64 and 128.  At 16 (the trained policy-sweep model) a
 // bf16 row is one k16 step of Q.K^T and two n8 output tiles, a staged row
 // two 16-byte copies (four in fp32), and each fp32 thread holds two output
-// columns of its rows instead of four.
+// columns of its rows instead of four.  24 (the quickstart model, d 96 over
+// four heads) is computed at the width 32, as the reference pads head_dim
+// to its lane width: a row of HD elements in device memory is staged as HD
+// columns and zero-filled to the compute width HDC (the copies of lanes
+// 24-31 are cp.async with src-size 0), Q's fragments read zero there, so
+// the padded lanes add nothing to Q.K^T and make zero output columns, which
+// the combine never writes.  The softmax scale stays 1/sqrt(HD).  Every
+// other head_dim is its own compute width, and its code is unchanged.
 #pragma once
 
 #include "common.cuh"
@@ -178,6 +185,12 @@ struct Args {
 // Keys per tile: two k16 steps of the bf16 products.  A range of 64 keys
 // is two tiles, so the first is used while the second is in flight.
 constexpr int kTileKeys = 32;
+
+// The compute width of a head_dim: 24 runs at 32 (see the header), every
+// other supported head_dim at itself.
+__host__ __device__ constexpr int compute_width(int hd) {
+  return hd == 24 ? 32 : hd;
+}
 
 // The softmax's exponential, per dtype.  bf16 works in base 2, log2(e)
 // folded into the score scale (one ex2 a score); fp32 keeps expf, since the
@@ -338,11 +351,16 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        Rows rows, int kq, int heads, int kv_heads, int L,
                        int window, int num_meta, int splits, int split_keys,
                        float scale) {
-  using Lay = Layout<T, HD, kTree>;
+  // HD: a row's width in device memory; HDC: the width computed on, with
+  // lanes HD..HDC-1 zero (compute_width)
+  constexpr int HDC = compute_width(HD);
+  using Lay = Layout<T, HDC, kTree>;
   constexpr int kKeys = Lay::kKeys;
   constexpr int kVec = Lay::kVec;
   constexpr int kLd = Lay::kLd;
-  constexpr int kChunks = HD / kVec;
+  constexpr int kChunks = HD / kVec;       // copies of a row's stored lanes
+  constexpr int kChunksC = HDC / kVec;     // and of its padded compute row
+  static_assert(HD % kVec == 0 && HDC % 16 == 0, "head_dim tiling");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -359,7 +377,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* stage_base = reinterpret_cast<T*>(smem_raw);     // [2][K, V][kKeys][kLd]
   float* part = reinterpret_cast<float*>(smem_raw);   // after the loop
-  float* part_m = part + kMaxRows * HD;
+  float* part_m = part + kMaxRows * HDC;
   float* part_l = part_m + kMaxRows;
   float* f32_extra = reinterpret_cast<float*>(smem_raw + Lay::kRegion);
   float* qs = f32_extra;                               // fp32: [64][kLd]
@@ -373,17 +391,19 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Stage keys [base, base + kKeys) of this range and their positions (and
   // tree nodes), all by cp.async, so nothing here waits for memory; keys
-  // past the range are zero-filled, and the tile's users test base + t <
-  // k_end before they read a position.
+  // past the range, and the lanes past HD of every key, are zero-filled,
+  // and the tile's users test base + t < k_end before they read a position.
   auto load_tile = [&](int st, int base) {
     T* ks = k_tile(st);
     T* vs = v_tile(st);
-    for (int e = tid; e < kKeys * kChunks; e += kThreads) {
-      const int t = e / kChunks, c = e % kChunks;
+    for (int e = tid; e < kKeys * kChunksC; e += kThreads) {
+      const int t = e / kChunksC, c = e % kChunksC;
       const int j = base + t;
-      const bool valid = j < k_end;
-      const size_t slot = rows.slot(b, valid ? j : k_begin, k_begin, rows_s);
-      const size_t off = (slot * kv_heads + kvh) * HD + c * kVec;
+      const bool valid = j < k_end && c < kChunks;
+      const size_t slot = rows.slot(b, j < k_end ? j : k_begin, k_begin,
+                                    rows_s);
+      const size_t off = (slot * kv_heads + kvh) * HD
+                         + (c < kChunks ? c : 0) * kVec;
       cp_async16(ks + t * kLd + c * kVec, k + off, valid);
       cp_async16(vs + t * kLd + c * kVec, v + off, valid);
     }
@@ -410,10 +430,11 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row0 = row_tile(tid, blockIdx.x) * 16;
     const bool active = row0 < R;
     constexpr int kNT = kKeys / 8;    // n8 tiles of scores
-    constexpr int kDT = HD / 8;       // n8 tiles of the output
-    constexpr int kKC = HD / 16;      // k16 steps of Q.K^T
+    constexpr int kDT = HDC / 8;      // n8 tiles of the output
+    constexpr int kKC = HDC / 16;     // k16 steps of Q.K^T
 
-    // Q's A-fragments, straight from device memory (rows past R are zero)
+    // Q's A-fragments, straight from device memory (rows past R and lanes
+    // past HD are zero)
     const float scale_log2 = scale * 1.4426950408889634f;   // log2(e)
     uint32_t qf[kKC][4];
     RowInfo ri[2];
@@ -429,8 +450,9 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int kc = 0; kc < kKC; ++kc) {
-        qf[kc][h2] = qrow ? qrow[(kc * 16 + 2 * t4) / 2] : 0u;
-        qf[kc][h2 + 2] = qrow ? qrow[(kc * 16 + 8 + 2 * t4) / 2] : 0u;
+        const int c0 = kc * 16 + 2 * t4, c1 = c0 + 8;   // even: a lane pair
+        qf[kc][h2] = qrow && c0 < HD ? qrow[c0 / 2] : 0u;
+        qf[kc][h2 + 2] = qrow && c1 < HD ? qrow[c1 / 2] : 0u;
       }
     }
 
@@ -552,7 +574,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = row0 + g + 8 * h2;
 #pragma unroll
         for (int i = 0; i < kDT; ++i)
-          *reinterpret_cast<float2*>(part + r * HD + i * 8 + 2 * t4) =
+          *reinterpret_cast<float2*>(part + r * HDC + i * 8 + 2 * t4) =
               make_float2(acc[i][2 * h2], acc[i][2 * h2 + 1]);
         if (t4 == 0) {
           part_m[r] = m[h2];
@@ -565,8 +587,8 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     constexpr int kSK = kKeys / 8;    // score columns per thread
     // output columns: pieces of kOW consecutive columns, thread kg holding
     // columns kg * kOW + 8 * kOW * c of its rows for c < kOC
-    constexpr int kOW = HD >= 32 ? 4 : HD / 8;
-    constexpr int kOC = HD / (8 * kOW);
+    constexpr int kOW = HDC >= 32 ? 4 : HDC / 8;
+    constexpr int kOC = HDC / (8 * kOW);
     constexpr int kPsLd = Lay::kPsLd;
     const int kg = tid & 7;
     // a warp's 4 row groups hold one row tile of 16: whole warps sit out, so
@@ -574,10 +596,10 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int rb = row_tile(tid, blockIdx.x) * 16 + ((tid % 32) >> 3) * 4;
     const bool active = row_tile(tid, blockIdx.x) * 16 < R;
 
-    for (int e = tid; e < kMaxRows * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD;
+    for (int e = tid; e < kMaxRows * HDC; e += kThreads) {
+      const int r = e / HDC, d = e % HDC;
       float x = 0.f;
-      if (r < R) {
+      if (r < R && d < HD) {
         const int qi = r / G, h = kvh * G + r % G;
         x = to_f32(q[((size_t(b) * kq + qi) * heads + h) * HD + d]);
       }
@@ -622,7 +644,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int j = 0; j < kSK; ++j) s[i][j] = 0.f;
         // scores of keys kg + 8j, summed over d in order
 #pragma unroll 4
-        for (int d = 0; d < HD; d += 4) {
+        for (int d = 0; d < HDC; d += 4) {
           float4 qv[4], kv[kSK];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
@@ -711,7 +733,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = rb + i;
 #pragma unroll
         for (int c = 0; c < kOC; ++c)
-          store_cols<kOW>(part + r * HD + kg * kOW + 8 * kOW * c, acc[i][c]);
+          store_cols<kOW>(part + r * HDC + kg * kOW + 8 * kOW * c, acc[i][c]);
         if (kg == 0) {
           part_m[r] = m[i];
           part_l[r] = l[i];
@@ -721,10 +743,11 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // ---- combine the ranges' partials through distributed shared memory ----
-  // Each block writes its share of the (R, hd) outputs, four columns a
-  // thread: it reads every range's (m, l) of the row and its four
-  // accumulator columns, two elements' worth of remote reads in flight at
-  // once, then weighs the ranges in rank order.
+  // Each block writes its share of the (R, HD) outputs, four columns a
+  // thread (the padded lanes HD..HDC-1 are never written): it reads every
+  // range's (m, l) of the row and its four accumulator columns, two
+  // elements' worth of remote reads in flight at once, then weighs the
+  // ranges in rank order.
   cluster.sync();
   const float* rp[kMaxSplits];
 #pragma unroll
@@ -743,9 +766,9 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s) {
         if (s < splits) {
-          ms[u][s] = rp[s][kMaxRows * HD + r];
-          ls[u][s] = rp[s][kMaxRows * HD + kMaxRows + r];
-          a[u][s] = *reinterpret_cast<const float4*>(rp[s] + r * HD + d);
+          ms[u][s] = rp[s][kMaxRows * HDC + r];
+          ls[u][s] = rp[s][kMaxRows * HDC + kMaxRows + r];
+          a[u][s] = *reinterpret_cast<const float4*>(rp[s] + r * HDC + d);
         }
       }
     }
@@ -785,7 +808,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, typename Rows, bool kTree>
 cudaError_t launch(const Args& a, int splits, Rows rows, cudaStream_t stream) {
-  using Lay = Layout<T, HD, kTree>;
+  using Lay = Layout<T, compute_width(HD), kTree>;
   const Plan plan = split_plan(a.L);
   if (splits != plan.splits || !rows.fits(plan.keys)) return cudaErrorInvalidValue;
   constexpr size_t kBytes = Lay::kBytes + sizeof(int) * Rows::kStaged;
@@ -819,6 +842,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, int splits, Rows rows,
                         cudaStream_t s) {
   switch (hd) {
     case 16: return launch<T, 16, Rows, kTree>(a, splits, rows, s);
+    case 24: return launch<T, 24, Rows, kTree>(a, splits, rows, s);
     case 32: return launch<T, 32, Rows, kTree>(a, splits, rows, s);
     case 64: return launch<T, 64, Rows, kTree>(a, splits, rows, s);
     case 128: return launch<T, 128, Rows, kTree>(a, splits, rows, s);

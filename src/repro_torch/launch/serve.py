@@ -14,12 +14,15 @@ Without ``--full-config`` the registered smoke config runs in fp32, as the
 reference serves it; with it the full config runs in its own compute dtype.
 ``--device`` defaults to ``cuda`` (``--device cpu`` runs the plain versions
 of the kernels on the CPU).  Every registered decode policy runs
-(``--policy exact|topk|distance|adaptive|topk_tree``, with ``--top-k`` and
-``--epsilon``), on the dense or the paged KV cache (``--cache-backend
-paged --page-size 16``).  ``--arch rwkv6-1.6b`` serves the RWKV-6 family:
-its recurrent caches have no KV layout, so ``--cache-backend paged`` leaves
-them as they are, and ``topk_tree`` raises (tree verification needs
-attention blocks).  An encoder-decoder ``--arch`` (paper-mt-base) is
+(``--policy exact|topk|distance|adaptive|topk_tree|locality``, with
+``--top-k`` and ``--epsilon``; ``locality`` reads the token stream as an
+``--image-height`` × ``--image-width`` raster in the progressive-lattice
+order of stride ``--locality-stride``), on the dense or the paged KV cache
+(``--cache-backend paged --page-size 16``).  ``--kv-chunk N`` runs the
+prefill's attention in chunks of N keys (the long-prefill memory bound).
+``--arch rwkv6-1.6b`` serves the RWKV-6 family: its recurrent caches have
+no KV layout, so ``--cache-backend paged`` leaves them as they are, and
+``topk_tree`` raises (tree verification needs attention blocks).  An encoder-decoder ``--arch`` (paper-mt-base) is
 refused, as the reference's serve has no seq2seq path: its entry point is
 ``repro_torch.core.decode.bpd_decode_seq2seq``.
 
@@ -36,8 +39,9 @@ disaggregates prefill into batches of W behind a handoff queue of
 POST /v1/generate, /drain; GET /healthz /readyz /metrics) on ``--host`` /
 ``--port`` with a wait queue of ``--max-queue``; ``--http-demo`` streams one
 request through it and exits.  The engine serves attention models only,
-as the reference's does (rwkv6-1.6b raises).  ``--mesh-*`` (ROADMAP.md §1
-item 8) and ``--policy draft_model`` (item 5) are not ported and raise.
+as the reference's does (rwkv6-1.6b raises).  ``--mesh-*`` (multi-GPU,
+ROADMAP.md §1 item 8) and ``--policy draft_model`` (a draft model's bundle
+through the session, item 5) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -57,9 +61,9 @@ from repro_torch.core.decode import bpd_decode
 from repro_torch.core.policy import list_policies
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.models import model as M
-from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,
-                                 Frontend, HTTPServer, Request, Scheduler,
-                                 aggregate_stats)
+from repro_torch.serving import (ContinuousBatchingEngine, DecodeSession,
+                                 EngineConfig, Frontend, HTTPServer, Request,
+                                 Scheduler, aggregate_stats)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,6 +101,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "(at least 2)")
     ap.add_argument("--epsilon", type=float, default=2.0,
                     help="distance acceptance radius in token ids")
+    ap.add_argument("--image-height", type=int, default=0,
+                    help="2-D raster rows for the locality policy "
+                         "(--policy locality / --policies locality=N): the "
+                         "token stream is an image serialized in the "
+                         "progressive-lattice order")
+    ap.add_argument("--image-width", type=int, default=0,
+                    help="2-D raster cols for the locality policy")
+    ap.add_argument("--locality-stride", type=int, default=4,
+                    help="coarse-lattice stride of the locality order "
+                         "(power of two)")
+    ap.add_argument("--kv-chunk", type=int, default=0,
+                    help="prefill attention in chunks of this many keys "
+                         "(0 = one score matrix)")
     ap.add_argument("--engine", action="store_true",
                     help="serve through the continuous-batching engine "
                          "(slots + admission) instead of one static batch")
@@ -133,7 +150,7 @@ def _not_ported(args) -> Optional[str]:
     if args.mesh_data or args.mesh_model > 1 or args.mesh_pod > 1:
         return "--mesh-* (multi-GPU: ROADMAP.md §1 item 8)"
     if args.policy == "draft_model":
-        return "--policy draft_model (ROADMAP.md §1 item 5)"
+        return "--policy draft_model (draft-model bundles, ROADMAP.md §1 item 5)"
     return None
 
 
@@ -206,7 +223,10 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
                        top_k=args.top_k, epsilon=args.epsilon,
                        cache_backend=args.cache_backend,
                        page_size=args.page_size,
-                       fused_verify=args.fused_verify)
+                       fused_verify=args.fused_verify,
+                       image_height=args.image_height,
+                       image_width=args.image_width,
+                       locality_stride=args.locality_stride)
     task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
                     seed=args.seed)
     if args.http:
@@ -221,10 +241,10 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    bpd_decode(params, cfg, dec, batch)       # warm-up (the reference compiles here)
+    bpd_decode(params, cfg, dec, batch, kv_chunk=args.kv_chunk)   # warm-up
     sync()
     t0 = time.perf_counter()
-    toks, stats = bpd_decode(params, cfg, dec, batch)
+    toks, stats = bpd_decode(params, cfg, dec, batch, kv_chunk=args.kv_chunk)
     sync()
     dt = time.perf_counter() - t0
 
@@ -252,12 +272,17 @@ def _engine_config(args) -> EngineConfig:
                         steps_per_sync=args.steps_per_sync)
 
 
+def _engine(params, cfg, dec, args, groups) -> ContinuousBatchingEngine:
+    session = DecodeSession(params, cfg, dec, kv_chunk=args.kv_chunk)
+    return ContinuousBatchingEngine(params, cfg, dec, _engine_config(args),
+                                    session=session, policies=groups)
+
+
 def serve_engine(params, cfg, dec, args, task, groups) -> Dict:
     """Mixed-length (and, with ``groups``, mixed-policy) traffic through the
     continuous-batching engine: 2 × ``--batch`` requests, all arrived at
     the start."""
-    engine = ContinuousBatchingEngine(params, cfg, dec, _engine_config(args),
-                                      policies=groups)
+    engine = _engine(params, cfg, dec, args, groups)
     sched = Scheduler(engine, policy=args.sched)
     rng = np.random.default_rng(args.seed + 2)
     names = engine.policy_names()
@@ -296,8 +321,7 @@ def serve_engine(params, cfg, dec, args, task, groups) -> Dict:
 def serve_http(params, cfg, dec, args, groups) -> Dict:
     """Serve the engine over HTTP/SSE until drained (SIGTERM, SIGINT or
     POST /drain); ``--http-demo`` streams one request and exits."""
-    engine = ContinuousBatchingEngine(params, cfg, dec, _engine_config(args),
-                                      policies=groups)
+    engine = _engine(params, cfg, dec, args, groups)
     frontend = Frontend(Scheduler(engine, policy=args.sched),
                         max_queue=args.max_queue)
     srv = HTTPServer(frontend, host=args.host, port=args.port)

@@ -4,7 +4,9 @@ or paged.
 Entry points, as in ``repro.models.attention``:
   * ``attn_full``   — parallel forward over a whole sequence (prefill, or
                       the encoder with ``bidirectional``); a plain tensor
-                      path, as in the reference.
+                      path, as in the reference, and with ``kv_chunk`` > 0
+                      the reference's memory-bounded chunked softmax
+                      (``_chunked_attend``: no (S, S) score matrix).
   * ``attn_cached`` — scores a block of ``k`` fresh tokens against the cache
                       and each other (the paper's verify substep), as a
                       chain or as a candidate tree, through the kernels of
@@ -116,22 +118,71 @@ def _window(cfg: ModelConfig, layer_idx: int) -> int:
 
 
 def attn_full(p, cfg: ModelConfig, x, *, layer_idx: int = 0, positions=None,
-              bidirectional: bool = False, return_kv: bool = False):
+              bidirectional: bool = False, return_kv: bool = False,
+              kv_chunk: int = 0):
     """Parallel attention over the full sequence: causal (prefill), or
-    ``bidirectional`` with no RoPE and no window (the encoder)."""
+    ``bidirectional`` with no RoPE and no window (the encoder).
+    ``kv_chunk`` > 0 scans the keys in chunks of that many with an online
+    softmax (``_chunked_attend``), so no (S, S) score matrix is made: the
+    reference's long-prefill path."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions, rope=not bidirectional)
     window = 0 if bidirectional else _window(cfg, layer_idx)
-    mask = make_causal_mask(positions, positions, window=window,
-                            num_meta=cfg.num_meta_tokens,
-                            bidirectional=bidirectional)[None]
-    ctx = _gqa_attend(q, k, v, mask, head_dim=cfg.resolved_head_dim)
+    if kv_chunk:
+        ctx = _chunked_attend(q, k, v, positions, positions, window=window,
+                              num_meta=cfg.num_meta_tokens,
+                              bidirectional=bidirectional,
+                              head_dim=cfg.resolved_head_dim, chunk=kv_chunk)
+    else:
+        mask = make_causal_mask(positions, positions, window=window,
+                                num_meta=cfg.num_meta_tokens,
+                                bidirectional=bidirectional)[None]
+        ctx = _gqa_attend(q, k, v, mask, head_dim=cfg.resolved_head_dim)
     y = _out_proj(p, ctx)
     if return_kv:
         return y, (k, v)
     return y
+
+
+def _chunked_attend(q, k, v, q_pos, kv_pos, *, window, num_meta,
+                    bidirectional, head_dim, chunk):
+    """Online-softmax attention over the keys in chunks of ``chunk``, in
+    fp32, as the reference's: per chunk the scores of every query against
+    ``chunk`` keys, the running max ``m``, sum ``l`` and unnormalised
+    output ``acc`` rescaled by exp(m_old - m_new).  The largest
+    intermediate is (B, KV, G, Sq, chunk) instead of (.., Sq, Sk).
+    q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd), q_pos (Sq,) or (B, Sq),
+    kv_pos (Sk,) or (B, Sk).  Returns (B, Sq, H, hd) in q's dtype."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    q_pos = torch.as_tensor(q_pos).expand(b, sq)
+    kv_pos = torch.as_tensor(kv_pos).expand(b, sk)
+    qg = q.reshape(b, sq, kvh, g, hd).float() / math.sqrt(head_dim)
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, sk, chunk):
+        kb = k[:, c0:c0 + chunk].float()
+        vb = v[:, c0:c0 + chunk].float()
+        scores = torch.einsum("bqhgk,bshk->bhgqs", qg, kb)
+        mask = make_causal_mask(q_pos, kv_pos[:, c0:c0 + chunk], window=window,
+                                num_meta=num_meta,
+                                bidirectional=bidirectional)   # (B, Sq, c)
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(scores - m_new[..., None])
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqs,bshk->bhgqk",
+                                                    pexp, vb)
+        m = m_new
+    ctx = acc / torch.clamp(l, min=1e-30)[..., None]
+    return ctx.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +318,10 @@ def attn_cached(p, cfg: ModelConfig, x_block, cache: Dict, length, *,
               each node attends to its root-to-node chain plus the
               committed cache.  ``tree_commit_attn`` then compacts the
               accepted path into chain slots.
+
+    The reference's ``kv_chunk`` has no counterpart here: a block's scores
+    are (k, L), which bounds no memory that matters, and the verify kernels
+    stream the cache in split-KV ranges of their own.
 
     The block's K/V are written into ``cache`` in place (the reference
     returns a new cache).  That is sound because attention caches need no

@@ -107,10 +107,12 @@ def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
 
 def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
                bidirectional: bool = False, enc_kv: Optional[CrossKV] = None,
-               cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+               cache: Optional[Dict] = None,
+               kv_chunk: int = 0) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (y, cache_out); cache_out is filled when a cache is passed in
     (prefill).  ``bidirectional``: an encoder block; ``enc_kv``: a decoder
-    block's source, attended on the plain path."""
+    block's source, attended on the plain path; ``kv_chunk``: the chunked
+    softmax of ``attention.attn_full``."""
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
     cache_out = dict(cache) if cache is not None else None
     if cfg.block_type == "rwkv6":
@@ -123,7 +125,8 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
             }
     elif cache is not None:
         y, (kk, vv) = attn_full(p["attn"], cfg, h, layer_idx=layer_idx,
-                                positions=positions, return_kv=True)
+                                positions=positions, return_kv=True,
+                                kv_chunk=kv_chunk)
         if positions is None:
             positions = torch.arange(x.shape[1], dtype=torch.int32,
                                      device=x.device)
@@ -131,7 +134,8 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
                                         positions)
     else:
         y = attn_full(p["attn"], cfg, h, layer_idx=layer_idx,
-                      positions=positions, bidirectional=bidirectional)
+                      positions=positions, bidirectional=bidirectional,
+                      kv_chunk=kv_chunk)
     x = x + y
     if enc_kv is not None:
         h = norm_apply(p["ln_cross"], x, kind=cfg.norm_type)

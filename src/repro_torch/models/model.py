@@ -158,13 +158,17 @@ def prefix_len(cfg: ModelConfig, batch: Dict) -> int:
 # ---------------------------------------------------------------------------
 
 
-def forward_hidden(params, cfg: ModelConfig, h, *, positions=None, caches=None):
+def forward_hidden(params, cfg: ModelConfig, h, *, positions=None, caches=None,
+                   kv_chunk: int = 0):
     """Whole-sequence forward.  h: (B,S,d) embeddings.
-    Returns (hidden, caches) — caches filled if given (prefill)."""
+    Returns (hidden, caches) — caches filled if given (prefill).
+    ``kv_chunk`` > 0 bounds each layer's score matrix to (S, kv_chunk)
+    (``attention.attn_full``)."""
     new_caches = list(caches) if caches is not None else None
     for i, bp in enumerate(params["blocks"]):
         c = caches[i] if caches is not None else None
-        h, c_out = block_full(bp, cfg, i, h, positions=positions, cache=c)
+        h, c_out = block_full(bp, cfg, i, h, positions=positions, cache=c,
+                              kv_chunk=kv_chunk)
         if caches is not None:
             new_caches[i] = c_out
     h = norm_apply(params["final_norm"], h, kind=cfg.norm_type)
@@ -175,8 +179,7 @@ def decode_block_step(params, cfg: ModelConfig, h, caches, length, *,
                       tree=None):
     """BPD verify-substep backbone: k fresh embeddings vs the caches.
     Returns (hidden_block, staged_caches); ``commit_caches`` resolves them.
-    ``tree`` switches the block to tree verification (see
-    ``attention.attn_cached``)."""
+    ``tree`` switches the block to tree verification."""
     new_caches = []
     for i, bp in enumerate(params["blocks"]):
         h, c_out = block_cached(bp, cfg, i, h, caches[i], length, tree=tree)
@@ -257,7 +260,10 @@ def project_vocab(params, cfg: ModelConfig, h) -> torch.Tensor:
 
 
 def all_head_logits(params, cfg: ModelConfig, hidden) -> torch.Tensor:
-    """hidden: (..., d) -> (..., k, V) logits of p_1..p_k (paper Fig. 3)."""
+    """hidden: (..., d) -> (..., k, V) logits of p_1..p_k (paper Fig. 3);
+    a headless model gives p_1 alone, (..., 1, V)."""
+    if not cfg.bpd_enabled or "bpd_heads" not in params:
+        return project_vocab(params, cfg, hidden)[..., None, :]
     outs = heads_apply(params["bpd_heads"], cfg, hidden,
                        identity_p1=cfg.bpd_identity_p1)
     return project_vocab(params, cfg, outs)

@@ -1,7 +1,9 @@
 """The engine's device functions for one (policy, geometry): a
 ``DecodeSession`` owns the parameters and builds, once per (policy,
 ``EngineConfig``), the serving functions of ``repro.serving.session`` on
-one device.
+one device.  Its ``decode`` / ``greedy`` are the run-to-completion entry
+points (``core.decode.bpd_decode`` / ``greedy_decode``) under the session's
+policy and ``kv_chunk``.
 
 The reference jits each function once and donates the slot state between
 calls.  Here each function is plain PyTorch, built (closed over its
@@ -9,11 +11,14 @@ geometry and policy) once per key and cached; ``builds`` counts the builds
 per key, the twin of the reference's one-compile-per-geometry guard.  The
 slot state's caches are written in place, as every cache of the port is;
 the small per-slot tensors are replaced by each step and written in place
-by ``attach`` / ``evict``.  Capturing ``step`` as a CUDA graph is ROADMAP.md
-§1 item 1; until then each call launches its kernels from the host.
+by ``attach`` / ``evict``.  Every policy's per-row state rides the same
+generic scatter and evict reset (``_map``): the ``locality`` policy's
+drafter ``grid`` and schedule ``pos`` as much as ``adaptive``'s ``rate`` and
+``cap``.  Capturing ``step`` as a CUDA graph is ROADMAP.md §1 item 1; until
+then each call launches its kernels from the host.
 
 A mesh is not ported (ROADMAP.md §1 item 8), nor auxiliary model bundles
-(the ``draft_model`` policy, item 5).
+(the ``draft_model`` policy, ROADMAP.md §1 item 5).
 """
 from __future__ import annotations
 
@@ -116,11 +121,12 @@ class DecodeSession:
     policy=...)`` builds functions for another policy's slot group, cached
     per (``DecodePolicy.cache_key``, ``EngineConfig``), so two groups that
     run equal policies at one geometry share one set.  The device is the
-    parameters' device.
+    parameters' device.  ``kv_chunk`` > 0 runs every prefill's attention in
+    chunks of that many keys (the reference's long-prefill bound).
     """
 
     def __init__(self, params, cfg: ModelConfig, dec: DecodeConfig, *,
-                 mesh=None, policy=None, bundles=None):
+                 mesh=None, kv_chunk: int = 0, policy=None, bundles=None):
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh-sharded DecodeSession is not ported yet (ROADMAP.md, "
@@ -132,10 +138,24 @@ class DecodeSession:
         self.params = params
         self.cfg = cfg
         self.dec = dec
+        self.kv_chunk = kv_chunk
         self.policy = policy_lib.resolve_policy(dec, policy)
         self.device = next(params.parameters()).device
         self._fns: Dict[Any, ServingFns] = {}
         self.builds: Dict[Any, int] = {}   # serving-fns key -> builds
+
+    def decode(self, batch: Dict, *, max_new_rows=None):
+        """Blockwise parallel decode of ``batch`` under the session's policy
+        (``core.decode.bpd_decode``)."""
+        return decode_lib.bpd_decode(self.params, self.cfg, self.dec, batch,
+                                     max_new_rows=max_new_rows,
+                                     policy=self.policy,
+                                     kv_chunk=self.kv_chunk)
+
+    def greedy(self, batch: Dict):
+        """The greedy baseline (``core.decode.greedy_decode``)."""
+        return decode_lib.greedy_decode(self.params, self.cfg, self.dec, batch,
+                                        kv_chunk=self.kv_chunk)
 
     def bound_policy(self, policy=None):
         """Resolve ``policy`` (a registered name, a DecodePolicy, or None
@@ -231,7 +251,7 @@ class DecodeSession:
                                              batch=w, device=dev)
             row_caches, proposals, row_ps = decode_lib.prefill_and_draft(
                 params, cfg, dec, pol, {"tokens": prompts_d, "src": srcs_d},
-                row_caches, plens_d, block_k)
+                row_caches, plens_d, block_k, kv_chunk=self.kv_chunk)
             tokens = torch.zeros((w, buf_len), dtype=I32, device=dev)
             tokens[:, :plen_max] = prompts_d
             return PrefillPacket(tokens=tokens, prompt_len=plens_d,

@@ -315,6 +315,42 @@ def test_paged_verify_attention_kernel_split_edges(cuda, l, ps, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh", [(4, 2), (4, 4)])   # quickstart, superres
+@pytest.mark.parametrize("l", [60, 200])
+def test_split_attention_kernels_head_dim_24(cuda, l, h, kvh, dtype):
+    """head_dim 24 (computed at 32 with lanes 24-31 zero, scale 1/√24): the
+    three split-KV kernels equal their plain versions, a query's output is
+    the same bit for bit at kq 1 and B 1, and the paged kernel equals
+    verify_attention on the gathered view."""
+    gen = torch.Generator().manual_seed(24 * l + h * kvh)
+    args = _chain_case(gen, cuda, dtype, 8, 4, h, kvh, 24, l)
+    full = verify_attention_cuda(*args, window=40, num_meta=3)
+    _assert_matches_plain(full, ref.verify_attention(*args, window=40,
+                                                     num_meta=3), dtype)
+    q, k, v, q_pos, kv_pos = args
+    for i in range(4):
+        one = verify_attention_cuda(q[:, i:i + 1].contiguous(), k, v,
+                                    q_pos[:, i:i + 1].contiguous(), kv_pos,
+                                    window=40, num_meta=3)
+        assert torch.equal(one, full[:, i:i + 1]), f"query {i}"
+    for r in range(8):
+        row = verify_attention_cuda(*(t[r:r + 1].contiguous() for t in args),
+                                    window=40, num_meta=3)
+        assert torch.equal(row, full[r:r + 1]), f"row {r}"
+    targs = _tree_case(gen, cuda, dtype, 8, h, kvh, 24, l, default_tree(4, 2))
+    tree = tree_verify_attention_cuda(*targs)
+    _assert_matches_plain(tree, ref.tree_verify_attention(*targs), dtype)
+    for r in range(8):
+        row = tree_verify_attention_cuda(*(t[r:r + 1].contiguous() for t in targs))
+        assert torch.equal(row, tree[r:r + 1]), f"tree row {r}"
+    pargs = _paged_case(gen, cuda, dtype, 8, 4, -(-l // 16), 16, h=h, kvh=kvh,
+                        hd=24, unmapped=1)
+    paged = paged_verify_attention_cuda(*pargs)
+    _assert_matches_plain(paged, ref.paged_verify_attention(*pargs), dtype)
+    assert torch.equal(paged, verify_attention_cuda(*_gathered(*pargs)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("crit", CRITERIA)
 @pytest.mark.parametrize("k", [8, 1])
 def test_fused_verify_kernel_matches_plain(cuda, k, crit, dtype):
@@ -358,6 +394,27 @@ def test_fused_verify_kernel_ties_and_splits(cuda, case, dtype):
     for crit in CRITERIA:
         got = fused_verify_cuda(lg, props, criterion=crit, **kw)
         want = ref.fused_verify(lg, props, criterion=crit, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), crit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vocab", [16, 32])
+@pytest.mark.parametrize("k", [4, 1])
+def test_fused_verify_kernel_small_vocab(cuda, k, vocab, dtype):
+    """The quickstart and superres models' logits: vocab 16 or 32 padded to
+    256 lanes that hold -1e9; bit for bit the plain version."""
+    rng = np.random.default_rng(vocab + k)
+    lg = rng.normal(size=(8, k, 256)).astype(np.float32)
+    lg[..., vocab:] = -1e9
+    lg = torch.from_numpy(lg).to(cuda, dtype)
+    props = torch.from_numpy(rng.integers(0, vocab, (8, k)).astype(np.int32)).to(cuda)
+    props[:, 1:] = torch.argmax(lg.float(), -1).int()[:, :k - 1]
+    if k > 2:
+        props[::2, 2] = (props[::2, 2] + 1) % vocab        # reject some rows
+    for crit in CRITERIA:
+        got = fused_verify_cuda(lg, props, criterion=crit, top_k=2, epsilon=2.0)
+        want = ref.fused_verify(lg, props, criterion=crit, top_k=2, epsilon=2.0)
         for g, w in zip(got, want):
             assert torch.equal(g, w), crit
 
@@ -413,7 +470,9 @@ def test_fused_heads_kernel_matches_plain(cuda, n, top_t, layout, dtype):
 @pytest.mark.parametrize("d,vp,vocab", [(200, 1000, 1000),    # d % 64 != 0
                                         (64, 128, 5),         # one tile
                                         (2048, 65536, 65536),  # rwkv6's head
-                                        (4096, 8192, 8000)])
+                                        (4096, 8192, 8000),
+                                        (96, 256, 32),        # quickstart
+                                        (64, 256, 16)])       # superres grid
 def test_fused_heads_kernel_shapes(cuda, d, vp, vocab, layout, dtype):
     rng = np.random.default_rng(d + vp)
     o, w = _heads_case(rng, cuda, dtype, 56, d, vp, layout)

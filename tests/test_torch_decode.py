@@ -231,7 +231,7 @@ def test_serve_static_path_on_cpu(capsys):
 @pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2"],
                                   ["--http", "--policy", "draft_model"],
                                   ["--mesh-data", "2"],
-                                  ["--policy", "locality"],
+                                  ["--engine", "--policy", "draft_model"],
                                   ["--policy", "draft_model"]])
 def test_unported_serving_options_raise(argv):
     from repro_torch.launch import serve
@@ -246,4 +246,4 @@ def test_exact_resolves_and_unported_policies_raise():
     assert pol.name == "exact" and isinstance(pol.drafter, tpolicy.HeadsDrafter)
     assert tpolicy.resolve_policy(DecodeConfig(fused_verify=True)).acceptor.fused
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpolicy.resolve_policy(DecodeConfig(policy="locality"))
+        tpolicy.resolve_policy(DecodeConfig(policy="draft_model"))

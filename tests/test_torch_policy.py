@@ -379,7 +379,8 @@ def test_criterion_strings_alias_policy_objects(setup, criterion):
 def test_registry_matches_reference_builders():
     from repro.core import policy as jpolicy
 
-    dec = dict(top_k=3, epsilon=1.5, min_block=2)
+    dec = dict(top_k=3, epsilon=1.5, min_block=2, image_height=4,
+               image_width=4, locality_stride=2)
     for name in P.list_policies():
         got = P.resolve_policy(DecodeConfig(policy=name, **dec))
         want = jpolicy.resolve_policy(JDecodeConfig(policy=name, **dec))

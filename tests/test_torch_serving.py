@@ -499,7 +499,7 @@ def test_mesh_bundles_and_unported_policies_are_refused(stack):
     with pytest.raises(NotImplementedError, match="item 5"):
         tserving.DecodeSession(params, cfg, DecodeConfig(),
                                bundles={"draft": object()})
-    for name in ("locality", "draft_model"):
+    for name in ("draft_model",):
         with pytest.raises(NotImplementedError, match="item 5"):
             tserving.ContinuousBatchingEngine(
                 params, cfg, DecodeConfig(max_new_tokens=8),

@@ -83,11 +83,19 @@ def _inputs(b=1, kq=2, h=4, kvh=2, hd=64, l=16):
             torch.zeros((b, l), dtype=torch.int32))
 
 
+HEAD_DIM_CASES = [
+    (dict(hd=24), "CUDA device"),     # quickstart's: taken, computed at 32
+    (dict(hd=20), "head_dim 20"),
+    (dict(hd=160), "head_dim 160"),
+]
+
+
 @pytest.mark.parametrize("kernel", ["verify", "tree"])
 @pytest.mark.parametrize("case,match", [
     (dict(), "CUDA device"),                       # a CPU tensor
     (dict(hd=48), "head_dim 48"),
     (dict(kq=65, h=2, kvh=2), "65 query rows exceed 64"),
+    *HEAD_DIM_CASES,
 ])
 def test_wrappers_refuse_before_any_build(no_build, kernel, case, match):
     q, k, v, q_pos, kv_pos = _inputs(**case)
@@ -112,6 +120,7 @@ def _paged_inputs(b=1, kq=2, h=4, kvh=2, hd=64, ps=8, P=2, pages=3):
     (dict(hd=48), "head_dim 48"),
     (dict(kq=65, h=2, kvh=2), "65 query rows exceed 64"),
     (dict(ps=12), "page_size 12 must be a multiple of 8"),
+    *HEAD_DIM_CASES,
 ])
 def test_paged_wrapper_refuses_before_any_build(no_build, case, match):
     with pytest.raises(ValueError, match=match):
