@@ -11,20 +11,25 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
   3. kernels  — each kernel against its plain PyTorch version at the decode
                 paths' shapes, bf16 and fp32 (tree shapes, 32-node trees,
                 the split-KV plan's edges, a masked range, a query that
-                sees no key, head dims 32 and 64, kq·G 64, shared and
+                sees no key, head dims 32 and 64, kq·G 64, the draft
+                forwards' kq 1 and 2 over stale drafts at each draft's
+                heads (32/8 of 128, 8/2 of 32, 4/2 of 16), shared and
                 unmapped pages, fused_heads at T 1, 2, 4 and 8 on the tied
                 table view, on rwkv6's untied row-major lm_head and at N 1,
                 65 and 200, scans at S 1, 16, 17 and 37 and at logw -8,
                 -20 and 0 beside -20, fused_verify on tie-heavy logits, on
                 unaligned rows (V 49155) and at B 1, k 32, T 8); the
                 three split-KV attention kernels bit for bit batch-invariant
-                (kq 1 vs 8, B 1 vs 8), the tree kernel on a chain and the
+                (kq 1 and 2 vs 8, B 1 vs 8), the tree kernel on a chain and the
                 paged kernel on the gathered view kp[tbl] bit for bit equal
                 to verify_attention; times kernel, plain version, the
                 one-call PyTorch yardstick where there is one (for
                 attention the faster of SDPA on repeated K/V and SDPA with
-                enable_gqa), the fp32 time of the attention kernels and of
-                fused_heads, fused_verify and rwkv6_scan, fused_heads at
+                enable_gqa), the fp32 time of every kernel beside its fp32
+                bound (operations over the 67 TFLOP/s CUDA-core peak, or
+                bytes) and its fp32 yardstick where there is one (SDPA;
+                torch.mm with TF32 off, then torch.topk; torch.argmax,
+                then the compare and scan), fused_heads at
                 rwkv6's shape, fused_heads and fused_verify beside a
                 two-call comparator (torch.mm then torch.topk; torch.argmax
                 then the compare and scan; not one call, so not
@@ -144,6 +149,33 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 new tokens equal, then BPD exact through
                 DecodeSession(kv_chunk=512) on phase 4's batch emits phase
                 4's tokens.
+  15. draft   — the draft_model policy (a second model drafts each block,
+                the verifier checks it; exact acceptance).  Inside
+                phase_decode on phase 4's fp32 weights: 15a granite drafts
+                for itself (ModelBundle(params, cfg)), 8 prompts x 64 new
+                tokens at block_k 8: greedy's tokens in 8 iterations, a
+                block split only at a reported near-tie, 7 draft forwards
+                an iteration; 15b a small random draft (granite's smoke
+                geometry, 2 layers of d 256, at vocab 49155, seed 7):
+                greedy's tokens, k̂ printed; each with launches exact (the
+                verifier's attention per layer and iteration, the draft's
+                verify_attention per draft layer and draft forward,
+                fused_verify per iteration, no fused_heads); 15d 5c's 16
+                requests through an engine with a draft_model and an exact
+                group of 4 slots on the managed page pool, each greedy's,
+                builds once, launches exact, first on 15b's draft, then on
+                a self-draft in windows of 4 iterations, where each
+                draft_model request's tokens and invocations equal its
+                run-to-completion decode alone; after the cast, 15b in bf16
+                through DecodeSession (tokens/s beside phase 6's, one
+                iteration profiled).  Beside 10c: 15c the pinned distilled
+                students (tests/data/draft_model, gold and scheduled
+                sampling) drafting for the sweep teacher, each of 16 rows
+                alone, equal to reference.json under the near-tie rule and
+                to 10c's exact tokens, 7 draft forwards an iteration (1
+                saved); 15e repro_torch.launch.serve --policy draft_model
+                with the smoke primary and draft, static and --engine
+                --policies exact=2,draft_model=2.
   11. train   — everything earlier freed; the training path (make_train_step:
                 the paper's §6 loss, backward, AdamW), fp32:
                 11a: granite's attention width (d 4096, 32/8 heads of
@@ -282,6 +314,15 @@ def bound(byte_count: int, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fp32_row(ms, byte_count, flops, yardstick_ms=None, yardstick=None):
+    """A kernel's fp32 numbers for the kernel table: its time, its bound
+    (bytes over 3.35 TB/s or the operations over the fp32 CUDA-core peak)
+    and, where there is one, the fp32 yardstick's time (TF32 off)."""
+    bms, by = bound(byte_count, flops, "float32")
+    return {"ms": ms, "bound_ms": bms, "bound_by": by,
+            "yardstick_ms": yardstick_ms, "yardstick": yardstick}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -324,7 +365,9 @@ def sdpa_yardsticks(torch, q, k, v, mask):
 
 def check_invariance(torch, name, fn, args, *, queries: bool):
     """Bit for bit: each batch row alone equals its row of the batch of 8,
-    and (``queries``) each query alone equals its row of the block of kq."""
+    and (``queries``) each query alone, and each pair of neighbouring
+    queries (the carry-over draft forward's kq 2), equals its rows of the
+    block of kq."""
     full = fn(*args)
     for r in range(full.shape[0]):
         row = fn(*(t[r:r + 1].contiguous() for t in args))
@@ -332,12 +375,14 @@ def check_invariance(torch, name, fn, args, *, queries: bool):
               f"{name}: batch row {r} alone differs from its row at B = 8")
     if queries:
         q, k, v, q_pos, kv_pos = args
-        for i in range(q.shape[1]):
-            one = fn(q[:, i:i + 1].contiguous(), k, v,
-                     q_pos[:, i:i + 1].contiguous(), kv_pos)
-            check(torch.equal(one, full[:, i:i + 1]),
-                  f"{name}: query {i} at kq = 1 differs from its row at "
-                  f"kq = {q.shape[1]}")
+        kq = q.shape[1]
+        for width in (w for w in (1, 2) if w < kq):
+            for i in range(kq - width + 1):
+                part = fn(q[:, i:i + width].contiguous(), k, v,
+                          q_pos[:, i:i + width].contiguous(), kv_pos)
+                check(torch.equal(part, full[:, i:i + width]),
+                      f"{name}: queries {i}..{i + width - 1} at kq = "
+                      f"{width} differ from their rows at kq = {kq}")
 
 
 def check_attention(torch, gen, results):
@@ -345,29 +390,42 @@ def check_attention(torch, gen, results):
                                                      verify_attention_cuda,
                                                      verify_attention_plain)
 
-    cases = []   # (dtype, kq, L, window, meta, kind, H, hd)
+    cases = []   # (dtype, kq, L, window, meta, kind, H, KVH, hd)
     for dtype in ("bfloat16", "float32"):
         for kq in (1, 8):
             for l in (256, 4096):
-                cases.append((dtype, kq, l, 0, 0, "path", 32, 128))
-        cases.append((dtype, 8, 256, 64, 4, "window+meta", 32, 128))
-        cases.append((dtype, 8, 256, 0, 0, "all-stale", 32, 128))
+                cases.append((dtype, kq, l, 0, 0, "path", 32, 8, 128))
+        cases.append((dtype, 8, 256, 64, 4, "window+meta", 32, 8, 128))
+        cases.append((dtype, 8, 256, 0, 0, "all-stale", 32, 8, 128))
         # the split plan's edges: one ragged range .. eight ranges
         for l in (1, 15, 16, 17, 63, 64, 65, 300):
-            cases.append((dtype, 8, l, 0, 0, "split edge", 32, 128))
-        cases.append((dtype, 8, 256, 0, 0, "masked split", 32, 128))
-        cases.append((dtype, 8, 256, 0, 0, "blind row", 32, 128))
+            cases.append((dtype, 8, l, 0, 0, "split edge", 32, 8, 128))
+        cases.append((dtype, 8, 256, 0, 0, "masked split", 32, 8, 128))
+        cases.append((dtype, 8, 256, 0, 0, "blind row", 32, 8, 128))
         for hd in (32, 64):
-            cases.append((dtype, 8, 300, 48, 3, f"hd {hd}", 32, hd))
-        cases.append((dtype, 16, 300, 0, 0, "kq·G 64", 32, 128))
-        cases.append((dtype, 16, 4096, 0, 0, "kq·G 64", 32, 128))
+            cases.append((dtype, 8, 300, 48, 3, f"hd {hd}", 32, 8, hd))
+        cases.append((dtype, 16, 300, 0, 0, "kq·G 64", 32, 8, 128))
+        cases.append((dtype, 16, 4096, 0, 0, "kq·G 64", 32, 8, 128))
+        # the draft_model forwards (kq 1, and kq 2 with carry-over) over a
+        # draft cache of 256 slots: granite-3-8b (15a), its smoke geometry
+        # (15b, 15d, 15e) and the fixture's student (15c)
+        for h, kvh, hd in ((32, 8, 128), (8, 2, 32), (4, 2, 16)):
+            for kq in (1, 2):
+                cases.append((dtype, kq, 256, 0, 0, "draft", h, kvh, hd))
     worst = 0.0
-    path = {}
-    for dtype, kq, l, window, meta, kind, h, hd in cases:
-        length = [l - kq - 3 * i for i in range(8)]
-        q, k, v, q_pos, kv_pos = attention_case(torch, gen, 8, kq, h, 8, hd,
-                                                l, dtype, length=length,
+    path, draft = {}, []
+    for dtype, kq, l, window, meta, kind, h, kvh, hd in cases:
+        length = ([64 + 21 * i for i in range(8)] if kind == "draft"
+                  else [l - kq - 3 * i for i in range(8)])
+        q, k, v, q_pos, kv_pos = attention_case(torch, gen, 8, kq, h, kvh,
+                                                hd, l, dtype, length=length,
                                                 stale=5)
+        if kind == "draft":
+            # the k - 2 = 6 slots past the queries hold a rejected chain's
+            # stale drafts at positions the queries must not see
+            slot = torch.arange(l, dtype=torch.int32, device="cuda")[None]
+            ahead = (slot > q_pos[:, -1:]) & (slot <= q_pos[:, -1:] + 6)
+            kv_pos = torch.where(ahead, slot, kv_pos).contiguous()
         if kind == "all-stale":          # only the block itself is visible
             slot = torch.arange(l, dtype=torch.int32, device="cuda")[None]
             own = (slot >= q_pos[:, :1]) & (slot <= q_pos[:, -1:])
@@ -385,7 +443,7 @@ def check_attention(torch, gen, results):
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[dtype]
         ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        log(f"  verify_attention {dtype} kq={kq} H={h} hd={hd} L={l} "
+        log(f"  verify_attention {dtype} kq={kq} H={h}/{kvh} hd={hd} L={l} "
             f"(splits {split_plan(l)[0]}) {kind}: max_abs_err={err:.3g} "
             f"{'ok' if ok else 'FAIL'}")
         check(ok, f"verify_attention {dtype} kq={kq} L={l} {kind} "
@@ -393,12 +451,20 @@ def check_attention(torch, gen, results):
         worst = max(worst, err)
         if kind == "path" and kq == 8:
             path[(dtype, l)] = (q, k, v, q_pos, kv_pos)
+        if kind == "draft" and kq == 2:
+            draft.append((f"{dtype} {h}/{kvh} heads of {hd}",
+                          (q, k, v, q_pos, kv_pos)))
     log(f"  verify_attention: max_abs_err over all {len(cases)} cases "
         f"{worst:.3g}")
     for (dtype, l), args in path.items():
         check_invariance(torch, f"verify_attention {dtype} L={l}",
                          verify_attention_cuda, args, queries=True)
-        log(f"  verify_attention {dtype} L={l}: kq 1 == kq 8 and B 1 == B 8 "
+        log(f"  verify_attention {dtype} L={l}: kq 1 == kq 2 == kq 8 and "
+            f"B 1 == B 8 bit for bit ok")
+    for tag, args in draft:
+        check_invariance(torch, f"verify_attention draft {tag}",
+                         verify_attention_cuda, args, queries=True)
+        log(f"  verify_attention draft {tag}: kq 1 == kq 2 and B 1 == B 8 "
             f"bit for bit ok")
 
     # time at the serve path's shape: bf16, B=8, kq=8, L=256
@@ -415,15 +481,18 @@ def check_attention(torch, gen, results):
     mask = ((kv_pos[:, None, :] >= 0)
             & (kv_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
     repeat_ms, gqa_ms = sdpa_yardsticks(torch, q, k, v, mask)
-    bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, q), 4 * b * kq * h * l * hd,
-                    "bfloat16")
+    flops = 4 * b * kq * h * l * hd
+    bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, q), flops, "bfloat16")
+    f32_lib = min(sdpa_yardsticks(torch, *f32[:3], mask))
     results["verify_attention"] = dict(
         source="src/repro_torch/kernels/csrc/verify_attention.cu",
         replaces="src/repro/kernels/block_attention.py:83",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=min(repeat_ms, gqa_ms),
-        extra=f"fp32 kernel {fp32_ms:.4f} ms; SDPA repeated K/V "
-              f"{repeat_ms:.4f} ms, enable_gqa {gqa_ms:.4f} ms",
+        fp32=fp32_row(fp32_ms, nbytes(*f32, f32[0]), flops, f32_lib,
+                      "SDPA, the faster of repeated K/V and enable_gqa"),
+        extra=f"SDPA repeated K/V {repeat_ms:.4f} ms, enable_gqa "
+              f"{gqa_ms:.4f} ms",
         shape="bf16 q (8,8,32,128), k/v (8,256,8,128)")
 
 
@@ -533,15 +602,21 @@ def check_tree_attention(torch, gen, results):
     bit = (anc[:, :, None] >> kn.clamp(0, 31)) & 1
     mask = ((kp >= 0) & (kp <= qp) & ((kn < 0) | (bit != 0)))[:, None]
     repeat_ms, gqa_ms = sdpa_yardsticks(torch, q, k, v, mask)
-    bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, kv_node, anc, q),
-                    4 * b * kq * h * l * hd, "bfloat16")
+    flops = 4 * b * kq * h * l * hd
+    bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, kv_node, anc, q), flops,
+                    "bfloat16")
+    f32 = timed["float32"]
+    f32_lib = min(sdpa_yardsticks(torch, *f32[:3], mask))
     results["tree_verify_attention"] = dict(
         source="src/repro_torch/kernels/csrc/tree_verify_attention.cu",
         replaces="src/repro/kernels/block_attention.py:210",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=min(repeat_ms, gqa_ms),
-        extra=f"fp32 kernel {fp32_ms:.4f} ms; SDPA repeated K/V "
-              f"{repeat_ms:.4f} ms, enable_gqa {gqa_ms:.4f} ms",
+        fp32=fp32_row(fp32_ms, nbytes(*f32, f32[0]), flops, f32_lib,
+                      "SDPA with the tree mask, the faster of repeated K/V "
+                      "and enable_gqa"),
+        extra=f"SDPA repeated K/V {repeat_ms:.4f} ms, enable_gqa "
+              f"{gqa_ms:.4f} ms",
         shape="bf16 q (8,8,32,128) default_tree(8,2), k/v (8,256,8,128)")
 
 
@@ -658,14 +733,18 @@ def check_paged_attention(torch, gen, results):
     mapped = int(torch.unique(tbl).numel())
     page_bytes = kp[0].numel() * kp.element_size()
     bq, kq, hq, hdq = q.shape
+    flops = 4 * bq * kq * hq * tbl.shape[1] * kp.shape[1] * hdq
     bms, by = bound(2 * mapped * page_bytes + nbytes(q, tbl, q_pos, kv_pos, q),
-                    4 * bq * kq * hq * tbl.shape[1] * kp.shape[1] * hdq,
-                    "bfloat16")
+                    flops, "bfloat16")
+    q32, kp32 = timed["float32"][0], timed["float32"][1]
+    f32_bytes = (2 * mapped * kp32[0].numel() * kp32.element_size()
+                 + nbytes(q32, tbl, q_pos, kv_pos, q32))
     results["paged_verify_attention"] = dict(
         source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:87",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None, extra=f"fp32 kernel {fp32_ms:.4f} ms",
+        bound_by=by, library_ms=None,
+        fp32=fp32_row(fp32_ms, f32_bytes, flops),
         shape=f"bf16 q (8,8,32,128), {mapped} mapped pages of (16,8,128)")
 
 
@@ -991,6 +1070,7 @@ def check_fused_verify(torch, gen, results):
     two_ms = time_ms(torch, lambda: argmax_then_scan(torch, logits, props))
     fp32_ms = time_ms(torch, lambda: fused_verify_cuda(*timed["float32"],
                                                        criterion="exact"))
+    two32_ms = time_ms(torch, lambda: argmax_then_scan(torch, *timed["float32"]))
     bms, by = bound(nbytes(logits, props) + b * k * 9 + b * 8, b * k * vp,
                     "bfloat16")
     results["fused_verify"] = dict(
@@ -998,8 +1078,11 @@ def check_fused_verify(torch, gen, results):
         replaces="src/repro/kernels/fused_verify.py:109",
         max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None,
-        extra=f"fp32 kernel {fp32_ms:.4f} ms; two calls (argmax, then the "
-              f"compare and scan) {two_ms:.4f} ms",
+        fp32=fp32_row(fp32_ms, nbytes(*timed["float32"]) + b * k * 9 + b * 8,
+                      b * k * vp, two32_ms,
+                      "two calls: torch.argmax, then the compare and scan"),
+        extra=f"two calls (argmax, then the compare and scan) "
+              f"{two_ms:.4f} ms",
         shape="bf16 logits (8,8,49408), exact")
 
 
@@ -1087,6 +1170,10 @@ def check_fused_heads(torch, gen, results):
     # the bf16 product (cuBLAS) writes the logits, then torch.topk reads them
     two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w)[:, :vocab], 1))
     rwkv_two_ms = time_ms(torch, lambda: torch.topk(torch.mm(ro, rw), 1))
+    o32, w32 = timed["float32"]
+    # fp32 with TF32 off (main sets it): the CUDA-core product, then topk
+    two32_ms = time_ms(torch, lambda: torch.topk(torch.mm(o32, w32)[:, :vocab],
+                                                 1))
     rbms, _ = bound(nbytes(ro, rw) + n * 8, 2.0 * n * 2048 * 65536, "bfloat16")
     log(f"  fused_heads two calls (torch.mm in bf16, then torch.topk; not one "
         f"call, so not library_ms): granite {two_ms:.4f} ms, rwkv6 "
@@ -1097,7 +1184,10 @@ def check_fused_heads(torch, gen, results):
         replaces="src/repro/kernels/fused_heads.py:63",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None,
-        extra=f"fp32 kernel {fp32_ms:.4f} ms; rwkv6's (2048,65536) row-major "
+        fp32=fp32_row(fp32_ms, nbytes(o32, w32) + n * 8, 2.0 * n * d * vp,
+                      two32_ms, "two calls: torch.mm in fp32 (TF32 off), "
+                                "then torch.topk"),
+        extra=f"rwkv6's (2048,65536) row-major "
               f"lm_head: bf16 {rwkv_ms:.4f} ms (bound {rbms:.4f}), fp32 "
               f"{rwkv_fp32_ms:.4f} ms; two calls (mm + topk) {two_ms:.4f} / "
               f"{rwkv_two_ms:.4f} ms",
@@ -1241,6 +1331,7 @@ def check_rwkv6_scan(torch, gen, results):
 
     # time at the rwkv6 serve path's prefill: bf16, B=8, S=512, H=32, D=64
     fp32_ms = time_ms(torch, lambda: rwkv6_scan_cuda(*timed["float32"]))
+    f32_bytes = nbytes(*timed["float32"])
     timed = timed["bfloat16"]
     kernel_ms = time_ms(torch, lambda: rwkv6_scan_cuda(*timed))
     plain_ms = time_ms(torch, lambda: rwkv6_scan_plain(*timed), runs=5,
@@ -1253,7 +1344,8 @@ def check_rwkv6_scan(torch, gen, results):
         source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:100",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None, extra=f"fp32 kernel {fp32_ms:.4f} ms",
+        bound_by=by, library_ms=None,
+        fp32=fp32_row(fp32_ms, f32_bytes + out_bytes, 4.0 * b * s * h * d * d),
         shape="bf16 r/k/v (8,512,32,64), logw f32, u (32,64)")
 
 
@@ -1353,6 +1445,7 @@ def phase_decode(torch, results):
     import numpy as np
 
     from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import ModelBundle
     from repro_torch.core import decode as D
     from repro_torch.data.synthetic import MarkovLM
     from repro_torch.kernels import _build
@@ -1526,10 +1619,25 @@ def phase_decode(torch, results):
                 f"tokens == greedy tokens in {8 - len(diverged)}/8 rows")
 
     # ---- phase 5c: the fp32 engine ------------------------------------------
-    phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks)
+    greedy_rows = phase_engine_fp32(torch, M, D, params, cfg, dec, prompts,
+                                    g_toks)
 
     # ---- phase 14: kv_chunk on the fp32 weights ----------------------------
     phase_kv_chunk(torch, params, cfg, dec, batch, g_toks, prompt_len)
+
+    # ---- phase 15a, 15b, 15d: draft_model on the fp32 weights --------------
+    t15 = time.perf_counter()
+    phase_draft_self(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len)
+    bundle = phase_draft_small(torch, M, D, params, cfg, dec, batch, g_toks,
+                               prompt_len)
+    phase_draft_engine(torch, D, params, cfg, dec, prompts, greedy_rows,
+                       bundle, "15d draft_model + exact, paged")
+    del bundle
+    phase_draft_engine(torch, D, params, cfg, dec, prompts, greedy_rows,
+                       ModelBundle(params, cfg),
+                       "15d self-draft, paged, steps_per_sync 4",
+                       steps_per_sync=4, alone=True)
+    log(f"[draft] 15a, 15b fp32, 15d {time.perf_counter() - t15:.1f}s")
 
     # ---- phase 6: bf16 serve ------------------------------------------------
     del state
@@ -1613,6 +1721,9 @@ def phase_decode(torch, results):
 
     # ---- phase 6c: the bf16 engine and the HTTP server ---------------------
     phase_engine_bf16(torch, params, scfg, sdec, prompts, static_tps)
+
+    # ---- phase 15b bf16: draft_model on the cast weights -------------------
+    phase_draft_bf16(torch, D, params, scfg, sdec, sbatch, static_tps)
     return {"prompts": prompts.cpu(), "greedy": g_toks.cpu(),
             "khat": b_stats["mean_accepted"], "iterations": b_stats["iterations"]}
 
@@ -1779,7 +1890,8 @@ def compare_engine(torch, after, done, greedy_rows, plan, label):
 def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks):
     """Phase 5c: the fp32 engine, twice — unified on the managed page pool
     (page size 16, one iteration per host read), then disaggregated
-    (prefill batches of 4) on the dense slab with windows of 4."""
+    (prefill batches of 4) on the dense slab with windows of 4.  Returns
+    greedy's row for each (prompt row, prompt length) of the plan."""
     from repro_torch import serving
     from repro_torch.kernels import _build
 
@@ -1831,6 +1943,7 @@ def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks):
     for name in ("verify_attention", "paged_verify_attention",
                  "tree_verify_attention", "fused_verify", "fused_heads"):
         check(seen[name] > 0, f"engine: {name} never launched")
+    return greedy_rows
 
 
 def phase_engine_bf16(torch, params, cfg, dec, prompts, static_tps):
@@ -1938,33 +2051,43 @@ def phase_engine_bf16(torch, params, cfg, dec, prompts, static_tps):
 
 
 def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
-                      seq2seq=False):
+                      seq2seq=False, policy=None, aux_params=None):
     """One bf16 BPD iteration under torch.profiler: host wall time against
-    the kernels' summed device time (the device's idle share).  ``seq2seq``:
-    an encoder-decoder, ``batch`` holding the sources."""
+    the kernels' summed device time (the device's idle share), and the
+    hand-written kernels' launches.  ``seq2seq``: an encoder-decoder,
+    ``batch`` holding the sources; ``policy`` / ``aux_params``: a bound
+    policy and its session's auxiliary parameters (draft_model)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
 
     if seq2seq:
         state, be = D.bpd_prefill_seq2seq(params, cfg, dec, batch)
         prefix = 0
     else:
         state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
-                                                max_new=dec.max_new_tokens)
+                                                max_new=dec.max_new_tokens,
+                                                policy=policy,
+                                                aux_params=aux_params)
         be = D.causal_lm_backend(cfg)
 
     def step(s):
         with torch.no_grad():
             return D.bpd_iteration(params, cfg, dec, be, s,
                                    prefix_offset=prefix,
-                                   max_new=dec.max_new_tokens)
+                                   max_new=dec.max_new_tokens, policy=policy,
+                                   aux_params=aux_params)
 
     state = step(state)                           # warm-up
     torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
     t0 = time.perf_counter()
     state = step(state)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {n: c - before[n] for n, c in _build.LAUNCHES.items()
+                if c != before[n]}
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1992,7 +2115,8 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
     log(f"[profile] one bf16 BPD iteration ({label}): wall {wall_ms:.2f} ms, "
         f"{len(kernels)} kernels busy {busy_ms:.2f} ms, of which attention "
         f"kernels {attn_ms:.3f} ms, fused_heads {heads_ms:.3f} ms; device "
-        f"idle share {1 - busy_ms / wall_ms:.3f}")
+        f"idle share {1 - busy_ms / wall_ms:.3f}; hand-written kernels "
+        f"launched {launched}")
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:8.3f} ms  {name[:90]}")
 
@@ -2386,6 +2510,7 @@ def phase_fixture(torch):
                         f"fixture {policy} vs exact")
     log(f"[fixture] lossless policies emit exact's tokens; "
         f"{time.perf_counter() - t0:.1f}s")
+    return [r["tokens"] for r in decoded["exact"]]
 
 
 # ---------------------------------------------------------------------------
@@ -2724,6 +2849,346 @@ def phase_kv_chunk(torch, params, cfg, dec, batch, g_toks, prompt_len):
         f"{b_stats['iterations']} iterations; tokens == phase 4's greedy in "
         f"{8 - len(diverged)}/8 rows (others at near-ties); "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the draft_model policy (a second model drafts the block)
+# ---------------------------------------------------------------------------
+
+
+DRAFT_SEED = 7
+DRAFT_FIXTURE = ROOT / "tests" / "data" / "draft_model"
+DRAFT_FIXTURE_ROWS = {"draft_model": "gold", "ss_draft_model": "ss"}
+
+
+def small_draft(torch, cfg, dtype="float32"):
+    """15b's draft: granite-3-8b's smoke geometry (2 layers, d 256, 8 / 2
+    heads of 32) at the full vocabulary, no heads, random from seed 7."""
+    from repro_torch.config import get_config
+    from repro_torch.core import ModelBundle
+    from repro_torch.models import model as M
+
+    dcfg = get_config("granite-3-8b", smoke=True).replace(
+        dtype=dtype, bpd_enabled=False, vocab_size=cfg.vocab_size)
+    return ModelBundle(M.init(dcfg, seed=DRAFT_SEED, device="cuda"), dcfg)
+
+
+def draft_launches(cfg, dcfg, iters, steps, *, paged=False):
+    """The kernels a draft_model decode of ``iters`` iterations launches:
+    the verifier's attention once per layer and iteration, the draft's
+    ``verify_attention`` once per draft layer and sequential draft forward
+    (``steps`` a drafting, every iteration and the first draft after the
+    prefill), fused_verify once per iteration, fused_heads never (no head
+    drafts)."""
+    want = dict(verify_attention=dcfg.num_layers * steps * (iters + 1),
+                fused_verify=iters)
+    primary = "paged_verify_attention" if paged else "verify_attention"
+    want[primary] = want.get(primary, 0) + cfg.num_layers * iters
+    return want
+
+
+def check_launches(launches, want, label):
+    full = {name: 0 for name in launches}
+    full.update(want)
+    check(launches == full, f"{label}: launches {launches}, expected {full}")
+
+
+def phase_draft_self(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len):
+    """15a: granite-3-8b drafting for itself at full width, fp32 (the
+    reference's test_good_draft_model_cuts_iterations at full size): every
+    block verifies whole, so 64 new tokens take 8 iterations, except where
+    a near-tie of p_1 lets the kq-1/2 draft forwards and the kq-8 verify
+    forward pick different tokens (reported: the split-KV body is bit for
+    bit the same at any kq, the cuBLAS products need not be).  Iterations
+    are stepped here to see each row's k̂."""
+    from repro_torch import serving
+    from repro_torch.core import ModelBundle
+    from repro_torch.kernels import _build
+
+    max_new, block_k = dec.max_new_tokens, dec.block_k
+    sess = serving.DecodeSession(params, cfg, dec, policy="draft_model",
+                                 bundles={"draft": ModelBundle(params, cfg)})
+    steps = sess.policy.drafter.draft_steps_per_iter(block_k)
+    be = D.causal_lm_backend(cfg)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state, prefix = D.bpd_prefill_causal_lm(
+            params, cfg, dec, batch, max_new=max_new, policy=sess.policy,
+            aux_params=sess.aux_params)
+        splits = []
+        while not bool(state.finished.all()) and state.iters < max_new:
+            before = state.text_len.clone()
+            live = ~state.finished
+            state = D.bpd_iteration(params, cfg, dec, be, state,
+                                    prefix_offset=prefix, max_new=max_new,
+                                    policy=sess.policy,
+                                    aux_params=sess.aux_params)
+            khat = state.text_len - before
+            room = torch.clamp(max_new - (before - prompt_len), max=block_k)
+            for r in torch.nonzero(live & (khat < room)).flatten().tolist():
+                splits.append((r, int(state.text_len[r])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    iters = state.iters
+    khat = float(state.generated.sum()) / iters / state.generated.shape[0]
+    log(f"[draft] 15a self-draft fp32: k̂ {khat:.4f} in {iters} iterations "
+        f"(draft_steps_per_iter {steps}), {wall:.2f}s, launches {launches}")
+    check(steps == block_k - 1, f"15a: {steps} draft forwards an iteration")
+    check_launches(launches, draft_launches(cfg, cfg, iters, steps), "15a")
+    after = causal_logits_after(torch, M, params, cfg)
+    for r, pos in splits:
+        gap = top2_gap(torch, after(r, g_toks[r, :pos]))
+        log(f"    row {r}: block split before position {pos} (new token "
+            f"{pos - prompt_len}), greedy top-2 gap {gap:.3g} of max|logit|")
+        check(gap < TIE_MARGIN, f"15a row {r}: the self-draft's block split "
+                                f"at {pos} with no near-tie ({gap})")
+    check(iters == -(-max_new // block_k) or splits,
+          f"15a: {iters} iterations with no split block")
+    diverged = compare_rows(torch, after, state.tokens, g_toks,
+                            state.text_len, prompt_len)
+    log(f"[draft] 15a: tokens == greedy tokens in {8 - len(diverged)}/8 rows "
+        f"(others at near-ties); {len(splits)} blocks split at near-ties")
+
+
+def phase_draft_small(torch, M, D, params, cfg, dec, batch, g_toks,
+                      prompt_len):
+    """15b fp32: the small random draft (``small_draft``) at granite's full
+    width: lossless against phase 4's greedy, k̂ about 1, launches exact.
+    Returns the draft bundle (15d serves with it)."""
+    from repro_torch import serving
+    from repro_torch.kernels import _build
+
+    bundle = small_draft(torch, cfg)
+    sess = serving.DecodeSession(params, cfg, dec, policy="draft_model",
+                                 bundles={"draft": bundle})
+    steps = sess.policy.drafter.draft_steps_per_iter(dec.block_k)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    toks, stats = sess.decode(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"[draft] 15b small draft fp32 ({bundle.cfg.num_layers} layers, d "
+        f"{bundle.cfg.d_model}, vocab {bundle.cfg.vocab_size}): k̂ "
+        f"{stats['mean_accepted']:.4f} in {stats['iterations']} iterations, "
+        f"{wall:.2f}s, launches {launches}")
+    check_launches(launches, draft_launches(cfg, bundle.cfg,
+                                            stats["iterations"], steps),
+                   "15b")
+    after = causal_logits_after(torch, M, params, cfg)
+    diverged = compare_rows(torch, after, toks, g_toks, stats["text_len"],
+                            prompt_len)
+    log(f"[draft] 15b: tokens == greedy tokens in {8 - len(diverged)}/8 rows "
+        f"(others at near-ties)")
+    return bundle
+
+
+def phase_draft_bf16(torch, D, params, cfg, dec, batch, static_tps):
+    """15b bf16: the small draft cast for bf16 beside the cast granite,
+    through DecodeSession: tokens/s beside phase 6's exact serve, k̂,
+    iterations, and one iteration profiled."""
+    from repro_torch import serving
+    from repro_torch.kernels import _build
+
+    bundle = small_draft(torch, cfg, dtype="bfloat16")
+    sess = serving.DecodeSession(params, cfg, dec, policy="draft_model",
+                                 bundles={"draft": bundle})
+    sess.decode(batch)                                       # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    toks, stats = sess.decode(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = sess.policy.drafter.draft_steps_per_iter(dec.block_k)
+    check_launches(launches, draft_launches(cfg, bundle.cfg,
+                                            stats["iterations"], steps),
+                   "15b bf16")
+    tps = int(stats["generated"].sum()) / wall
+    log(f"[draft] 15b bf16: {tps:.1f} tokens/s beside {static_tps:.1f} of "
+        f"phase 6's exact serve; k̂ {stats['mean_accepted']:.4f} in "
+        f"{stats['iterations']} iterations, wall {wall * 1e3:.1f} ms; "
+        f"launches {launches}")
+    profile_iteration(torch, D, params, cfg, dec, batch,
+                      "draft_model, small draft", policy=sess.policy,
+                      aux_params=sess.aux_params)
+
+
+def phase_draft_engine(torch, D, params, cfg, dec, prompts, greedy_rows,
+                       bundle, label, *, steps_per_sync=1, alone=False):
+    """15d: the fp32 engine on the managed page pool with a draft_model and
+    an exact group of 4 slots each drafting with ``bundle``: 5c's 16
+    requests (the topk_tree ones in the draft_model group), each greedy's
+    under the near-tie rule, every serving function built once, launches
+    exactly as the groups' forwards and prefills imply.
+
+    With ``alone`` (a self-draft, in windows of ``steps_per_sync``
+    iterations, so a row that finishes mid-window re-drafts in place while
+    frozen): a self-draft accepts whole blocks only while each row's draft
+    cache holds its committed stream through the scatter on attach, the
+    reset on evict and the frozen re-drafts, so each draft_model request's
+    tokens and invocations must equal a run-to-completion
+    ``DecodeSession.decode`` of that request alone with the same draft,
+    except where greedy's continuation holds a near-tie (reported)."""
+    from repro_torch import serving
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+
+    plan = [p[:5] + ({"topk_tree": "draft_model"}.get(p[5], p[5]),)
+            for p in engine_plan()]
+    host = prompts.cpu().numpy()
+    reqs = [serving.Request(rid=rid, prompt=host[row, :plen], max_new=budget,
+                            arrival=t, policy=policy)
+            for rid, row, plen, budget, t, policy in plan]
+    bundles = {"draft": bundle}
+    edec = dec.replace(page_size=16, cache_backend="paged")
+    ecfg = serving.EngineConfig(num_slots=8, max_prompt_len=64,
+                                max_new_cap=64, steps_per_sync=steps_per_sync)
+    engine = serving.ContinuousBatchingEngine(
+        params, cfg, edec, ecfg, policies={"draft_model": 4, "exact": 4},
+        bundles=bundles)
+    _build.reset_launches()
+    done, wall, pulls, _ = drive_engine(torch, serving, engine, reqs, label)
+    launches = dict(_build.LAUNCHES)
+    g = {grp.name: grp for grp in engine.groups}
+    steps = engine.session.bound_policy("draft_model").drafter \
+        .draft_steps_per_iter(dec.block_k)
+    drafts = g["draft_model"].num_forwards + g["draft_model"].num_prefills
+    want = dict(
+        paged_verify_attention=cfg.num_layers * sum(
+            grp.num_forwards for grp in engine.groups),
+        verify_attention=bundle.cfg.num_layers * steps * drafts,
+        fused_verify=sum(grp.num_forwards for grp in engine.groups),
+        fused_heads=g["exact"].num_forwards + g["exact"].num_prefills)
+    check_launches(launches, want, label)
+    log(f"[draft] {label}: launches {launches} (exact)")
+    counts = engine.compile_counts()
+    check(counts and all(v == 1 for v in counts.values()),
+          f"{label}: builds {counts}")
+    after = causal_logits_after(torch, M, params, cfg)
+    compare_engine(torch, after, done, greedy_rows, plan, label)
+    if not alone:
+        return
+
+    sess = serving.DecodeSession(params, cfg, dec, policy="draft_model",
+                                 bundles=bundles)
+    by_rid = {f.rid: f for f in done}
+    t0 = time.perf_counter()
+    split, khat = [], []
+    for rid, row, plen, budget, _, policy in plan:
+        if policy != "draft_model":
+            continue
+        f = by_rid[rid]
+        toks, stats = sess.decode(
+            {"tokens": prompts[row:row + 1, :plen].contiguous()},
+            max_new_rows=torch.tensor([budget], device="cuda"))
+        want = (toks[0, plen:plen + budget].tolist(), stats["invocations"])
+        khat.append(f.generated / max(f.invocations - 1, 1))
+        if (f.tokens.tolist(), f.invocations) == want:
+            continue
+        g_row = greedy_rows[(row, plen)]
+        gap = min(top2_gap(torch, after(rid, g_row[:plen + i]))
+                  for i in range(budget))
+        log(f"    request {rid}: {f.invocations} invocations in the engine, "
+            f"{want[1]} alone; tokens equal {f.tokens.tolist() == want[0]}; "
+            f"greedy's least top-2 gap over its {budget} tokens {gap:.3g}")
+        check(gap < TIE_MARGIN, f"{label}: request {rid} differs from its "
+                                f"run-to-completion decode with no near-tie")
+        split.append(rid)
+    n = len(khat)
+    check(sum(khat) / n > 2.0, f"{label}: the self-draft's k̂ {khat}")
+    log(f"[draft] {label}: {n - len(split)}/{n} draft_model requests equal "
+        f"their run-to-completion decode alone in tokens and invocations "
+        f"(others at reported near-ties); k̂ per request "
+        f"{[round(k, 4) for k in khat]}; {time.perf_counter() - t0:.1f}s")
+
+
+def phase_draft_fixture(torch, exact_rows):
+    """15c: the pinned distilled students (tests/data/draft_model) drafting
+    for the trained sweep teacher, fp32, each source row alone as the
+    reference decoded it: rows equal to reference.json under the near-tie
+    rule (equal tokens with equal counts), the tokens 10c's exact tokens,
+    draft_steps_per_iter 7 and draft_steps_saved 1, launches exact."""
+    import numpy as np
+
+    from repro_torch import bridge, serving
+    from repro_torch.config import DecodeConfig
+    from repro_torch.core import ModelBundle
+    from repro_torch.kernels import _build
+    from repro_torch.models import seq2seq as S
+
+    cfg = fixture_config(FIXTURE)
+    params = bridge.load_checkpoint(str(FIXTURE / "checkpoint"), cfg,
+                                    device="cuda")
+    dcfg = fixture_config(DRAFT_FIXTURE)
+    with open(DRAFT_FIXTURE / "reference.json") as f:
+        ref = json.load(f)
+    with open(FIXTURE / "reference.json") as f:
+        exact_khat = json.load(f)["exact"]["mean_khat"]
+    src = torch.as_tensor(np.load(FIXTURE / "src.npy"), device="cuda")
+    n_rows, se = src.shape
+    after = mt_logits_after(torch, S, params, cfg, src)
+    dec = DecodeConfig(max_new_tokens=se, block_k=8, policy="draft_model")
+    t0 = time.perf_counter()
+    for row, student in DRAFT_FIXTURE_ROWS.items():
+        dparams = bridge.load_checkpoint(str(DRAFT_FIXTURE / student), dcfg,
+                                         device="cuda")
+        sess = serving.DecodeSession(params, cfg, dec, bundles={
+            "draft": ModelBundle(dparams, dcfg)})
+        steps = sess.policy.drafter.draft_steps_per_iter(8)
+        check((float(steps), float(8 - steps)) == (7.0, 1.0),
+              f"15c {row}: draft_steps_per_iter {steps}")
+        rows = []
+        for r in range(n_rows):
+            _build.reset_launches()
+            toks, stats = sess.decode_seq2seq({"src": src[r:r + 1]})
+            launches = dict(_build.LAUNCHES)
+            iters = stats["iterations"]
+            want = draft_launches(cfg, dcfg, iters, steps)
+            want["verify_attention"] += cfg.num_layers * iters   # cross attention
+            check_launches(launches, want, f"15c {row} row {r}")
+            rows.append({"tokens": toks[0, :se].tolist(), "iterations": iters,
+                         "generated": int(stats["generated"][0])})
+        equal = match_rows(torch, after, rows, ref[row]["rows"], f"15c {row}")
+        match_reference(torch, after, [r["tokens"] for r in rows], exact_rows,
+                        f"15c {row} vs exact")
+        khat = float(np.mean([r["generated"] / max(r["iterations"], 1)
+                              for r in rows]))
+        log(f"[draft] 15c {row} ({student} student): k̂ {khat:.4f} "
+            f"(reference.json {ref[row]['mean_khat']:.4f}, exact "
+            f"{exact_khat:.4f}); {equal}/{n_rows} rows equal to the "
+            f"reference's (others at reported near-ties); draft steps per "
+            f"iteration {steps}, saved {8 - steps}; tokens == 10c's exact")
+    log(f"[draft] 15c {time.perf_counter() - t0:.1f}s")
+
+
+def phase_draft_launcher(torch):
+    """15e: ``repro_torch.launch.serve --arch granite-3-8b --policy
+    draft_model`` with the smoke primary and the smoke draft, as the
+    reference's launcher serves them, then ``--engine --policies
+    exact=2,draft_model=2``: both run to completion and report k̂."""
+    from repro_torch.launch import serve
+
+    base = ["--arch", "granite-3-8b", "--batch", "4", "--prompt-len", "16",
+            "--max-new", "32"]
+    out = serve.main(base + ["--policy", "draft_model"])
+    stats = out["stats"]
+    check(bool((stats["generated"] == 32).all()), "15e: short rows")
+    log(f"[draft] 15e launcher static: k̂ {stats['mean_accepted']:.4f} in "
+        f"{stats['iterations']} iterations, {out['wall_s'] * 1e3:.1f} ms")
+    out = serve.main(base + ["--engine", "--policies",
+                             "exact=2,draft_model=2"])
+    fin = out["finished"]
+    check(len(fin) == 8 and all(f.generated > 0 for f in fin),
+          "15e: the engine did not serve every request")
+    khat = {p: sum(f.generated for f in fin if f.policy == p)
+            / max(sum(f.invocations - 1 for f in fin if f.policy == p), 1)
+            for p in ("exact", "draft_model")}
+    log(f"[draft] 15e launcher --engine exact=2,draft_model=2: {len(fin)} "
+        f"requests, k̂ per group { {p: round(k, 4) for p, k in khat.items()} }")
 
 
 # ---------------------------------------------------------------------------
@@ -3148,6 +3613,13 @@ def main() -> int:
         log(f"  {name} @ {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
+        f32 = r["fp32"]
+        yard = ("none" if f32["yardstick_ms"] is None else
+                f"{f32['yardstick_ms']:.4f} ms ({f32['yardstick']}); "
+                f"yardstick / kernel {f32['yardstick_ms'] / f32['ms']:.2f}")
+        log(f"    fp32: kernel {f32['ms']:.4f} ms, bound "
+            f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}, "
+            f"{f32['ms'] / f32['bound_ms']:.1f}x), yardstick {yard}")
 
     phase4 = phase_decode(torch, results)
     gc.collect()                                  # granite's weights go first
@@ -3158,7 +3630,9 @@ def main() -> int:
     gc.collect()                                  # then rwkv6's
     torch.cuda.empty_cache()
     phase_mt(torch, results)
-    phase_fixture(torch)
+    exact_rows = phase_fixture(torch)
+    phase_draft_fixture(torch, exact_rows)
+    phase_draft_launcher(torch)
     phase_quickstart(torch, card)
     phase_locality(torch, card)
     gc.collect()                                  # every earlier phase's

@@ -26,6 +26,12 @@ bounds the prefill's attention to (S, kv_chunk) scores a layer, as the
 reference's long-prefill path.  The verify blocks stay on the verify
 kernels: their (k, L) scores need no bound.  A tree-drafting policy with
 ``kv_chunk`` raises, as the reference's does.
+
+``bpd_decode`` and ``bpd_decode_seq2seq`` run through a
+``serving.DecodeSession``, as the reference's do: ``bundles=`` (auxiliary
+``core.bundle.ModelBundle``s, e.g. the ``draft_model`` policy's draft) are
+bound into the policy there, and their parameters reach the loop as
+``aux_params``, which the drafter reads from ``DraftInputs.aux``.
 """
 from __future__ import annotations
 
@@ -106,7 +112,12 @@ class BPDState(NamedTuple):
 
 
 def _freeze_rows(frozen, old, new):
-    """Keep the old policy-state rows where ``frozen`` is True."""
+    """Keep the old policy-state rows where ``frozen`` is True.  A tensor
+    the drafter wrote in place (``new is old``, the draft model's cache)
+    is its own to keep: ``DraftModelDrafter`` rewrites a frozen row's
+    entries with their own values."""
+    if new is old:
+        return new
     if isinstance(new, torch.Tensor):
         mask = frozen.reshape((-1,) + (1,) * (new.dim() - 1))
         return torch.where(mask, old, new)
@@ -118,12 +129,15 @@ def _freeze_rows(frozen, old, new):
 def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
                   backend: Backend, state: BPDState, *, prefix_offset: int,
                   max_new, active=None,
-                  policy: Optional[DecodePolicy] = None) -> BPDState:
+                  policy: Optional[DecodePolicy] = None,
+                  aux_params=None) -> BPDState:
     """One combined predict/verify/accept step.
 
     max_new : int or (B,) int32 — per-row generation budget.
     active  : optional (B,) bool — rows with ``active == False`` accept
               nothing and keep their state frozen, like finished rows.
+    aux_params : optional {bundle name: params} of the session's auxiliary
+              bundles, handed to the drafter as ``DraftInputs.aux``.
     The attention caches are written in place (see ``attn_cached``).
     """
     pol = policy_lib.resolve_policy(dec, policy)
@@ -190,15 +204,18 @@ def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
         # the accepted slot is the path's node at depth k̂-1 (root for k̂=0)
         slot = torch.gather(path_nodes, 1, slot.long()[:, None])[:, 0]
         slot = torch.clamp(slot, min=0)
-    # the committed token at the new text_len - 1 (the last accepted slot)
-    prev_token = torch.gather(commit_tokens, 1,
-                              torch.clamp(khat - 1, min=0).long()[:, None])[:, 0]
+    # the committed token at the new text_len - 1: the last accepted slot,
+    # or for a frozen row the token it already holds there
+    text_len = state.text_len + khat
+    prev_token = tokens.gather(
+        1, torch.clamp(text_len - 1, min=0).long()[:, None])[:, 0]
     draft_in = DraftInputs(
         hidden=hidden, p1_logits=p1_logits, khat=khat,
-        slot=slot, text_len=state.text_len + khat,
+        slot=slot, text_len=text_len,
         old_proposals=commit_tokens, prev_token=prev_token,
         head_topk=functools.partial(backend.head_topk, params),
-        head_logits=functools.partial(backend.head_logits, params))
+        head_logits=functools.partial(backend.head_logits, params),
+        aux=aux_params or {})
     proposals, draft_state = pol.drafter.draft(
         draft_in, state.policy_state.drafter)
     proposals = torch.where(frozen[:, None], state.proposals, proposals)
@@ -209,7 +226,7 @@ def bpd_iteration(params, cfg: ModelConfig, dec: DecodeConfig,
 
     return BPDState(
         tokens=tokens,
-        text_len=state.text_len + khat,
+        text_len=text_len,
         proposals=proposals,
         caches=caches,
         finished=finished,
@@ -246,7 +263,8 @@ def _tree_accepts(pol: DecodePolicy, topo, proposals, p1_logits):
 
 def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
                   p1_logits: torch.Tensor, text_len, block_k: int, state, *,
-                  prev_token, head_topk: Callable, head_logits: Callable):
+                  prev_token, head_topk: Callable, head_logits: Callable,
+                  aux_params=None):
     """Draft the FIRST block from a prefill's last position.
 
     ``hidden`` (B, d) and ``p1_logits`` (B, Vp) at the last context
@@ -256,7 +274,8 @@ def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
     lengths (the serving engine's padded admission prefill);
     ``prev_token`` (B,) the committed token at ``text_len - 1`` (the last
     prompt token; BOS for seq2seq).  ``head_topk`` / ``head_logits`` are
-    the ``Backend``'s with the params bound.
+    the ``Backend``'s with the params bound; ``aux_params`` the auxiliary
+    bundles' parameters (model-backed drafters).
     """
     b = hidden.shape[0]
     dev = hidden.device
@@ -267,7 +286,7 @@ def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
         text_len=torch.as_tensor(text_len, dtype=I32, device=dev).expand(b),
         old_proposals=torch.zeros((b, block_k), dtype=I32, device=dev),
         prev_token=prev_token.to(I32),
-        head_topk=head_topk, head_logits=head_logits)
+        head_topk=head_topk, head_logits=head_logits, aux=aux_params or {})
     proposals, new_state = pol.drafter.draft(din, state)
     return proposals.to(I32), new_state
 
@@ -293,16 +312,17 @@ def decode_stats(final) -> Dict:
 @torch.no_grad()
 def prefill_and_draft(params, cfg: ModelConfig, dec: DecodeConfig,
                       pol: DecodePolicy, batch: Dict, caches, plens,
-                      block_k: int, *, kv_chunk: int = 0):
+                      block_k: int, *, kv_chunk: int = 0, aux_params=None):
     """Prefill ``caches`` from ``batch["tokens"]`` (B, S) in one forward and
     draft each row's first block from its last real position,
     ``prefix + plens - 1``: ``plens`` is an int (every row holds S real
     tokens) or a (B,) int32 tensor (rows padded past their lengths, as the
     serving engine's admission prefill pads them; padded positions write
     K/V that stays masked until decode overwrites it).  The policy state
-    is fresh, built from ``batch``.  ``kv_chunk`` > 0 runs the prefill's
-    attention in chunks of that many keys.  Returns (caches, proposals
-    (B, k), policy state)."""
+    is fresh, built from ``batch`` (a model-backed drafter prefills its own
+    cache on ``batch["tokens"]`` with its parameters from ``aux_params``).
+    ``kv_chunk`` > 0 runs the prefill's attention in chunks of that many
+    keys.  Returns (caches, proposals (B, k), policy state)."""
     if kv_chunk and pol.drafter.tree_topology(block_k) is not None:
         raise ValueError(
             "tree verification is incompatible with kv_chunk, as in the "
@@ -325,19 +345,21 @@ def prefill_and_draft(params, cfg: ModelConfig, dec: DecodeConfig,
         last = hidden[rows, (prefix + plens - 1).long()]
         last_tok = prompt[rows, torch.clamp(plens - 1, min=0).long()]
     be = causal_lm_backend(cfg)
-    ps = pol.init_state(cfg, dec, batch, b)
+    ps = pol.init_state(cfg, dec, batch, b, aux=aux_params or {})
     proposals, dstate = initial_draft(
         pol, last, be.p1_logits(params, last), plens, block_k,
         ps.drafter, prev_token=last_tok,
         head_topk=functools.partial(be.head_topk, params),
-        head_logits=functools.partial(be.head_logits, params))
+        head_logits=functools.partial(be.head_logits, params),
+        aux_params=aux_params)
     return caches, proposals, ps._replace(drafter=dstate)
 
 
 @torch.no_grad()
 def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
                           batch: Dict, *, max_new: int, kv_chunk: int = 0,
-                          policy: Optional[DecodePolicy] = None):
+                          policy: Optional[DecodePolicy] = None,
+                          aux_params=None):
     """Prefill the caches from the prompt and produce the first proposals.
     The prompt's device is the decode's device."""
     pol = policy_lib.resolve_policy(dec, policy)
@@ -351,7 +373,8 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
                                    backend=cache_lib.get_backend(dec))
     caches, proposals, ps = prefill_and_draft(params, cfg, dec, pol, batch,
                                               caches, prompt_len, block_k,
-                                              kv_chunk=kv_chunk)
+                                              kv_chunk=kv_chunk,
+                                              aux_params=aux_params)
 
     buf = prompt_len + max_new + block_k
     tokens = torch.zeros((b, buf), dtype=I32, device=dev)
@@ -370,27 +393,77 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
 
 
 @torch.no_grad()
-def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
-               max_new_rows=None, policy=None,
-               kv_chunk: int = 0) -> Tuple[torch.Tensor, Dict]:
-    """Full blockwise parallel decode for the decoder-only model.
-
-    Returns (tokens (B, buf), stats).  max_new_rows: optional (B,) per-row
-    budgets <= dec.max_new_tokens (buffers stay sized by max_new_tokens).
-    kv_chunk: > 0 bounds the prefill's score matrix (see the module).
-    """
+def _bpd_decode_impl(params, cfg: ModelConfig, dec: DecodeConfig,
+                     batch: Dict, *, max_new_rows=None,
+                     policy: Optional[DecodePolicy] = None, kv_chunk: int = 0,
+                     aux_params=None) -> Tuple[torch.Tensor, Dict]:
+    """Prefill + the iteration loop for the decoder-only model, under a
+    resolved (and bound) policy; ``DecodeSession.decode`` runs it."""
     max_new = dec.max_new_tokens
     pol = policy_lib.resolve_policy(dec, policy)
     state, prefix = bpd_prefill_causal_lm(params, cfg, dec, batch,
                                           max_new=max_new, kv_chunk=kv_chunk,
-                                          policy=pol)
+                                          policy=pol, aux_params=aux_params)
     be = causal_lm_backend(cfg)
     budget = max_new if max_new_rows is None else torch.as_tensor(
         max_new_rows, dtype=I32, device=state.text_len.device)
     while not bool(state.finished.all()) and state.iters < max_new:
         state = bpd_iteration(params, cfg, dec, be, state,
-                              prefix_offset=prefix, max_new=budget, policy=pol)
+                              prefix_offset=prefix, max_new=budget, policy=pol,
+                              aux_params=aux_params)
     return state.tokens, decode_stats(state)
+
+
+def _session_for(params, cfg, dec, *, session=None, kv_chunk=0, policy=None,
+                 bundles=None):
+    """The ``DecodeSession`` a decode wrapper runs through: ``session``
+    when given (its parameters then stand in for ``params``; cfg, dec and
+    policy must match its own, and its bundles were fixed at
+    construction), else a new one on ``params``' device."""
+    if session is not None:
+        if session.cfg is not cfg and session.cfg != cfg:
+            raise ValueError(
+                f"session was built for model config {session.cfg.name!r}, "
+                f"called with {cfg.name!r}: build one DecodeSession per model")
+        if session.dec != dec:
+            raise ValueError(
+                f"session was built with {session.dec}, called with {dec}: "
+                f"a session's decode config is fixed at construction — "
+                f"build a new session (or call its methods directly)")
+        if bundles is not None:
+            raise ValueError(
+                "bundles are fixed at DecodeSession construction — build "
+                "the session with bundles= instead of passing them to the "
+                "decode wrapper")
+        if policy is not None and policy_lib.resolve_policy(dec, policy).bind(
+                session.bundles, cfg) != session.policy:
+            raise ValueError(
+                f"session was built with policy {session.policy.name!r}, "
+                f"called with {policy!r}: a session's decode policy is "
+                f"fixed at construction — build a new session")
+        return session
+    from repro_torch.serving.session import DecodeSession  # session <- decode
+
+    return DecodeSession(params, cfg, dec, kv_chunk=kv_chunk, policy=policy,
+                         bundles=bundles)
+
+
+def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
+               max_new_rows=None, policy=None, kv_chunk: int = 0,
+               bundles=None, session=None) -> Tuple[torch.Tensor, Dict]:
+    """Full blockwise parallel decode for the decoder-only model.
+
+    Returns (tokens (B, buf), stats).  max_new_rows: optional (B,) per-row
+    budgets <= dec.max_new_tokens (buffers stay sized by max_new_tokens).
+    kv_chunk: > 0 bounds the prefill's score matrix (see the module).
+    bundles: optional {name: core.bundle.ModelBundle} of auxiliary models
+    (``{"draft": ModelBundle(draft_params, draft_cfg)}`` for the
+    ``draft_model`` policy).  session: a ``DecodeSession`` to run through
+    (its parameters, policy and bundles; see ``_session_for``).
+    """
+    sess = _session_for(params, cfg, dec, session=session, kv_chunk=kv_chunk,
+                        policy=policy, bundles=bundles)
+    return sess.decode(batch, max_new_rows=max_new_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -401,10 +474,13 @@ def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
 @torch.no_grad()
 def bpd_prefill_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
                         batch: Dict, *,
-                        policy: Optional[DecodePolicy] = None):
+                        policy: Optional[DecodePolicy] = None,
+                        aux_params=None):
     """Encode ``batch["src"]`` (B, Se), prefill the decoder's caches with BOS
     (token 0, decoder position 0) and draft the first block.  Returns
-    (state, backend); the source's device is the decode's device."""
+    (state, backend); the source's device is the decode's device.  A draft
+    model drafts the output stream from BOS at position 0, with nothing of
+    the source to prefill."""
     pol = policy_lib.resolve_policy(dec, policy)
     block_k = dec.block_k or cfg.bpd_k
     max_new = dec.max_new_tokens
@@ -418,12 +494,13 @@ def bpd_prefill_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
     hidden, caches = seq2seq_lib.forward_hidden(params, cfg, bos, enc_kvs,
                                                 caches=caches)
     last = hidden[:, -1, :]
-    ps = pol.init_state(cfg, dec, batch, b)
+    ps = pol.init_state(cfg, dec, batch, b, aux=aux_params or {})
     # the committed token at text_len - 1 is BOS
     proposals, dstate = initial_draft(
         pol, last, be.p1_logits(params, last), 1, block_k, ps.drafter,
         prev_token=bos[:, 0], head_topk=functools.partial(be.head_topk, params),
-        head_logits=functools.partial(be.head_logits, params))
+        head_logits=functools.partial(be.head_logits, params),
+        aux_params=aux_params)
     state = BPDState(
         tokens=torch.zeros((b, 1 + max_new + block_k), dtype=I32, device=dev),
         text_len=torch.ones((b,), dtype=I32, device=dev),
@@ -438,18 +515,34 @@ def bpd_prefill_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
 
 
 @torch.no_grad()
-def bpd_decode_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
-                       batch: Dict, *, policy=None) -> Tuple[torch.Tensor, Dict]:
-    """batch: {"src": (B, Se) int32}.  The decoder stream is BOS + output;
-    returns (tokens (B, max_new + block_k) without BOS, stats).  Source
-    drafters (``input_copy``) draw their state from ``batch["src"]``."""
+def _bpd_decode_seq2seq_impl(params, cfg: ModelConfig, dec: DecodeConfig,
+                             batch: Dict, *,
+                             policy: Optional[DecodePolicy] = None,
+                             aux_params=None) -> Tuple[torch.Tensor, Dict]:
+    """Encode, prefill BOS and loop, under a resolved (and bound) policy;
+    ``DecodeSession.decode_seq2seq`` runs it."""
     pol = policy_lib.resolve_policy(dec, policy)
     max_new = dec.max_new_tokens
-    state, be = bpd_prefill_seq2seq(params, cfg, dec, batch, policy=pol)
+    state, be = bpd_prefill_seq2seq(params, cfg, dec, batch, policy=pol,
+                                    aux_params=aux_params)
     while not bool(state.finished.all()) and state.iters < max_new:
         state = bpd_iteration(params, cfg, dec, be, state, prefix_offset=0,
-                              max_new=max_new, policy=pol)
+                              max_new=max_new, policy=pol,
+                              aux_params=aux_params)
     return state.tokens[:, 1:], decode_stats(state)
+
+
+def bpd_decode_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
+                       batch: Dict, *, policy=None, bundles=None,
+                       session=None) -> Tuple[torch.Tensor, Dict]:
+    """batch: {"src": (B, Se) int32}.  The decoder stream is BOS + output;
+    returns (tokens (B, max_new + block_k) without BOS, stats).  Source
+    drafters (``input_copy``) draw their state from ``batch["src"]``; the
+    ``draft_model`` policy's causal draft LM (``bundles``, as in
+    ``bpd_decode``) runs over the output stream."""
+    sess = _session_for(params, cfg, dec, session=session, policy=policy,
+                        bundles=bundles)
+    return sess.decode_seq2seq(batch)
 
 
 def greedy_decode_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,

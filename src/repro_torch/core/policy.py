@@ -12,7 +12,9 @@
     ``InputCopyDrafter`` copies the source (seq2seq);
     ``TopKTreeDrafter`` drafts a candidate tree verified in one forward;
     ``LocalityDrafter`` interpolates an image's committed neighbours
-    (with ``LocalitySchedule``, the ``locality`` policy).
+    (with ``LocalitySchedule``, the ``locality`` policy);
+    ``core.draft.DraftModelDrafter`` runs a second, small model (an
+    auxiliary ``core.bundle.ModelBundle``, bound by ``DecodePolicy.bind``).
 
 Index convention (0-based within a block): ``proposals[:, i]`` proposes the
 token at ``text_len + i``, and slot 0 of a fresh draft is the model's own
@@ -20,9 +22,8 @@ verified greedy token (k̂ >= 1 is unconditional), so drafts change
 iteration counts, never tokens.
 
 Registered: ``exact``, ``topk``, ``distance``, ``adaptive``,
-``input_copy``, ``topk_tree`` and ``locality``.  The reference's
-``draft_model`` (a second model as the drafter) is not ported yet and
-raises ``NotImplementedError`` (ROADMAP.md §1 item 5).
+``input_copy``, ``topk_tree``, ``locality`` and ``draft_model``: every
+policy the reference registers.
 """
 from __future__ import annotations
 
@@ -62,6 +63,8 @@ class DraftInputs(NamedTuple):
     head's logits at the positions it is given (the reference's
     ``all_head_logits``) for a drafter that needs them: only the
     accepted slot's, (B, K, Vp), and only when the drafter calls it.
+    ``aux`` carries the session's auxiliary bundles' parameters to a drafter
+    that runs a model of its own (``core.draft.DraftModelDrafter``).
     """
 
     hidden: torch.Tensor        # (B, k, d) final hidden states at every slot
@@ -73,9 +76,11 @@ class DraftInputs(NamedTuple):
     head_topk: Callable         # (hidden (B, d), n, top_t=1) -> (B, n, top_t)
                                 # top-T ids of heads p_2..p_{n+1}
     prev_token: Optional[torch.Tensor] = None  # (B,) committed token at
-                                # text_len - 1
+                                # text_len - 1 (for a frozen row too)
     head_logits: Optional[Callable] = None  # (hidden (B, d)) -> (B, K, Vp)
                                 # logits of heads p_1..p_K
+    aux: Any = ()               # {bundle name: params} of the session's
+                                # auxiliary models (model-backed drafters)
 
 
 def _gather_slot(x: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -240,11 +245,24 @@ class AdaptiveSchedule(BlockSchedule):
 
 @dataclasses.dataclass(frozen=True)
 class Drafter:
-    """Produces the next block of proposals from the verify forward."""
+    """Produces the next block of proposals from the verify forward.
+
+    ``init_state`` sees the decode's batch (or the engine's zeroed
+    admission batch) and returns batch-leading tensors, or ``()``.  ``aux``
+    holds the auxiliary bundles' parameters where the caller has them
+    (decode prefill, engine admission); the engine's init and evict pass
+    ``()``, and a model-backed drafter makes state of the same shapes
+    either way.  ``bind`` attaches the static half of the session's
+    bundles before any decode; the default needs no second model."""
 
     def init_state(self, cfg, dec: DecodeConfig, batch: Optional[Dict],
-                   b: int) -> Any:
+                   b: int, aux: Any = ()) -> Any:
         return ()
+
+    def bind(self, bundles: Dict, cfg) -> "Drafter":
+        """bundles: {name: core.bundle.ModelBundle}; cfg: the PRIMARY
+        model's config (for the cross-model checks)."""
+        return self
 
     def tree_topology(self, block_k: int):
         """The static ``kernels.tree_mask.TreeTopology`` this drafter's
@@ -286,7 +304,7 @@ class InputCopyDrafter(Drafter):
 
     offset: int = 0
 
-    def init_state(self, cfg, dec, batch, b):
+    def init_state(self, cfg, dec, batch, b, aux=()):
         if batch is None or "src" not in batch:
             raise ValueError(
                 "InputCopyDrafter drafts from batch['src'] and is only "
@@ -395,7 +413,7 @@ class LocalityDrafter(Drafter):
     stride: int = 4
     window: int = 1
 
-    def init_state(self, cfg, dec, batch, b):
+    def init_state(self, cfg, dec, batch, b, aux=()):
         n = self.height * self.width
         k = dec.block_k or getattr(cfg, "bpd_k", 1)
         dev = batch["tokens"].device if batch and "tokens" in batch else None
@@ -488,14 +506,26 @@ class DecodePolicy:
     name: str = "custom"
 
     def init_state(self, cfg, dec: DecodeConfig, batch: Optional[Dict],
-                   b: int) -> PolicyState:
+                   b: int, aux: Any = ()) -> PolicyState:
         """Fresh per-row state for ``b`` rows.  ``batch`` is the decode's
         batch, or the serving engine's zeroed ``{"tokens", "src"}`` of its
-        admission geometry (the state's device and shapes come from it)."""
+        admission geometry (the state's device and shapes come from it);
+        ``aux`` the auxiliary bundles' parameters, where the caller has
+        them."""
         device = next(iter(batch.values())).device if batch else None
         return PolicyState(
-            drafter=self.drafter.init_state(cfg, dec, batch, b),
+            drafter=self.drafter.init_state(cfg, dec, batch, b, aux=aux),
             schedule=self.schedule.init_state(b, device))
+
+    def bind(self, bundles: Dict, cfg) -> "DecodePolicy":
+        """Attach the session's auxiliary ``ModelBundle``s (their static
+        half) to the drafter: a no-op for single-model policies, while a
+        model-backed drafter checks and absorbs its bundle here, so a
+        missing or incompatible draft model fails before any decode."""
+        drafter = self.drafter.bind(bundles or {}, cfg)
+        if drafter is self.drafter:
+            return self
+        return dataclasses.replace(self, drafter=drafter)
 
     @property
     def cache_key(self):
@@ -520,8 +550,6 @@ def policy_cache_key(obj):
 
 
 POLICY_BUILDERS: Dict[str, Callable[[DecodeConfig], DecodePolicy]] = {}
-# the reference's other registered policy -> its ROADMAP.md §1 item
-NOT_PORTED = {"draft_model": 5}
 
 
 def register_policy(name: str,
@@ -544,11 +572,6 @@ def resolve_policy(dec: DecodeConfig,
         return policy
     name = policy or dec.policy or dec.criterion
     builder = POLICY_BUILDERS.get(name)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"decode policy {name!r} is not ported yet (see ROADMAP.md, "
-            f"'Modules to port', item {NOT_PORTED[name]}); ported: "
-            f"{list_policies()}")
     if builder is None:
         raise ValueError(f"unknown decode policy {name!r}; "
                          f"registered: {list_policies()}")
@@ -603,3 +626,7 @@ def _locality_policy(dec: DecodeConfig) -> DecodePolicy:
 
 
 register_policy("locality", _locality_policy)
+
+# the model-backed drafter lives in core.draft (it pulls in the decode
+# backend); importing it registers "draft_model", as the reference does
+from repro_torch.core import draft as _draft  # noqa: E402,F401  (registration)

@@ -9,18 +9,26 @@ over HTTP (``repro.launch.serve`` on one card).
         --cache-backend paged [--prefill-slots 4] [--steps-per-sync 4]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --full-config --http [--port 8000 --max-queue 16] [--http-demo]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        --policy draft_model [--draft-arch granite-3-8b --draft-ckpt DIR]
 
 Without ``--full-config`` the registered smoke config runs in fp32, as the
 reference serves it; with it the full config runs in its own compute dtype.
 ``--device`` defaults to ``cuda`` (``--device cpu`` runs the plain versions
 of the kernels on the CPU).  Every registered decode policy runs
-(``--policy exact|topk|distance|adaptive|topk_tree|locality``, with
-``--top-k`` and ``--epsilon``; ``locality`` reads the token stream as an
+(``--policy exact|topk|distance|adaptive|topk_tree|locality|draft_model``,
+with ``--top-k`` and ``--epsilon``; ``locality`` reads the token stream as an
 ``--image-height`` × ``--image-width`` raster in the progressive-lattice
 order of stride ``--locality-stride``), on the dense or the paged KV cache
 (``--cache-backend paged --page-size 16``).  ``--kv-chunk N`` runs the
 prefill's attention in chunks of N keys (the long-prefill memory bound).
-``--arch rwkv6-1.6b`` serves the RWKV-6 family: its recurrent caches have
+``--policy draft_model`` (or a ``draft_model`` group of ``--policies``)
+drafts each block with a second, small model: the smoke config of
+``--draft-arch`` (default ``--arch``) in fp32 without heads, random from
+``--seed`` + 7 or restored from ``--draft-ckpt``, carried as the session's
+``draft`` bundle in every mode.  Its vocabulary must be the primary's, so
+``--full-config`` with a smoke draft is refused, as the reference refuses
+it.  ``--arch rwkv6-1.6b`` serves the RWKV-6 family: its recurrent caches have
 no KV layout, so ``--cache-backend paged`` leaves them as they are, and
 ``topk_tree`` raises (tree verification needs attention blocks).  An encoder-decoder ``--arch`` (paper-mt-base) is
 refused, as the reference's serve has no seq2seq path: its entry point is
@@ -40,8 +48,7 @@ POST /v1/generate, /drain; GET /healthz /readyz /metrics) on ``--host`` /
 ``--port`` with a wait queue of ``--max-queue``; ``--http-demo`` streams one
 request through it and exits.  The engine serves attention models only,
 as the reference's does (rwkv6-1.6b raises).  ``--mesh-*`` (multi-GPU,
-ROADMAP.md §1 item 8) and ``--policy draft_model`` (a draft model's bundle
-through the session, item 5) are not ported and raise.
+ROADMAP.md §1 item 8) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ import torch
 
 from repro_torch import bridge, resolve_device
 from repro_torch.config import DecodeConfig, get_config
-from repro_torch.core.decode import bpd_decode
+from repro_torch.core.bundle import ModelBundle
 from repro_torch.core.policy import list_policies
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.models import model as M
@@ -114,6 +121,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-chunk", type=int, default=0,
                     help="prefill attention in chunks of this many keys "
                          "(0 = one score matrix)")
+    ap.add_argument("--draft-arch", default="",
+                    help="draft_model: the draft's arch (its smoke config; "
+                         "default --arch)")
+    ap.add_argument("--draft-ckpt", default=None,
+                    help="draft_model: reference checkpoint dir of the draft "
+                         "(default: random weights from --seed + 7)")
     ap.add_argument("--engine", action="store_true",
                     help="serve through the continuous-batching engine "
                          "(slots + admission) instead of one static batch")
@@ -149,8 +162,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_ported(args) -> Optional[str]:
     if args.mesh_data or args.mesh_model > 1 or args.mesh_pod > 1:
         return "--mesh-* (multi-GPU: ROADMAP.md §1 item 8)"
-    if args.policy == "draft_model":
-        return "--policy draft_model (draft-model bundles, ROADMAP.md §1 item 5)"
     return None
 
 
@@ -216,6 +227,7 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         else:
             params = M.init(cfg, seed=args.seed, device=dev)
     params = M.cast_for_compute(params, cfg)
+    bundles = draft_bundle(cfg, args, groups)
 
     dec = DecodeConfig(max_new_tokens=args.max_new,
                        block_k=args.block_k or cfg.bpd_k,
@@ -230,9 +242,9 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
     task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
                     seed=args.seed)
     if args.http:
-        return serve_http(params, cfg, dec, args, groups)
+        return serve_http(params, cfg, dec, args, groups, bundles)
     if args.engine:
-        return serve_engine(params, cfg, dec, args, task, groups)
+        return serve_engine(params, cfg, dec, args, task, groups, bundles)
     prompts = task.sample(np.random.default_rng(args.seed + 1), args.batch,
                           args.prompt_len)
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
@@ -241,10 +253,12 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    bpd_decode(params, cfg, dec, batch, kv_chunk=args.kv_chunk)   # warm-up
+    sess = DecodeSession(params, cfg, dec, kv_chunk=args.kv_chunk,
+                         bundles=bundles)
+    sess.decode(batch)                                          # warm-up
     sync()
     t0 = time.perf_counter()
-    toks, stats = bpd_decode(params, cfg, dec, batch, kv_chunk=args.kv_chunk)
+    toks, stats = sess.decode(batch)
     sync()
     dt = time.perf_counter() - t0
 
@@ -261,7 +275,28 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
     for r in range(args.batch):
         print(f"    row {r}: {rows[r][args.prompt_len:text_len[r]]}")
     return {"tokens": toks, "stats": stats, "wall_s": dt, "batch": batch,
-            "cfg": cfg, "dec": dec, "params": params}
+            "cfg": cfg, "dec": dec, "params": params, "session": sess}
+
+
+def draft_bundle(cfg, args, groups=None):
+    """The ``draft`` bundle when a served policy is ``draft_model`` (None
+    otherwise): the smoke config of ``--draft-arch`` (default ``--arch``)
+    in fp32 without heads, restored from ``--draft-ckpt`` or random from
+    ``--seed`` + 7, on ``--device``."""
+    if args.policy != "draft_model" and "draft_model" not in (groups or {}):
+        return None
+    dcfg = get_config(args.draft_arch or args.arch, smoke=True).replace(
+        dtype="float32", bpd_enabled=False)
+    dev = resolve_device(args.device)
+    if args.draft_ckpt:
+        dparams = bridge.load_checkpoint(args.draft_ckpt, dcfg, device=dev)
+        print(f"[serve] draft model: {dcfg.name} restored from "
+              f"{args.draft_ckpt}")
+    else:
+        dparams = M.init(dcfg, seed=args.seed + 7, device=dev)
+        print(f"[serve] draft model: {dcfg.name} (random weights: lossless, "
+              f"but expect k̂ ≈ 1; pass --draft-ckpt for a real draft)")
+    return {"draft": ModelBundle(dparams, dcfg)}
 
 
 def _engine_config(args) -> EngineConfig:
@@ -272,17 +307,19 @@ def _engine_config(args) -> EngineConfig:
                         steps_per_sync=args.steps_per_sync)
 
 
-def _engine(params, cfg, dec, args, groups) -> ContinuousBatchingEngine:
-    session = DecodeSession(params, cfg, dec, kv_chunk=args.kv_chunk)
+def _engine(params, cfg, dec, args, groups,
+            bundles=None) -> ContinuousBatchingEngine:
+    session = DecodeSession(params, cfg, dec, kv_chunk=args.kv_chunk,
+                            bundles=bundles)
     return ContinuousBatchingEngine(params, cfg, dec, _engine_config(args),
                                     session=session, policies=groups)
 
 
-def serve_engine(params, cfg, dec, args, task, groups) -> Dict:
+def serve_engine(params, cfg, dec, args, task, groups, bundles=None) -> Dict:
     """Mixed-length (and, with ``groups``, mixed-policy) traffic through the
     continuous-batching engine: 2 × ``--batch`` requests, all arrived at
     the start."""
-    engine = _engine(params, cfg, dec, args, groups)
+    engine = _engine(params, cfg, dec, args, groups, bundles)
     sched = Scheduler(engine, policy=args.sched)
     rng = np.random.default_rng(args.seed + 2)
     names = engine.policy_names()
@@ -318,10 +355,10 @@ def serve_engine(params, cfg, dec, args, task, groups) -> Dict:
             "cfg": cfg, "dec": dec, "params": params}
 
 
-def serve_http(params, cfg, dec, args, groups) -> Dict:
+def serve_http(params, cfg, dec, args, groups, bundles=None) -> Dict:
     """Serve the engine over HTTP/SSE until drained (SIGTERM, SIGINT or
     POST /drain); ``--http-demo`` streams one request and exits."""
-    engine = _engine(params, cfg, dec, args, groups)
+    engine = _engine(params, cfg, dec, args, groups, bundles)
     frontend = Frontend(Scheduler(engine, policy=args.sched),
                         max_queue=args.max_queue)
     srv = HTTPServer(frontend, host=args.host, port=args.port)

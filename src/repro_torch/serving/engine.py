@@ -50,7 +50,9 @@ positions: a stale entry with stored position p is only attended when
 p in ``cache_write`` *before* attending (see models/cache.py).  That
 argument covers KV caches only — recurrent-state families (rwkv6 / hymba)
 would fold pad tokens into their final state, so the engine is gated to
-``block_type == "attn"``.
+``block_type == "attn"``, for its auxiliary bundles (``bundles=``, e.g. the
+``draft_model`` policy's draft, whose cache is prefilled from the same
+padded prompt) as for the primary model.
 """
 from __future__ import annotations
 
@@ -197,6 +199,13 @@ class ContinuousBatchingEngine:
 
         self.session = session if session is not None else DecodeSession(
             params, cfg, dec, mesh=mesh, policy=policy, bundles=bundles)
+        for name, b in self.session.bundles.items():
+            if b.cfg.block_type != "attn":
+                raise NotImplementedError(
+                    f"auxiliary bundle {name!r} has block_type="
+                    f"{b.cfg.block_type!r}: the engine's padded admission "
+                    f"prefill is only sound for attention caches (same "
+                    f"argument as the primary model)")
         ecfg.validate(dec=self.session.dec, mesh=mesh)
         self.policy = self.session.policy
 
@@ -287,6 +296,12 @@ class ContinuousBatchingEngine:
         return self.session.params
 
     @property
+    def aux_params(self):
+        """The auxiliary bundles' parameters (e.g. the draft model's), owned
+        by the DecodeSession."""
+        return self.session.aux_params
+
+    @property
     def state(self) -> SlotBatch:
         """The slot state — single-group engines only (the historical
         engine API).  Multi-group engines expose per-group views via
@@ -369,7 +384,7 @@ class ContinuousBatchingEngine:
             extra = (tbl_row, write_mask)
         t0 = time.monotonic()
         g.state = g.fns.admit(self.params, g.state, slot, prompt, p, max_new,
-                              src, *extra)
+                              src, *extra, aux=self.aux_params)
         g.num_prefills += 1
         self.time_in_prefill += time.monotonic() - t0
         g.status[slot] = 1          # known host-side: no readback needed
@@ -453,7 +468,8 @@ class ContinuousBatchingEngine:
                     prompt, p, src, max_new = self._padded(req)
                     prompts[r], plens[r], srcs[r] = prompt, p, src
                     rows.append((req, r, p, max_new))
-                packet = g.fns.prefill(self.params, prompts, plens, srcs)
+                packet = g.fns.prefill(self.params, prompts, plens, srcs,
+                                       aux=self.aux_params)
                 self.num_prefill_batches += 1
                 g.num_prefills += 1
                 t = time.monotonic() if now is None else now
@@ -557,7 +573,8 @@ class ContinuousBatchingEngine:
         for g in order:
             if not np.any(g.status & 1):
                 continue                     # idle group: no device work
-            g.state, status, iters = g.fns.step(self.params, g.state)
+            g.state, status, iters = g.fns.step(self.params, g.state,
+                                                aux=self.aux_params)
             # the group's one read, queued right behind its own step
             readout = _Pending(torch.cat([status.to(I32), iters.reshape(1)]))
             stepped.append((g, status, readout))

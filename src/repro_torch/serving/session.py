@@ -1,9 +1,19 @@
 """The engine's device functions for one (policy, geometry): a
 ``DecodeSession`` owns the parameters and builds, once per (policy,
 ``EngineConfig``), the serving functions of ``repro.serving.session`` on
-one device.  Its ``decode`` / ``greedy`` are the run-to-completion entry
-points (``core.decode.bpd_decode`` / ``greedy_decode``) under the session's
-policy and ``kv_chunk``.
+one device.  Its ``decode`` / ``decode_seq2seq`` / ``greedy`` are the
+run-to-completion entry points (``core.decode.bpd_decode`` /
+``bpd_decode_seq2seq`` / ``greedy_decode``) under the session's policy and
+``kv_chunk``.
+
+``bundles`` ({name: ``core.bundle.ModelBundle``}) are the session's
+auxiliary models, e.g. ``{"draft": ModelBundle(draft_params, draft_cfg)}``
+for the ``draft_model`` policy.  The session takes them over: their
+parameters are moved to the session's device and cast for their own
+compute dtype in place (a self-draft shares the primary's tensors, so its
+cfg must compute in the primary's dtype), and reach every prefill,
+admission and step as ``aux``; their static half is bound into each policy the session serves
+(``DecodePolicy.bind``), so an incompatible bundle fails at construction.
 
 The reference jits each function once and donates the slot state between
 calls.  Here each function is plain PyTorch, built (closed over its
@@ -14,11 +24,11 @@ the small per-slot tensors are replaced by each step and written in place
 by ``attach`` / ``evict``.  Every policy's per-row state rides the same
 generic scatter and evict reset (``_map``): the ``locality`` policy's
 drafter ``grid`` and schedule ``pos`` as much as ``adaptive``'s ``rate`` and
-``cap``.  Capturing ``step`` as a CUDA graph is ROADMAP.md §1 item 1; until
-then each call launches its kernels from the host.
+``cap``, and ``draft_model``'s draft KV cache.  Capturing ``step`` as a CUDA
+graph is ROADMAP.md §1 item 1; until then each call launches its kernels
+from the host.
 
-A mesh is not ported (ROADMAP.md §1 item 8), nor auxiliary model bundles
-(the ``draft_model`` policy, ROADMAP.md §1 item 5).
+A mesh is not ported (ROADMAP.md §1 item 8).
 """
 from __future__ import annotations
 
@@ -80,18 +90,21 @@ class ServingFns(NamedTuple):
     ``admit`` is ``attach ∘ prefill`` at width 1, so the unified engine's
     admission and the disaggregated engine's prefill-worker path run the
     same prefill body and the same scatter.  Host arrays go in (numpy,
-    ints); each call makes one host-to-device copy of them.
+    ints); each call makes one host-to-device copy of them.  ``aux`` is
+    the session's {bundle name: params} of auxiliary models (``()`` for a
+    single-model session): it goes wherever the policy may run a model of
+    its own.
     """
 
     init: Callable      # (gid) -> SlotBatch
     admit: Callable     # (params, state, slot, prompt (P,), plen, max_new,
-                        #  src (P,)[, tbl_row (Pg,), write_mask (Pg,)])
-                        #  -> state
-    step: Callable      # (params, state) -> (state, status (S,) int8,
-                        #  iterations () int32), all on the device
+                        #  src (P,)[, tbl_row (Pg,), write_mask (Pg,)],
+                        #  aux=()) -> state
+    step: Callable      # (params, state, aux=()) -> (state, status (S,)
+                        #  int8, iterations () int32), all on the device
     evict: Callable     # (state, mask (S,) bool) -> state
-    prefill: Callable   # (params, prompts (W, P), plens (W,), srcs (W, P))
-                        #  -> PrefillPacket
+    prefill: Callable   # (params, prompts (W, P), plens (W,), srcs (W, P),
+                        #  aux=()) -> PrefillPacket
     attach: Callable    # (state, packet, row, slot, max_new[, tbl_row,
                         #  write_mask]) -> state
     attach_many: Callable  # (state, packet, rows (W,), slots (W,),
@@ -117,12 +130,13 @@ def _map(fn, *trees):
 class DecodeSession:
     """Owner of the parameters and the engine's built serving functions.
 
-    ``policy`` fixes the session's default decode policy; ``serving_fns(
-    policy=...)`` builds functions for another policy's slot group, cached
-    per (``DecodePolicy.cache_key``, ``EngineConfig``), so two groups that
-    run equal policies at one geometry share one set.  The device is the
-    parameters' device.  ``kv_chunk`` > 0 runs every prefill's attention in
-    chunks of that many keys (the reference's long-prefill bound).
+    ``policy`` fixes the session's default decode policy, bound to
+    ``bundles``; ``serving_fns(policy=...)`` builds functions for another
+    policy's slot group, cached per (``DecodePolicy.cache_key``,
+    ``EngineConfig``), so two groups that run equal policies at one
+    geometry share one set.  The device is the parameters' device.
+    ``kv_chunk`` > 0 runs every prefill's attention in chunks of that many
+    keys (the reference's long-prefill bound).
     """
 
     def __init__(self, params, cfg: ModelConfig, dec: DecodeConfig, *,
@@ -131,26 +145,43 @@ class DecodeSession:
             raise NotImplementedError(
                 "a mesh-sharded DecodeSession is not ported yet (ROADMAP.md, "
                 "'Modules to port', item 8: multi-GPU)")
-        if bundles:
-            raise NotImplementedError(
-                "auxiliary model bundles (the draft_model policy) are not "
-                "ported yet (ROADMAP.md, 'Modules to port', item 5)")
         self.params = params
         self.cfg = cfg
         self.dec = dec
         self.kv_chunk = kv_chunk
-        self.policy = policy_lib.resolve_policy(dec, policy)
         self.device = next(params.parameters()).device
+        self.bundles = dict(bundles or {})
+        for n, b in self.bundles.items():
+            if b.params is params and b.cfg.compute_dtype != cfg.compute_dtype:
+                raise ValueError(
+                    f"bundle {n!r} shares the primary's parameters but "
+                    f"computes in {b.cfg.compute_dtype}, the primary in "
+                    f"{cfg.compute_dtype}: casting it would recast the "
+                    f"primary's own tensors")
+        self.policy = policy_lib.resolve_policy(dec, policy).bind(
+            self.bundles, cfg)
+        # each bundle on this device in its own compute dtype (in place: a
+        # self-draft's bundle is the primary's ParamTree, not a copy)
+        self.aux_params = {
+            n: model_lib.cast_for_compute(b.params.to(self.device), b.cfg)
+            for n, b in self.bundles.items()}
         self._fns: Dict[Any, ServingFns] = {}
         self.builds: Dict[Any, int] = {}   # serving-fns key -> builds
 
     def decode(self, batch: Dict, *, max_new_rows=None):
         """Blockwise parallel decode of ``batch`` under the session's policy
         (``core.decode.bpd_decode``)."""
-        return decode_lib.bpd_decode(self.params, self.cfg, self.dec, batch,
-                                     max_new_rows=max_new_rows,
-                                     policy=self.policy,
-                                     kv_chunk=self.kv_chunk)
+        return decode_lib._bpd_decode_impl(
+            self.params, self.cfg, self.dec, batch, max_new_rows=max_new_rows,
+            policy=self.policy, kv_chunk=self.kv_chunk,
+            aux_params=self.aux_params)
+
+    def decode_seq2seq(self, batch: Dict):
+        """Encode ``batch["src"]`` and BPD the decoder under the session's
+        policy (``core.decode.bpd_decode_seq2seq``)."""
+        return decode_lib._bpd_decode_seq2seq_impl(
+            self.params, self.cfg, self.dec, batch, policy=self.policy,
+            aux_params=self.aux_params)
 
     def greedy(self, batch: Dict):
         """The greedy baseline (``core.decode.greedy_decode``)."""
@@ -159,10 +190,12 @@ class DecodeSession:
 
     def bound_policy(self, policy=None):
         """Resolve ``policy`` (a registered name, a DecodePolicy, or None
-        for the session default): the form every serving slot group runs."""
+        for the session default) and bind the session's bundles to it: the
+        form every serving slot group runs."""
         if policy is None:
             return self.policy
-        return policy_lib.resolve_policy(self.dec, policy)
+        return policy_lib.resolve_policy(self.dec, policy).bind(
+            self.bundles, self.cfg)
 
     def serving_fns(self, ecfg: EngineConfig, *, policy=None) -> ServingFns:
         """The engine's functions for ``policy`` at geometry ``ecfg``, built
@@ -238,20 +271,22 @@ class DecodeSession:
             )
 
         @torch.no_grad()
-        def prefill(params, prompts, plens, srcs) -> PrefillPacket:
+        def prefill(params, prompts, plens, srcs, aux=()) -> PrefillPacket:
             """The slot-free half of admission: prefill W padded prompts in
             one forward and return their handoff packet.  Rows never mix,
             so a packet row attached later is the state ``admit`` would
             install directly.  The per-row policy state is fresh and the
             policy's drafter proposes the first block from each row's last
-            real position."""
+            real position (a draft model prefills its own cache on the
+            padded prompts, with its parameters from ``aux``)."""
             w = np.shape(prompts)[0]
             prompts_d, srcs_d, plens_d = to_device(prompts, srcs, plens)
             row_caches = kv_backend.row_init(cfg, context_len, block_k,
                                              batch=w, device=dev)
             row_caches, proposals, row_ps = decode_lib.prefill_and_draft(
                 params, cfg, dec, pol, {"tokens": prompts_d, "src": srcs_d},
-                row_caches, plens_d, block_k, kv_chunk=self.kv_chunk)
+                row_caches, plens_d, block_k, kv_chunk=self.kv_chunk,
+                aux_params=aux)
             tokens = torch.zeros((w, buf_len), dtype=I32, device=dev)
             tokens[:, :plen_max] = prompts_d
             return PrefillPacket(tokens=tokens, prompt_len=plens_d,
@@ -322,14 +357,16 @@ class DecodeSession:
                            tbl, mask)
 
         def admit(params, state: SlotBatch, slot, prompt, prompt_len,
-                  max_new, src, tbl_row=None, write_mask=None) -> SlotBatch:
+                  max_new, src, tbl_row=None, write_mask=None,
+                  aux=()) -> SlotBatch:
             """Unified admission: ``attach ∘ prefill`` at width 1."""
             packet = prefill(params, np.asarray(prompt)[None],
-                             np.asarray([prompt_len]), np.asarray(src)[None])
+                             np.asarray([prompt_len]), np.asarray(src)[None],
+                             aux)
             return attach(state, packet, 0, slot, max_new, tbl_row,
                           write_mask)
 
-        def one_step(params, state: SlotBatch, go):
+        def one_step(params, state: SlotBatch, go, aux):
             """One BPD iteration over the slot batch.  ``go`` (a () bool
             device tensor, or None for True) masks every row: with go
             False all rows are frozen and the iteration changes nothing but
@@ -343,7 +380,8 @@ class DecodeSession:
                 generated=state.generated, policy_state=state.policy_state)
             out = decode_lib.bpd_iteration(
                 params, cfg, dec, backend, bst, prefix_offset=prefix,
-                max_new=state.max_new, active=active, policy=pol)
+                max_new=state.max_new, active=active, policy=pol,
+                aux_params=aux)
             stepped = active & ~state.finished
             new_state = state._replace(
                 tokens=out.tokens, text_len=out.text_len,
@@ -359,7 +397,7 @@ class DecodeSession:
         k_win = ecfg.steps_per_sync
 
         @torch.no_grad()
-        def step_windowed(params, state: SlotBatch):
+        def step_windowed(params, state: SlotBatch, aux=()):
             """``steps_per_sync`` iterations in one call with no host read
             between them.  The reference's window is a device while_loop
             that exits once a row can be harvested; here every iteration
@@ -367,11 +405,11 @@ class DecodeSession:
             computed on the device), so tokens, statuses and counts are
             those of the early exit.  Returns (state, status, iterations
             that did work), the last two on the device."""
-            state, status = one_step(params, state, None)
+            state, status = one_step(params, state, None, aux)
             iters = torch.ones((), dtype=I32, device=dev)
             for _ in range(k_win - 1):
                 go = ~torch.any((status & 2) > 0)
-                state, status = one_step(params, state, go)
+                state, status = one_step(params, state, go, aux)
                 iters = iters + go.to(I32)
             return state, status, iters
 

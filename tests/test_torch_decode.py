@@ -229,10 +229,10 @@ def test_serve_static_path_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2"],
-                                  ["--http", "--policy", "draft_model"],
+                                  ["--http", "--mesh-model", "2"],
                                   ["--mesh-data", "2"],
-                                  ["--engine", "--policy", "draft_model"],
-                                  ["--policy", "draft_model"]])
+                                  ["--engine", "--mesh-pod", "2"],
+                                  ["--mesh-model", "2"]])
 def test_unported_serving_options_raise(argv):
     from repro_torch.launch import serve
 
@@ -245,5 +245,9 @@ def test_exact_resolves_and_unported_policies_raise():
     pol = tpolicy.resolve_policy(DecodeConfig())
     assert pol.name == "exact" and isinstance(pol.drafter, tpolicy.HeadsDrafter)
     assert tpolicy.resolve_policy(DecodeConfig(fused_verify=True)).acceptor.fused
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpolicy.resolve_policy(DecodeConfig(policy="draft_model"))
+    # every policy the reference registers is ported: draft_model resolves,
+    # unbound until a session binds its draft bundle
+    pol = tpolicy.resolve_policy(DecodeConfig(policy="draft_model"))
+    assert pol.name == "draft_model" and pol.drafter.cfg is None
+    with pytest.raises(ValueError, match="unknown decode policy"):
+        tpolicy.resolve_policy(DecodeConfig(policy="no_such_policy"))

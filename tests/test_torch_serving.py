@@ -496,11 +496,13 @@ def test_mesh_bundles_and_unported_policies_are_refused(stack):
         tserving.ContinuousBatchingEngine(params, cfg, DecodeConfig(),
                                           tserving.EngineConfig(),
                                           mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # draft_model is ported: without its draft bundle it is refused at
+    # construction, by the session and by an engine group alike
+    with pytest.raises(ValueError, match="ModelBundle"):
         tserving.DecodeSession(params, cfg, DecodeConfig(),
-                               bundles={"draft": object()})
+                               policy="draft_model")
     for name in ("draft_model",):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(ValueError, match="ModelBundle"):
             tserving.ContinuousBatchingEngine(
                 params, cfg, DecodeConfig(max_new_tokens=8),
                 tserving.EngineConfig(num_slots=1, max_new_cap=8),
