@@ -46,7 +46,20 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 4), L 60 and 200, bf16 and fp32, bit for bit
                 batch-invariant, each timed at quickstart's L 200 beside
                 SDPA and the bound; fused_heads and fused_verify at vocab
-                32 and 16 padded to 256 lanes.
+                32 and 16 padded to 256 lanes; the dense text families
+                (check_family_heads, check_family_vocab): the three
+                split-KV kernels at stablelm-12b's 32/8 heads of 160
+                (chain kq 1, 2, 8 at L 60, 256, 4096; trees of 8 and 32
+                nodes) and at starcoder2-7b's 36/4 heads of 128, G 9 in
+                row tiles (kq 7, 8, 32: 63, 72, 288 rows; kq 8 with the
+                window of 4096 over a wrapped ring of 4352 slots; trees of
+                8 and 32 nodes: 72 and 288 rows), paged with shared and
+                unmapped pages, bf16 and fp32, bit for bit invariant in kq
+                and B, timed beside SDPA and the bound; fused_heads at
+                nemotron-4-15b's (56, 6144) x (6144, 256000) untied
+                lm_head, T 1, 4, 8, bf16 and fp32, beside torch.mm then
+                torch.topk and the bound; fused_verify at (8, 8, 256000)
+                under every criterion, bit for bit.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -176,6 +189,26 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 saved); 15e repro_torch.launch.serve --policy draft_model
                 with the smoke primary and draft, static and --engine
                 --policies exact=2,draft_model=2.
+  16. families — everything earlier freed; stablelm-12b, starcoder2-7b and
+                nemotron-4-15b at full width and depth from seed 0, fp32
+                (each fp32 peak under 76 GiB: nemotron-4-15b's 67.2 GiB of
+                weights fit with room for its decodes), phase 4's 8
+                prompts x 64 new tokens at
+                block_k 8: greedy, then BPD exact and topk_tree on the
+                dense and paged caches (nemotron: exact dense, topk_tree
+                paged), each greedy's tokens (near-tie rule), its
+                attention kernel launched once per layer and forward;
+                16a stablelm-12b's fp32 engine (5c's 16 requests, exact
+                and topk_tree groups of 4, unified on the managed page
+                pool); 16b starcoder2-7b (every layer windowed at 4096:
+                the paged backend keeps the dense ring) with 2 prompts of
+                4,608 tokens prefilled through DecodeSession(kv_chunk=512),
+                greedy and BPD exact equal, and a full forward over prompt
+                + greedy's tokens (window on the full path) giving
+                greedy's token at every generated position, past the
+                4,352-slot ring; then each cast for bf16 and served by
+                repro_torch.launch.serve --full-config (tokens/s, k̂, one
+                iteration profiled); parameters and peak memory printed.
   11. train   — everything earlier freed; the training path (make_train_step:
                 the paper's §6 loss, backward, AdamW), fp32:
                 11a: granite's attention width (d 4096, 32/8 heads of
@@ -944,6 +977,235 @@ def check_head_dim_24(torch, gen, results):
                 f"vocab {vocab}: max_abs_err={err:.3g} near-ties={ties}, "
                 f"kernel {heads_ms:.4f} ms; fused_verify ({b},{kq},256) bit for "
                 f"bit under exact/topk/distance, kernel {verify_ms:.4f} ms ok")
+
+
+# the dense text families' attention heads: (model, H, KV, head_dim, the
+# chain's kq, the tree sizes); stablelm-12b's head_dim 160, starcoder2-7b's
+# G 9 (72 rows at kq 8, 288 under a 32-node tree: row tiles)
+FAMILY_HEADS = (("stablelm-12b", 32, 8, 160, (1, 2, 8), (60, 256, 4096)),
+                ("starcoder2-7b", 36, 4, 128, (7, 8, 32), (256, 4096)))
+RING, WINDOW = 4352, 4096        # starcoder2-7b's dense ring (models/cache.py)
+
+
+def ring_case(torch, gen, b, kq, h, kvh, hd, dtype):
+    """A wrapped ring of RING slots: slot s holds the newest position p < top
+    with p = s mod RING, the queries at top - kq .. top - 1 (top past two
+    turns of the ring), so the window of WINDOW masks the ring's oldest
+    slots."""
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, kq, h, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, RING, kvh, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, RING, kvh, hd), generator=gen, device="cuda").to(dt)
+    top = torch.tensor([2 * RING + 37 * i + 5 for i in range(b)],
+                       dtype=torch.int32, device="cuda")
+    slot = torch.arange(RING, dtype=torch.int32, device="cuda")[None, :]
+    kv_pos = (top[:, None] - 1 - (top[:, None] - 1 - slot) % RING).int()
+    q_pos = (top[:, None] - kq
+             + torch.arange(kq, dtype=torch.int32, device="cuda")[None, :])
+    return q, k, v, q_pos.int().contiguous(), kv_pos.contiguous()
+
+
+def check_family_heads(torch, gen, results):
+    """The three split-KV kernels at the dense text families' heads
+    (FAMILY_HEADS), bf16 and fp32, against their plain versions: the chain
+    kernel at each kq and L, at starcoder2's kq 8 with its window of 4096
+    over a wrapped ring of 4352 slots; the tree kernel with 8 and 32 nodes
+    (at G 9: 72 and 288 rows); the paged kernel (16 pages of 16, one
+    shared, one unmapped) equal to verify_attention on the gathered view;
+    each bit for bit batch-invariant (kq 1 and 2 against the block, B 1
+    against 8, whichever row tile holds the query).  The errors join each
+    kernel's max_abs_err; the decode path's shape (kq 8, L 256, the tree of
+    8, the pages) is timed beside its plain version, SDPA and the bound."""
+    import functools
+
+    from repro_torch.kernels.block_attention import (row_plan,
+                                                     tree_verify_attention_cuda,
+                                                     tree_verify_attention_plain,
+                                                     verify_attention_cuda,
+                                                     verify_attention_plain)
+    from repro_torch.kernels.paged_attention import (paged_verify_attention_cuda,
+                                                     paged_verify_attention_plain)
+    from repro_torch.kernels.tree_mask import default_tree
+
+    b = 8
+
+    def held(name, fn, plain, args, tag, **kw):
+        got = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(not torch.isnan(got).any(), f"{name} {tag} NaN")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"{name} {tag} differs from its plain version by {err}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        rows = args[0].shape[1] * (args[0].shape[2] // args[1].shape[2])
+        log(f"  {name} {tag} ({rows} rows, {row_plan(rows)[0]} row tiles): "
+            f"max_abs_err={err:.3g} ok")
+        return got
+
+    for model, h, kvh, hd, kqs, ls in FAMILY_HEADS:
+        for dtype in ("bfloat16", "float32"):
+            pre = f"{dtype} {model} {h}/{kvh} heads of {hd}"
+            timed = {}
+            for kq in kqs:
+                for l in ls:
+                    args = attention_case(
+                        torch, gen, b, kq, h, kvh, hd, l, dtype,
+                        length=[max(0, l - kq - 3 * i) for i in range(b)],
+                        stale=5)
+                    held("verify_attention", verify_attention_cuda,
+                         verify_attention_plain, args, f"{pre} kq {kq} L {l}")
+                    if l == 256:
+                        check_invariance(torch, f"verify_attention {pre} kq "
+                                         f"{kq}", verify_attention_cuda, args,
+                                         queries=True)
+                        if kq == 8:
+                            timed["verify_attention"] = args
+            if model == "starcoder2-7b":
+                args = ring_case(torch, gen, b, 8, h, kvh, hd, dtype)
+                fn = functools.partial(verify_attention_cuda, window=WINDOW)
+                held("verify_attention", verify_attention_cuda,
+                     verify_attention_plain, args,
+                     f"{pre} kq 8 window {WINDOW}, ring {RING}", window=WINDOW)
+                check_invariance(torch, f"verify_attention {pre} ring", fn,
+                                 args, queries=True)
+            for nodes in (8, 32):
+                args = tree_case(torch, gen, b, h, kvh, hd, 256,
+                                 default_tree(nodes, 2 if nodes == 8 else 4),
+                                 dtype, stale=5)
+                held("tree_verify_attention", tree_verify_attention_cuda,
+                     tree_verify_attention_plain, args,
+                     f"{pre} {nodes} nodes L 256")
+                check_invariance(torch, f"tree_verify_attention {pre} "
+                                 f"{nodes} nodes", tree_verify_attention_cuda,
+                                 args, queries=False)
+                if nodes == 8:
+                    timed["tree_verify_attention"] = args
+            P, ps = 16, 16
+            args = paged_case(torch, gen, b, 8, h, kvh, hd, P, ps, dtype,
+                              ctx=[P * ps - 3 * i for i in range(b)],
+                              share=True, unmapped=1)
+            got = held("paged_verify_attention", paged_verify_attention_cuda,
+                       paged_verify_attention_plain, args,
+                       f"{pre} kq 8, {P} pages of {ps}, shared and unmapped")
+            check(torch.equal(got, verify_attention_cuda(
+                *paged_gathered(torch, *args))),
+                  f"paged_verify_attention {pre}: not verify_attention on the "
+                  f"gathered view bit for bit")
+            q, kp, vp, tbl, q_pos, kv_pos = args
+            for r in range(b):
+                row = paged_verify_attention_cuda(
+                    q[r:r + 1].contiguous(), kp, vp, tbl[r:r + 1].contiguous(),
+                    q_pos[r:r + 1].contiguous(), kv_pos[r:r + 1].contiguous())
+                check(torch.equal(row, got[r:r + 1]),
+                      f"paged_verify_attention {pre}: batch row {r} alone "
+                      f"differs from its row at B = 8")
+            for i in range(q.shape[1]):
+                one = paged_verify_attention_cuda(
+                    q[:, i:i + 1].contiguous(), kp, vp, tbl,
+                    q_pos[:, i:i + 1].contiguous(), kv_pos)
+                check(torch.equal(one, got[:, i:i + 1]),
+                      f"paged_verify_attention {pre}: query {i} at kq = 1 "
+                      f"differs from its row at kq = 8")
+            timed["paged_verify_attention"] = args
+            log(f"  {pre}: kq 1 == kq 2 == the block and B 1 == B 8 bit for "
+                f"bit, the paged kernel == verify_attention on kp[tbl], ok")
+            for name, fn, plain in (
+                    ("verify_attention", verify_attention_cuda,
+                     verify_attention_plain),
+                    ("tree_verify_attention", tree_verify_attention_cuda,
+                     tree_verify_attention_plain),
+                    ("paged_verify_attention", paged_verify_attention_cuda,
+                     paged_verify_attention_plain)):
+                time_split_kv(torch, name, fn, plain, timed[name], dtype,
+                              model)
+
+
+def check_family_vocab(torch, gen, results):
+    """fused_heads at nemotron-4-15b's shape, (56, 6144) x (6144, 256000) on
+    the untied lm_head's row-major layout, at T 1, 4 and 8 in bf16 and fp32,
+    against its plain version, timed beside torch.mm then torch.topk and
+    its bound; then fused_verify at (8, 8, 256000) under every criterion
+    (ties and unaligned rows included), bit for bit against its plain
+    version, timed."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_heads import fused_heads_topk_cuda, vocab_plan
+    from repro_torch.kernels.fused_verify import (fused_verify_cuda,
+                                                  fused_verify_plain,
+                                                  verify_plan)
+
+    n, d, vocab = 56, 6144, 256000
+    sms = _build.sm_count(torch.device("cuda"))
+    log(f"  vocab_plan({vocab}, {sms}) = {vocab_plan(vocab, sms)}, "
+        f"verify_plan({vocab}, 8, 8, {sms}) = {verify_plan(vocab, 8, 8, sms)}")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+        w = (torch.randn((d, vocab), generator=gen, device="cuda")
+             * 0.02).to(dt)
+        for top_t in (1, 4, 8):
+            vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+            torch.cuda.synchronize()
+            ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab,
+                                           top_t)
+            err = (vals - wv).abs().max().item()
+            tol = ATTN_TOL[dtype]
+            ok = ok and torch.allclose(vals, wv, rtol=tol, atol=tol)
+            log(f"  fused_heads {dtype} T={top_t} nemotron-4-15b lm_head "
+                f"({d},{vocab}): max_abs_err={err:.3g} near-ties={ties} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok and int(ids.max()) < vocab,
+                  f"fused_heads {dtype} T={top_t} at V {vocab} differs from "
+                  f"its plain version (err {err})")
+            results["fused_heads"]["max_abs_err"] = max(
+                results["fused_heads"]["max_abs_err"], err)
+        ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
+                                                          top_t=1))
+        two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w), 1))
+        bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * vocab, dtype)
+        log(f"  fused_heads {dtype} nemotron-4-15b (56,{d})x({d},{vocab}) "
+            f"T=1: kernel {ms:.4f} ms, torch.mm then torch.topk "
+            f"{two_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        del o, w
+
+        b, k = 8, 8
+        logits = torch.randn((b, k, vocab), generator=gen,
+                             device="cuda").to(dt)
+        ties = (torch.randint(0, 4, (b, k, vocab), generator=gen,
+                              device="cuda").float() * 0.5).to(dt)
+        odd = torch.randn((b, k, vocab - 3), generator=gen,
+                          device="cuda").to(dt)
+        for label, lg in (("random", logits), ("ties", ties),
+                          (f"V {vocab - 3} unaligned", odd)):
+            greedy = torch.argmax(lg.float(), -1).int()
+            props = torch.randint(0, lg.shape[-1], greedy.shape, generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            props[:, 1:4] = greedy[:, 0:3]
+            for crit, kw in (("exact", {}), ("topk", dict(top_k=3)),
+                             ("topk", dict(top_k=8)),
+                             ("distance", dict(epsilon=2.0))):
+                got = fused_verify_cuda(lg, props, criterion=crit, **kw)
+                want = fused_verify_plain(lg, props, criterion=crit, **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(g, x) for g, x in zip(got, want)),
+                      f"fused_verify {dtype} {label} {crit} {kw} at V "
+                      f"{lg.shape[-1]} differs from its plain version")
+            if label == "random":
+                timed = (lg, props)
+        lg, props = timed
+        ms = time_ms(torch, lambda: fused_verify_cuda(lg, props,
+                                                      criterion="exact"))
+        plain_ms = time_ms(torch, lambda: fused_verify_plain(
+            lg, props, criterion="exact"))
+        two_ms = time_ms(torch, lambda: argmax_then_scan(torch, lg, props))
+        bms, by = bound(nbytes(lg, props) + b * k * 9 + b * 8, b * k * vocab,
+                        dtype)
+        log(f"  fused_verify {dtype} ({b},{k},{vocab}): every criterion bit "
+            f"for bit (random, ties, unaligned) ok; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, argmax then scan {two_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        del logits, ties, odd, timed, lg
 
 
 def time_split_kv(torch, name, fn, plain, args, dtype, model):
@@ -1887,11 +2149,13 @@ def compare_engine(torch, after, done, greedy_rows, plan, label):
     return diverged
 
 
-def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks):
+def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks, *,
+                      disaggregated=True):
     """Phase 5c: the fp32 engine, twice — unified on the managed page pool
-    (page size 16, one iteration per host read), then disaggregated
-    (prefill batches of 4) on the dense slab with windows of 4.  Returns
-    greedy's row for each (prompt row, prompt length) of the plan."""
+    (page size 16, one iteration per host read), then (``disaggregated``)
+    disaggregated (prefill batches of 4) on the dense slab with windows of
+    4.  Returns greedy's row for each (prompt row, prompt length) of the
+    plan."""
     from repro_torch import serving
     from repro_torch.kernels import _build
 
@@ -1908,7 +2172,8 @@ def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks):
              edec.replace(cache_backend="paged"), dict(steps_per_sync=1)),
             ("disaggregated (prefill_slots 4), dense, steps_per_sync 4",
              edec.replace(cache_backend="dense"),
-             dict(prefill_slots=4, steps_per_sync=4)))
+             dict(prefill_slots=4, steps_per_sync=4)))[:2 if disaggregated
+                                                         else 1]
     seen = {name: 0 for name in _build.KERNELS}
     for label, rdec, kw in runs:
         ecfg = serving.EngineConfig(num_slots=8, max_prompt_len=64,
@@ -1942,7 +2207,8 @@ def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks):
         compare_engine(torch, after, done, greedy_rows, plan, label)
     for name in ("verify_attention", "paged_verify_attention",
                  "tree_verify_attention", "fused_verify", "fused_heads"):
-        check(seen[name] > 0, f"engine: {name} never launched")
+        check(seen[name] > 0 or name == "verify_attention"
+              and not disaggregated, f"engine: {name} never launched")
     return greedy_rows
 
 
@@ -3192,6 +3458,250 @@ def phase_draft_launcher(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the dense text families at full width
+# ---------------------------------------------------------------------------
+
+
+FAMILY_MEM_GIB = 76.0   # the fp32 decodes' peak at full depth stays below it
+WINDOW_PROMPT = 4608    # starcoder2-7b's window + 512: the ring wraps
+WINDOW_CHUNK = 512
+
+
+def attention_kernel(cfg, dec) -> str:
+    """The attention kernel every layer of ``cfg`` launches under ``dec``:
+    the tree kernel under topk_tree; else the paged kernel on the paged
+    cache, unless every layer is windowed (windowed layers keep a dense
+    ring, models/cache.py); else the dense chain kernel."""
+    if dec.policy == "topk_tree":
+        return "tree_verify_attention"
+    all_windowed = bool(cfg.sliding_window) and not cfg.global_attn_layers
+    if dec.cache_backend == "paged" and not all_windowed:
+        return "paged_verify_attention"
+    return "verify_attention"
+
+
+def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
+                 label):
+    """greedy_decode, then each BPD path of ``paths`` ((name, decode
+    overrides)), fp32: each must emit greedy's tokens (near-tie rule), its
+    attention kernel launched once per layer and forward, fused_verify
+    once per iteration, fused_heads once per iteration and prefill.
+    Returns greedy's tokens."""
+    from repro_torch.kernels import _build
+
+    layers = cfg.num_layers
+    g_toks = None
+    for name, kw in (("greedy", {}),) + tuple(paths):
+        pdec = dec.replace(**kw)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run = D.greedy_decode if name == "greedy" else D.bpd_decode
+        toks, stats = run(params, cfg, pdec, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launch = dict(_build.LAUNCHES)
+        iters = stats["iterations"]
+        want = {k: 0 for k in launch}
+        want[attention_kernel(cfg, pdec)] = layers * iters
+        if name != "greedy":
+            want.update(fused_verify=iters, fused_heads=iters + 1)
+        log(f"[families] {label} {name}: k̂={stats['mean_accepted']:.4f} "
+            f"iterations={iters} invocations={stats['invocations']}, "
+            f"{wall:.2f}s, launches {launch}")
+        check(launch == want, f"{label} {name}: launches {launch}, expected "
+                              f"{want}")
+        check(bool((stats["generated"] == dec.max_new_tokens).all()),
+              f"{label} {name}: short rows")
+        if g_toks is None:
+            g_toks = toks
+            continue
+        diverged = compare_rows(torch, causal_logits_after(torch, M, params,
+                                                           cfg),
+                                toks, g_toks, stats["text_len"], prompt_len)
+        log(f"[families] {label} {name}: tokens == greedy tokens in "
+            f"{8 - len(diverged)}/8 rows (others at near-ties)")
+    return g_toks
+
+
+def family_serve(torch, D, M, params, cfg, prompts, label):
+    """The weights cast for bf16 in place and served statically by
+    repro_torch.launch.serve --arch ... --full-config (phase 4's prompts,
+    64 new tokens, block_k 8): tokens/s, k̂, iterations, launches, the
+    serve's peak memory, agreement with bf16 greedy and each row's first
+    divergence from it (reported, as phase 6); one iteration profiled."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    M.cast_for_compute(params, cfg.replace(dtype="bfloat16"))
+    torch.cuda.empty_cache()
+    log(f"[families] {label} cast for bf16: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    prompt_len, max_new = prompts.shape[1], 64
+    _build.reset_launches()
+    out = serve.main(["--arch", cfg.name, "--full-config", "--batch", "8",
+                      "--prompt-len", str(prompt_len), "--max-new",
+                      str(max_new), "--block-k", str(cfg.bpd_k), "--seed",
+                      "0"], params=params)
+    launches = dict(_build.LAUNCHES)
+    scfg, sdec, sbatch = out["cfg"], out["dec"], out["batch"]
+    check(torch.equal(sbatch["tokens"], prompts), f"{label}: serve prompts "
+                                                  f"differ")
+    s_toks, s_stats = out["tokens"], out["stats"]
+    attn = attention_kernel(scfg, sdec)
+    check(launches[attn] == 2 * scfg.num_layers * s_stats["iterations"]
+          and launches["fused_verify"] == 2 * s_stats["iterations"],
+          f"{label} serve: launches {launches}")
+    gb_toks, _ = D.greedy_decode(params, scfg, sdec, sbatch)
+    n = prompt_len + max_new
+    same = s_toks[:, prompt_len:n] == gb_toks[:, prompt_len:n]
+    generated = int(s_stats["generated"].sum())
+    log(f"[families] {label} bf16 serve: {generated / out['wall_s']:.1f} "
+        f"tokens/s, k̂={s_stats['mean_accepted']:.4f}, iterations="
+        f"{s_stats['iterations']}, wall {out['wall_s'] * 1e3:.1f} ms, "
+        f"launches {launches}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; BPD vs bf16 "
+        f"greedy agreement {float(same.float().mean()):.4f} of tokens, "
+        f"{int(same.all(dim=1).sum())}/8 rows identical (reported)")
+    div = report_divergences(torch, causal_logits_after(torch, M, params,
+                                                        scfg),
+                             s_toks, gb_toks, prompt_len, n)
+    log(f"[families] {label} bf16 first divergences: {len(div)} rows, "
+        f"{sum(d['tie'] for d in div)} at near-ties; BPD's token ranks "
+        f"{[d['bpd_rank'] for d in div]}, ulps below the top "
+        f"{[round(d['bpd_ulps'], 3) for d in div]}")
+    profile_iteration(torch, D, params, scfg, sdec, sbatch,
+                      f"{label} exact dense")
+
+
+def window_check(torch, M, D, params, cfg, dec):
+    """starcoder2-7b's window: 2 MarkovLM prompts of WINDOW_PROMPT tokens
+    prefilled through DecodeSession(kv_chunk=WINDOW_CHUNK), then 64 new
+    tokens under greedy and under BPD exact, equal (near-tie rule); and an
+    independent check: forward_hidden over prompt + greedy's tokens (the
+    window on the full path, kv_chunk WINDOW_CHUNK) gives greedy's token as
+    p_1's argmax at every generated position (near-tie rule), positions that
+    wrap the ring of the cached decode."""
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import cache as C
+
+    t0 = time.perf_counter()
+    task = MarkovLM(vocab=256, temperature=0.2, seed=0)
+    long = torch.as_tensor(task.sample(np.random.default_rng(16), 2,
+                                       WINDOW_PROMPT), device="cuda")
+    ring = C.attn_buf_len(cfg, 0, WINDOW_PROMPT + dec.max_new_tokens,
+                          dec.block_k)
+    sess = serving.DecodeSession(params, cfg, dec, kv_chunk=WINDOW_CHUNK)
+    g_toks, g_stats = sess.greedy({"tokens": long})
+    b_toks, b_stats = sess.decode({"tokens": long})
+    torch.cuda.synchronize()
+    after = causal_logits_after(torch, M, params, cfg)
+    diverged = compare_rows(torch, after, b_toks, g_toks, b_stats["text_len"],
+                            WINDOW_PROMPT)
+    log(f"[families] starcoder2-7b window {cfg.sliding_window}, ring {ring} "
+        f"slots: 2 prompts of {WINDOW_PROMPT} through DecodeSession(kv_chunk="
+        f"{WINDOW_CHUNK}); greedy {g_stats['iterations']} steps, BPD exact "
+        f"k̂ {b_stats['mean_accepted']:.4f} in {b_stats['iterations']} "
+        f"iterations; tokens equal in {2 - len(diverged)}/2 rows (others at "
+        f"near-ties)")
+    end = WINDOW_PROMPT + dec.max_new_tokens
+    seq = g_toks[:, :end]
+    pos = torch.arange(end, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        h = M.embed_inputs(params, cfg, {"tokens": seq})
+        hidden, _ = M.forward_hidden(params, cfg, h, positions=pos,
+                                     kv_chunk=WINDOW_CHUNK)
+        logits = M.base_logits(params, cfg,
+                               hidden[:, WINDOW_PROMPT - 1:end - 1])
+    logits = logits[..., :cfg.vocab_size].float()
+    full = logits.argmax(-1)
+    want = seq[:, WINDOW_PROMPT:end]
+    off = (full != want).nonzero().tolist()
+    for r, j in off:
+        gap = top2_gap(torch, logits[r, j])
+        log(f"    row {r}, new token {j}: the full forward's argmax "
+            f"{int(full[r, j])} != greedy's {int(want[r, j])}, top-2 gap "
+            f"{gap:.3g} of max|logit|")
+        check(gap < TIE_MARGIN, f"starcoder2-7b window: the full forward and "
+                                f"the cached greedy differ at row {r}, new "
+                                f"token {j} with no near-tie ({gap})")
+    check(end > ring, "the window check does not wrap the ring")
+    log(f"[families] starcoder2-7b window: the full forward over {end} "
+        f"positions (window {cfg.sliding_window}, kv_chunk {WINDOW_CHUNK}) "
+        f"gives greedy's token at {2 * dec.max_new_tokens - len(off)}/"
+        f"{2 * dec.max_new_tokens} generated positions (others at "
+        f"near-ties); {time.perf_counter() - t0:.1f}s")
+
+
+def phase_families(torch, results):
+    """Phase 16: stablelm-12b, starcoder2-7b and nemotron-4-15b at full
+    width from seed 0, fp32, phase 4's 8 prompts of 64, 64 new tokens,
+    block_k 8: the decode paths each model is served on (launches exact,
+    greedy's tokens), 16a stablelm-12b's fp32 engine (5c's 16 requests,
+    unified on the managed page pool), 16b starcoder2-7b's window past its
+    ring, then each cast for bf16 and served (--full-config); each model's
+    parameters and peak memory printed."""
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import model as M
+
+    task = MarkovLM(vocab=256, temperature=0.2, seed=0)
+    prompts = torch.as_tensor(task.sample(np.random.default_rng(1), 8, 64),
+                              device="cuda")
+    batch = {"tokens": prompts}
+    chain_tree = (("bpd exact dense", {}),
+                  ("bpd exact paged", dict(cache_backend="paged")),
+                  ("bpd topk_tree dense", dict(policy="topk_tree", top_k=2)),
+                  ("bpd topk_tree paged", dict(policy="topk_tree", top_k=2,
+                                               cache_backend="paged")))
+    for name, paths in (("stablelm-12b", chain_tree),
+                        ("starcoder2-7b", chain_tree),
+                        ("nemotron-4-15b", chain_tree[::3])):
+        t0 = time.perf_counter()
+        cfg = get_config(name).replace(dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        log(f"[families] {name} fp32: {n_params / 1e9:.3f} B parameters, "
+            f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, vocab "
+            f"{cfg.vocab_size}, window {cfg.sliding_window}; init "
+            f"{time.perf_counter() - t0:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        if cfg.sliding_window:
+            log(f"[families] {name}: every layer windowed at "
+                f"{cfg.sliding_window}, so the paged backend keeps each "
+                f"layer's dense ring: its paged paths launch "
+                f"verify_attention / tree_verify_attention")
+        dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
+        g_toks = family_paths(torch, M, D, params, cfg, dec, batch, 64,
+                              paths, name)
+        if name == "stablelm-12b":
+            phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks,
+                              disaggregated=False)
+        if name == "starcoder2-7b":
+            window_check(torch, M, D, params, cfg, dec)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[families] {name} fp32 peak {peak:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f}s")
+        check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes at full depth "
+                                     f"peak at {peak:.2f} GiB, over "
+                                     f"{FAMILY_MEM_GIB} GiB")
+        family_serve(torch, D, M, params, cfg, prompts, name)
+        log(f"[families] {name} {time.perf_counter() - t0:.1f}s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 11: training (the paper's §6 loss, AdamW, checkpoints, the launcher)
 # ---------------------------------------------------------------------------
 
@@ -3605,6 +4115,8 @@ def main() -> int:
     check_paged_attention(torch, gen, results)
     check_head_dim_16(torch, gen, results)
     check_head_dim_24(torch, gen, results)
+    check_family_heads(torch, gen, results)
+    check_family_vocab(torch, gen, results)
     check_rwkv6_scan(torch, gen, results)
     check_mt_heads_verify(torch, gen)
     for name, r in results.items():
@@ -3636,6 +4148,11 @@ def main() -> int:
     phase_quickstart(torch, card)
     phase_locality(torch, card)
     gc.collect()                                  # every earlier phase's
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    phase_families(torch, results)
+    log(f"[families] phase 16 {time.perf_counter() - t16:.1f}s")
+    gc.collect()
     torch.cuda.empty_cache()
     phase_train(torch, phase4)
 

@@ -11,9 +11,14 @@ the ranges of one (row, head) forming a thread-block cluster that combines
 its partial softmaxes through distributed shared memory in the same launch.
 bf16 products run on the tensor cores (``mma.sync``), fp32 on CUDA-core
 FMAs.  The plan depends on L alone, so a query's result does not depend on
-kq or B.  head_dim 24 is computed at the width 32 with the padded lanes
-zero in shared memory, as the reference pads head_dim to its lane width;
-the tensors keep their 24 lanes and the softmax scale stays 1/√24.
+kq or B.  A block holds at most 64 query rows: kq·G rows of a (batch row,
+KV head) past that are cut into ``row_plan(kq·G)`` tiles, one more grid
+axis, still one launch (starcoder2-7b's G 9 gives 72 rows at block_k 8,
+288 under a 32-node tree); the plan depends on kq·G alone and a row's
+arithmetic not on its tile.  head_dim 24 is computed at the width 32 with
+the padded lanes zero in shared memory, as the reference pads head_dim to
+its lane width; the tensors keep their 24 lanes and the softmax scale
+stays 1/√24.  head_dim 160 (stablelm-12b) is computed at its own width.
 ``verify_attention_plain`` and ``tree_verify_attention_plain``
 (``kernels/ref.py``) are their plain versions.
 """
@@ -28,19 +33,20 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import tree_verify_attention as tree_verify_attention_plain
 from repro_torch.kernels.ref import verify_attention as verify_attention_plain
 
-HEAD_DIMS = (16, 24, 32, 64, 128)   # 24 computed at width 32, lanes 24-31 zero
-MAX_ROWS = 64                       # kq · G query rows per thread block
+HEAD_DIMS = (16, 24, 32, 64, 128, 160)   # 24 computed at width 32
+MAX_ROWS = 64                       # query rows per thread block (a row tile)
+ROW_ALIGN = 16                      # rows per tile: a multiple of one mma
 MAX_TREE_NODES = 32                 # anc_bits is one int32 per node
 MAX_SPLITS = 8                      # the portable thread-block cluster size
 MIN_SPLIT_KEYS = 64
 SPLIT_ALIGN = 16                    # keys per range: a multiple of one k16 step
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]
-_TREE_ARGTYPES = [_P] * 8 + [_I] * 10 + [_P]
+_ARGTYPES = [_P] * 6 + [_I] * 11 + [_P]
+_TREE_ARGTYPES = [_P] * 8 + [_I] * 11 + [_P]
 
 __all__ = ["verify_attention_cuda", "verify_attention_plain",
            "tree_verify_attention_cuda", "tree_verify_attention_plain",
-           "check_attention_inputs", "launch_attention", "split_plan"]
+           "check_attention_inputs", "launch_attention", "split_plan", "row_plan"]
 
 
 def split_plan(kv_len: int) -> tuple:
@@ -57,6 +63,21 @@ def split_plan(kv_len: int) -> tuple:
     return -(-kv_len // keys), keys
 
 
+def row_plan(rows: int) -> tuple:
+    """How the split-KV kernels cut the ``rows`` = kq·G query rows of one
+    (batch row, KV head): (tiles, rows per tile).  Tile i holds rows
+    [i·per, min(rows, (i+1)·per)); there are ceil(rows / 64) tiles, ``per``
+    is a multiple of 16 and at most 64, and no tile is empty (72 rows are
+    48 + 24, 288 are four of 64 and one of 32).  It depends on the row count
+    alone.  ``csrc/split_attention.cuh`` has the same function and refuses
+    a launch whose tiles differ."""
+    if rows < 1:
+        raise ValueError(f"row_plan needs at least one row, got {rows}")
+    n = -(-rows // MAX_ROWS)
+    per = -(-(-(-rows // n)) // ROW_ALIGN) * ROW_ALIGN
+    return -(-rows // per), per
+
+
 def check_attention_inputs(kernel: str, q, k, v, q_pos, kv_pos, *,
                            kv_len: int, **extra) -> None:
     """The checks every verify-attention wrapper makes before a launch: q
@@ -69,8 +90,6 @@ def check_attention_inputs(kernel: str, q, k, v, q_pos, kv_pos, *,
     kvh = k.shape[2]
     require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
     require(kvh >= 1 and h % kvh == 0, f"{h} heads over {kvh} KV heads")
-    require(kq * (h // kvh) <= MAX_ROWS,
-            f"kq·G = {kq * (h // kvh)} query rows exceed {MAX_ROWS}")
     tensors = {"q": q, "k": k, "v": v, "q_pos": q_pos, "kv_pos": kv_pos,
                **extra}
     for name, t in tensors.items():
@@ -101,14 +120,17 @@ def _check_aligned(kernel: str, q, k, v) -> None:
 
 
 def launch_attention(kernel: str, argtypes, q, pointers, ints) -> torch.Tensor:
-    """Launch ``kernel``'s C entry (q, *pointers, out, dtype, *ints, stream)
-    on q's device and current stream; returns the new output."""
+    """Launch ``kernel``'s C entry (q, *pointers, out, dtype, *ints,
+    row_tiles, stream) on q's device and current stream, ``row_tiles`` from
+    q's kq·G rows; returns the new output."""
+    _, kq, h, _ = q.shape
+    row_tiles = row_plan(kq * (h // pointers[0].shape[2]))[0]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(kernel, kernel, argtypes, q.data_ptr(),
                       *(t.data_ptr() for t in pointers), out.data_ptr(),
-                      _build.DTYPE_CODES[q.dtype], *ints, stream)
+                      _build.DTYPE_CODES[q.dtype], *ints, row_tiles, stream)
     return out
 
 

@@ -19,8 +19,8 @@
 //   - the split plan is split_plan(P * ps), a function of L alone (3 ranges
 //     of 48 keys at L 144: 192 blocks in clusters of 3), so the kernel
 //     equals verify_attention on the gathered view kp[tbl] bit for bit.
-// ``splits`` is the wrapper's split_plan(P * ps).splits; the entry
-// re-checks it.
+// ``splits`` is the wrapper's split_plan(P * ps).splits and ``row_tiles``
+// its row_plan(kq * G).tiles; the entry re-checks both.
 #include "split_attention.cuh"
 
 BPD_EXPORT int paged_verify_attention(const void* q, const void* kp,
@@ -29,7 +29,8 @@ BPD_EXPORT int paged_verify_attention(const void* q, const void* kp,
                                       void* out, int dtype, int B, int kq,
                                       int heads, int kv_heads, int hd,
                                       int num_pages, int ps, int P, int window,
-                                      int num_meta, int splits, void* stream) {
+                                      int num_meta, int splits, int row_tiles,
+                                      void* stream) {
   if (num_pages < 1 || ps < 8 || ps % 8 != 0 || P < 1)
     return cudaErrorInvalidValue;
   const bpd_split::Args a{q, kp, vp, static_cast<const int*>(q_pos),
@@ -39,5 +40,5 @@ BPD_EXPORT int paged_verify_attention(const void* q, const void* kp,
   const bpd_split::PagedRows rows{static_cast<const int*>(tbl), P, ps,
                                   num_pages};
   return bpd_split::run<bpd_split::PagedRows, false>(dtype, hd, a, splits,
-                                                     rows, stream);
+                                                     row_tiles, rows, stream);
 }

@@ -41,6 +41,15 @@
 //    are 32 keys and three blocks fit an SM (at most 168 registers a
 //    thread, 35 KB of shared memory at hd 128 in bf16), so the path's 64
 //    clusters of four run in one wave.
+//
+//    A block holds at most 64 query rows.  A (row, head) with more, R =
+//    kq * G > 64 (starcoder2-7b's 36 heads over 4 KV heads: G 9, 72 rows
+//    at block_k 8, 288 under a 32-node tree), is cut into row tiles
+//    (row_plan: ceil(R / 64) tiles of a multiple of 16 rows, the last one
+//    shorter; 72 rows are 48 + 24, not 64 + 8), and the grid gains a tile
+//    axis, blockIdx.y: (B * KV * splits, tiles) blocks, a cluster still
+//    spanning the splits of one (row, head, tile).  Each tile reads the range's K and V
+//    again (from L2 after the first), one launch per call as before.
 // 2. Two shared-memory loads per FMA.  bf16: Q.K^T and P.V run on the
 //    tensor cores, mma.sync m16n8k16 with fp32 accumulation, K and V read
 //    with ldmatrix (V transposed on the way), one warp per 16 query rows
@@ -72,12 +81,13 @@
 //
 // A query's result does not depend on kq or B: the split plan depends on L
 // alone, the tile loop is the same for every row, and each row's sums run
-// in the same order wherever the row sits in its block (BPD at kq = k and
-// greedy at kq = 1 agree bit for bit).  Addressing never enters the
+// in the same order wherever the row sits in its block and whichever row
+// tile holds it (BPD at kq = k and greedy at kq = 1 agree bit for bit, at
+// 72 or 288 rows as at 8).  Addressing never enters the
 // arithmetic, so the paged kernel equals the dense one on the gathered view
 // kp[tbl] bit for bit.
 //
-// Head dims 16, 24, 32, 64 and 128.  At 16 (the trained policy-sweep model) a
+// Head dims 16, 24, 32, 64, 128 and 160.  At 16 (the trained policy-sweep model) a
 // bf16 row is one k16 step of Q.K^T and two n8 output tiles, a staged row
 // two 16-byte copies (four in fp32), and each fp32 thread holds two output
 // columns of its rows instead of four.  24 (the quickstart model, d 96 over
@@ -87,7 +97,14 @@
 // 24-31 are cp.async with src-size 0), Q's fragments read zero there, so
 // the padded lanes add nothing to Q.K^T and make zero output columns, which
 // the combine never writes.  The softmax scale stays 1/sqrt(HD).  Every
-// other head_dim is its own compute width, and its code is unchanged.
+// other head_dim is its own compute width, and its code is unchanged.  160
+// (stablelm-12b) is ten k16 steps and twenty n8 output tiles: a bf16 warp
+// holds 40 registers of Q fragments and 80 of accumulators, more than the
+// 168 that three blocks an SM leave a thread, so HD 160 runs two blocks an
+// SM (min_blocks: up to 255 registers).  Its bf16 block takes 43 KB of
+// shared memory; in fp32 32-key tiles would take 135 KB, one block an SM,
+// so fp32 at 160 stages tiles of 16 keys (88 KB, two blocks).  The
+// reference pads 160 to 256 lanes; the padded lanes would only add zeros.
 #pragma once
 
 #include "common.cuh"
@@ -103,7 +120,8 @@ namespace bpd_split {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;        // 4 warps
-constexpr int kMaxRows = 64;         // kq * G query rows per block
+constexpr int kMaxRows = 64;         // query rows per block (one row tile)
+constexpr int kRowAlign = 16;        // rows per tile: a multiple of one mma
 constexpr int kMaxSplits = 8;        // the portable cluster size
 constexpr int kMinSplitKeys = 64;
 constexpr int kSplitAlign = 16;
@@ -121,6 +139,20 @@ __host__ __device__ inline Plan split_plan(int L) {
   const int per = (L + s - 1) / s;
   const int keys = (per + kSplitAlign - 1) / kSplitAlign * kSplitAlign;
   return Plan{(L + keys - 1) / keys, keys};
+}
+
+// The row plan, a function of R = kq * G alone (block_attention.row_plan
+// is its twin): ``tiles`` tiles of ``rows`` rows, the last one ragged, none
+// empty, none over kMaxRows.  Tile i holds rows [i * rows, min(R, (i + 1) *
+// rows)).
+struct RowPlan {
+  int tiles, rows;
+};
+__host__ __device__ inline RowPlan row_plan(int R) {
+  const int n = (R + kMaxRows - 1) / kMaxRows;
+  const int per = (R + n - 1) / n;
+  const int rows = (per + kRowAlign - 1) / kRowAlign * kRowAlign;
+  return RowPlan{(R + rows - 1) / rows, rows};
 }
 
 // Where key j of batch row b lives: a slot of the flattened (slots, KV, hd)
@@ -183,13 +215,20 @@ struct Args {
 };
 
 // Keys per tile: two k16 steps of the bf16 products.  A range of 64 keys
-// is two tiles, so the first is used while the second is in flight.
+// is two tiles, so the first is used while the second is in flight.  fp32
+// rows wider than 128 take half (Layout::kKeys), so two blocks fit an SM.
 constexpr int kTileKeys = 32;
 
 // The compute width of a head_dim: 24 runs at 32 (see the header), every
 // other supported head_dim at itself.
 __host__ __device__ constexpr int compute_width(int hd) {
   return hd == 24 ? 32 : hd;
+}
+
+// Blocks an SM the kernel is compiled for: three (168 registers a thread)
+// up to head_dim 128, two at 160 (see the header).
+__host__ __device__ constexpr int min_blocks(int hd) {
+  return hd > 128 ? 2 : 3;
 }
 
 // The softmax's exponential, per dtype.  bf16 works in base 2, log2(e)
@@ -202,13 +241,14 @@ __device__ __forceinline__ float softmax_exp(float x, float) { return expf(x); }
 
 template <typename T, int HD, bool kTree>
 struct Layout {
-  static constexpr int kKeys = kTileKeys;
+  static constexpr int kKeys =
+      sizeof(T) == 4 && HD > 128 ? kTileKeys / 2 : kTileKeys;
   static constexpr int kVec = 16 / sizeof(T);          // elements per copy
   static constexpr int kLd = HD + kVec;                // padded row
   static constexpr int kStageElems = kKeys * kLd;      // one K or V tile
   static constexpr size_t kStages = 2 * 2 * size_t(kStageElems) * sizeof(T);
   // after the tile loop the region holds this range's partials: acc
-  // [64][hd], m [64], l [64]
+  // [64][hd], m [64], l [64] (local rows of the block's row tile)
   static constexpr size_t kPartials = sizeof(float) * (kMaxRows * HD + 2 * kMaxRows);
   static constexpr size_t kRegion = kStages > kPartials ? kStages : kPartials;
   static constexpr bool kF32 = sizeof(T) == 4;
@@ -316,12 +356,14 @@ __device__ __forceinline__ bool visible(int kp, int kn, RowInfo r, int window,
   return vis;
 }
 
+// Row r of the block's tile is query row r_begin + r of the (row, head);
+// rows at or past the tile's R are padding.
 template <bool kTree>
 __device__ __forceinline__ RowInfo row_info(const int* q_pos,
                                             const int* anc_bits, int b, int kq,
-                                            int G, int r, int R) {
+                                            int G, int r_begin, int r, int R) {
   if (r >= R) return RowInfo{-1, 0u};  // a padding row sees no key
-  const int at = b * kq + r / G;
+  const int at = b * kq + (r_begin + r) / G;
   return RowInfo{q_pos[at],
                  kTree ? static_cast<uint32_t>(anc_bits[at]) : 0u};
 }
@@ -340,9 +382,9 @@ __device__ __forceinline__ int row_tile(int tid, int block) {
 // ---------------------------------------------------------------------------
 
 // Three blocks an SM (at most 168 registers a thread): the 64 clusters of
-// four at the path's shape then run in one wave.
+// four at the path's shape then run in one wave.  Two at head_dim 160.
 template <typename T, int HD, typename Rows, bool kTree>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, min_blocks(HD))
 split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
                        const int* __restrict__ kv_pos,
@@ -350,7 +392,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int* __restrict__ anc_bits, T* __restrict__ out,
                        Rows rows, int kq, int heads, int kv_heads, int L,
                        int window, int num_meta, int splits, int split_keys,
-                       float scale) {
+                       int tile_rows, float scale) {
   // HD: a row's width in device memory; HDC: the width computed on, with
   // lanes HD..HDC-1 zero (compute_width)
   constexpr int HDC = compute_width(HD);
@@ -368,7 +410,9 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bkv / kv_heads;
   const int kvh = bkv % kv_heads;
   const int G = heads / kv_heads;
-  const int R = kq * G;
+  // this block's row tile: rows [r_begin, r_begin + R) of the kq * G
+  const int r_begin = blockIdx.y * tile_rows;
+  const int R = min(tile_rows, kq * G - r_begin);
   const int tid = threadIdx.x;
   const int k_begin = rank * split_keys;
   const int k_end = min(L, k_begin + split_keys);
@@ -441,10 +485,10 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int r = row0 + g + 8 * h2;
-      ri[h2] = row_info<kTree>(q_pos, anc_bits, b, kq, G, r, R);
+      ri[h2] = row_info<kTree>(q_pos, anc_bits, b, kq, G, r_begin, r, R);
       const uint32_t* qrow = nullptr;
       if (r < R) {
-        const int qi = r / G, h = kvh * G + r % G;
+        const int qi = (r_begin + r) / G, h = kvh * G + (r_begin + r) % G;
         qrow = reinterpret_cast<const uint32_t*>(
             q + ((size_t(b) * kq + qi) * heads + h) * HD);
       }
@@ -600,7 +644,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / HDC, d = e % HDC;
       float x = 0.f;
       if (r < R && d < HD) {
-        const int qi = r / G, h = kvh * G + r % G;
+        const int qi = (r_begin + r) / G, h = kvh * G + (r_begin + r) % G;
         x = to_f32(q[((size_t(b) * kq + qi) * heads + h) * HD + d]);
       }
       qs[r * kLd + d] = x;
@@ -608,7 +652,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     RowInfo ri[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      ri[i] = row_info<kTree>(q_pos, anc_bits, b, kq, G, rb + i, R);
+      ri[i] = row_info<kTree>(q_pos, anc_bits, b, kq, G, r_begin, rb + i, R);
 
     float m[4], l[4];
     float acc[4][kOC][kOW];
@@ -743,7 +787,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // ---- combine the ranges' partials through distributed shared memory ----
-  // Each block writes its share of the (R, HD) outputs, four columns a
+  // Each block writes its share of the tile's (R, HD) outputs, four columns a
   // thread (the padded lanes HD..HDC-1 are never written): it reads every
   // range's (m, l) of the row and its four accumulator columns, two
   // elements' worth of remote reads in flight at once, then weighs the
@@ -794,7 +838,7 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           den = fmaf(w, ls[u][s], den);
         }
       }
-      const int qi = r / G, h = kvh * G + r % G;
+      const int qi = (r_begin + r) / G, h = kvh * G + (r_begin + r) % G;
       store4(out + ((size_t(b) * kq + qi) * heads + h) * HD + d,
              num[0] / den, num[1] / den, num[2] / den, num[3] / den);
     }
@@ -807,17 +851,24 @@ split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD, typename Rows, bool kTree>
-cudaError_t launch(const Args& a, int splits, Rows rows, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int splits, int row_tiles, Rows rows,
+                   cudaStream_t stream) {
   using Lay = Layout<T, compute_width(HD), kTree>;
   const Plan plan = split_plan(a.L);
-  if (splits != plan.splits || !rows.fits(plan.keys)) return cudaErrorInvalidValue;
+  const RowPlan rp = row_plan(a.kq * (a.heads / a.kv_heads));
+  if (splits != plan.splits || row_tiles != rp.tiles || !rows.fits(plan.keys))
+    return cudaErrorInvalidValue;
   constexpr size_t kBytes = Lay::kBytes + sizeof(int) * Rows::kStaged;
   auto kernel = split_attention_kernel<T, HD, Rows, kTree>;
   static std::atomic<unsigned long long> configured{0};
   cudaError_t err = allow_smem(kernel, static_cast<int>(kBytes), configured);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(a.B * a.kv_heads * plan.splits));
+  const long long blocks =
+      static_cast<long long>(a.B) * a.kv_heads * plan.splits;
+  if (blocks > INT_MAX || rp.tiles > 65535) return cudaErrorInvalidValue;
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks),
+                     static_cast<unsigned>(rp.tiles));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kBytes;
   cfg.stream = stream;
@@ -832,41 +883,44 @@ cudaError_t launch(const Args& a, int splits, Rows rows, cudaStream_t stream) {
       &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.q_pos, a.kv_pos, a.kv_node, a.anc_bits,
       static_cast<T*>(a.out), rows, a.kq, a.heads, a.kv_heads, a.L, a.window,
-      a.num_meta, plan.splits, plan.keys, 1.0f / sqrtf(float(HD)));
+      a.num_meta, plan.splits, plan.keys, rp.rows, 1.0f / sqrtf(float(HD)));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T, typename Rows, bool kTree>
-cudaError_t dispatch_hd(int hd, const Args& a, int splits, Rows rows,
-                        cudaStream_t s) {
+cudaError_t dispatch_hd(int hd, const Args& a, int splits, int row_tiles,
+                        Rows rows, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16, Rows, kTree>(a, splits, rows, s);
-    case 24: return launch<T, 24, Rows, kTree>(a, splits, rows, s);
-    case 32: return launch<T, 32, Rows, kTree>(a, splits, rows, s);
-    case 64: return launch<T, 64, Rows, kTree>(a, splits, rows, s);
-    case 128: return launch<T, 128, Rows, kTree>(a, splits, rows, s);
+    case 16: return launch<T, 16, Rows, kTree>(a, splits, row_tiles, rows, s);
+    case 24: return launch<T, 24, Rows, kTree>(a, splits, row_tiles, rows, s);
+    case 32: return launch<T, 32, Rows, kTree>(a, splits, row_tiles, rows, s);
+    case 64: return launch<T, 64, Rows, kTree>(a, splits, row_tiles, rows, s);
+    case 128: return launch<T, 128, Rows, kTree>(a, splits, row_tiles, rows, s);
+    case 160: return launch<T, 160, Rows, kTree>(a, splits, row_tiles, rows, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The wrappers (kernels/*.py) have checked shapes, dtypes, contiguity and
-// alignment and computed the split plan; this re-checks what would make the
-// launch unsafe (the plan included), then picks the instantiation for the
-// dtype and head_dim.
+// alignment and computed the split and row plans; this re-checks what would
+// make the launch unsafe (the plans included), then picks the instantiation
+// for the dtype and head_dim.
 template <typename Rows, bool kTree>
-cudaError_t run(int dtype, int hd, const Args& a, int splits, Rows rows,
-                void* stream) {
+cudaError_t run(int dtype, int hd, const Args& a, int splits, int row_tiles,
+                Rows rows, void* stream) {
   if (a.B < 1 || a.kq < 1 || a.L < 1 || a.kv_heads < 1 ||
-      a.heads % a.kv_heads != 0 || a.kq * (a.heads / a.kv_heads) > kMaxRows)
+      a.heads % a.kv_heads != 0 ||
+      static_cast<long long>(a.kq) * (a.heads / a.kv_heads) > INT_MAX / 256)
     return cudaErrorInvalidValue;
   if (kTree && (a.kv_node == nullptr || a.anc_bits == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_hd<float, Rows, kTree>(hd, a, splits, rows, s);
+    return dispatch_hd<float, Rows, kTree>(hd, a, splits, row_tiles, rows, s);
   if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16, Rows, kTree>(hd, a, splits, rows, s);
+    return dispatch_hd<__nv_bfloat16, Rows, kTree>(hd, a, splits, row_tiles,
+                                                   rows, s);
   return cudaErrorInvalidValue;
 }
 

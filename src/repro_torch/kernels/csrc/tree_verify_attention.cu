@@ -15,7 +15,9 @@
 //     staging: as verify_attention.cu (split-KV clusters, mma.sync with
 //     ldmatrix, shuffle reductions, double-buffered cp.async).
 // On a chain topology the bit test passes exactly the causal keys, so the
-// kernel gives verify_attention's output bit for bit.
+// kernel gives verify_attention's output bit for bit.  ``row_tiles`` is the
+// wrapper's row_plan(kq * G).tiles: a 32-node tree at G 9 is 288 rows in
+// five tiles.
 #include "split_attention.cuh"
 
 BPD_EXPORT int tree_verify_attention(const void* q, const void* k,
@@ -24,7 +26,7 @@ BPD_EXPORT int tree_verify_attention(const void* q, const void* k,
                                      const void* anc_bits, void* out, int dtype,
                                      int B, int kq, int heads, int kv_heads,
                                      int hd, int L, int window, int num_meta,
-                                     int splits, void* stream) {
+                                     int splits, int row_tiles, void* stream) {
   if (kq > 32) return cudaErrorInvalidValue;   // anc_bits holds 32 nodes
   const bpd_split::Args a{q, k, v, static_cast<const int*>(q_pos),
                           static_cast<const int*>(kv_pos),
@@ -32,5 +34,5 @@ BPD_EXPORT int tree_verify_attention(const void* q, const void* k,
                           static_cast<const int*>(anc_bits),
                           out, B, kq, heads, kv_heads, L, window, num_meta};
   return bpd_split::run<bpd_split::DenseRows, true>(
-      dtype, hd, a, splits, bpd_split::DenseRows{L}, stream);
+      dtype, hd, a, splits, row_tiles, bpd_split::DenseRows{L}, stream);
 }

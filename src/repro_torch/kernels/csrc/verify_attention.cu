@@ -14,17 +14,19 @@
 //   - serial softmax: row max and sum reduced across lanes by shuffles;
 //   - unoverlapped staging: 16-byte cp.async copies, double buffered,
 //     zero-filled past the range.
-// ``splits`` is the wrapper's split_plan(L).splits; the entry re-checks it.
+// ``splits`` is the wrapper's split_plan(L).splits and ``row_tiles`` its
+// row_plan(kq * G).tiles (G = heads / kv_heads); the entry re-checks both.
 #include "split_attention.cuh"
 
 BPD_EXPORT int verify_attention(const void* q, const void* k, const void* v,
                                 const void* q_pos, const void* kv_pos,
                                 void* out, int dtype, int B, int kq, int heads,
                                 int kv_heads, int hd, int L, int window,
-                                int num_meta, int splits, void* stream) {
+                                int num_meta, int splits, int row_tiles,
+                                void* stream) {
   const bpd_split::Args a{q, k, v, static_cast<const int*>(q_pos),
                           static_cast<const int*>(kv_pos), nullptr, nullptr,
                           out, B, kq, heads, kv_heads, L, window, num_meta};
   return bpd_split::run<bpd_split::DenseRows, false>(
-      dtype, hd, a, splits, bpd_split::DenseRows{L}, stream);
+      dtype, hd, a, splits, row_tiles, bpd_split::DenseRows{L}, stream);
 }

@@ -27,7 +27,7 @@ from repro_torch.kernels.block_attention import (_check_aligned,
 from repro_torch.kernels.ref import paged_verify_attention as paged_verify_attention_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I] * 12 + [_P]
+_ARGTYPES = [_P] * 7 + [_I] * 13 + [_P]
 MAX_STAGED_PAGES = 512      # csrc/split_attention.cuh: PagedRows::kStaged
 
 __all__ = ["paged_verify_attention_cuda", "paged_verify_attention_plain"]

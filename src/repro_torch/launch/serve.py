@@ -11,6 +11,15 @@ over HTTP (``repro.launch.serve`` on one card).
         --full-config --http [--port 8000 --max-queue 16] [--http-demo]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --policy draft_model [--draft-arch granite-3-8b --draft-ckpt DIR]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \
+        --full-config --batch 8 --prompt-len 64 --max-new 64
+
+``--arch`` takes the six archs the port runs: the dense text decoders
+granite-3-8b, stablelm-12b (head_dim 160, per-head QK norm), starcoder2-7b
+(36 heads over 4 KV heads, a 4096-token window on every layer) and
+nemotron-4-15b (vocab 256000, LayerNorm, squared ReLU); rwkv6-1.6b; and
+the encoder-decoder paper-mt-base (refused here, see below).  Any other
+registered name raises at model construction.
 
 Without ``--full-config`` the registered smoke config runs in fp32, as the
 reference serves it; with it the full config runs in its own compute dtype.
@@ -75,7 +84,10 @@ from repro_torch.serving import (ContinuousBatchingEngine, DecodeSession,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="granite-3-8b, stablelm-12b, starcoder2-7b, "
+                         "nemotron-4-15b or rwkv6-1.6b (paper-mt-base: "
+                         "bpd_decode_seq2seq)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="reference checkpoint dir (step_N/arrays.npz)")
     ap.add_argument("--batch", type=int, default=4)

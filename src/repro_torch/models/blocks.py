@@ -38,6 +38,8 @@ from repro_torch.models.rwkv6 import (
 )
 
 SUPPORTED_BLOCKS = (("attn", "dense"), ("rwkv6", "rwkv_channel_mix"))
+PORTED_ARCHS = ("granite-3-8b", "stablelm-12b", "starcoder2-7b",
+                "nemotron-4-15b", "rwkv6-1.6b", "paper-mt-base")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -55,7 +57,8 @@ def check_supported(cfg: ModelConfig) -> None:
             f"is_encoder_decoder={cfg.is_encoder_decoder} is not ported yet "
             f"(see ROADMAP.md, 'Modules to port'); the port runs text models "
             f"with (block_type, mlp_type) in {SUPPORTED_BLOCKS}, "
-            f"encoder-decoders with {SUPPORTED_BLOCKS[0]}")
+            f"encoder-decoders with {SUPPORTED_BLOCKS[0]}: of the registered "
+            f"archs {PORTED_ARCHS}")
 
 
 def check_tree_supported(cfg: ModelConfig) -> None:

@@ -351,6 +351,49 @@ def test_split_attention_kernels_head_dim_24(cuda, l, h, kvh, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,hd,kq,nodes", [
+    (32, 8, 160, 8, 32),     # stablelm-12b: head_dim 160; the tree 128 rows
+    (36, 4, 128, 8, 8),      # starcoder2-7b: G 9, 72 rows (two row tiles)
+    (36, 4, 128, 32, 32),    # 288 rows (five row tiles)
+    (36, 4, 128, 7, 8),      # 63 rows (one tile)
+])
+def test_split_attention_kernels_family_heads(cuda, h, kvh, hd, kq, nodes,
+                                              dtype):
+    """The dense text families' heads: the three split-KV kernels equal
+    their plain versions, a query's output is the same bit for bit at kq 1
+    and B 1 whichever row tile holds it, and the paged kernel equals
+    verify_attention on the gathered view."""
+    gen = torch.Generator().manual_seed(h * hd + kq)
+    b, l = 4, 300
+    args = _chain_case(gen, cuda, dtype, b, kq, h, kvh, hd, l)
+    full = verify_attention_cuda(*args, window=40, num_meta=3)
+    _assert_matches_plain(full, ref.verify_attention(*args, window=40,
+                                                     num_meta=3), dtype)
+    q, k, v, q_pos, kv_pos = args
+    for i in range(kq):
+        one = verify_attention_cuda(q[:, i:i + 1].contiguous(), k, v,
+                                    q_pos[:, i:i + 1].contiguous(), kv_pos,
+                                    window=40, num_meta=3)
+        assert torch.equal(one, full[:, i:i + 1]), f"query {i}"
+    for r in range(b):
+        row = verify_attention_cuda(*(t[r:r + 1].contiguous() for t in args),
+                                    window=40, num_meta=3)
+        assert torch.equal(row, full[r:r + 1]), f"row {r}"
+    targs = _tree_case(gen, cuda, dtype, b, h, kvh, hd, l,
+                       default_tree(nodes, 4))
+    tree = tree_verify_attention_cuda(*targs)
+    _assert_matches_plain(tree, ref.tree_verify_attention(*targs), dtype)
+    for r in range(b):
+        row = tree_verify_attention_cuda(*(t[r:r + 1].contiguous() for t in targs))
+        assert torch.equal(row, tree[r:r + 1]), f"tree row {r}"
+    pargs = _paged_case(gen, cuda, dtype, b, kq, -(-l // 16), 16, h=h, kvh=kvh,
+                        hd=hd, unmapped=1)
+    paged = paged_verify_attention_cuda(*pargs)
+    _assert_matches_plain(paged, ref.paged_verify_attention(*pargs), dtype)
+    assert torch.equal(paged, verify_attention_cuda(*_gathered(*pargs)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("crit", CRITERIA)
 @pytest.mark.parametrize("k", [8, 1])
 def test_fused_verify_kernel_matches_plain(cuda, k, crit, dtype):

@@ -75,10 +75,18 @@ def test_config_fields_match_reference(name):
     assert port_fields == ref_fields
 
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_registered_granite_matches_reference(smoke):
-    want = jconfig.get_config("granite-3-8b", smoke=smoke)
-    got = tconfig.get_config("granite-3-8b", smoke=smoke)
+@pytest.mark.parametrize("arch,smoke", [
+    *(pytest.param("granite-3-8b", smoke, id=str(smoke))
+      for smoke in (False, True)),
+    *(pytest.param(arch, smoke, id=f"{arch}-{smoke}")
+      for arch in ("stablelm-12b", "starcoder2-7b", "nemotron-4-15b")
+      for smoke in (False, True))])
+def test_registered_granite_matches_reference(arch, smoke):
+    """The port's copy of granite-3-8b's registered config, and of the
+    other dense text decoders', full and smoke, equals the reference's
+    field for field."""
+    want = jconfig.get_config(arch, smoke=smoke)
+    got = tconfig.get_config(arch, smoke=smoke)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.padded_vocab_size == want.padded_vocab_size
     assert got.compute_dtype == torch.bfloat16

@@ -131,10 +131,11 @@ def test_bf16_cast_keeps_cross_and_encoder_norms_fp32(mt):
 @pytest.mark.parametrize("hd,match", [
     (16, "CUDA device"),
     pytest.param(24, "CUDA device", id="24-head_dim 24"),
-    (160, "head_dim 160")])
+    pytest.param(160, "CUDA device", id="160-head_dim 160"),
+    (192, "head_dim 192")])
 def test_check_attention_inputs_head_dims(hd, match):
-    """head_dim 16 and 24 pass the head_dim check (a CPU tensor then
-    fails the device check); 160 is still refused."""
+    """head_dim 16, 24 and 160 pass the head_dim check (a CPU tensor then
+    fails the device check); 192 is refused."""
     q = torch.zeros((1, 2, 4, hd))
     kv = torch.zeros((1, 16, 4, hd))
     with pytest.raises(ValueError, match=match):

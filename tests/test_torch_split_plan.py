@@ -83,10 +83,27 @@ def _inputs(b=1, kq=2, h=4, kvh=2, hd=64, l=16):
             torch.zeros((b, l), dtype=torch.int32))
 
 
-HEAD_DIM_CASES = [
-    (dict(hd=24), "CUDA device"),     # quickstart's: taken, computed at 32
-    (dict(hd=20), "head_dim 20"),
-    (dict(hd=160), "head_dim 160"),
+def _head_dim_cases(first):
+    """quickstart's 24 (computed at 32) and stablelm-12b's 160 are taken
+    (a CPU tensor then fails the device check); 20 and 192 are refused.
+    The ids are the cases' ids from before 160 was taken."""
+    return [pytest.param(dict(hd=24), "CUDA device",
+                         id=f"case{first}-CUDA device"),
+            pytest.param(dict(hd=20), "head_dim 20",
+                         id=f"case{first + 1}-head_dim 20"),
+            pytest.param(dict(hd=160), "CUDA device",
+                         id=f"case{first + 2}-head_dim 160"),
+            pytest.param(dict(hd=192), "head_dim 192", id="hd192")]
+
+
+# more than 64 query rows of a (row, KV head) are taken in row tiles (the
+# first case keeps its id from when 64 was the limit): starcoder2-7b's G 9
+# at kq 8 (72 rows) and under a 32-node tree (288)
+ROW_CASES = [
+    pytest.param(dict(kq=65, h=2, kvh=2), "CUDA device",
+                 id="case2-65 query rows exceed 64"),
+    pytest.param(dict(kq=8, h=9, kvh=1), "CUDA device", id="rows72"),
+    pytest.param(dict(kq=32, h=9, kvh=1), "CUDA device", id="rows288"),
 ]
 
 
@@ -94,8 +111,8 @@ HEAD_DIM_CASES = [
 @pytest.mark.parametrize("case,match", [
     (dict(), "CUDA device"),                       # a CPU tensor
     (dict(hd=48), "head_dim 48"),
-    (dict(kq=65, h=2, kvh=2), "65 query rows exceed 64"),
-    *HEAD_DIM_CASES,
+    *ROW_CASES,
+    *_head_dim_cases(3),
 ])
 def test_wrappers_refuse_before_any_build(no_build, kernel, case, match):
     q, k, v, q_pos, kv_pos = _inputs(**case)
@@ -118,9 +135,10 @@ def _paged_inputs(b=1, kq=2, h=4, kvh=2, hd=64, ps=8, P=2, pages=3):
 @pytest.mark.parametrize("case,match", [
     (dict(), "CUDA device"),                       # a CPU tensor
     (dict(hd=48), "head_dim 48"),
-    (dict(kq=65, h=2, kvh=2), "65 query rows exceed 64"),
-    (dict(ps=12), "page_size 12 must be a multiple of 8"),
-    *HEAD_DIM_CASES,
+    *ROW_CASES,
+    pytest.param(dict(ps=12), "page_size 12 must be a multiple of 8",
+                 id="case3-page_size 12 must be a multiple of 8"),
+    *_head_dim_cases(4),
 ])
 def test_paged_wrapper_refuses_before_any_build(no_build, case, match):
     with pytest.raises(ValueError, match=match):
