@@ -55,11 +55,16 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 window of 4096 over a wrapped ring of 4352 slots; trees of
                 8 and 32 nodes: 72 and 288 rows), paged with shared and
                 unmapped pages, bf16 and fp32, bit for bit invariant in kq
-                and B, timed beside SDPA and the bound; fused_heads at
+                and B, timed beside SDPA and the bound; the same at the
+                MoE models' 16/16 heads of 128 (kq 1, 2, 8 at L 256 and
+                4096: kq 8 is 8 rows of a 16-row tile); fused_heads at
                 nemotron-4-15b's (56, 6144) x (6144, 256000) untied
-                lm_head, T 1, 4, 8, bf16 and fp32, beside torch.mm then
-                torch.topk and the bound; fused_verify at (8, 8, 256000)
-                under every criterion, bit for bit.
+                lm_head (T 1, 4, 8), olmoe-1b-7b's (2048, 50432) at vocab
+                50304 and qwen2-moe-a2.7b's (2048, 152064) at vocab 151936
+                (T 1, 8), bf16 and fp32, beside torch.mm then torch.topk
+                and the bound; fused_verify at (8, 8, V) for V 256000,
+                50304 and 151936 under every criterion, and at the path's
+                padded lanes with the pads at -1e9, bit for bit.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -209,6 +214,32 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 4,352-slot ring; then each cast for bf16 and served by
                 repro_torch.launch.serve --full-config (tokens/s, k̂, one
                 iteration profiled); parameters and peak memory printed.
+  17. moe     — after phase 16, before 11: olmoe-1b-7b (16 layers, 64
+                experts top-8) and qwen2-moe-a2.7b (24 layers, 60 experts
+                top-4 and a shared MLP) at full width and depth from seed
+                0, fp32, phase 4's prompts, 64 new tokens, block_k 8,
+                every decode forward at full capacity: 17a olmoe greedy,
+                exact and topk_tree on both caches and the fp32 engine
+                (5c's 16 requests, unified on the managed page pool);
+                17b qwen2-moe greedy, exact dense, topk_tree paged; each
+                greedy's tokens, launches exact, the fp32 peak under 76
+                GiB, then cast for bf16 and served (--full-config).  The
+                near-tie rule's router extension: a divergence without a
+                logit near-tie passes only if the first (position, layer)
+                where the two runs' chosen experts differ (each run's
+                router logits recorded through models.moe.ROUTER_TRACE;
+                the other run's computation matched to greedy's as the
+                closest within 1e-3 of max|router logit|) has a relative
+                K-th / (K+1)-th router-probability gap below 1e-4 on both
+                sides; admitted ties are printed and counted.  17c: one
+                make_train_step card vs CPU at a narrow olmoe geometry (d
+                1024, 16 experts top-4) where capacity drops assignments
+                (loss, aux / z / dropped, every gradient and leaf, the
+                same kept assignments on both sides), then olmoe-1b-7b
+                fine-tuned at full width, depth cut to 8 layers (16 bytes
+                a parameter must fit), 20 steps of B 4 x S 256: aux, z
+                and dropped per step, the loss falling, step ms, tokens/s,
+                peak.
   11. train   — everything earlier freed; the training path (make_train_step:
                 the paper's §6 loss, backward, AdamW), fp32:
                 11a: granite's attention width (d 4096, 32/8 heads of
@@ -279,6 +310,8 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_TOL = 1e-4                           # relative, and of max|out| absolute:
                                           # fp32 sums in another order
 TIE_MARGIN = 1e-4                         # of max|logit|: BPD/greedy near-ties
+ROUTER_TIE_MARGIN = 1e-4                  # (p_K - p_K+1) / p_K: router near-ties
+ROUTER_MATCH = 1e-3                       # of max|router logit|: one computation
 HEADS_TIE_MARGIN = 1e-3                   # of max|logit|: fused-heads near-ties
 BF16_TIE_ULPS = 8                         # bf16 ulps of max|logit|: reported
 SPIN_CYCLES = 2_000_000                   # about 1 ms of device clock
@@ -983,7 +1016,14 @@ def check_head_dim_24(torch, gen, results):
 # chain's kq, the tree sizes); stablelm-12b's head_dim 160, starcoder2-7b's
 # G 9 (72 rows at kq 8, 288 under a 32-node tree: row tiles)
 FAMILY_HEADS = (("stablelm-12b", 32, 8, 160, (1, 2, 8), (60, 256, 4096)),
-                ("starcoder2-7b", 36, 4, 128, (7, 8, 32), (256, 4096)))
+                ("starcoder2-7b", 36, 4, 128, (7, 8, 32), (256, 4096)),
+                ("olmoe-1b-7b / qwen2-moe-a2.7b", 16, 16, 128, (1, 2, 8),
+                 (256, 4096)))
+# (model, d, vocab, lm_head lanes, T values): the untied lm_heads of the
+# families, pad lanes past the vocab as the path has them
+FAMILY_VOCABS = (("nemotron-4-15b", 6144, 256000, 256000, (1, 4, 8)),
+                 ("olmoe-1b-7b", 2048, 50304, 50432, (1, 8)),
+                 ("qwen2-moe-a2.7b", 2048, 151936, 152064, (1, 8)))
 RING, WINDOW = 4352, 4096        # starcoder2-7b's dense ring (models/cache.py)
 
 
@@ -1006,8 +1046,9 @@ def ring_case(torch, gen, b, kq, h, kvh, hd, dtype):
 
 
 def check_family_heads(torch, gen, results):
-    """The three split-KV kernels at the dense text families' heads
-    (FAMILY_HEADS), bf16 and fp32, against their plain versions: the chain
+    """The three split-KV kernels at the text families' heads
+    (FAMILY_HEADS: the MoE models' 16/16 heads of 128 run kq 8 as 8 rows of
+    a 16-row tile), bf16 and fp32, against their plain versions: the chain
     kernel at each kq and L, at starcoder2's kq 8 with its window of 4096
     over a wrapped ring of 4352 slots; the tree kernel with 8 and 32 nodes
     (at G 9: 72 and 288 rows); the paged kernel (16 pages of 16, one
@@ -1123,89 +1164,96 @@ def check_family_heads(torch, gen, results):
 
 
 def check_family_vocab(torch, gen, results):
-    """fused_heads at nemotron-4-15b's shape, (56, 6144) x (6144, 256000) on
-    the untied lm_head's row-major layout, at T 1, 4 and 8 in bf16 and fp32,
-    against its plain version, timed beside torch.mm then torch.topk and
-    its bound; then fused_verify at (8, 8, 256000) under every criterion
-    (ties and unaligned rows included), bit for bit against its plain
-    version, timed."""
+    """fused_heads at each of FAMILY_VOCABS' untied lm_heads, (56, d) x (d,
+    lanes) in the row-major layout with the vocab passed (pad lanes past it
+    never chosen), at its T values in bf16 and fp32, against its plain
+    version, timed beside torch.mm then torch.topk and its bound; then
+    fused_verify at (8, 8, vocab) under every criterion (ties and unaligned
+    rows included) and at the path's padded (8, 8, lanes) with the pad
+    lanes at -1e9, bit for bit against its plain version, timed."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fused_heads import fused_heads_topk_cuda, vocab_plan
-    from repro_torch.kernels.fused_verify import (fused_verify_cuda,
-                                                  fused_verify_plain,
-                                                  verify_plan)
+    from repro_torch.kernels.fused_heads import vocab_plan
+    from repro_torch.kernels.fused_verify import verify_plan
 
-    n, d, vocab = 56, 6144, 256000
+    n = 56
     sms = _build.sm_count(torch.device("cuda"))
-    log(f"  vocab_plan({vocab}, {sms}) = {vocab_plan(vocab, sms)}, "
-        f"verify_plan({vocab}, 8, 8, {sms}) = {verify_plan(vocab, 8, 8, sms)}")
-    for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
-        w = (torch.randn((d, vocab), generator=gen, device="cuda")
-             * 0.02).to(dt)
-        for top_t in (1, 4, 8):
-            vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
-            torch.cuda.synchronize()
-            ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab,
-                                           top_t)
-            err = (vals - wv).abs().max().item()
-            tol = ATTN_TOL[dtype]
-            ok = ok and torch.allclose(vals, wv, rtol=tol, atol=tol)
-            log(f"  fused_heads {dtype} T={top_t} nemotron-4-15b lm_head "
-                f"({d},{vocab}): max_abs_err={err:.3g} near-ties={ties} "
-                f"{'ok' if ok else 'FAIL'}")
-            check(ok and int(ids.max()) < vocab,
-                  f"fused_heads {dtype} T={top_t} at V {vocab} differs from "
-                  f"its plain version (err {err})")
-            results["fused_heads"]["max_abs_err"] = max(
-                results["fused_heads"]["max_abs_err"], err)
-        ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
-                                                          top_t=1))
-        two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w), 1))
-        bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * vocab, dtype)
-        log(f"  fused_heads {dtype} nemotron-4-15b (56,{d})x({d},{vocab}) "
-            f"T=1: kernel {ms:.4f} ms, torch.mm then torch.topk "
-            f"{two_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-        del o, w
+    for model, d, vocab, lanes, tops in FAMILY_VOCABS:
+        log(f"  {model}: vocab_plan({lanes}, {sms}) = "
+            f"{vocab_plan(lanes, sms)}, verify_plan({vocab}, 8, 8, {sms}) = "
+            f"{verify_plan(vocab, 8, 8, sms)}")
+        for dtype in ("bfloat16", "float32"):
+            check_family_vocab_case(torch, gen, results, model, n, d, vocab,
+                                    lanes, tops, dtype)
 
-        b, k = 8, 8
-        logits = torch.randn((b, k, vocab), generator=gen,
-                             device="cuda").to(dt)
-        ties = (torch.randint(0, 4, (b, k, vocab), generator=gen,
-                              device="cuda").float() * 0.5).to(dt)
-        odd = torch.randn((b, k, vocab - 3), generator=gen,
-                          device="cuda").to(dt)
-        for label, lg in (("random", logits), ("ties", ties),
-                          (f"V {vocab - 3} unaligned", odd)):
-            greedy = torch.argmax(lg.float(), -1).int()
-            props = torch.randint(0, lg.shape[-1], greedy.shape, generator=gen,
-                                  device="cuda", dtype=torch.int32)
-            props[:, 1:4] = greedy[:, 0:3]
-            for crit, kw in (("exact", {}), ("topk", dict(top_k=3)),
-                             ("topk", dict(top_k=8)),
-                             ("distance", dict(epsilon=2.0))):
-                got = fused_verify_cuda(lg, props, criterion=crit, **kw)
-                want = fused_verify_plain(lg, props, criterion=crit, **kw)
-                torch.cuda.synchronize()
-                check(all(torch.equal(g, x) for g, x in zip(got, want)),
-                      f"fused_verify {dtype} {label} {crit} {kw} at V "
-                      f"{lg.shape[-1]} differs from its plain version")
-            if label == "random":
-                timed = (lg, props)
-        lg, props = timed
-        ms = time_ms(torch, lambda: fused_verify_cuda(lg, props,
-                                                      criterion="exact"))
-        plain_ms = time_ms(torch, lambda: fused_verify_plain(
-            lg, props, criterion="exact"))
-        two_ms = time_ms(torch, lambda: argmax_then_scan(torch, lg, props))
-        bms, by = bound(nbytes(lg, props) + b * k * 9 + b * 8, b * k * vocab,
-                        dtype)
-        log(f"  fused_verify {dtype} ({b},{k},{vocab}): every criterion bit "
-            f"for bit (random, ties, unaligned) ok; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, argmax then scan {two_ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
-        del logits, ties, odd, timed, lg
+
+def check_family_vocab_case(torch, gen, results, model, n, d, vocab, lanes,
+                            tops, dtype):
+    from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
+    from repro_torch.kernels.fused_verify import (fused_verify_cuda,
+                                                  fused_verify_plain)
+
+    dt = getattr(torch, dtype)
+    o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((d, lanes), generator=gen, device="cuda") * 0.02).to(dt)
+    for top_t in tops:
+        vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+        torch.cuda.synchronize()
+        ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab, top_t)
+        err = (vals - wv).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        ok = ok and torch.allclose(vals, wv, rtol=tol, atol=tol)
+        log(f"  fused_heads {dtype} T={top_t} {model} lm_head ({d},{lanes}), "
+            f"vocab {vocab}: max_abs_err={err:.3g} near-ties={ties} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok and int(ids.max()) < vocab,
+              f"fused_heads {dtype} T={top_t} at V {vocab} differs from "
+              f"its plain version (err {err})")
+        results["fused_heads"]["max_abs_err"] = max(
+            results["fused_heads"]["max_abs_err"], err)
+    ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
+                                                      top_t=1))
+    two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w), 1))
+    bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * lanes, dtype)
+    log(f"  fused_heads {dtype} {model} ({n},{d})x({d},{lanes}) T=1: kernel "
+        f"{ms:.4f} ms, torch.mm then torch.topk {two_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    del o, w
+
+    b, k = 8, 8
+    logits = torch.randn((b, k, vocab), generator=gen, device="cuda").to(dt)
+    ties = (torch.randint(0, 4, (b, k, vocab), generator=gen,
+                          device="cuda").float() * 0.5).to(dt)
+    odd = torch.randn((b, k, vocab - 3), generator=gen, device="cuda").to(dt)
+    padded = torch.full((b, k, lanes), -1e9, device="cuda").to(dt)
+    padded[..., :vocab] = logits
+    for label, lg in (("random", logits), ("ties", ties),
+                      (f"V {vocab - 3} unaligned", odd),
+                      (f"{lanes} lanes, pads at -1e9", padded)):
+        greedy = torch.argmax(lg.float(), -1).int()
+        props = torch.randint(0, min(lg.shape[-1], vocab), greedy.shape,
+                              generator=gen, device="cuda", dtype=torch.int32)
+        props[:, 1:4] = greedy[:, 0:3]
+        for crit, kw in (("exact", {}), ("topk", dict(top_k=3)),
+                         ("topk", dict(top_k=8)),
+                         ("distance", dict(epsilon=2.0))):
+            got = fused_verify_cuda(lg, props, criterion=crit, **kw)
+            want = fused_verify_plain(lg, props, criterion=crit, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, x) for g, x in zip(got, want)),
+                  f"fused_verify {dtype} {label} {crit} {kw} at V "
+                  f"{lg.shape[-1]} differs from its plain version")
+        if label == "random":
+            timed = (lg, props)
+    lg, props = timed
+    ms = time_ms(torch, lambda: fused_verify_cuda(lg, props, criterion="exact"))
+    plain_ms = time_ms(torch, lambda: fused_verify_plain(lg, props,
+                                                         criterion="exact"))
+    two_ms = time_ms(torch, lambda: argmax_then_scan(torch, lg, props))
+    bms, by = bound(nbytes(lg, props) + b * k * 9 + b * 8, b * k * vocab, dtype)
+    log(f"  fused_verify {dtype} {model} ({b},{k},{vocab}): every criterion "
+        f"bit for bit (random, ties, unaligned, padded to {lanes}) ok; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, argmax then scan "
+        f"{two_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
 def time_split_kv(torch, name, fn, plain, args, dtype, model):
@@ -1620,7 +1668,7 @@ def p1_logits_after(torch, M, params, cfg, prefix):
     """p_1's logits (V,) in fp32 after ``prefix`` (1-d token tensor), by one
     full forward of the prefix."""
     h = M.embed_inputs(params, cfg, {"tokens": prefix[None]})
-    hidden, _ = M.forward_hidden(params, cfg, h)
+    hidden, _ = M.forward_hidden(params, cfg, h, moe_full_capacity=True)
     return M.base_logits(params, cfg, hidden[:, -1])[0, :cfg.vocab_size].float()
 
 
@@ -1661,11 +1709,118 @@ def causal_logits_after(torch, M, params, cfg):
     return lambda r, prefix: p1_logits_after(torch, M, params, cfg, prefix)
 
 
-def compare_rows(torch, logits_after, bpd, greedy, text_len, prompt_len):
+class Routes:
+    """While entered, the router logits of every MoE layer that runs
+    (``models.moe.ROUTER_TRACE``), kept on the device with their positions:
+    the evidence for a router near-tie (``router_tie``)."""
+
+    def __init__(self, torch):
+        self.torch, self.recs = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        moe.ROUTER_TRACE = lambda layer, pos, logits: self.recs.append(
+            (layer, pos.clone(), logits))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.ROUTER_TRACE = None
+
+    def row(self, r):
+        """{(position, layer): logits (E,)} of batch row ``r``, each from
+        the last forward over the position (numpy, on the host)."""
+        out = {}
+        for layer, pos, logits in self.recs:
+            pos, logits = pos[r].tolist(), logits[r].float().cpu().numpy()
+            for j, q in enumerate(pos):
+                out[(q, layer)] = logits[j]
+        return out
+
+    def by_position(self):
+        """{(position, layer): (n, E)} of every row's logits (numpy)."""
+        import numpy as np
+
+        parts = {}
+        for layer, pos, logits in self.recs:
+            flat = logits.reshape(-1, logits.shape[-1]).float().cpu().numpy()
+            for q, lg in zip(pos.reshape(-1).tolist(), flat):
+                parts.setdefault((q, layer), []).append(lg)
+        return {key: np.stack(v) for key, v in parts.items()}
+
+
+ROUTER_TIES = []       # every router near-tie admitted in this run
+
+
+def routes_for(torch, cfg):
+    """A ``Routes`` recorder for an MoE model, else a context that records
+    nothing (and gives None)."""
+    import contextlib
+
+    return Routes(torch) if cfg.mlp_type == "moe" else contextlib.nullcontext()
+
+
+def router_tie(cfg, greedy_row, other, end: int, label: str) -> bool:
+    """The router extension of the near-tie rule.  ``greedy_row``:
+    greedy's routing of one row (``Routes.row``); ``other``: the run that
+    left it (``Routes.by_position``), where each (position, layer) is
+    matched to the computation closest to greedy's (within ROUTER_MATCH of
+    max|logit|: stale drafts, tree siblings and other requests lie far
+    away).  At the first (position, layer) below ``end`` whose chosen
+    experts differ, both sides' relative K-th / (K+1)-th router-probability
+    gap must be below ROUTER_TIE_MARGIN; the evidence is printed and
+    counted in ROUTER_TIES.  Returns whether the divergence is admitted."""
+    import numpy as np
+
+    k = cfg.num_experts_per_tok
+
+    def top(lg):
+        return set(np.argsort(-lg, kind="stable")[:k].tolist())
+
+    def gap(lg):
+        srt = np.sort(lg.astype(np.float64))[::-1]
+        return float(-np.expm1(-(srt[k - 1] - srt[k])))
+
+    for q in range(end):
+        for layer in range(cfg.num_layers):
+            g = greedy_row[(q, layer)]
+            cands = other.get((q, layer))
+            if cands is None:
+                log(f"    {label}: the run never computed position {q}")
+                return False
+            dist = np.abs(cands - g).max(axis=1)
+            j = int(dist.argmin())
+            near = float(dist[j]) <= ROUTER_MATCH * float(np.abs(g).max())
+            o = cands[j]
+            if near and top(g) == top(o):
+                continue
+            gaps = (gap(g), gap(o))
+            ok = near and max(gaps) < ROUTER_TIE_MARGIN
+            log(f"    {label}: first routing difference at position {q}, "
+                f"layer {layer}: greedy's experts {sorted(top(g))}, the "
+                f"run's {sorted(top(o))} (its closest computation "
+                f"{float(dist[j]):.3g} away, max|router logit| "
+                f"{float(np.abs(g).max()):.3g}); K-th / (K+1)-th router gaps "
+                f"{gaps[0]:.3g} / {gaps[1]:.3g}: "
+                f"{'a router near-tie' if ok else 'NOT a router near-tie'}")
+            if ok:
+                ROUTER_TIES.append((label, q, layer, max(gaps)))
+            return ok
+    log(f"    {label}: no routing difference before position {end}")
+    return False
+
+
+def compare_rows(torch, logits_after, bpd, greedy, text_len, prompt_len, *,
+                 routes=None, cfg=None, label=""):
     """BPD rows must equal greedy's, except a row that diverges at a
     position where greedy's top-2 gap is below TIE_MARGIN
-    (``logits_after(row, prefix)``: p_1's logits after a row's prefix)."""
+    (``logits_after(row, prefix)``: p_1's logits after a row's prefix), or,
+    for an MoE model with ``routes`` (greedy's and BPD's ``Routes``), one
+    whose first routing difference is a router near-tie (``router_tie``)."""
     diverged = []
+    other = routes[1].by_position() if routes else None
     for r in range(bpd.shape[0]):
         n = int(text_len[r])
         a, g = bpd[r, :n], greedy[r, :n]
@@ -1675,8 +1830,10 @@ def compare_rows(torch, logits_after, bpd, greedy, text_len, prompt_len):
         gap = top2_gap(torch, logits_after(r, g[:p]))
         log(f"    row {r} diverges at position {p} (new token {p - prompt_len}): "
             f"greedy top-2 gap {gap:.3g} of max|logit|")
-        check(gap < TIE_MARGIN, f"row {r}: BPD differs from greedy at "
-                                f"position {p} with no near-tie (gap {gap})")
+        ok = gap < TIE_MARGIN or (routes is not None and router_tie(
+            cfg, routes[0].row(r), other, p, f"{label} row {r}"))
+        check(ok, f"row {r}: BPD differs from greedy at position {p} with no "
+                  f"near-tie (gap {gap})")
         diverged.append(r)
     return diverged
 
@@ -2119,11 +2276,15 @@ def check_engine_launches(engine, launches, label, *, paged):
     log(f"[engine] {label}: launches {launches} (exact)")
 
 
-def compare_engine(torch, after, done, greedy_rows, plan, label):
+def compare_engine(torch, after, done, greedy_rows, plan, label, *,
+                   routes=None, cfg=None):
     """Each request's tokens equal greedy's truncated to its budget, except
     a request that leaves greedy where greedy's top-2 gap is below
-    TIE_MARGIN (reported).  ``greedy_rows[(row, plen)]`` is greedy's row
-    (prompt + 64 new tokens)."""
+    TIE_MARGIN (reported), or (an MoE model, ``routes`` = ({(row, plen):
+    (greedy's Routes, its batch row)}, the engine's Routes)) whose first
+    routing difference is a router near-tie.  ``greedy_rows[(row, plen)]``
+    is greedy's row (prompt + 64 new tokens)."""
+    other = routes[1].by_position() if routes else None
     by_rid = {f.rid: f for f in done}
     check(sorted(by_rid) == [p[0] for p in plan], f"{label}: requests lost")
     diverged = []
@@ -2140,8 +2301,13 @@ def compare_engine(torch, after, done, greedy_rows, plan, label):
         gap = top2_gap(torch, after(rid, g[:plen + p]))
         log(f"    request {rid} (prompt row {row}, {plen} tokens) diverges at "
             f"new token {p}: greedy top-2 gap {gap:.3g} of max|logit|")
-        check(gap < TIE_MARGIN, f"{label}: request {rid} differs from greedy "
-                                f"at new token {p} with no near-tie ({gap})")
+        ok = gap < TIE_MARGIN
+        if not ok and routes is not None:
+            rec, r = routes[0][(row, plen)]
+            ok = router_tie(cfg, rec.row(r), other, plen + p,
+                            f"{label} request {rid}")
+        check(ok, f"{label}: request {rid} differs from greedy at new token "
+                  f"{p} with no near-tie ({gap})")
         diverged.append(rid)
     log(f"[engine] {label}: tokens == greedy tokens in "
         f"{len(plan) - len(diverged)}/{len(plan)} requests (others at "
@@ -2150,22 +2316,28 @@ def compare_engine(torch, after, done, greedy_rows, plan, label):
 
 
 def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks, *,
-                      disaggregated=True):
+                      disaggregated=True, greedy_routes=None):
     """Phase 5c: the fp32 engine, twice — unified on the managed page pool
     (page size 16, one iteration per host read), then (``disaggregated``)
     disaggregated (prefill batches of 4) on the dense slab with windows of
     4.  Returns greedy's row for each (prompt row, prompt length) of the
-    plan."""
+    plan.  An MoE model's routings are recorded (``greedy_routes``: those
+    of the greedy decode that gave ``g_toks``) for the router near-tie
+    rule."""
     from repro_torch import serving
     from repro_torch.kernels import _build
 
     plan = engine_plan()
     greedy_rows = {(row, 64): g_toks[row] for row in range(8)}
+    g_routes = {(row, 64): (greedy_routes, row) for row in range(8)}
     for plen, rows in ((32, range(0, 4)), (48, range(4, 8))):
-        gt, _ = D.greedy_decode(params, cfg, dec,
-                                {"tokens": prompts[list(rows), :plen].contiguous()})
+        with routes_for(torch, cfg) as rec:
+            gt, _ = D.greedy_decode(
+                params, cfg, dec,
+                {"tokens": prompts[list(rows), :plen].contiguous()})
         for i, row in enumerate(rows):
             greedy_rows[(row, plen)] = gt[i]
+            g_routes[(row, plen)] = (rec, i)
     after = causal_logits_after(torch, M, params, cfg)
     edec = dec.replace(top_k=2, page_size=16)
     runs = (("unified, paged, steps_per_sync 1",
@@ -2181,8 +2353,10 @@ def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks, *,
         engine = serving.ContinuousBatchingEngine(params, cfg, rdec, ecfg,
                                                   policies=ENGINE_GROUPS)
         _build.reset_launches()
-        done, wall, pulls, _ = drive_engine(
-            torch, serving, engine, engine_requests(serving, prompts), label)
+        with routes_for(torch, cfg) as rec:
+            done, wall, pulls, _ = drive_engine(
+                torch, serving, engine, engine_requests(serving, prompts),
+                label)
         launches = dict(_build.LAUNCHES)
         paged = rdec.cache_backend == "paged"
         check_engine_launches(engine, launches, label, paged=paged)
@@ -2204,7 +2378,9 @@ def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks, *,
             log(f"[engine] {label}: {engine.num_forwards - engine.num_steps} "
                 f"of {engine.num_forwards} forwards were masked no-ops "
                 f"(windows after a harvestable row)")
-        compare_engine(torch, after, done, greedy_rows, plan, label)
+        compare_engine(torch, after, done, greedy_rows, plan, label,
+                       routes=(g_routes, rec) if rec is not None else None,
+                       cfg=cfg)
     for name in ("verify_attention", "paged_verify_attention",
                  "tree_verify_attention", "fused_verify", "fused_heads"):
         check(seen[name] > 0 or name == "verify_attention"
@@ -3483,21 +3659,23 @@ def attention_kernel(cfg, dec) -> str:
 def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
                  label):
     """greedy_decode, then each BPD path of ``paths`` ((name, decode
-    overrides)), fp32: each must emit greedy's tokens (near-tie rule), its
-    attention kernel launched once per layer and forward, fused_verify
-    once per iteration, fused_heads once per iteration and prefill.
-    Returns greedy's tokens."""
+    overrides)), fp32: each must emit greedy's tokens (near-tie rule, for
+    an MoE model with its router extension), its attention kernel launched
+    once per layer and forward, fused_verify once per iteration,
+    fused_heads once per iteration and prefill.  Returns greedy's tokens
+    and, for an MoE model, greedy's ``Routes`` (else None)."""
     from repro_torch.kernels import _build
 
     layers = cfg.num_layers
-    g_toks = None
+    g_toks = g_routes = None
     for name, kw in (("greedy", {}),) + tuple(paths):
         pdec = dec.replace(**kw)
         _build.reset_launches()
         t0 = time.perf_counter()
         run = D.greedy_decode if name == "greedy" else D.bpd_decode
-        toks, stats = run(params, cfg, pdec, batch)
-        torch.cuda.synchronize()
+        with routes_for(torch, cfg) as rec:
+            toks, stats = run(params, cfg, pdec, batch)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launch = dict(_build.LAUNCHES)
         iters = stats["iterations"]
@@ -3513,14 +3691,15 @@ def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
         check(bool((stats["generated"] == dec.max_new_tokens).all()),
               f"{label} {name}: short rows")
         if g_toks is None:
-            g_toks = toks
+            g_toks, g_routes = toks, rec
             continue
-        diverged = compare_rows(torch, causal_logits_after(torch, M, params,
-                                                           cfg),
-                                toks, g_toks, stats["text_len"], prompt_len)
+        diverged = compare_rows(
+            torch, causal_logits_after(torch, M, params, cfg), toks, g_toks,
+            stats["text_len"], prompt_len, cfg=cfg, label=f"{label} {name}",
+            routes=(g_routes, rec) if rec is not None else None)
         log(f"[families] {label} {name}: tokens == greedy tokens in "
             f"{8 - len(diverged)}/8 rows (others at near-ties)")
-    return g_toks
+    return g_toks, g_routes
 
 
 def family_serve(torch, D, M, params, cfg, prompts, label):
@@ -3681,8 +3860,8 @@ def phase_families(torch, results):
                 f"layer's dense ring: its paged paths launch "
                 f"verify_attention / tree_verify_attention")
         dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
-        g_toks = family_paths(torch, M, D, params, cfg, dec, batch, 64,
-                              paths, name)
+        g_toks, _ = family_paths(torch, M, D, params, cfg, dec, batch, 64,
+                                 paths, name)
         if name == "stablelm-12b":
             phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks,
                               disaggregated=False)
@@ -3699,6 +3878,138 @@ def phase_families(torch, results):
         del params
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the MoE family (olmoe-1b-7b, qwen2-moe-a2.7b)
+# ---------------------------------------------------------------------------
+
+
+MOE_TRAIN_LAYERS = 8    # 17c: olmoe-1b-7b fine-tuned at full width
+
+
+def phase_moe(torch, results):
+    """Phase 17: olmoe-1b-7b and qwen2-moe-a2.7b at full width and depth
+    from seed 0, fp32, phase 4's 8 prompts of 64, 64 new tokens, block_k 8,
+    every decode forward routing at full capacity: 17a olmoe's greedy,
+    exact and topk_tree on both caches and its fp32 engine (5c's 16
+    requests, unified on the managed page pool); 17b qwen2-moe's greedy,
+    exact dense and topk_tree paged; each greedy's tokens under the
+    near-tie rule with its router extension, launches exact, the fp32 peak
+    under FAMILY_MEM_GIB, then cast for bf16 and served (--full-config);
+    17c training (``phase_moe_train``)."""
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import model as M
+
+    task = MarkovLM(vocab=256, temperature=0.2, seed=0)
+    prompts = torch.as_tensor(task.sample(np.random.default_rng(1), 8, 64),
+                              device="cuda")
+    batch = {"tokens": prompts}
+    chain_tree = (("bpd exact dense", {}),
+                  ("bpd exact paged", dict(cache_backend="paged")),
+                  ("bpd topk_tree dense", dict(policy="topk_tree", top_k=2)),
+                  ("bpd topk_tree paged", dict(policy="topk_tree", top_k=2,
+                                               cache_backend="paged")))
+    for name, paths in (("olmoe-1b-7b", chain_tree),
+                        ("qwen2-moe-a2.7b", chain_tree[::3])):
+        t0 = time.perf_counter()
+        cfg = get_config(name).replace(dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        log(f"[moe] {name} fp32: {n_params / 1e9:.3f} B parameters, "
+            f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+            f"{cfg.num_experts} experts ({cfg.padded_num_experts} stored) "
+            f"of width {cfg.d_ff}, top-{cfg.num_experts_per_tok}, shared "
+            f"width {cfg.shared_expert_d_ff}, vocab {cfg.vocab_size}; init "
+            f"{time.perf_counter() - t0:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
+        ties0 = len(ROUTER_TIES)
+        g_toks, g_routes = family_paths(torch, M, D, params, cfg, dec, batch,
+                                        64, paths, name)
+        if name == "olmoe-1b-7b":
+            phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks,
+                              disaggregated=False, greedy_routes=g_routes)
+        del g_routes
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[moe] {name} fp32 peak {peak:.2f} GiB; router near-ties "
+            f"admitted {len(ROUTER_TIES) - ties0}; "
+            f"{time.perf_counter() - t0:.1f}s")
+        check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes at full depth "
+                                     f"peak at {peak:.2f} GiB, over "
+                                     f"{FAMILY_MEM_GIB} GiB")
+        family_serve(torch, D, M, params, cfg, prompts, name)
+        log(f"[moe] {name} {time.perf_counter() - t0:.1f}s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[moe] router near-ties admitted in this run: {len(ROUTER_TIES)} "
+        f"{ROUTER_TIES} (margin {ROUTER_TIE_MARGIN} of p_K)")
+    phase_moe_train(torch, card_line())
+
+
+def phase_moe_train(torch, card):
+    """17c: one make_train_step card vs CPU at a narrow olmoe geometry
+    where capacity drops assignments (``card_vs_cpu``); then olmoe-1b-7b
+    fine-tuned at full width, its depth cut to MOE_TRAIN_LAYERS so that
+    parameters, gradients and AdamW moments (16 bytes a parameter) fit,
+    TRAIN_STEPS steps of B 4 x S 256: the loss falls, the router's aux and
+    z terms and the dropped share per step, step ms, tokens/s, peak."""
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer_init
+    from repro_torch.utils.tree import tree_size
+
+    full = get_config("olmoe-1b-7b")
+    narrow = full.replace(num_layers=2, d_model=1024, num_heads=8,
+                          num_kv_heads=8, num_experts=16,
+                          num_experts_per_tok=4, d_ff=512, vocab_size=4096,
+                          dtype="float32")
+    card_vs_cpu(torch, narrow, {"fine-tuned": (
+        TrainConfig(lr=1e-4, warmup_steps=1), 2, False)},
+        "17c olmoe narrow (d 1024, 16 experts top-4, capacity "
+        f"{narrow.capacity_factor})")
+
+    cfg = full.replace(num_layers=MOE_TRAIN_LAYERS, dtype="float32")
+    params = M.init(cfg, seed=0, device="cuda")
+    n, n_full = tree_size(params), tree_size(M.init(full, device="meta"))
+    log(f"[train] 17c olmoe-1b-7b fp32 fine-tuned, depth cut from "
+        f"{full.num_layers} to {cfg.num_layers} layers: full depth's "
+        f"parameters, gradients and AdamW moments ({n_full / 1e9:.3f} B x 16 "
+        f"bytes = {n_full * 16 / 2 ** 30:.1f} GiB) do not fit in 80 GB; at "
+        f"{cfg.num_layers} layers {n / 1e9:.3f} B parameters, "
+        f"{n * 16 / 2 ** 30:.1f} GiB for them")
+    tc = TrainConfig(head_loss="random", lr=TRAIN_LR, warmup_steps=1,
+                     schedule="constant")
+    opt = optimizer_init(params, tc)
+    gen = torch.Generator().manual_seed(1)
+    batches = prefetch(MarkovLM(vocab=256, temperature=0.2, seed=0).batches(
+        batch=4, seq_len=256, seed=2), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, tc)
+    params, opt, losses, ms, m = run_steps(
+        torch, step, params, opt, batches, gen, TRAIN_STEPS,
+        "17c olmoe fine-tuned",
+        keep=("moe_aux_loss", "moe_z_loss", "moe_dropped_frac"))
+    batches.close()
+    step_report(torch, f"17c olmoe-1b-7b fine-tuned, {cfg.num_layers} layers, "
+                f"B 4 x S 256", ms, 4 * 256, card)
+    check_loss_falls(losses, "17c olmoe fine-tuned")
+    check(0 < float(m["moe_dropped_frac"]) < 1, f"17c: dropped share "
+                                                f"{float(m['moe_dropped_frac'])}")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3725,23 +4036,30 @@ def _named(params):
     return flatten_with_names(params)
 
 
-def run_steps(torch, step, params, opt, batches, gen, n, label):
+def run_steps(torch, step, params, opt, batches, gen, n, label, *,
+              keep=()):
     """``n`` training steps, each synced and timed on the host clock, the
     last one also under torch.profiler (device busy against the median
     step, the top kernels); returns (params, opt, losses, per-step ms of
-    the first n - 1, last metrics)."""
-    losses, ms = [], []
+    the first n - 1, last metrics).  The metrics named in ``keep`` are
+    printed step by step."""
+    losses, ms, kept = [], [], []
     for _ in range(n - 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, next(batches), gen)
         losses.append(float(m["loss"]))            # waits for the step
         ms.append((time.perf_counter() - t0) * 1e3)
+        kept.append([float(m[k]) for k in keep])
     batch = next(batches)
     torch.cuda.synchronize()
     (params, opt, m), busy_ms, count, busy = profiled_busy(
         torch, lambda: step(params, opt, batch, gen))
     losses.append(float(m["loss"]))
+    kept.append([float(m[k]) for k in keep])
+    if keep:
+        log(f"[train] {label}: {' / '.join(keep)} per step "
+            f"{[[round(x, 4) for x in row] for row in kept]}")
     log(f"[train] {label}: losses {[round(x, 4) for x in losses]}")
     if busy_ms is not None:
         steady = median_after_warmup(ms)
@@ -3790,36 +4108,50 @@ def leaf_within(name, got, want, label):
 
 def phase_train_card_vs_cpu(torch, card):
     """11a: one make_train_step on the card and on the CPU from the same
-    fp32 weights and batch, head index and swap mask injected: the loss,
-    the gradient norm and every gradient agree within TRAIN_TOL, and every
-    leaf the card updated equals the CPU's optimizer applied to the card's
-    gradients.  Against the CPU's own step an AdamW element may differ more
-    where |g| is near eps: g/(|g| + eps) amplifies the gradients' fp32
-    difference there (and a gradient within its tolerance of zero can take
-    either sign); such elements are counted."""
-    import copy
-
-    import numpy as np
-
+    fp32 weights and batch at granite's attention width (``card_vs_cpu``),
+    frozen with scheduled sampling and self targets, then fine-tuned."""
     from repro_torch.config import TrainConfig, get_config
-    from repro_torch.data.synthetic import MarkovLM
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import model as M
-    from repro_torch.optim import freeze_mask, optimizer_init, optimizer_update
 
     cfg = get_config("granite-3-8b").replace(
         num_layers=2, d_ff=1024, bpd_hidden=1024, vocab_size=4096,
         dtype="float32")
-    tokens = MarkovLM(vocab=256, temperature=0.2, seed=0).sample(
-        np.random.default_rng(2), 2, 64)
-    swap = torch.as_tensor(np.random.default_rng(3).random((2, 64)) < 0.5)
-    rtol, arel = TRAIN_TOL["rtol"], TRAIN_TOL["atol_of_max"]
     runs = {
         "frozen, scheduled sampling (self targets)": (
             TrainConfig(freeze_base=True, scheduled_sampling=True,
                         ss_self_targets=True, lr=1e-4, warmup_steps=1), 3, True),
         "fine-tuned": (TrainConfig(lr=1e-4, warmup_steps=1), 2, False),
     }
+    card_vs_cpu(torch, cfg, runs, "11a")
+    log(f"[train] 11a passed; {card}")
+
+
+def card_vs_cpu(torch, cfg, runs, tag):
+    """One make_train_step of ``cfg`` on the card and on the CPU from the
+    same fp32 weights (seed 0) and batch (B 2 x S 64 MarkovLM), for each of
+    ``runs`` ({label: (TrainConfig, head index, frozen)}), head index and
+    swap mask injected: the loss, the gradient norm, an MoE model's three
+    metrics and every gradient agree within TRAIN_TOL, and every leaf the
+    card updated equals the CPU's optimizer applied to the card's
+    gradients.  Against the CPU's own step an AdamW element may differ more
+    where |g| is near eps: g/(|g| + eps) amplifies the gradients' fp32
+    difference there (and a gradient within its tolerance of zero can take
+    either sign); such elements are counted.  An MoE model's routings are
+    recorded on both sides: each layer's kept and dropped assignments must
+    be equal."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import freeze_mask, optimizer_init, optimizer_update
+
+    tokens = MarkovLM(vocab=256, temperature=0.2, seed=0).sample(
+        np.random.default_rng(2), 2, 64)
+    swap = torch.as_tensor(np.random.default_rng(3).random((2, 64)) < 0.5)
+    rtol, arel = TRAIN_TOL["rtol"], TRAIN_TOL["atol_of_max"]
+    moe_keys = ("moe_aux_loss", "moe_z_loss", "moe_dropped_frac")
     for label, (tc, head, frozen) in runs.items():
         t0 = time.perf_counter()
         cpu = M.init(cfg, seed=0, device="cpu")
@@ -3829,20 +4161,32 @@ def phase_train_card_vs_cpu(torch, card):
         for side, params in (("cpu", cpu), ("cuda", dev)):
             step = make_train_step(cfg, tc, mask)
             batch = {"tokens": torch.as_tensor(tokens, device=side)}
-            _, _, m = step(params, optimizer_init(params, tc, mask), batch, None,
-                           head_idx=head, swap=swap)
+            with routes_for(torch, cfg) as rec:
+                _, _, m = step(params, optimizer_init(params, tc, mask), batch,
+                               None, head_idx=head, swap=swap)
             grads = {n: p.grad.cpu() for n, p in _named(params) if p.grad is not None}
-            out[side] = (float(m["loss"]), float(m["grad_norm"]), grads)
-        (l_cpu, n_cpu, g_cpu), (l_card, n_card, g_card) = out["cpu"], out["cuda"]
-        log(f"[train] 11a {label}: loss card {l_card:.6f} / cpu {l_cpu:.6f}, "
+            out[side] = (float(m["loss"]), float(m["grad_norm"]), grads,
+                         {k: float(m[k]) for k in moe_keys if k in m}, rec)
+        (l_cpu, n_cpu, g_cpu, x_cpu, r_cpu), (l_card, n_card, g_card, x_card,
+                                              r_card) = out["cpu"], out["cuda"]
+        log(f"[train] {tag} {label}: loss card {l_card:.6f} / cpu {l_cpu:.6f}, "
             f"grad norm {n_card:.6f} / {n_cpu:.6f}, head {head}")
         check(abs(l_card - l_cpu) <= rtol * abs(l_cpu),
-              f"11a {label}: loss {l_card} on the card, {l_cpu} on the CPU")
+              f"{tag} {label}: loss {l_card} on the card, {l_cpu} on the CPU")
         check(abs(n_card - n_cpu) <= rtol * abs(n_cpu),
-              f"11a {label}: grad norm {n_card} on the card, {n_cpu} on the CPU")
-        check(sorted(g_card) == sorted(g_cpu), f"11a {label}: other leaves "
+              f"{tag} {label}: grad norm {n_card} on the card, {n_cpu} on the "
+              f"CPU")
+        for k, want in x_cpu.items():
+            log(f"[train] {tag} {label}: {k} card {x_card[k]:.6f} / cpu "
+                f"{want:.6f}")
+            check(abs(x_card[k] - want) <= rtol * abs(want) + 1e-7,
+                  f"{tag} {label}: {k} {x_card[k]} on the card, {want} on "
+                  f"the CPU")
+        if r_cpu is not None:
+            check_same_dispatch(torch, cfg, r_cpu, r_card, f"{tag} {label}")
+        check(sorted(g_card) == sorted(g_cpu), f"{tag} {label}: other leaves "
                                                f"got gradients on the card")
-        worst = max((leaf_within(f"grad {n}", g_card[n], g, f"11a {label}"), n)
+        worst = max((leaf_within(f"grad {n}", g_card[n], g, f"{tag} {label}"), n)
                     for n, g in g_cpu.items())
         replay = M.init(cfg, seed=0, device="cpu")     # the step's start
         optimizer_update(g_card, optimizer_init(replay, tc, mask), replay, tc,
@@ -3852,20 +4196,51 @@ def phase_train_card_vs_cpu(torch, card):
         for n, p in _named(dev):
             got = p.detach().cpu()
             worst = max(worst, (leaf_within(n, got, replay_leaves[n].detach(),
-                                            f"11a {label} (update)"), n))
+                                            f"{tag} {label} (update)"), n))
             want = cpu_leaves[n].detach()
             amplified += int(((got - want).abs() > arel * float(want.abs().max())
                               + rtol * want.abs()).sum())
-        log(f"[train] 11a {label}: {len(g_cpu)} gradients agree with the CPU's "
-            f"and {len(replay_leaves)} updated leaves with the CPU's update of "
-            f"the card's gradients (rtol {rtol}, atol {arel} of each leaf's "
-            f"max; worst {worst[1]} at {worst[0]:.3f} of its tolerance); "
-            f"{amplified} elements beyond it from the CPU's own step "
-            f"(AdamW near eps); {time.perf_counter() - t0:.1f}s")
+        log(f"[train] {tag} {label}: {len(g_cpu)} gradients agree with the "
+            f"CPU's and {len(replay_leaves)} updated leaves with the CPU's "
+            f"update of the card's gradients (rtol {rtol}, atol {arel} of each "
+            f"leaf's max; worst {worst[1]} at {worst[0]:.3f} of its "
+            f"tolerance); {amplified} elements beyond it from the CPU's own "
+            f"step (AdamW near eps); {time.perf_counter() - t0:.1f}s")
         del cpu, dev, replay, out
         gc.collect()
         torch.cuda.empty_cache()
-    log(f"[train] 11a passed; {card}")
+
+
+def check_same_dispatch(torch, cfg, cpu_routes, card_routes, label):
+    """The capacity-bounded dispatch of every MoE layer of one training
+    forward, from each side's router logits: the same experts chosen and
+    the same assignments kept (``moe.assignment_ranks`` < capacity)."""
+    from repro_torch.models import moe
+
+    fwd = list(zip(cpu_routes.recs, card_routes.recs))
+    check(len(cpu_routes.recs) == len(card_routes.recs) > 0,
+          f"{label}: {len(cpu_routes.recs)} MoE layers ran on the CPU, "
+          f"{len(card_routes.recs)} on the card")
+    dropped = []
+    for (layer, _, lc), (_, _, lg) in fwd:
+        keeps = []
+        for logits in (lc, lg.cpu()):
+            b, s, _ = logits.shape
+            ids = moe.top_experts(torch.softmax(logits, -1),
+                                  cfg.num_experts_per_tok)
+            flat = ids.reshape(b, -1)
+            keeps.append((flat, moe.assignment_ranks(flat)
+                          < moe.capacity(cfg, s)))
+        (ic, kc), (ig, kg) = keeps
+        check(torch.equal(ic, ig) and torch.equal(kc, kg),
+              f"{label}: layer {layer} routes or keeps other assignments on "
+              f"the card ({int((ic != ig).sum())} ids, {int((kc != kg).sum())} "
+              f"kept flags differ)")
+        dropped.append(int((~kc).sum()))
+    check(sum(dropped) > 0, f"{label}: capacity dropped no assignment")
+    log(f"[train] {label}: every MoE layer chose the same experts and kept "
+        f"the same assignments on both sides; dropped per layer {dropped} of "
+        f"{kc.numel()}")
 
 
 def phase_train_frozen(torch, phase4, card):
@@ -4152,6 +4527,11 @@ def main() -> int:
     t16 = time.perf_counter()
     phase_families(torch, results)
     log(f"[families] phase 16 {time.perf_counter() - t16:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    phase_moe(torch, results)
+    log(f"[moe] phase 17 {time.perf_counter() - t17:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(torch, phase4)

@@ -93,6 +93,16 @@ class ModelConfig:
         return ((self.vocab_size + 255) // 256) * 256
 
     @property
+    def padded_num_experts(self) -> int:
+        """Expert count rounded up to ``expert_pad_multiple`` (qwen2-moe's 60
+        experts pad to 64); the router never selects an id >= num_experts,
+        so pad experts receive no tokens."""
+        if not self.num_experts:
+            return 0
+        m = max(self.expert_pad_multiple, 1)
+        return ((self.num_experts + m - 1) // m) * m
+
+    @property
     def resolved_head_dim(self) -> int:
         if self.head_dim:
             return self.head_dim
@@ -123,6 +133,11 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} not divisible by "
                 f"num_kv_heads={self.num_kv_heads}")
+        if self.mlp_type == "moe" and not (
+                0 < self.num_experts_per_tok <= self.num_experts):
+            raise ValueError(
+                f"{self.name}: an MoE layer needs 0 < num_experts_per_tok="
+                f"{self.num_experts_per_tok} <= num_experts={self.num_experts}")
         if self.block_type == "rwkv6" and self.d_model % self.rwkv_head_dim:
             raise ValueError(
                 f"{self.name}: d_model={self.d_model} not divisible by "

@@ -336,7 +336,8 @@ def prefill_and_draft(params, cfg: ModelConfig, dec: DecodeConfig,
     positions = torch.arange(h.shape[1], dtype=I32, device=dev)
     hidden, caches = model_lib.forward_hidden(params, cfg, h,
                                               positions=positions,
-                                              caches=caches, kv_chunk=kv_chunk)
+                                              caches=caches, kv_chunk=kv_chunk,
+                                              moe_full_capacity=True)
     if isinstance(plens, int):
         last = hidden[:, prefix + plens - 1, :]
         last_tok = prompt[:, plens - 1]
@@ -584,7 +585,8 @@ def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
     positions = torch.arange(h.shape[1], dtype=I32, device=dev)
     hidden, caches = model_lib.forward_hidden(params, cfg, h,
                                               positions=positions,
-                                              caches=caches, kv_chunk=kv_chunk)
+                                              caches=caches, kv_chunk=kv_chunk,
+                                              moe_full_capacity=True)
     logits = model_lib.base_logits(params, cfg, hidden[:, -1, :])
 
     buf = prompt_len + max_new + 1

@@ -137,7 +137,7 @@ class DraftModelDrafter(policy_lib.Drafter):
             positions = torch.arange(h.shape[1], dtype=I32, device=h.device)
             _, caches = model_lib.forward_hidden(
                 params, self.cfg, h, positions=positions, caches=caches,
-                kv_chunk=self.kv_chunk)
+                kv_chunk=self.kv_chunk, moe_full_capacity=True)
         return {"caches": caches}
 
     # -- drafting -------------------------------------------------------------

@@ -10,9 +10,13 @@
   under ``torch.no_grad()`` (the port's form of the reference's
   ``stop_gradient`` on the hidden states), and frozen training draws the
   head from {1..k-1}, since head 0 is the base model itself.  Gradients
-  still reach the vocab projection, as in the reference.
-* Logit z-loss and label smoothing.  The reference's MoE load-balance and
-  router-z terms are left out: no MoE config is ported.
+  still reach the vocab projection, as in the reference.  An MoE trunk
+  runs with gradients even so: the reference stops the gradient at the
+  hidden states only, so its router terms still reach the trunk.
+* Logit z-loss and label smoothing; for an MoE model the load-balance and
+  router-z terms (``router_aux_coef`` · ``moe_aux_loss`` + ``router_z_coef``
+  · ``moe_z_loss``, averaged over layers), from a capacity-bounded forward
+  as in the reference: training drops the assignments past capacity.
 * **Parallel scheduled sampling** (arXiv:1906.04331): one no-grad forward
   predicts every position of the gold stream; the conditioning stream
   swaps each token after the first for that prediction with probability
@@ -227,12 +231,20 @@ def lm_loss(params, cfg: ModelConfig, tc: TrainConfig, batch: Dict, gen, *,
         fwd_batch = dict(batch, tokens=mixed)
         if tc.ss_self_targets:
             tokens = model_tok
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not tc.freeze_base):
+    moe = cfg.mlp_type == "moe"
+    moe_m: Dict = {}
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and (moe or not tc.freeze_base)):
         h = model_lib.embed_inputs(params, cfg, fwd_batch)
         positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-        hidden, _ = model_lib.forward_hidden(params, cfg, h, positions=positions)
+        hidden, _ = model_lib.forward_hidden(params, cfg, h, positions=positions,
+                                             metrics=moe_m if moe else None)
     hidden = hidden[:, model_lib.prefix_len(cfg, batch):, :]   # text only
     loss, m = _heads_loss(params, cfg, tc, hidden, tokens, gen, head_idx, 1)
+    if moe:
+        loss = (loss + cfg.router_aux_coef * moe_m["moe_aux_loss"]
+                + cfg.router_z_coef * moe_m["moe_z_loss"])
+        m.update({k: v.detach() for k, v in moe_m.items()})
     m["loss"] = loss.detach()
     return loss, m
 

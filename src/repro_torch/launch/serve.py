@@ -13,12 +13,17 @@ over HTTP (``repro.launch.serve`` on one card).
         --policy draft_model [--draft-arch granite-3-8b --draft-ckpt DIR]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \
         --full-config --batch 8 --prompt-len 64 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --full-config --batch 8 --prompt-len 64 --max-new 64
 
-``--arch`` takes the six archs the port runs: the dense text decoders
+``--arch`` takes the eight archs the port runs: the dense text decoders
 granite-3-8b, stablelm-12b (head_dim 160, per-head QK norm), starcoder2-7b
 (36 heads over 4 KV heads, a 4096-token window on every layer) and
-nemotron-4-15b (vocab 256000, LayerNorm, squared ReLU); rwkv6-1.6b; and
-the encoder-decoder paper-mt-base (refused here, see below).  Any other
+nemotron-4-15b (vocab 256000, LayerNorm, squared ReLU); the MoE decoders
+olmoe-1b-7b (64 experts, top-8) and qwen2-moe-a2.7b (60 experts, top-4,
+and a gated shared MLP), whose every forward here routes at full capacity;
+rwkv6-1.6b; and the encoder-decoder paper-mt-base (refused here, see
+below).  Any other
 registered name raises at model construction.
 
 Without ``--full-config`` the registered smoke config runs in fp32, as the
@@ -86,8 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="granite-3-8b, stablelm-12b, starcoder2-7b, "
-                         "nemotron-4-15b or rwkv6-1.6b (paper-mt-base: "
-                         "bpd_decode_seq2seq)")
+                         "nemotron-4-15b, olmoe-1b-7b, qwen2-moe-a2.7b or "
+                         "rwkv6-1.6b (paper-mt-base: bpd_decode_seq2seq)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="reference checkpoint dir (step_N/arrays.npz)")
     ap.add_argument("--batch", type=int, default=4)

@@ -4,6 +4,8 @@
         --device cpu --steps 20 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-mt-base \
         --full-config --steps 200 --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+        --device cpu --steps 20
 
 Without ``--full-config`` the registered smoke config trains, as the
 reference's launcher trains it; with it the full config.  Both train in
@@ -12,7 +14,9 @@ of the arch (``data_for``), made on a background thread
 (``data.pipeline.prefetch``).  With ``--ckpt-dir`` the run resumes from the
 directory's latest step and saves every ``--ckpt-every`` steps and at the
 end; the optimizer state starts afresh on a resume, as the reference's
-does.  Metrics are read on the host every ``--log-every`` steps only.
+does.  Metrics are read on the host every ``--log-every`` steps only; an
+MoE arch (olmoe-1b-7b, qwen2-moe-a2.7b) also logs its router terms and the
+share of assignments dropped past capacity.
 """
 from __future__ import annotations
 
@@ -91,8 +95,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 acc = float(metrics.get("accuracy", 0))
                 rate = (i + 1 - start) * args.batch * args.seq / (
                     time.perf_counter() - t0)
+                moe = "".join(f"  {k[4:]} {float(metrics[k]):.4f}" for k in
+                              ("moe_aux_loss", "moe_z_loss",
+                               "moe_dropped_frac") if k in metrics)
                 print(f"[train] step {i + 1:5d}  loss {loss:.4f}  acc "
-                      f"{acc:.3f}  {rate:,.0f} tok/s", flush=True)
+                      f"{acc:.3f}{moe}  {rate:,.0f} tok/s", flush=True)
             if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
                 save(args.ckpt_dir, i + 1, params, extra={"arch": args.arch})
     finally:

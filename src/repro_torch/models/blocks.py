@@ -1,7 +1,8 @@
-"""Per-layer block: attention + dense MLP, or the RWKV-6 time mix + channel
-mix (the ``attn`` × ``dense`` and ``rwkv6`` × ``rwkv_channel_mix`` paths of
-``repro.models.blocks``).  An encoder-decoder's decoder blocks add cross
-attention between self attention and the MLP.
+"""Per-layer block: attention + dense MLP, attention + MoE MLP, or the
+RWKV-6 time mix + channel mix (the ``attn`` × ``dense``, ``attn`` × ``moe``
+and ``rwkv6`` × ``rwkv_channel_mix`` paths of ``repro.models.blocks``).
+An encoder-decoder's decoder blocks add cross attention between self
+attention and the MLP.
 
 Two execution modes:
   * full   — whole-sequence parallel forward (prefill); optionally fills the
@@ -28,7 +29,9 @@ from repro_torch.models.attention import (
     cross_attn_apply,
     cross_attn_full,
     cross_attn_init,
+    tree_tables,
 )
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.models.rwkv6 import (
     rwkv_cm_apply,
@@ -37,15 +40,17 @@ from repro_torch.models.rwkv6 import (
     rwkv_tm_init,
 )
 
-SUPPORTED_BLOCKS = (("attn", "dense"), ("rwkv6", "rwkv_channel_mix"))
+SUPPORTED_BLOCKS = (("attn", "dense"), ("attn", "moe"),
+                    ("rwkv6", "rwkv_channel_mix"))
 PORTED_ARCHS = ("granite-3-8b", "stablelm-12b", "starcoder2-7b",
-                "nemotron-4-15b", "rwkv6-1.6b", "paper-mt-base")
+                "nemotron-4-15b", "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                "rwkv6-1.6b", "paper-mt-base")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs text models: decoder-only with attention + dense MLP
-    blocks or RWKV-6 blocks, and encoder-decoders with attention + dense
-    MLP blocks; other families raise here, before any work."""
+    """The port runs text models: decoder-only with attention + dense or
+    MoE MLP blocks or RWKV-6 blocks, and encoder-decoders with attention +
+    dense MLP blocks; other families raise here, before any work."""
     pair = (cfg.block_type, cfg.mlp_type)
     ok = pair == SUPPORTED_BLOCKS[0] if cfg.is_encoder_decoder \
         else pair in SUPPORTED_BLOCKS
@@ -87,6 +92,8 @@ def block_init(gen, cfg: ModelConfig, layer_idx: int, *, dtype=torch.float32,
     p["ln2"] = norm_init(cfg.d_model, kind=cfg.norm_type, **kw)
     if cfg.mlp_type == "dense":
         p["mlp"] = mlp_init(gen, cfg, **kw)
+    elif cfg.mlp_type == "moe":
+        p["moe"] = moe_lib.moe_init(gen, cfg, **kw)
     else:
         p["cm"] = rwkv_cm_init(gen, cfg, **kw)
     return p
@@ -110,12 +117,16 @@ def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
 
 def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
                bidirectional: bool = False, enc_kv: Optional[CrossKV] = None,
-               cache: Optional[Dict] = None,
-               kv_chunk: int = 0) -> Tuple[torch.Tensor, Optional[Dict]]:
+               cache: Optional[Dict] = None, kv_chunk: int = 0,
+               moe_full_capacity: bool = False,
+               metrics: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (y, cache_out); cache_out is filled when a cache is passed in
     (prefill).  ``bidirectional``: an encoder block; ``enc_kv``: a decoder
     block's source, attended on the plain path; ``kv_chunk``: the chunked
-    softmax of ``attention.attn_full``."""
+    softmax of ``attention.attn_full``.  An MoE block drops nothing under
+    ``moe_full_capacity`` (the decode paths' prefills) and writes its
+    metrics into ``metrics`` when given one."""
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
     cache_out = dict(cache) if cache is not None else None
     if cfg.block_type == "rwkv6":
@@ -146,6 +157,16 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
     h = norm_apply(p["ln2"], x, kind=cfg.norm_type)
     if cfg.mlp_type == "dense":
         return x + mlp_apply(p["mlp"], h, act=cfg.activation), cache_out
+    if cfg.mlp_type == "moe":
+        if positions is None:
+            positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                     device=x.device)
+        y, m = _moe(p, cfg, layer_idx, h, lambda: positions.expand(
+            x.shape[:2]), full_capacity=moe_full_capacity,
+            metrics=metrics is not None)
+        if metrics is not None:
+            metrics.update(m)
+        return x + y, cache_out
     y, cm_aux = rwkv_cm_apply(p["cm"], cfg, h)
     if cache_out is not None:
         cache_out["tm"] = dict(cache_out["tm"], shift_cm=cm_aux["x_last"])
@@ -191,9 +212,36 @@ def block_cached(p, cfg: ModelConfig, layer_idx: int, x, cache: Dict,
     h = norm_apply(p["ln2"], x, kind=cfg.norm_type)
     if cfg.mlp_type == "dense":
         return x + mlp_apply(p["mlp"], h, act=cfg.activation), new_cache
+    if cfg.mlp_type == "moe":
+        y, _ = _moe(p, cfg, layer_idx, h,
+                    lambda: _block_positions(x, length, tree),
+                    full_capacity=True, metrics=False)
+        return x + y, new_cache
     y, _ = rwkv_cm_apply(p["cm"], cfg, h, x_prev=cache["tm"]["shift_cm"])
     new_cache["tm"]["shift_cm_steps"] = h              # (B,k,d)
     return x + y, new_cache
+
+
+def _block_positions(x, length, tree):
+    """(B, k) logical positions of a cached block's tokens: length + slot
+    along a chain, length + depth at a tree's nodes."""
+    b, kblk = x.shape[:2]
+    length = torch.as_tensor(length, dtype=torch.int32,
+                             device=x.device).expand(b)
+    offs = (torch.arange(kblk, dtype=torch.int32, device=x.device)
+            if tree is None else tree_tables(tree, x.device)["depths"])
+    return length[:, None] + offs[None, :]
+
+
+def _moe(p, cfg: ModelConfig, layer_idx: int, h, positions, *,
+         full_capacity: bool, metrics: bool):
+    """The block's MoE MLP; ``positions`` (a thunk, run only when
+    ``moe.ROUTER_TRACE`` is set) gives the (B, S) positions it reports."""
+    trace = moe_lib.ROUTER_TRACE
+    hook = None if trace is None else (
+        lambda logits: trace(layer_idx, positions(), logits))
+    return moe_lib.moe_apply(p["moe"], cfg, h, full_capacity=full_capacity,
+                             metrics=metrics, trace=hook)
 
 
 def _pick(steps, old, khat):

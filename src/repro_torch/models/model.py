@@ -100,9 +100,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
 
 # Leaves the reference reads in fp32 whatever the compute dtype: every
 # norm's scale / bias (models/layers.py:46,49,61 there: ln1, ln2,
-# final_norm, tm.ln_x, and the encoder-decoder's ln_cross and enc_norm) and
-# RWKV-6's decay weights and bonus
-# (models/rwkv6.py:105,166-168 there).
+# final_norm, tm.ln_x, and the encoder-decoder's ln_cross and enc_norm),
+# RWKV-6's decay weights and bonus (models/rwkv6.py:105,166-168 there) and
+# the MoE router's weight (models/moe.py:97 there: the router runs on
+# x.astype(f32), so its fp32 parameter is read uncast).
 FP32_READ_LEAVES = ("scale", "bias")
 FP32_READ_TM = ("w0", "decay_A", "decay_B", "u")
 
@@ -110,8 +111,9 @@ FP32_READ_TM = ("w0", "decay_A", "decay_B", "u")
 def reads_fp32(key: str) -> bool:
     """True for a ``state_dict`` key the reference reads in fp32."""
     *path, leaf = key.split(".")
-    return leaf in FP32_READ_LEAVES or (bool(path) and path[-1] == "tm"
-                                        and leaf in FP32_READ_TM)
+    parent = path[-1] if path else ""
+    return (leaf in FP32_READ_LEAVES or (parent == "tm" and leaf in FP32_READ_TM)
+            or (parent == "router" and leaf == "w"))
 
 
 def cast_for_compute(params: ParamTree, cfg: ModelConfig) -> ParamTree:
@@ -159,16 +161,25 @@ def prefix_len(cfg: ModelConfig, batch: Dict) -> int:
 
 
 def forward_hidden(params, cfg: ModelConfig, h, *, positions=None, caches=None,
-                   kv_chunk: int = 0):
+                   kv_chunk: int = 0, moe_full_capacity: bool = False,
+                   metrics: Optional[Dict] = None):
     """Whole-sequence forward.  h: (B,S,d) embeddings.
     Returns (hidden, caches) — caches filled if given (prefill).
     ``kv_chunk`` > 0 bounds each layer's score matrix to (S, kv_chunk)
-    (``attention.attn_full``)."""
+    (``attention.attn_full``).  MoE layers drop nothing under
+    ``moe_full_capacity`` (every decode path's prefill; training leaves it
+    off, as the reference does); ``metrics``, a dict, receives their
+    metrics averaged over layers (the reference returns them as a middle
+    element)."""
     new_caches = list(caches) if caches is not None else None
     for i, bp in enumerate(params["blocks"]):
         c = caches[i] if caches is not None else None
+        m = {} if metrics is not None else None
         h, c_out = block_full(bp, cfg, i, h, positions=positions, cache=c,
-                              kv_chunk=kv_chunk)
+                              kv_chunk=kv_chunk,
+                              moe_full_capacity=moe_full_capacity, metrics=m)
+        for k, v in (m or {}).items():
+            metrics[k] = metrics.get(k, 0.0) + v / cfg.num_layers
         if caches is not None:
             new_caches[i] = c_out
     h = norm_apply(params["final_norm"], h, kind=cfg.norm_type)

@@ -555,7 +555,9 @@ def test_encoder_only_and_unported_families_refused():
     with pytest.raises(NotImplementedError, match="masked-prediction.*ROADMAP"):
         ttrain.loss_fn_for(port_cfg(tiny_dense(is_encoder_only=True)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.loss_fn_for(port_cfg(tiny_dense(mlp_type="moe")))
+        ttrain.loss_fn_for(port_cfg(tiny_dense(block_type="hymba")))
+    moe = tconfig.get_config("olmoe-1b-7b", smoke=True)     # ported since MoE
+    assert ttrain.loss_fn_for(moe) is ttrain.lm_loss
 
 
 def test_sharding_refused():
