@@ -64,7 +64,16 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 (T 1, 8), bf16 and fp32, beside torch.mm then torch.topk
                 and the bound; fused_verify at (8, 8, V) for V 256000,
                 50304 and 151936 under every criterion, and at the path's
-                padded lanes with the pads at -1e9, bit for bit.
+                padded lanes with the pads at -1e9, bit for bit; hymba-1.5b
+                (check_hymba_heads): verify_attention at 25/5 heads of 64
+                (G 5: kq 8 is 40 rows of one 48-row tile) at kq 1, 2 and 8
+                over L 512 and at kq 8 over its windowed layers' wrapped
+                ring of 1280 slots (window 1024, 128 reserved meta slots),
+                paged_verify_attention over 32 pages of 16, bf16 and fp32,
+                bit for bit invariant in kq and B, timed beside SDPA and
+                the bound; fused_heads at its untied (1600, 32256)
+                lm_head, vocab 32001 (T 1, 8), and fused_verify at (8, 8,
+                32001) under every criterion.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -195,10 +204,11 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 with the smoke primary and draft, static and --engine
                 --policies exact=2,draft_model=2.
   16. families — everything earlier freed; stablelm-12b, starcoder2-7b and
-                nemotron-4-15b at full width and depth from seed 0, fp32
-                (each fp32 peak under 76 GiB: nemotron-4-15b's 67.2 GiB of
-                weights fit with room for its decodes), phase 4's 8
-                prompts x 64 new tokens at
+                nemotron-4-15b at full width from seed 0, the fp32 decodes
+                at half depth (FAMILY_FP32_LAYERS: 20 of 40, 16 of 32 and
+                16 of 32 layers, cut so that the script with phase 18
+                stays within 75% of its time limit), each bf16 serve at
+                full depth, phase 4's 8 prompts x 64 new tokens at
                 block_k 8: greedy, then BPD exact and topk_tree on the
                 dense and paged caches (nemotron: exact dense, topk_tree
                 paged), each greedy's tokens (near-tie rule), its
@@ -240,6 +250,30 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 a parameter must fit), 20 steps of B 4 x S 256: aux, z
                 and dropped per step, the loss falling, step ms, tokens/s,
                 peak.
+  18. hymba   — after phase 17, before 11: hymba-1.5b (32 layers of
+                attention beside Mamba heads, d 1600, 25/5 heads of 64,
+                windows of 1024 outside layers 0, 15 and 31, 128 meta
+                tokens, untied lm_head at vocab 32001) at full width and
+                depth from seed 0, fp32, phase 4's prompts, 64 new tokens,
+                block_k 8: 18a greedy, BPD exact, adaptive and topk (T 2)
+                on the dense cache and exact on the paged cache (29
+                verify_attention + 3 paged_verify_attention a forward),
+                launches exact, exact and adaptive greedy's tokens (near-tie
+                rule), topk's every token within p_1's top-2, the fp32
+                peak; 18b 2 prompts of 1,536 tokens (128 + 1,536 + 16
+                positions over a 1,280-slot ring): greedy and BPD exact
+                equal, and a full forward over meta + prompt + greedy's
+                tokens gives greedy's token at every new position; 18c
+                hand-made accepts (k̂ = 8, slot 3 corrupted k̂ = 3), each
+                followed by a second iteration on the committed Mamba
+                state (greedy's tokens); 18d cast for bf16 (A_log, D and
+                the norm scales stay fp32) and served (--full-config), one
+                iteration and one prefill profiled with the Mamba scan's
+                launches; 18e one make_train_step card vs CPU at a narrow
+                hymba geometry (d 256, layer 1 windowed at 32, 8 meta
+                tokens), then hymba-1.5b fine-tuned at full width on 8 of
+                32 layers (only layer 0 global), 10 steps of B 4 x S 256:
+                the loss falling, step ms, tokens/s, peak.
   11. train   — everything earlier freed; the training path (make_train_step:
                 the paper's §6 loss, backward, AdamW), fp32:
                 11a: granite's attention width (d 4096, 32/8 heads of
@@ -285,7 +319,9 @@ its group's attention kernel (paged_verify_attention or verify_attention
 for exact, tree_verify_attention for topk_tree) 40 times per forward the
 group dispatched, fused_verify once per forward, fused_heads once per
 forward and per prefill forward; each of those five kernels must have run
-in one of the two.
+in one of the two.  Phases 16-18 read each of their decode paths the same
+way (hymba-1.5b's paged forward: 29 verify_attention + 3
+paged_verify_attention).
 
 Any failure exits non-zero.  The second-to-last lines are the kernels' JSON
 and the card's name and power limit; the last line is
@@ -1023,8 +1059,14 @@ FAMILY_HEADS = (("stablelm-12b", 32, 8, 160, (1, 2, 8), (60, 256, 4096)),
 # families, pad lanes past the vocab as the path has them
 FAMILY_VOCABS = (("nemotron-4-15b", 6144, 256000, 256000, (1, 4, 8)),
                  ("olmoe-1b-7b", 2048, 50304, 50432, (1, 8)),
-                 ("qwen2-moe-a2.7b", 2048, 151936, 152064, (1, 8)))
+                 ("qwen2-moe-a2.7b", 2048, 151936, 152064, (1, 8)),
+                 ("hymba-1.5b", 1600, 32001, 32256, (1, 8)))
 RING, WINDOW = 4352, 4096        # starcoder2-7b's dense ring (models/cache.py)
+# hymba-1.5b's heads (25 over 5 KV heads of 64: G 5) and its windowed
+# layers' ring: 1280 slots, the first 128 reserved for the meta tokens,
+# a window of 1024 (models/cache.py)
+HYMBA_HEADS = (25, 5, 64)
+HYMBA_RING, HYMBA_WINDOW, HYMBA_META = 1280, 1024, 128
 
 
 def ring_case(torch, gen, b, kq, h, kvh, hd, dtype):
@@ -1043,6 +1085,122 @@ def ring_case(torch, gen, b, kq, h, kvh, hd, dtype):
     q_pos = (top[:, None] - kq
              + torch.arange(kq, dtype=torch.int32, device="cuda")[None, :])
     return q, k, v, q_pos.int().contiguous(), kv_pos.contiguous()
+
+
+def meta_ring_case(torch, gen, b, kq, h, kvh, hd, dtype):
+    """hymba-1.5b's windowed-layer ring past its first turn: slots 0..127
+    hold the meta positions 0..127, slot s >= 128 the newest position p <
+    top with (p - 128) mod 1152 = s - 128, the queries at top - kq .. top -
+    1 (top about 1,680: meta + a 1,536-token prompt + 16 new), so the
+    window of 1024 masks the ring's oldest slots and the meta head stays
+    visible."""
+    dt = getattr(torch, dtype)
+    ring = HYMBA_RING - HYMBA_META
+    q = torch.randn((b, kq, h, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, HYMBA_RING, kvh, hd), generator=gen,
+                    device="cuda").to(dt)
+    v = torch.randn((b, HYMBA_RING, kvh, hd), generator=gen,
+                    device="cuda").to(dt)
+    top = torch.tensor([1680 - 7 * i for i in range(b)], dtype=torch.int32,
+                       device="cuda")[:, None]
+    slot = torch.arange(HYMBA_RING, dtype=torch.int32, device="cuda")[None, :]
+    wrapped = top - 1 - (top - 1 - slot) % ring
+    kv_pos = torch.where(slot < HYMBA_META, slot, wrapped).int()
+    q_pos = top - kq + torch.arange(kq, dtype=torch.int32, device="cuda")[None]
+    return q, k, v, q_pos.int().contiguous(), kv_pos.contiguous()
+
+
+def check_hymba_heads(torch, gen, results):
+    """verify_attention and paged_verify_attention at hymba-1.5b's heads
+    (25 over 5 KV heads of 64: kq 8 is 40 query rows in one 48-row tile),
+    bf16 and fp32, against their plain versions: the chain kernel at kq 1,
+    2 and 8 over L 512 (64-token prompts after 128 meta tokens), and at kq
+    8 over the windowed layers' wrapped ring of 1280 slots with the window
+    of 1024 and 128 reserved meta slots; the paged kernel over 32 pages of
+    16 (one shared, one unmapped) equal to verify_attention on the
+    gathered view; each bit for bit batch-invariant (kq 1 and 2 against
+    the block, B 1 against 8).  The errors join each kernel's max_abs_err;
+    kq 8 at L 512, the ring and the pages are timed beside the plain
+    version, SDPA and the bound."""
+    import functools
+
+    from repro_torch.kernels.block_attention import (row_plan,
+                                                     verify_attention_cuda,
+                                                     verify_attention_plain)
+    from repro_torch.kernels.paged_attention import (paged_verify_attention_cuda,
+                                                     paged_verify_attention_plain)
+
+    b, l = 8, 512
+    h, kvh, hd = HYMBA_HEADS
+    meta = dict(window=HYMBA_WINDOW, num_meta=HYMBA_META)
+    for dtype in ("bfloat16", "float32"):
+        tol = ATTN_TOL[dtype]
+        pre = f"{dtype} hymba-1.5b {h}/{kvh} heads of {hd}"
+
+        def held(name, fn, plain, args, tag, **kw):
+            got = fn(*args, **kw)
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            check(not torch.isnan(got).any(), f"{name} {tag} NaN")
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"{name} {tag} differs from its plain version by {err}")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
+            rows = args[0].shape[1] * h // kvh
+            log(f"  {name} {tag} ({rows} rows, row_plan {row_plan(rows)}): "
+                f"max_abs_err={err:.3g} ok")
+            return got
+
+        for kq in (1, 2, 8):
+            args = attention_case(torch, gen, b, kq, h, kvh, hd, l, dtype,
+                                  length=[l - kq - 3 * i for i in range(b)],
+                                  stale=5)
+            held("verify_attention", verify_attention_cuda,
+                 verify_attention_plain, args, f"{pre} kq {kq} L {l}")
+            if kq == 8:
+                check_invariance(torch, f"verify_attention {pre} kq 8",
+                                 verify_attention_cuda, args, queries=True)
+                time_split_kv(torch, "verify_attention", verify_attention_cuda,
+                              verify_attention_plain, args, dtype,
+                              "hymba-1.5b")
+        args = meta_ring_case(torch, gen, b, 8, h, kvh, hd, dtype)
+        tag = (f"{pre} kq 8, ring {HYMBA_RING} (window {HYMBA_WINDOW}, "
+               f"{HYMBA_META} meta slots)")
+        held("verify_attention", verify_attention_cuda, verify_attention_plain,
+             args, tag, **meta)
+        check_invariance(torch, f"verify_attention {tag}",
+                         functools.partial(verify_attention_cuda, **meta),
+                         args, queries=True)
+        time_split_kv(torch, "verify_attention", verify_attention_cuda,
+                      verify_attention_plain, args, dtype,
+                      "hymba-1.5b ring with meta slots", **meta)
+        P, ps = l // 16, 16
+        args = paged_case(torch, gen, b, 8, h, kvh, hd, P, ps, dtype,
+                          ctx=[P * ps - 3 * i for i in range(b)], share=True,
+                          unmapped=1)
+        got = held("paged_verify_attention", paged_verify_attention_cuda,
+                   paged_verify_attention_plain, args,
+                   f"{pre} kq 8, {P} pages of {ps}, shared and unmapped")
+        check(torch.equal(got, verify_attention_cuda(
+            *paged_gathered(torch, *args))),
+              f"paged_verify_attention {pre}: not verify_attention on the "
+              f"gathered view bit for bit")
+        q, kp, vp, tbl, q_pos, kv_pos = args
+        for r in range(b):
+            row = paged_verify_attention_cuda(
+                q[r:r + 1].contiguous(), kp, vp, tbl[r:r + 1].contiguous(),
+                q_pos[r:r + 1].contiguous(), kv_pos[r:r + 1].contiguous())
+            check(torch.equal(row, got[r:r + 1]),
+                  f"paged_verify_attention {pre}: batch row {r} alone "
+                  f"differs from its row at B = 8")
+        time_split_kv(torch, "paged_verify_attention",
+                      paged_verify_attention_cuda,
+                      paged_verify_attention_plain, args, dtype, "hymba-1.5b")
+        log(f"  {pre}: kq 1 == kq 2 == the block and B 1 == B 8 bit for bit "
+            f"(L {l} and the ring), the paged kernel == verify_attention on "
+            f"kp[tbl], ok")
 
 
 def check_family_heads(torch, gen, results):
@@ -1256,11 +1414,14 @@ def check_family_vocab_case(torch, gen, results, model, n, d, vocab, lanes,
         f"{two_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
-def time_split_kv(torch, name, fn, plain, args, dtype, model):
+def time_split_kv(torch, name, fn, plain, args, dtype, model, *,
+                  window: int = 0, num_meta: int = 0):
     """Kernel, plain version, SDPA (the chain and tree kernels) and bound of
-    one split-KV call, printed for PERF.md's rows 1, 4 and 5."""
-    ms = time_ms(torch, lambda: fn(*args))
-    plain_ms = time_ms(torch, lambda: plain(*args))
+    one split-KV call, printed for PERF.md's rows 1, 4 and 5; ``window``
+    and ``num_meta`` go to both calls and into SDPA's mask."""
+    kw = dict(window=window, num_meta=num_meta)
+    ms = time_ms(torch, lambda: fn(*args, **kw))
+    plain_ms = time_ms(torch, lambda: plain(*args, **kw))
     if name == "paged_verify_attention":
         q, kp, vp, tbl, q_pos, kv_pos = args
         k = v = None
@@ -1273,6 +1434,8 @@ def time_split_kv(torch, name, fn, plain, args, dtype, model):
         moved = nbytes(*args, q)
         qp, kp_ = q_pos[:, :, None], kv_pos[:, None, :]
         mask = (kp_ >= 0) & (kp_ <= qp)
+        if window:
+            mask = mask & ((qp - kp_ < window) | (kp_ < num_meta))
         if name == "tree_verify_attention":
             kn, anc = args[5][:, None, :], args[6]
             bit = (anc[:, :, None] >> kn.clamp(0, 31)) & 1
@@ -2536,6 +2699,8 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
             state = step(state)
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # the Mamba scan's steps (models/mamba.py: one addcmul a step)
+        scan = sum(1 for e in prof.events() if e.name == "aten::addcmul")
     except (RuntimeError, AttributeError) as exc:    # a measurement, not the path
         log(f"[profile] torch.profiler unavailable ({exc}); not measured")
         return
@@ -2558,7 +2723,8 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
         f"{len(kernels)} kernels busy {busy_ms:.2f} ms, of which attention "
         f"kernels {attn_ms:.3f} ms, fused_heads {heads_ms:.3f} ms; device "
         f"idle share {1 - busy_ms / wall_ms:.3f}; hand-written kernels "
-        f"launched {launched}")
+        f"launched {launched}"
+        f"{f'; Mamba scan steps (addcmul launches) {scan}' if scan else ''}")
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:8.3f} ms  {name[:90]}")
 
@@ -2623,40 +2789,8 @@ def phase_rwkv(torch, results):
         f"rows (others at near-ties)")
 
     # ---- phase 8b: multi-token accepts roll the recurrent state back --------
-    cont = g_toks[:, prompt_len:prompt_len + block_k].contiguous()
-    be = D.causal_lm_backend(cfg)
-    for corrupt in (None, 3):
-        state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
-                                                max_new=max_new)
-        check(torch.equal(state.proposals[:, 0], cont[:, 0]),
-              "rwkv prefill's verified slot 0 != greedy's first token")
-        props = cont.clone()
-        if corrupt is not None:
-            props[:, corrupt] = (props[:, corrupt] + 1) % cfg.vocab_size
-        state = state._replace(proposals=props)
-        with torch.no_grad():
-            state = D.bpd_iteration(params, cfg, dec, be, state,
-                                    prefix_offset=prefix, max_new=max_new)
-        khat = (state.text_len - prompt_len).tolist()
-        want = block_k if corrupt is None else corrupt
-        log(f"[rwkv accepts] proposals = greedy continuation"
-            f"{'' if corrupt is None else f' with slot {corrupt} corrupted'}: "
-            f"k̂ per row {khat}")
-        for r, kh in enumerate(khat):
-            if kh != want:
-                gap = near_tie(torch, M, params, cfg, g_toks[r, :prompt_len + kh])
-                check(kh < want and gap < TIE_MARGIN,
-                      f"rwkv row {r}: k̂={kh}, expected {want} (gap {gap})")
-        with torch.no_grad():           # the next block on the committed state
-            state = D.bpd_iteration(params, cfg, dec, be, state,
-                                    prefix_offset=prefix, max_new=max_new)
-        after = causal_logits_after(torch, M, params, cfg)
-        diverged = compare_rows(torch, after, state.tokens, g_toks,
-                                state.text_len, prompt_len)
-        log(f"[rwkv accepts] second iteration: k̂ per row "
-            f"{(state.text_len - prompt_len - torch.tensor(khat, device='cuda')).tolist()}; "
-            f"tokens == greedy tokens in {8 - len(diverged)}/8 rows")
-    del state
+    rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len,
+                   "rwkv")
 
     # ---- phase 9: bf16 serve ------------------------------------------------
     _build.reset_launches()
@@ -3641,19 +3775,29 @@ def phase_draft_launcher(torch):
 FAMILY_MEM_GIB = 76.0   # the fp32 decodes' peak at full depth stays below it
 WINDOW_PROMPT = 4608    # starcoder2-7b's window + 512: the ring wraps
 WINDOW_CHUNK = 512
+# phase 16's fp32 decodes run at half depth, so that the script with phase
+# 18 stays within 75% of its time limit; each bf16 serve runs at full depth
+FAMILY_FP32_LAYERS = {"stablelm-12b": 20, "starcoder2-7b": 16,
+                      "nemotron-4-15b": 16}
 
 
-def attention_kernel(cfg, dec) -> str:
-    """The attention kernel every layer of ``cfg`` launches under ``dec``:
-    the tree kernel under topk_tree; else the paged kernel on the paged
-    cache, unless every layer is windowed (windowed layers keep a dense
-    ring, models/cache.py); else the dense chain kernel."""
+def attention_launches(cfg, dec) -> dict:
+    """{kernel: launches per forward} of the attention layers of ``cfg``
+    under ``dec``: the tree kernel in every layer under topk_tree; on the
+    paged cache the paged kernel in the global layers and the dense chain
+    kernel in the windowed ones (windowed layers keep a dense ring,
+    models/cache.py: starcoder2-7b's every layer, hymba-1.5b's 29 of 32);
+    else the dense chain kernel in every layer."""
+    layers = cfg.num_layers
     if dec.policy == "topk_tree":
-        return "tree_verify_attention"
-    all_windowed = bool(cfg.sliding_window) and not cfg.global_attn_layers
-    if dec.cache_backend == "paged" and not all_windowed:
-        return "paged_verify_attention"
-    return "verify_attention"
+        return {"tree_verify_attention": layers}
+    if dec.cache_backend != "paged":
+        return {"verify_attention": layers}
+    windowed = sum(1 for i in range(layers) if cfg.sliding_window
+                   and i not in cfg.global_attn_layers)
+    out = {"verify_attention": windowed,
+           "paged_verify_attention": layers - windowed}
+    return {k: n for k, n in out.items() if n}
 
 
 def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
@@ -3666,7 +3810,6 @@ def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
     and, for an MoE model, greedy's ``Routes`` (else None)."""
     from repro_torch.kernels import _build
 
-    layers = cfg.num_layers
     g_toks = g_routes = None
     for name, kw in (("greedy", {}),) + tuple(paths):
         pdec = dec.replace(**kw)
@@ -3680,7 +3823,8 @@ def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
         launch = dict(_build.LAUNCHES)
         iters = stats["iterations"]
         want = {k: 0 for k in launch}
-        want[attention_kernel(cfg, pdec)] = layers * iters
+        for kernel, n in attention_launches(cfg, pdec).items():
+            want[kernel] = n * iters
         if name != "greedy":
             want.update(fused_verify=iters, fused_heads=iters + 1)
         log(f"[families] {label} {name}: k̂={stats['mean_accepted']:.4f} "
@@ -3727,8 +3871,9 @@ def family_serve(torch, D, M, params, cfg, prompts, label):
     check(torch.equal(sbatch["tokens"], prompts), f"{label}: serve prompts "
                                                   f"differ")
     s_toks, s_stats = out["tokens"], out["stats"]
-    attn = attention_kernel(scfg, sdec)
-    check(launches[attn] == 2 * scfg.num_layers * s_stats["iterations"]
+    attn = attention_launches(scfg, sdec)
+    check(all(launches[k] == 2 * n * s_stats["iterations"]
+              for k, n in attn.items())
           and launches["fused_verify"] == 2 * s_stats["iterations"],
           f"{label} serve: launches {launches}")
     gb_toks, _ = D.greedy_decode(params, scfg, sdec, sbatch)
@@ -3753,14 +3898,18 @@ def family_serve(torch, D, M, params, cfg, prompts, label):
                       f"{label} exact dense")
 
 
-def window_check(torch, M, D, params, cfg, dec):
-    """starcoder2-7b's window: 2 MarkovLM prompts of WINDOW_PROMPT tokens
-    prefilled through DecodeSession(kv_chunk=WINDOW_CHUNK), then 64 new
-    tokens under greedy and under BPD exact, equal (near-tie rule); and an
-    independent check: forward_hidden over prompt + greedy's tokens (the
-    window on the full path, kv_chunk WINDOW_CHUNK) gives greedy's token as
-    p_1's argmax at every generated position (near-tie rule), positions that
-    wrap the ring of the cached decode."""
+def window_check(torch, M, D, params, cfg, dec, *, prompt_len, kv_chunk,
+                 label):
+    """A windowed model past its ring: 2 MarkovLM prompts of ``prompt_len``
+    tokens prefilled through DecodeSession(kv_chunk=``kv_chunk``), then
+    ``dec.max_new_tokens`` new tokens under greedy and under BPD exact,
+    equal (near-tie rule); and an independent check: forward_hidden over
+    the meta tokens (if any) + prompt + greedy's tokens (the window on the
+    full path, every meta position visible) gives greedy's token as p_1's
+    argmax at every generated position (near-tie rule), positions that wrap
+    the ring of the cached decode (starcoder2-7b: 4,608 tokens over 4,352
+    slots; hymba-1.5b: 128 meta + 1,536 tokens over 1,280 slots, the first
+    128 reserved)."""
     import numpy as np
 
     from repro_torch import serving
@@ -3770,49 +3919,53 @@ def window_check(torch, M, D, params, cfg, dec):
     t0 = time.perf_counter()
     task = MarkovLM(vocab=256, temperature=0.2, seed=0)
     long = torch.as_tensor(task.sample(np.random.default_rng(16), 2,
-                                       WINDOW_PROMPT), device="cuda")
-    ring = C.attn_buf_len(cfg, 0, WINDOW_PROMPT + dec.max_new_tokens,
+                                       prompt_len), device="cuda")
+    meta, max_new = cfg.num_meta_tokens, dec.max_new_tokens
+    windowed = next(i for i in range(cfg.num_layers)
+                    if i not in cfg.global_attn_layers)
+    ring = C.attn_buf_len(cfg, windowed, meta + prompt_len + max_new,
                           dec.block_k)
-    sess = serving.DecodeSession(params, cfg, dec, kv_chunk=WINDOW_CHUNK)
+    sess = serving.DecodeSession(params, cfg, dec, kv_chunk=kv_chunk)
     g_toks, g_stats = sess.greedy({"tokens": long})
     b_toks, b_stats = sess.decode({"tokens": long})
     torch.cuda.synchronize()
     after = causal_logits_after(torch, M, params, cfg)
     diverged = compare_rows(torch, after, b_toks, g_toks, b_stats["text_len"],
-                            WINDOW_PROMPT)
-    log(f"[families] starcoder2-7b window {cfg.sliding_window}, ring {ring} "
-        f"slots: 2 prompts of {WINDOW_PROMPT} through DecodeSession(kv_chunk="
-        f"{WINDOW_CHUNK}); greedy {g_stats['iterations']} steps, BPD exact "
-        f"k̂ {b_stats['mean_accepted']:.4f} in {b_stats['iterations']} "
+                            prompt_len)
+    log(f"[window] {label} window {cfg.sliding_window}, ring {ring} slots "
+        f"({meta} reserved for meta tokens): 2 prompts of {prompt_len} "
+        f"through DecodeSession(kv_chunk={kv_chunk}); greedy "
+        f"{g_stats['iterations']} steps, BPD exact k̂ "
+        f"{b_stats['mean_accepted']:.4f} in {b_stats['iterations']} "
         f"iterations; tokens equal in {2 - len(diverged)}/2 rows (others at "
         f"near-ties)")
-    end = WINDOW_PROMPT + dec.max_new_tokens
+    end = prompt_len + max_new
     seq = g_toks[:, :end]
-    pos = torch.arange(end, dtype=torch.int32, device="cuda")
+    pos = torch.arange(meta + end, dtype=torch.int32, device="cuda")
     with torch.no_grad():
         h = M.embed_inputs(params, cfg, {"tokens": seq})
         hidden, _ = M.forward_hidden(params, cfg, h, positions=pos,
-                                     kv_chunk=WINDOW_CHUNK)
+                                     kv_chunk=kv_chunk)
         logits = M.base_logits(params, cfg,
-                               hidden[:, WINDOW_PROMPT - 1:end - 1])
+                               hidden[:, meta + prompt_len - 1:meta + end - 1])
     logits = logits[..., :cfg.vocab_size].float()
     full = logits.argmax(-1)
-    want = seq[:, WINDOW_PROMPT:end]
+    want = seq[:, prompt_len:end]
     off = (full != want).nonzero().tolist()
     for r, j in off:
         gap = top2_gap(torch, logits[r, j])
         log(f"    row {r}, new token {j}: the full forward's argmax "
             f"{int(full[r, j])} != greedy's {int(want[r, j])}, top-2 gap "
             f"{gap:.3g} of max|logit|")
-        check(gap < TIE_MARGIN, f"starcoder2-7b window: the full forward and "
+        check(gap < TIE_MARGIN, f"{label} window: the full forward and "
                                 f"the cached greedy differ at row {r}, new "
                                 f"token {j} with no near-tie ({gap})")
-    check(end > ring, "the window check does not wrap the ring")
-    log(f"[families] starcoder2-7b window: the full forward over {end} "
-        f"positions (window {cfg.sliding_window}, kv_chunk {WINDOW_CHUNK}) "
-        f"gives greedy's token at {2 * dec.max_new_tokens - len(off)}/"
-        f"{2 * dec.max_new_tokens} generated positions (others at "
-        f"near-ties); {time.perf_counter() - t0:.1f}s")
+    check(meta + end > ring, f"{label}: the window check does not wrap the "
+                             f"ring")
+    log(f"[window] {label}: the full forward over {meta + end} positions "
+        f"(window {cfg.sliding_window}, kv_chunk {kv_chunk}) gives greedy's "
+        f"token at {2 * max_new - len(off)}/{2 * max_new} generated "
+        f"positions (others at near-ties); {time.perf_counter() - t0:.1f}s")
 
 
 def phase_families(torch, results):
@@ -3843,12 +3996,14 @@ def phase_families(torch, results):
                         ("starcoder2-7b", chain_tree),
                         ("nemotron-4-15b", chain_tree[::3])):
         t0 = time.perf_counter()
-        cfg = get_config(name).replace(dtype="float32")
+        full = get_config(name).replace(dtype="float32")
+        cfg = full.replace(num_layers=FAMILY_FP32_LAYERS[name])
         torch.cuda.reset_peak_memory_stats()
         params = M.init(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in params.parameters())
-        log(f"[families] {name} fp32: {n_params / 1e9:.3f} B parameters, "
+        log(f"[families] {name} fp32 decodes at {cfg.num_layers} of "
+            f"{full.num_layers} layers: {n_params / 1e9:.3f} B parameters, "
             f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
             f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, vocab "
             f"{cfg.vocab_size}, window {cfg.sliding_window}; init "
@@ -3866,14 +4021,20 @@ def phase_families(torch, results):
             phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks,
                               disaggregated=False)
         if name == "starcoder2-7b":
-            window_check(torch, M, D, params, cfg, dec)
+            window_check(torch, M, D, params, cfg, dec,
+                         prompt_len=WINDOW_PROMPT, kv_chunk=WINDOW_CHUNK,
+                         label="starcoder2-7b")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"[families] {name} fp32 peak {peak:.2f} GiB; "
-            f"{time.perf_counter() - t0:.1f}s")
-        check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes at full depth "
-                                     f"peak at {peak:.2f} GiB, over "
-                                     f"{FAMILY_MEM_GIB} GiB")
-        family_serve(torch, D, M, params, cfg, prompts, name)
+        log(f"[families] {name} fp32 peak {peak:.2f} GiB at {cfg.num_layers} "
+            f"layers; {time.perf_counter() - t0:.1f}s")
+        check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes peak at "
+                                     f"{peak:.2f} GiB, over {FAMILY_MEM_GIB} "
+                                     f"GiB")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = M.init(full, seed=0, device="cuda")    # the serve: full depth
+        family_serve(torch, D, M, params, full, prompts, name)
         log(f"[families] {name} {time.perf_counter() - t0:.1f}s")
         del params
         gc.collect()
@@ -4007,6 +4168,285 @@ def phase_moe_train(torch, card):
     check_loss_falls(losses, "17c olmoe fine-tuned")
     check(0 < float(m["moe_dropped_frac"]) < 1, f"17c: dropped share "
                                                 f"{float(m['moe_dropped_frac'])}")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the Hymba hybrid family (hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+
+HYMBA_WINDOW_PROMPT = 1536   # 18b: + 128 meta + 16 new = 1,680 > 1,280 slots
+HYMBA_TRAIN_LAYERS = 8       # 18e: hymba-1.5b fine-tuned at full width
+HYMBA_TRAIN_STEPS = 10
+
+
+def topk_within(torch, M, params, cfg, toks, prompt_len, n, top_k, label):
+    """topk acceptance keeps any proposal inside p_1's top-``top_k``, so its
+    tokens may leave greedy's: each generated token must rank within
+    ``top_k`` of p_1 by a full forward over its row's prefix (one batched
+    forward), or sit where the top_k-th / (top_k+1)-th gap is below
+    TIE_MARGIN.  Returns how many tokens are not p_1's argmax."""
+    seq = toks[:, :prompt_len + n]
+    with torch.no_grad():
+        h = M.embed_inputs(params, cfg, {"tokens": seq})
+        hidden, _ = M.forward_hidden(params, cfg, h)
+        meta = cfg.num_meta_tokens
+        logits = M.base_logits(params, cfg, hidden[:, meta + prompt_len - 1:
+                                                   meta + prompt_len + n - 1])
+    logits = logits[..., :cfg.vocab_size].float()
+    tok = seq[:, prompt_len:].long()
+    mine = logits.gather(-1, tok[..., None])[..., 0]
+    rank = (logits > mine[..., None]).sum(-1) + 1
+    top = torch.topk(logits, top_k + 1).values
+    gap = (top[..., top_k - 1] - top[..., top_k]) / logits.abs().amax(-1)
+    bad = (rank > top_k) & (gap >= TIE_MARGIN)
+    check(not bool(bad.any()), f"{label}: {int(bad.sum())} tokens outside "
+                               f"p_1's top-{top_k} with no near-tie")
+    return int((rank > 1).sum())
+
+
+def rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len,
+                   label):
+    """8b / 18c: from the prefill, one BPD iteration with greedy's
+    continuation as the proposals (k̂ = 8), then with slot 3 corrupted (k̂
+    = 3), each followed by a second iteration on the committed recurrent
+    state (RWKV-6's, or the Mamba heads' beside attention), which must give
+    greedy's tokens."""
+    block_k = dec.block_k
+    cont = g_toks[:, prompt_len:prompt_len + block_k].contiguous()
+    be = D.causal_lm_backend(cfg)
+    for corrupt in (None, 3):
+        state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
+                                                max_new=dec.max_new_tokens)
+        check(prefix == cfg.num_meta_tokens, f"{label} prefix {prefix}")
+        check(torch.equal(state.proposals[:, 0], cont[:, 0]),
+              f"{label} prefill's verified slot 0 != greedy's first token")
+        props = cont.clone()
+        if corrupt is not None:
+            props[:, corrupt] = (props[:, corrupt] + 1) % cfg.vocab_size
+        state = state._replace(proposals=props)
+        with torch.no_grad():
+            state = D.bpd_iteration(params, cfg, dec, be, state,
+                                    prefix_offset=prefix,
+                                    max_new=dec.max_new_tokens)
+        khat = (state.text_len - prompt_len).tolist()
+        want = block_k if corrupt is None else corrupt
+        log(f"[{label} accepts] proposals = greedy continuation"
+            f"{'' if corrupt is None else f' with slot {corrupt} corrupted'}: "
+            f"k̂ per row {khat}")
+        for r, kh in enumerate(khat):
+            if kh != want:
+                gap = near_tie(torch, M, params, cfg,
+                               g_toks[r, :prompt_len + kh])
+                check(kh < want and gap < TIE_MARGIN,
+                      f"{label} row {r}: k̂={kh}, expected {want} (gap {gap})")
+        with torch.no_grad():           # the next block on the committed state
+            state = D.bpd_iteration(params, cfg, dec, be, state,
+                                    prefix_offset=prefix,
+                                    max_new=dec.max_new_tokens)
+        diverged = compare_rows(torch, causal_logits_after(torch, M, params,
+                                                           cfg),
+                                state.tokens, g_toks, state.text_len,
+                                prompt_len)
+        second = (state.text_len - prompt_len
+                  - torch.tensor(khat, device="cuda")).tolist()
+        log(f"[{label} accepts] second iteration on the committed state: k̂ "
+            f"per row {second}; tokens == greedy tokens in "
+            f"{8 - len(diverged)}/8 rows")
+
+
+def hymba_prefill_profile(torch, D, params, cfg, dec, batch):
+    """18d: one bf16 prefill (128 meta + the prompt) under torch.profiler:
+    its host wall, the kernels' busy time and the Mamba scan's steps
+    (one addcmul launch a step and layer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def prefill():
+        return D.bpd_prefill_causal_lm(params, cfg, dec, batch,
+                                       max_new=dec.max_new_tokens)
+
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prefill()
+            torch.cuda.synchronize()
+        events = prof.events()
+    except (RuntimeError, AttributeError) as exc:    # a measurement, not the path
+        log(f"[profile] torch.profiler unavailable ({exc}); not measured")
+        return
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    scan = sum(1 for e in events if e.name == "aten::addcmul")
+    positions = cfg.num_meta_tokens + batch["tokens"].shape[1]
+    log(f"[profile] one bf16 hymba-1.5b prefill of {positions} positions "
+        f"(B {batch['tokens'].shape[0]}): wall {wall_ms:.2f} ms, "
+        f"{len(kernels)} kernels busy {busy:.2f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f}; Mamba scan steps (addcmul launches) "
+        f"{scan} ({positions} x {cfg.num_layers} layers)")
+
+
+def phase_hymba(torch, results):
+    """Phase 18: hymba-1.5b (32 layers of attention beside Mamba heads,
+    d 1600, 25/5 heads of 64, windows of 1024 outside layers 0, 15 and 31,
+    128 meta tokens, untied lm_head at vocab 32001) at full width and
+    depth from seed 0, fp32, phase 4's 8 prompts of 64, 64 new tokens,
+    block_k 8.  18a greedy, BPD exact, topk (T 2) and adaptive on the dense
+    cache and exact on the paged cache (the 3 global layers paged, the 29
+    windowed on their dense rings: 29 verify_attention + 3
+    paged_verify_attention a forward), launches exact; exact and adaptive
+    emit greedy's tokens (near-tie rule), topk's tokens lie within p_1's
+    top-2; the fp32 peak.  18b the window: 2 prompts of 1,536 tokens, 16
+    new, greedy and BPD exact equal, and a full forward over meta + prompt
+    + greedy's tokens giving greedy's token past the wrapped ring.  18c
+    hand-made accepts roll the Mamba state back (``rollback_check``).  18d
+    the weights cast for bf16 (A_log, D and the norm scales stay fp32) and
+    served (--full-config): tokens/s, k̂, one iteration and one prefill
+    profiled with the scan's launches.  18e training
+    (``phase_hymba_train``)."""
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+
+    name = "hymba-1.5b"
+    t0 = time.perf_counter()
+    cfg = get_config(name).replace(dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[hymba] {name} fp32: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, Mamba d_inner "
+        f"{cfg.ssm_expand * cfg.d_model} x state {cfg.ssm_state_dim}, window "
+        f"{cfg.sliding_window} outside layers {cfg.global_attn_layers}, "
+        f"{cfg.num_meta_tokens} meta tokens, vocab {cfg.vocab_size}; init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    task = MarkovLM(vocab=256, temperature=0.2, seed=0)
+    prompts = torch.as_tensor(task.sample(np.random.default_rng(1), 8, 64),
+                              device="cuda")
+    batch = {"tokens": prompts}
+    dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
+
+    # ---- 18a: greedy and BPD, dense and paged -------------------------------
+    paths = (("bpd exact dense", {}),
+             ("bpd adaptive dense", dict(policy="adaptive")),
+             ("bpd exact paged", dict(cache_backend="paged")))
+    g_toks, _ = family_paths(torch, M, D, params, cfg, dec, batch, 64, paths,
+                             name)
+    tdec = dec.replace(policy="topk", top_k=2)
+    _build.reset_launches()
+    t_toks, t_stats = D.bpd_decode(params, cfg, tdec, batch)
+    torch.cuda.synchronize()
+    launch = dict(_build.LAUNCHES)
+    iters = t_stats["iterations"]
+    want = {k: 0 for k in launch}
+    want.update(verify_attention=cfg.num_layers * iters, fused_verify=iters,
+                fused_heads=iters + 1)
+    check(launch == want, f"{name} bpd topk: launches {launch}, expected "
+                          f"{want}")
+    check(bool((t_stats["generated"] == dec.max_new_tokens).all()),
+          f"{name} bpd topk: short rows")
+    off = topk_within(torch, M, params, cfg, t_toks, 64, dec.max_new_tokens,
+                      2, f"{name} bpd topk")
+    same = int((t_toks[:, 64:128] == g_toks[:, 64:128]).all(dim=1).sum())
+    log(f"[families] {name} bpd topk (T 2) dense: k̂="
+        f"{t_stats['mean_accepted']:.4f} iterations={iters}, launches "
+        f"{launch}; every token within p_1's top-2 ({off} not its argmax), "
+        f"{same}/8 rows equal to greedy's")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[hymba] {name} fp32 decodes peak {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes peak at "
+                                 f"{peak:.2f} GiB")
+
+    # ---- 18b: the window past the ring, 18c: rollback ----------------------
+    window_check(torch, M, D, params, cfg, dec.replace(max_new_tokens=16),
+                 prompt_len=HYMBA_WINDOW_PROMPT, kv_chunk=0, label=name)
+    rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, 64, "hymba")
+
+    # ---- 18d: bf16 serve ----------------------------------------------------
+    family_serve(torch, D, M, params, cfg, prompts, name)
+    kept = sorted({k.split(".")[-1] for k, v in params.state_dict().items()
+                   if v.dtype == torch.float32})
+    check(kept == ["A_log", "D", "scale"], f"{name} bf16 cast kept {kept} "
+                                           f"in fp32")
+    hymba_prefill_profile(torch, D, params, cfg.replace(dtype="bfloat16"),
+                          dec, batch)
+    log(f"[hymba] {name} {time.perf_counter() - t0:.1f}s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_hymba_train(torch, card_line())
+
+
+def phase_hymba_train(torch, card):
+    """18e: one make_train_step card vs CPU at a narrow hymba geometry (d
+    256, 2 layers, layer 1 windowed at 32, 8 meta tokens; ``card_vs_cpu``),
+    then hymba-1.5b fine-tuned at full width, its depth cut to
+    HYMBA_TRAIN_LAYERS (layer 0 the only global one left), HYMBA_TRAIN_STEPS
+    steps of B 4 x S 256 (after the 128 meta tokens): the loss falls, step
+    ms, tokens/s, peak.  The Mamba backward is autograd through the scan's
+    loop."""
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer_init
+    from repro_torch.utils.tree import tree_size
+
+    full = get_config("hymba-1.5b")
+    narrow = full.replace(num_layers=2, d_model=256, num_heads=4,
+                          num_kv_heads=2, head_dim=64, d_ff=512,
+                          vocab_size=4096, sliding_window=32,
+                          global_attn_layers=(0,), num_meta_tokens=8,
+                          dtype="float32")
+    card_vs_cpu(torch, narrow, {"fine-tuned": (
+        TrainConfig(lr=1e-4, warmup_steps=1), 2, False)},
+        "18e hymba narrow (d 256, layer 1 windowed at 32, 8 meta tokens)")
+
+    cfg = full.replace(num_layers=HYMBA_TRAIN_LAYERS, dtype="float32")
+    params = M.init(cfg, seed=0, device="cuda")
+    n, n_full = tree_size(params), tree_size(M.init(full, device="meta"))
+    log(f"[train] 18e hymba-1.5b fp32 fine-tuned, depth cut from "
+        f"{full.num_layers} to {cfg.num_layers} layers (global layers "
+        f"{tuple(i for i in cfg.global_attn_layers if i < cfg.num_layers)}: "
+        f"only layer 0 stays global): full depth's parameters, gradients and "
+        f"AdamW moments ({n_full / 1e9:.3f} B x 16 bytes = "
+        f"{n_full * 16 / 2 ** 30:.1f} GiB) beside the scan's saved states "
+        f"leave too little of 80 GB; at {cfg.num_layers} layers "
+        f"{n / 1e9:.3f} B parameters, {n * 16 / 2 ** 30:.1f} GiB for them")
+    tc = TrainConfig(head_loss="random", lr=TRAIN_LR, warmup_steps=1,
+                     schedule="constant")
+    opt = optimizer_init(params, tc)
+    gen = torch.Generator().manual_seed(1)
+    batches = prefetch(MarkovLM(vocab=256, temperature=0.2, seed=0).batches(
+        batch=4, seq_len=256, seed=2), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, tc)
+    params, opt, losses, ms, _ = run_steps(
+        torch, step, params, opt, batches, gen, HYMBA_TRAIN_STEPS,
+        "18e hymba fine-tuned")
+    batches.close()
+    step_report(torch, f"18e hymba-1.5b fine-tuned, {cfg.num_layers} layers, "
+                f"B 4 x S 256 (+ {cfg.num_meta_tokens} meta)", ms, 4 * 256,
+                card)
+    check_loss_falls(losses, "18e hymba fine-tuned")
     del params, opt, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4491,6 +4931,7 @@ def main() -> int:
     check_head_dim_16(torch, gen, results)
     check_head_dim_24(torch, gen, results)
     check_family_heads(torch, gen, results)
+    check_hymba_heads(torch, gen, results)
     check_family_vocab(torch, gen, results)
     check_rwkv6_scan(torch, gen, results)
     check_mt_heads_verify(torch, gen)
@@ -4532,6 +4973,11 @@ def main() -> int:
     t17 = time.perf_counter()
     phase_moe(torch, results)
     log(f"[moe] phase 17 {time.perf_counter() - t17:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    phase_hymba(torch, results)
+    log(f"[hymba] phase 18 {time.perf_counter() - t18:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(torch, phase4)

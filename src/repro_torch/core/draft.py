@@ -69,6 +69,14 @@ class DraftModelDrafter(policy_lib.Drafter):
     # -- binding --------------------------------------------------------------
 
     def bind(self, bundles: Dict, cfg) -> "DraftModelDrafter":
+        if cfg is not None and cfg.num_meta_tokens:
+            raise NotImplementedError(
+                f"the 'draft_model' policy cannot verify for {cfg.name!r}: "
+                f"its {cfg.num_meta_tokens} meta tokens prefix every "
+                f"sequence, so the primary's positions run "
+                f"{cfg.num_meta_tokens} ahead of the draft's output-stream "
+                f"positions (the reference fails on that meta prefix offset "
+                f"with a broadcast error)")
         b = (bundles or {}).get(self.bundle)
         if b is None:
             raise ValueError(

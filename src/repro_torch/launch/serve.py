@@ -15,15 +15,19 @@ over HTTP (``repro.launch.serve`` on one card).
         --full-config --batch 8 --prompt-len 64 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --full-config --batch 8 --prompt-len 64 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --full-config --batch 8 --prompt-len 64 --max-new 64
 
-``--arch`` takes the eight archs the port runs: the dense text decoders
+``--arch`` takes the nine archs the port runs: the dense text decoders
 granite-3-8b, stablelm-12b (head_dim 160, per-head QK norm), starcoder2-7b
 (36 heads over 4 KV heads, a 4096-token window on every layer) and
 nemotron-4-15b (vocab 256000, LayerNorm, squared ReLU); the MoE decoders
 olmoe-1b-7b (64 experts, top-8) and qwen2-moe-a2.7b (60 experts, top-4,
 and a gated shared MLP), whose every forward here routes at full capacity;
-rwkv6-1.6b; and the encoder-decoder paper-mt-base (refused here, see
-below).  Any other
+rwkv6-1.6b; the hybrid hymba-1.5b (attention and Mamba heads in every
+layer, 128 meta tokens before each prompt, windowed attention outside
+layers 0, 15 and 31); and the encoder-decoder paper-mt-base (refused here,
+see below).  Any other
 registered name raises at model construction.
 
 Without ``--full-config`` the registered smoke config runs in fp32, as the
@@ -44,7 +48,12 @@ drafts each block with a second, small model: the smoke config of
 ``--full-config`` with a smoke draft is refused, as the reference refuses
 it.  ``--arch rwkv6-1.6b`` serves the RWKV-6 family: its recurrent caches have
 no KV layout, so ``--cache-backend paged`` leaves them as they are, and
-``topk_tree`` raises (tree verification needs attention blocks).  An encoder-decoder ``--arch`` (paper-mt-base) is
+``topk_tree`` raises (tree verification needs attention blocks).
+``--arch hymba-1.5b`` pages its three global layers under ``--cache-backend
+paged`` (the windowed layers keep their dense rings, the Mamba states stay
+as they are); ``topk_tree`` raises as for rwkv6, and so does
+``--policy draft_model``: the meta tokens put the primary's positions ahead
+of a draft's.  An encoder-decoder ``--arch`` (paper-mt-base) is
 refused, as the reference's serve has no seq2seq path: its entry point is
 ``repro_torch.core.decode.bpd_decode_seq2seq``.
 
@@ -61,7 +70,7 @@ disaggregates prefill into batches of W behind a handoff queue of
 POST /v1/generate, /drain; GET /healthz /readyz /metrics) on ``--host`` /
 ``--port`` with a wait queue of ``--max-queue``; ``--http-demo`` streams one
 request through it and exits.  The engine serves attention models only,
-as the reference's does (rwkv6-1.6b raises).  ``--mesh-*`` (multi-GPU,
+as the reference's does (rwkv6-1.6b and hymba-1.5b raise).  ``--mesh-*`` (multi-GPU,
 ROADMAP.md §1 item 8) is not ported and raises.
 """
 from __future__ import annotations
@@ -91,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="granite-3-8b, stablelm-12b, starcoder2-7b, "
-                         "nemotron-4-15b, olmoe-1b-7b, qwen2-moe-a2.7b or "
-                         "rwkv6-1.6b (paper-mt-base: bpd_decode_seq2seq)")
+                         "nemotron-4-15b, olmoe-1b-7b, qwen2-moe-a2.7b, "
+                         "rwkv6-1.6b or hymba-1.5b (paper-mt-base: "
+                         "bpd_decode_seq2seq)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="reference checkpoint dir (step_N/arrays.npz)")
     ap.add_argument("--batch", type=int, default=4)

@@ -6,6 +6,8 @@
         --full-config --steps 200 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
         --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --device cpu --steps 20
 
 Without ``--full-config`` the registered smoke config trains, as the
 reference's launcher trains it; with it the full config.  Both train in
@@ -16,7 +18,9 @@ directory's latest step and saves every ``--ckpt-every`` steps and at the
 end; the optimizer state starts afresh on a resume, as the reference's
 does.  Metrics are read on the host every ``--log-every`` steps only; an
 MoE arch (olmoe-1b-7b, qwen2-moe-a2.7b) also logs its router terms and the
-share of assignments dropped past capacity.
+share of assignments dropped past capacity.  hymba-1.5b trains through
+autograd over its Mamba scan, on ``--seq`` text tokens after its meta
+tokens.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-"""Per-layer block: attention + dense MLP, attention + MoE MLP, or the
-RWKV-6 time mix + channel mix (the ``attn`` × ``dense``, ``attn`` × ``moe``
-and ``rwkv6`` × ``rwkv_channel_mix`` paths of ``repro.models.blocks``).
-An encoder-decoder's decoder blocks add cross attention between self
-attention and the MLP.
+"""Per-layer block: attention + dense MLP, attention + MoE MLP, the RWKV-6
+time mix + channel mix, or Hymba's attention and Mamba heads side by side +
+dense MLP (the ``attn`` × ``dense``, ``attn`` × ``moe``, ``rwkv6`` ×
+``rwkv_channel_mix`` and ``hymba`` × ``dense`` paths of
+``repro.models.blocks``).  An encoder-decoder's decoder blocks add cross
+attention between self attention and the MLP.
 
 Two execution modes:
   * full   — whole-sequence parallel forward (prefill); optionally fills the
@@ -33,6 +34,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
+from repro_torch.models.mamba import mamba_apply, mamba_init
 from repro_torch.models.rwkv6 import (
     rwkv_cm_apply,
     rwkv_cm_init,
@@ -41,21 +43,22 @@ from repro_torch.models.rwkv6 import (
 )
 
 SUPPORTED_BLOCKS = (("attn", "dense"), ("attn", "moe"),
-                    ("rwkv6", "rwkv_channel_mix"))
+                    ("rwkv6", "rwkv_channel_mix"), ("hymba", "dense"))
 PORTED_ARCHS = ("granite-3-8b", "stablelm-12b", "starcoder2-7b",
                 "nemotron-4-15b", "olmoe-1b-7b", "qwen2-moe-a2.7b",
-                "rwkv6-1.6b", "paper-mt-base")
+                "rwkv6-1.6b", "hymba-1.5b", "paper-mt-base")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs text models: decoder-only with attention + dense or
-    MoE MLP blocks or RWKV-6 blocks, and encoder-decoders with attention +
-    dense MLP blocks; other families raise here, before any work."""
+    MoE MLP blocks, RWKV-6 blocks or Hymba blocks (which alone may prepend
+    meta tokens), and encoder-decoders with attention + dense MLP blocks;
+    other families raise here, before any work."""
     pair = (cfg.block_type, cfg.mlp_type)
     ok = pair == SUPPORTED_BLOCKS[0] if cfg.is_encoder_decoder \
         else pair in SUPPORTED_BLOCKS
     if not ok or cfg.modality != "text" or cfg.is_encoder_only \
-            or cfg.num_meta_tokens:
+            or (cfg.num_meta_tokens and cfg.block_type != "hymba"):
         raise NotImplementedError(
             f"{cfg.name}: block_type={cfg.block_type!r}, mlp_type="
             f"{cfg.mlp_type!r}, modality={cfg.modality!r}, "
@@ -82,10 +85,16 @@ def block_init(gen, cfg: ModelConfig, layer_idx: int, *, dtype=torch.float32,
     check_supported(cfg)
     kw = dict(dtype=dtype, device=device)
     p: Dict = {"ln1": norm_init(cfg.d_model, kind=cfg.norm_type, **kw)}
-    if cfg.block_type == "attn":
-        p["attn"] = attn_init(gen, cfg, **kw)
-    else:
+    if cfg.block_type == "rwkv6":
         p["tm"] = rwkv_tm_init(gen, cfg, **kw)
+    else:
+        p["attn"] = attn_init(gen, cfg, **kw)
+    if cfg.block_type == "hymba":
+        p["mamba"] = mamba_init(gen, cfg, **kw)
+        p["fuse_ln_attn"] = norm_init(cfg.d_model, kind="rmsnorm", **kw)
+        p["fuse_ln_ssm"] = norm_init(cfg.d_model, kind="rmsnorm", **kw)
+        p["beta_attn"] = torch.ones((cfg.d_model,), **kw)
+        p["beta_ssm"] = torch.ones((cfg.d_model,), **kw)
     if cross_attention:
         p["ln_cross"] = norm_init(cfg.d_model, kind=cfg.norm_type, **kw)
         p["cross"] = cross_attn_init(gen, cfg, **kw)
@@ -103,7 +112,8 @@ def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
                      context_len: int, block_k: int, dtype, device=None,
                      backend: Optional[cache_lib.KVCacheBackend] = None) -> Dict:
     """Static cache buffers for one layer (decode path): the attention cache
-    in the layout of ``backend`` (dense when None), or the RWKV-6 recurrent
+    in the layout of ``backend`` (dense when None), the RWKV-6 recurrent
+    cache, or a Hymba layer's both: its attention cache and its Mamba
     cache, which every backend leaves as it is."""
     if cfg.block_type == "rwkv6":
         h = cfg.d_model // cfg.rwkv_head_dim
@@ -111,8 +121,13 @@ def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
                                                 cfg.rwkv_head_dim, dtype,
                                                 device)}
     be = backend if backend is not None else cache_lib.DenseBackend()
-    return {"attn": be.layer_attn_init(cfg, layer_idx, batch, context_len,
-                                       block_k, dtype, device)}
+    c = {"attn": be.layer_attn_init(cfg, layer_idx, batch, context_len,
+                                    block_k, dtype, device)}
+    if cfg.block_type == "hymba":
+        c["mamba"] = cache_lib.mamba_cache_init(
+            batch, cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim,
+            cfg.ssm_conv_width, dtype, device)
+    return c
 
 
 def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
@@ -127,6 +142,9 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
     softmax of ``attention.attn_full``.  An MoE block drops nothing under
     ``moe_full_capacity`` (the decode paths' prefills) and writes its
     metrics into ``metrics`` when given one."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
     cache_out = dict(cache) if cache is not None else None
     if cfg.block_type == "rwkv6":
@@ -137,13 +155,12 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
                 "shift_cm": cache["tm"]["shift_cm"],  # filled below
                 "state": aux["state"],
             }
+    elif cfg.block_type == "hymba":
+        y = _hymba_mix(p, cfg, layer_idx, h, positions, cache_out, kv_chunk)
     elif cache is not None:
         y, (kk, vv) = attn_full(p["attn"], cfg, h, layer_idx=layer_idx,
                                 positions=positions, return_kv=True,
                                 kv_chunk=kv_chunk)
-        if positions is None:
-            positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                     device=x.device)
         cache_out["attn"] = cache_write(cache["attn"], cfg, layer_idx, kk, vv,
                                         positions)
     else:
@@ -158,9 +175,6 @@ def block_full(p, cfg: ModelConfig, layer_idx: int, x, *, positions=None,
     if cfg.mlp_type == "dense":
         return x + mlp_apply(p["mlp"], h, act=cfg.activation), cache_out
     if cfg.mlp_type == "moe":
-        if positions is None:
-            positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                     device=x.device)
         y, m = _moe(p, cfg, layer_idx, h, lambda: positions.expand(
             x.shape[:2]), full_capacity=moe_full_capacity,
             metrics=metrics is not None)
@@ -181,16 +195,31 @@ def block_cached(p, cfg: ModelConfig, layer_idx: int, x, cache: Dict,
     blocks only).  Returns (y, cache): the attention cache is written in
     place; an RWKV-6 cache comes back staged, its per-step shifts (the
     normed block inputs) and states stacked along axis 1 beside the old
-    entries, for ``commit_cache``.  ``enc_kv``: a decoder block's source,
-    attended through ``cross_attn_apply`` with the (B, k) zero ``q_pos``,
-    which it then needs (every tree node attends to the whole source)."""
+    entries, for ``commit_cache``, and so does a Hymba layer's Mamba cache
+    (its per-step conv windows and SSM states).  ``enc_kv``: a decoder
+    block's source, attended through ``cross_attn_apply`` with the (B, k)
+    zero ``q_pos``, which it then needs (every tree node attends to the
+    whole source)."""
     if enc_kv is not None and q_pos is None:
         raise ValueError("block_cached: enc_kv needs the (B, k) zero q_pos")
     if tree is not None:
         check_tree_supported(cfg)
     new_cache = dict(cache)
     h = norm_apply(p["ln1"], x, kind=cfg.norm_type)
-    if cfg.block_type == "rwkv6":
+    if cfg.block_type == "hymba":
+        ya, new_cache["attn"] = attn_cached(p["attn"], cfg, h, cache["attn"],
+                                            length, layer_idx=layer_idx)
+        mb = cache["mamba"]
+        ym, maux = mamba_apply(p["mamba"], cfg, h, conv_state=mb["conv"],
+                               h0=mb["h"], return_states=True)
+        y = _hymba_fuse(p, ya, ym)
+        new_cache["mamba"] = {
+            "conv_steps": maux["conv"],                # (B,k,W-1,di)
+            "h_steps": maux["ssm"],                    # (B,k,di,N)
+            "conv": mb["conv"],
+            "h": mb["h"],
+        }
+    elif cfg.block_type == "rwkv6":
         tm = cache["tm"]
         y, aux = rwkv_tm_apply(p["tm"], cfg, h, x_prev=tm["shift_tm"],
                                state0=tm["state"], return_states=True)
@@ -220,6 +249,31 @@ def block_cached(p, cfg: ModelConfig, layer_idx: int, x, cache: Dict,
     y, _ = rwkv_cm_apply(p["cm"], cfg, h, x_prev=cache["tm"]["shift_cm"])
     new_cache["tm"]["shift_cm_steps"] = h              # (B,k,d)
     return x + y, new_cache
+
+
+def _hymba_fuse(p, ya, ym):
+    """Hymba's head fusion: each path RMS-normed and scaled by its beta,
+    then averaged."""
+    dt = ya.dtype
+    ya = norm_apply(p["fuse_ln_attn"], ya) * p["beta_attn"].to(dt)
+    ym = norm_apply(p["fuse_ln_ssm"], ym) * p["beta_ssm"].to(dt)
+    return 0.5 * (ya + ym)
+
+
+def _hymba_mix(p, cfg: ModelConfig, layer_idx: int, h, positions, cache_out,
+               kv_chunk: int):
+    """A Hymba block's token mixer over a whole sequence: attention and the
+    Mamba heads on the same normed input, fused; with ``cache_out`` (a
+    prefill) it receives the K/V and the final Mamba states."""
+    ya, (kk, vv) = attn_full(p["attn"], cfg, h, layer_idx=layer_idx,
+                             positions=positions, return_kv=True,
+                             kv_chunk=kv_chunk)
+    ym, maux = mamba_apply(p["mamba"], cfg, h)
+    if cache_out is not None:
+        cache_out["attn"] = cache_write(cache_out["attn"], cfg, layer_idx,
+                                        kk, vv, positions)
+        cache_out["mamba"] = {"conv": maux["conv"], "h": maux["ssm"]}
+    return _hymba_fuse(p, ya, ym)
 
 
 def _block_positions(x, length, tree):
@@ -261,15 +315,20 @@ def commit_cache(cfg: ModelConfig, cache: Dict, khat) -> Dict:
     khat: (B,) or () int32 in [0, k] — tokens accepted per row this
     iteration (0 = the row is frozen: keep its pre-iteration state).
     Attention caches pass through (positions mask rejected entries);
-    recurrent entries select step k̂-1.
+    recurrent entries (RWKV-6's, a Hymba layer's Mamba cache) select step
+    k̂-1.
     """
-    if "tm" not in cache or "state_steps" not in cache["tm"]:
+    tm, mb = cache.get("tm"), cache.get("mamba")
+    if "state_steps" not in (tm or {}) and "h_steps" not in (mb or {}):
         return cache
-    tm = cache["tm"]
     out = dict(cache)
-    out["tm"] = {
-        "shift_tm": _pick(tm["shift_tm_steps"], tm["shift_tm"], khat),
-        "shift_cm": _pick(tm["shift_cm_steps"], tm["shift_cm"], khat),
-        "state": _pick(tm["state_steps"], tm["state"], khat),
-    }
+    if tm is not None and "state_steps" in tm:
+        out["tm"] = {
+            "shift_tm": _pick(tm["shift_tm_steps"], tm["shift_tm"], khat),
+            "shift_cm": _pick(tm["shift_cm_steps"], tm["shift_cm"], khat),
+            "state": _pick(tm["state_steps"], tm["state"], khat),
+        }
+    if mb is not None and "h_steps" in mb:
+        out["mamba"] = {"conv": _pick(mb["conv_steps"], mb["conv"], khat),
+                        "h": _pick(mb["h_steps"], mb["h"], khat)}
     return out

@@ -14,7 +14,11 @@ Paged KV layout (per full-attention layer, ``cache_backend="paged"``):
 
 RWKV-6 layers keep a recurrent cache instead (``rwkv_cache_init``): the
 time-mix and channel-mix token shifts (batch, d_model) and the wkv state
-(batch, H, D, D) fp32, the same under either backend.
+(batch, H, D, D) fp32, the same under either backend.  A Hymba layer keeps
+both: its attention cache and a Mamba cache (``mamba_cache_init``: the
+conv's trailing inputs and the SSM state (batch, d_inner, N) fp32).
+Windowed layers reserve ``num_meta_tokens`` leading slots of their ring for
+the meta tokens, which every query sees.
 
 Masking is computed from absolute positions, so BPD rollback is "decrease
 the length": stale slots have ``pos >= length`` and are masked out until
@@ -95,6 +99,19 @@ def rwkv_cache_init(batch: int, d_model: int, num_heads: int, head_dim: int,
     }
 
 
+def mamba_cache_init(batch: int, d_inner: int, state_dim: int,
+                     conv_width: int, dtype, device=None) -> Dict:
+    """One Hymba layer's Mamba cache: the conv's trailing inputs in the
+    compute dtype and the SSM state in fp32.  It sits beside the layer's
+    attention cache, and no KV layout changes it."""
+    return {
+        "conv": torch.zeros((batch, conv_width - 1, d_inner), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, d_inner, state_dim), dtype=torch.float32,
+                         device=device),
+    }
+
+
 def _rows(idx):
     """An index that keeps the leading lane axis: ``i:i+1`` for an int,
     the index tensor itself for a (n,) tensor of rows."""
@@ -119,8 +136,8 @@ def reset_rows(cache: Dict, mask: torch.Tensor) -> Dict:
         _masked_zero_(a["pos"], mask, -1)
         if "tbl" in a:
             _masked_zero_(a["tbl"], mask, 0)
-    if "tm" in cache:
-        for v in cache["tm"].values():
+    for key in ("tm", "mamba"):
+        for v in cache.get(key, {}).values():
             _masked_zero_(v, mask, 0)
     return cache
 

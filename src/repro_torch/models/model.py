@@ -6,8 +6,8 @@ pytree as an ``nn.Module``, so ``state_dict()`` keys are the reference's key
 paths (``blocks.3.attn.wq`` is ``params["blocks"][3]["attn"]["wq"]``) and
 ``p["wq"]`` reads as it does there.  The reference keeps weights in
 ``param_dtype`` and casts at every use, to the compute dtype for most
-leaves but to fp32 for the norms' scale/bias and RWKV-6's decay weights and
-bonus.  Here the caller casts once before decoding (``cast_for_compute``):
+leaves but to fp32 for the norms' scale/bias, RWKV-6's decay weights and
+bonus, the MoE router and Mamba's A_log and D.  Here the caller casts once before decoding (``cast_for_compute``):
 the leaves read in the compute dtype are cast, the fp32-read ones stay in
 fp32, so every use sees the value the reference's cast gives, and fp32
 weights are not re-read on every forward.
@@ -40,6 +40,7 @@ from repro_torch.models.layers import (
     embed_init,
     norm_apply,
     norm_init,
+    normal,
     unembed_apply,
 )
 from repro_torch.utils.tree import flatten_with_names
@@ -95,17 +96,23 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size, **kw)
     if cfg.bpd_enabled:
         p["bpd_heads"] = heads_init(gen, cfg, **kw)
+    if cfg.num_meta_tokens:
+        p["meta_tokens"] = normal(gen, (cfg.num_meta_tokens, cfg.d_model),
+                                  std=0.02, **kw)
     return ParamTree(p)
 
 
 # Leaves the reference reads in fp32 whatever the compute dtype: every
 # norm's scale / bias (models/layers.py:46,49,61 there: ln1, ln2,
-# final_norm, tm.ln_x, and the encoder-decoder's ln_cross and enc_norm),
-# RWKV-6's decay weights and bonus (models/rwkv6.py:105,166-168 there) and
-# the MoE router's weight (models/moe.py:97 there: the router runs on
-# x.astype(f32), so its fp32 parameter is read uncast).
+# final_norm, tm.ln_x, Hymba's fuse_ln_attn / fuse_ln_ssm, and the
+# encoder-decoder's ln_cross and enc_norm), RWKV-6's decay weights and bonus
+# (models/rwkv6.py:105,166-168 there), the MoE router's weight
+# (models/moe.py:97 there: the router runs on x.astype(f32), so its fp32
+# parameter is read uncast) and Mamba's A_log and D (models/mamba.py:105,135
+# there).
 FP32_READ_LEAVES = ("scale", "bias")
 FP32_READ_TM = ("w0", "decay_A", "decay_B", "u")
+FP32_READ_MAMBA = ("A_log", "D")
 
 
 def reads_fp32(key: str) -> bool:
@@ -113,7 +120,8 @@ def reads_fp32(key: str) -> bool:
     *path, leaf = key.split(".")
     parent = path[-1] if path else ""
     return (leaf in FP32_READ_LEAVES or (parent == "tm" and leaf in FP32_READ_TM)
-            or (parent == "router" and leaf == "w"))
+            or (parent == "router" and leaf == "w")
+            or (parent == "mamba" and leaf in FP32_READ_MAMBA))
 
 
 def cast_for_compute(params: ParamTree, cfg: ModelConfig) -> ParamTree:
@@ -145,13 +153,19 @@ def set_trainable(params: ParamTree, mask) -> ParamTree:
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
-    """batch: {"tokens": (B, S) int32} -> (B, S, d) in the compute dtype."""
-    return embed_apply(params["embed"], batch["tokens"]).to(cfg.compute_dtype)
+    """batch: {"tokens": (B, S) int32} -> (B, M + S, d) in the compute
+    dtype, the M = ``num_meta_tokens`` learnt meta tokens (Hymba) first."""
+    dtype = cfg.compute_dtype
+    h = embed_apply(params["embed"], batch["tokens"]).to(dtype)
+    if not cfg.num_meta_tokens:
+        return h
+    meta = params["meta_tokens"].to(dtype).expand(h.shape[0], -1, -1)
+    return torch.cat([meta, h], dim=1)
 
 
 def prefix_len(cfg: ModelConfig, batch: Dict) -> int:
-    """Number of non-text positions preceding the text tokens (none for the
-    text model)."""
+    """Number of non-text positions preceding the text tokens: the meta
+    tokens."""
     return cfg.num_meta_tokens
 
 

@@ -319,5 +319,7 @@ def test_forward_hidden_and_decode_block_step(dense):
 
 
 def test_unported_families_raise():
+    llava = jconfig.get_config("llava-next-34b", smoke=True)    # vision_text
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init(tconfig.ModelConfig(block_type="hymba"), device="cpu")
+        tmodel.init(tconfig.ModelConfig(**dataclasses.asdict(llava)),
+                    device="cpu")

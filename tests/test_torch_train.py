@@ -555,7 +555,8 @@ def test_encoder_only_and_unported_families_refused():
     with pytest.raises(NotImplementedError, match="masked-prediction.*ROADMAP"):
         ttrain.loss_fn_for(port_cfg(tiny_dense(is_encoder_only=True)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.loss_fn_for(port_cfg(tiny_dense(block_type="hymba")))
+        ttrain.loss_fn_for(port_cfg(jconfig.get_config("llava-next-34b",
+                                                       smoke=True)))
     moe = tconfig.get_config("olmoe-1b-7b", smoke=True)     # ported since MoE
     assert ttrain.loss_fn_for(moe) is ttrain.lm_loss
 
