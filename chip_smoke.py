@@ -73,22 +73,34 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 bit for bit invariant in kq and B, timed beside SDPA and
                 the bound; fused_heads at its untied (1600, 32256)
                 lm_head, vocab 32001 (T 1, 8), and fused_verify at (8, 8,
-                32001) under every criterion.
+                32001) under every criterion; llava-next-34b (the llava
+                rows of FAMILY_HEADS and FAMILY_VOCABS): the three split-KV
+                kernels at 56/8 heads of 128 (G 7: kq 8 is 56 rows of one
+                64-row tile), the chain at kq 1, 2 and 8 over L 256 and
+                3016 (2,880 patches + 64 + 64 + 8), trees of 8 and 32
+                nodes (56 and 224 rows) at L 3016, the paged kernel over
+                189 pages of 16, bf16 and fp32, bit for bit invariant in
+                kq and B, timed at L 3016 beside SDPA and the bound;
+                fused_heads at (56, 7168) x (7168, 64000) and at 28 rows
+                (T 1, 8), fused_verify at (8, 8, 64000).
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
                 must match the forwards run.
-  4b. paths   — on the same weights: greedy on the paged cache, BPD exact on
-                the paged cache, BPD topk_tree on the dense and the paged
-                cache; each must emit greedy's tokens, each kernel launched
-                once per layer and forward of its path.
+  4b. paths   — phases 4b-5c, 14 and 15a-15d run granite-3-8b at full
+                width and 10 of its 40 layers (seed 0; FAMILY_FP32_LAYERS),
+                held to that model's own greedy: greedy on the paged
+                cache, BPD exact on the paged cache, BPD topk_tree on the
+                dense and the paged cache; each must emit greedy's tokens,
+                each kernel launched once per layer and forward of its
+                path.
   5. accepts  — one BPD iteration with greedy's own continuation as the
                 proposals (k̂ = 8), then with slot j corrupted (k̂ = j).
   5b. tree    — hand-made tree proposals from greedy's continuation: node 1
                 wrong and node 2 right (k̂ = 2), node 1's chain right
                 (k̂ = 8 - fanout + 1); a second iteration gives greedy's
                 tokens, dense and paged.
-  5c. engine  — the same fp32 weights, before the bf16 cast, served by
+  5c. engine  — the same cut fp32 weights served by
                 repro_torch.serving.ContinuousBatchingEngine with
                 an exact and a topk_tree slot group of 4 slots each: 16
                 requests (phase 4's 8 prompts, the first 32 tokens of four
@@ -98,14 +110,16 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 size 16, one iteration per host read; copy-on-write prefix
                 hits required and printed), once disaggregated (prefill
                 batches of 4) on the dense slab with windows of 4
-                iterations.  Each request's tokens must be greedy's (phase
-                4's greedy for the 64-token prompts, one greedy_decode per
-                shorter length), except at reported near-ties; launches
+                iterations.  Each request's tokens must be greedy's (the
+                cut model's greedy for the 64-token prompts, one
+                greedy_decode per shorter length), except at reported
+                near-ties; launches
                 exactly as the engine's own forwards and prefills imply;
                 every serving function built once; host reads equal group
                 steps plus harvest reads.  k̂ per group, host wall, and one
                 scheduler step's host wall and device busy printed.
-  6. serve    — the weights cast for bf16 (model.cast_for_compute), served by
+  6. serve    — phase 4's full-depth weights cast for bf16
+                (model.cast_for_compute), served by
                 repro_torch.launch.serve (static batch, --full-config);
                 k̂, iterations and BPD/greedy agreement reported.
   6b. serve   — the same with --policy topk_tree --cache-backend paged.
@@ -169,16 +183,16 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 iterations recorded); 13c the engine with a locality and an
                 exact group of 2 slots, 16 requests, each equal to its
                 static decode.
-  14. kv_chunk — run inside phase_decode, on phase 4's fp32 granite-3-8b
-                weights before the bf16 cast: a 2048-token prefill with
+  14. kv_chunk — run inside phase_decode, on 4b's cut fp32 granite-3-8b
+                weights: a 2048-token prefill with
                 kv_chunk 512 and without (hidden states within 1e-4 of
                 max|h|, each prefill's peak memory printed), greedy's 16
                 new tokens equal, then BPD exact through
-                DecodeSession(kv_chunk=512) on phase 4's batch emits phase
-                4's tokens.
+                DecodeSession(kv_chunk=512) on phase 4's batch emits the
+                cut model's greedy tokens.
   15. draft   — the draft_model policy (a second model drafts each block,
                 the verifier checks it; exact acceptance).  Inside
-                phase_decode on phase 4's fp32 weights: 15a granite drafts
+                phase_decode on 4b's cut fp32 weights: 15a granite drafts
                 for itself (ModelBundle(params, cfg)), 8 prompts x 64 new
                 tokens at block_k 8: greedy's tokens in 8 iterations, a
                 block split only at a reported near-tie, 7 draft forwards
@@ -205,9 +219,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 --policies exact=2,draft_model=2.
   16. families — everything earlier freed; stablelm-12b, starcoder2-7b and
                 nemotron-4-15b at full width from seed 0, the fp32 decodes
-                at half depth (FAMILY_FP32_LAYERS: 20 of 40, 16 of 32 and
-                16 of 32 layers, cut so that the script with phase 18
-                stays within 75% of its time limit), each bf16 serve at
+                at a quarter of the depth (FAMILY_FP32_LAYERS: 10 of 40, 8
+                of 32 and 8 of 32 layers, cut so that the script with
+                phases 17-20 stays within 75% of its time limit), each
+                bf16 serve at
                 full depth, phase 4's 8 prompts x 64 new tokens at
                 block_k 8: greedy, then BPD exact and topk_tree on the
                 dense and paged caches (nemotron: exact dense, topk_tree
@@ -226,8 +241,11 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 iteration profiled); parameters and peak memory printed.
   17. moe     — after phase 16, before 11: olmoe-1b-7b (16 layers, 64
                 experts top-8) and qwen2-moe-a2.7b (24 layers, 60 experts
-                top-4 and a shared MLP) at full width and depth from seed
-                0, fp32, phase 4's prompts, 64 new tokens, block_k 8,
+                top-4 and a shared MLP) at full width from seed 0, the
+                fp32 decodes at a quarter of the depth (4 of 16 and 6 of 24
+                layers, FAMILY_FP32_LAYERS), each bf16 serve at full
+                depth, phase
+                4's prompts, 64 new tokens, block_k 8,
                 every decode forward at full capacity: 17a olmoe greedy,
                 exact and topk_tree on both caches and the fp32 engine
                 (5c's 16 requests, unified on the managed page pool);
@@ -253,11 +271,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
   18. hymba   — after phase 17, before 11: hymba-1.5b (32 layers of
                 attention beside Mamba heads, d 1600, 25/5 heads of 64,
                 windows of 1024 outside layers 0, 15 and 31, 128 meta
-                tokens, untied lm_head at vocab 32001) at full width and
-                depth from seed 0, fp32, phase 4's prompts, 64 new tokens,
-                block_k 8: 18a greedy, BPD exact, adaptive and topk (T 2)
-                on the dense cache and exact on the paged cache (29
-                verify_attention + 3 paged_verify_attention a forward),
+                tokens, untied lm_head at vocab 32001) at full width from
+                seed 0, the fp32 decodes at a quarter of the depth (8 of
+                32 layers, layer 0 the only global one), the bf16 serve at
+                full depth, phase 4's prompts, 64 new tokens, block_k 8:
+                18a greedy, BPD exact, adaptive and topk (T 2) on the
+                dense cache and exact on the paged cache (7
+                verify_attention + 1 paged_verify_attention a forward),
                 launches exact, exact and adaptive greedy's tokens (near-tie
                 rule), topk's every token within p_1's top-2, the fp32
                 peak; 18b 2 prompts of 1,536 tokens (128 + 1,536 + 16
@@ -274,6 +294,38 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 tokens), then hymba-1.5b fine-tuned at full width on 8 of
                 32 layers (only layer 0 global), 10 steps of B 4 x S 256:
                 the loss falling, step ms, tokens/s, peak.
+  19. llava   — after phase 18, before 11: llava-next-34b (60 layers, d
+                7168, 56/8 heads of 128, vocab 64000, untied) behind the
+                full 2,880-patch prefix (stub_frontend_inputs, seed 0)
+                before the first 4 of phase 4's prompts, 64 new tokens,
+                block_k 8.  19a fp32 at full width, depth cut to 8 of 60
+                layers (full depth is 137 GiB in fp32), the chain paths
+                prefilled in chunks of 512 keys: greedy, BPD exact on both
+                caches, topk_tree paged (unchunked, as the reference
+                refuses a tree with kv_chunk), each greedy's tokens (the
+                near-tie check's full forward behind the row's patches),
+                launches exact; draft_model with 15b's small text draft at
+                vocab 64000 (a patch-prefixed primary, as the reference
+                runs it) greedy's tokens, launches exact; one iteration
+                with greedy's continuation as the proposals gives k̂ = 8.
+                19b bf16 at full depth, the 36,737,948,672 parameters
+                drawn in bf16 on the card before any workspace: BPD exact
+                dense through DecodeSession(kv_chunk=256), tokens/s, k̂,
+                iterations, launches exact; bf16 greedy, each first
+                divergence a near-tie of at most BF16_TIE_ULPS; one
+                iteration profiled; the peak (32 new tokens); then
+                repro_torch.launch.serve --full-config with the
+                reference's 4 zero patches on the same weights.
+  20. hubert  — hubert-xlarge, encoder-only masked prediction (48 layers,
+                d 1280, 16 heads of 80: attention in plain PyTorch, no
+                hand-written kernel): 20a one make_train_step card vs CPU
+                at a narrow geometry (d 320, 4 heads of 80, 2 layers,
+                vocab 504) on MaskedFrames; 20b fp32 at full width and
+                depth, AdamW, MaskedFrames batches of B 8 x S 512, 2
+                warm-up steps, 10 timed and one profiled: step ms, frames
+                per second, peak, losses finite; then
+                repro_torch.launch.train --arch hubert-xlarge (smoke
+                config) for 2 steps.
   11. train   — everything earlier freed; the training path (make_train_step:
                 the paper's §6 loss, backward, AdamW), fp32:
                 11a: granite's attention width (d 4096, 32/8 heads of
@@ -319,8 +371,8 @@ its group's attention kernel (paged_verify_attention or verify_attention
 for exact, tree_verify_attention for topk_tree) 40 times per forward the
 group dispatched, fused_verify once per forward, fused_heads once per
 forward and per prefill forward; each of those five kernels must have run
-in one of the two.  Phases 16-18 read each of their decode paths the same
-way (hymba-1.5b's paged forward: 29 verify_attention + 3
+in one of the two.  Phases 16-19 read each of their decode paths the same
+way (hymba-1.5b's paged forward at 8 layers: 7 verify_attention + 1
 paged_verify_attention).
 
 Any failure exits non-zero.  The second-to-last lines are the kernels' JSON
@@ -364,6 +416,10 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stamp(t_start: float, done: str) -> None:
+    log(f"[time] {done} done at {time.perf_counter() - t_start:.1f}s")
 
 
 def card_line() -> str:
@@ -1048,19 +1104,27 @@ def check_head_dim_24(torch, gen, results):
                 f"bit under exact/topk/distance, kernel {verify_ms:.4f} ms ok")
 
 
-# the dense text families' attention heads: (model, H, KV, head_dim, the
-# chain's kq, the tree sizes); stablelm-12b's head_dim 160, starcoder2-7b's
-# G 9 (72 rows at kq 8, 288 under a 32-node tree: row tiles)
-FAMILY_HEADS = (("stablelm-12b", 32, 8, 160, (1, 2, 8), (60, 256, 4096)),
-                ("starcoder2-7b", 36, 4, 128, (7, 8, 32), (256, 4096)),
+# the families' attention heads: (model, H, KV, head_dim, the chain's kq,
+# its cache lengths, the paged case's pages of 16, the L the trees and the
+# timed calls run at); stablelm-12b's head_dim 160, starcoder2-7b's G 9 (72
+# rows at kq 8, 288 under a 32-node tree: row tiles), llava-next-34b's G 7
+# (56 rows at kq 8, 224 under a 32-node tree) behind its 2,880 patches
+# (2880 + 64 + 64 + 8 = 3016 positions)
+FAMILY_HEADS = (("stablelm-12b", 32, 8, 160, (1, 2, 8), (60, 256, 4096), 16,
+                 256),
+                ("starcoder2-7b", 36, 4, 128, (7, 8, 32), (256, 4096), 16, 256),
                 ("olmoe-1b-7b / qwen2-moe-a2.7b", 16, 16, 128, (1, 2, 8),
-                 (256, 4096)))
-# (model, d, vocab, lm_head lanes, T values): the untied lm_heads of the
-# families, pad lanes past the vocab as the path has them
-FAMILY_VOCABS = (("nemotron-4-15b", 6144, 256000, 256000, (1, 4, 8)),
-                 ("olmoe-1b-7b", 2048, 50304, 50432, (1, 8)),
-                 ("qwen2-moe-a2.7b", 2048, 151936, 152064, (1, 8)),
-                 ("hymba-1.5b", 1600, 32001, 32256, (1, 8)))
+                 (256, 4096), 16, 256),
+                ("llava-next-34b", 56, 8, 128, (1, 2, 8), (256, 3016), 189,
+                 3016))
+# (model, d, vocab, lm_head lanes, T values, rows of o): the untied lm_heads
+# of the families, pad lanes past the vocab as the path has them; llava's
+# 56 rows are B 8 x 7 heads, 28 its B 4 serve's
+FAMILY_VOCABS = (("nemotron-4-15b", 6144, 256000, 256000, (1, 4, 8), (56,)),
+                 ("olmoe-1b-7b", 2048, 50304, 50432, (1, 8), (56,)),
+                 ("qwen2-moe-a2.7b", 2048, 151936, 152064, (1, 8), (56,)),
+                 ("hymba-1.5b", 1600, 32001, 32256, (1, 8), (56,)),
+                 ("llava-next-34b", 7168, 64000, 64000, (1, 8), (56, 28)))
 RING, WINDOW = 4352, 4096        # starcoder2-7b's dense ring (models/cache.py)
 # hymba-1.5b's heads (25 over 5 KV heads of 64: G 5) and its windowed
 # layers' ring: 1280 slots, the first 128 reserved for the meta tokens,
@@ -1204,17 +1268,18 @@ def check_hymba_heads(torch, gen, results):
 
 
 def check_family_heads(torch, gen, results):
-    """The three split-KV kernels at the text families' heads
-    (FAMILY_HEADS: the MoE models' 16/16 heads of 128 run kq 8 as 8 rows of
-    a 16-row tile), bf16 and fp32, against their plain versions: the chain
-    kernel at each kq and L, at starcoder2's kq 8 with its window of 4096
-    over a wrapped ring of 4352 slots; the tree kernel with 8 and 32 nodes
-    (at G 9: 72 and 288 rows); the paged kernel (16 pages of 16, one
-    shared, one unmapped) equal to verify_attention on the gathered view;
-    each bit for bit batch-invariant (kq 1 and 2 against the block, B 1
-    against 8, whichever row tile holds the query).  The errors join each
-    kernel's max_abs_err; the decode path's shape (kq 8, L 256, the tree of
-    8, the pages) is timed beside its plain version, SDPA and the bound."""
+    """The three split-KV kernels at the families' heads (FAMILY_HEADS: the
+    MoE models' 16/16 heads of 128 run kq 8 as 8 rows of a 16-row tile),
+    bf16 and fp32, against their plain versions: the chain kernel at each
+    kq and L, at starcoder2's kq 8 with its window of 4096 over a wrapped
+    ring of 4352 slots; the tree kernel with 8 and 32 nodes (at G 9: 72 and
+    288 rows; at llava's G 7: 56 and 224); the paged kernel (16 pages of
+    16, llava's 189, one shared, one unmapped) equal to verify_attention on
+    the gathered view; each bit for bit batch-invariant (kq 1 and 2 against
+    the block, B 1 against 8, whichever row tile holds the query).  The
+    errors join each kernel's max_abs_err; the decode path's shape (kq 8 at
+    the timed L, the tree of 8, the pages) is timed beside its plain
+    version, SDPA and the bound."""
     import functools
 
     from repro_torch.kernels.block_attention import (row_plan,
@@ -1243,7 +1308,7 @@ def check_family_heads(torch, gen, results):
             f"max_abs_err={err:.3g} ok")
         return got
 
-    for model, h, kvh, hd, kqs, ls in FAMILY_HEADS:
+    for model, h, kvh, hd, kqs, ls, P, timed_l in FAMILY_HEADS:
         for dtype in ("bfloat16", "float32"):
             pre = f"{dtype} {model} {h}/{kvh} heads of {hd}"
             timed = {}
@@ -1259,8 +1324,8 @@ def check_family_heads(torch, gen, results):
                         check_invariance(torch, f"verify_attention {pre} kq "
                                          f"{kq}", verify_attention_cuda, args,
                                          queries=True)
-                        if kq == 8:
-                            timed["verify_attention"] = args
+                    if l == timed_l and kq == 8:
+                        timed["verify_attention"] = args
             if model == "starcoder2-7b":
                 args = ring_case(torch, gen, b, 8, h, kvh, hd, dtype)
                 fn = functools.partial(verify_attention_cuda, window=WINDOW)
@@ -1270,18 +1335,18 @@ def check_family_heads(torch, gen, results):
                 check_invariance(torch, f"verify_attention {pre} ring", fn,
                                  args, queries=True)
             for nodes in (8, 32):
-                args = tree_case(torch, gen, b, h, kvh, hd, 256,
+                args = tree_case(torch, gen, b, h, kvh, hd, timed_l,
                                  default_tree(nodes, 2 if nodes == 8 else 4),
                                  dtype, stale=5)
                 held("tree_verify_attention", tree_verify_attention_cuda,
                      tree_verify_attention_plain, args,
-                     f"{pre} {nodes} nodes L 256")
+                     f"{pre} {nodes} nodes L {timed_l}")
                 check_invariance(torch, f"tree_verify_attention {pre} "
                                  f"{nodes} nodes", tree_verify_attention_cuda,
                                  args, queries=False)
                 if nodes == 8:
                     timed["tree_verify_attention"] = args
-            P, ps = 16, 16
+            ps = 16
             args = paged_case(torch, gen, b, 8, h, kvh, hd, P, ps, dtype,
                               ctx=[P * ps - 3 * i for i in range(b)],
                               share=True, unmapped=1)
@@ -1333,49 +1398,51 @@ def check_family_vocab(torch, gen, results):
     from repro_torch.kernels.fused_heads import vocab_plan
     from repro_torch.kernels.fused_verify import verify_plan
 
-    n = 56
     sms = _build.sm_count(torch.device("cuda"))
-    for model, d, vocab, lanes, tops in FAMILY_VOCABS:
+    for model, d, vocab, lanes, tops, rows in FAMILY_VOCABS:
         log(f"  {model}: vocab_plan({lanes}, {sms}) = "
             f"{vocab_plan(lanes, sms)}, verify_plan({vocab}, 8, 8, {sms}) = "
             f"{verify_plan(vocab, 8, 8, sms)}")
         for dtype in ("bfloat16", "float32"):
-            check_family_vocab_case(torch, gen, results, model, n, d, vocab,
+            check_family_vocab_case(torch, gen, results, model, rows, d, vocab,
                                     lanes, tops, dtype)
 
 
-def check_family_vocab_case(torch, gen, results, model, n, d, vocab, lanes,
+def check_family_vocab_case(torch, gen, results, model, rows, d, vocab, lanes,
                             tops, dtype):
     from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
     from repro_torch.kernels.fused_verify import (fused_verify_cuda,
                                                   fused_verify_plain)
 
     dt = getattr(torch, dtype)
-    o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
     w = (torch.randn((d, lanes), generator=gen, device="cuda") * 0.02).to(dt)
-    for top_t in tops:
-        vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
-        torch.cuda.synchronize()
-        ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab, top_t)
-        err = (vals - wv).abs().max().item()
-        tol = ATTN_TOL[dtype]
-        ok = ok and torch.allclose(vals, wv, rtol=tol, atol=tol)
-        log(f"  fused_heads {dtype} T={top_t} {model} lm_head ({d},{lanes}), "
-            f"vocab {vocab}: max_abs_err={err:.3g} near-ties={ties} "
-            f"{'ok' if ok else 'FAIL'}")
-        check(ok and int(ids.max()) < vocab,
-              f"fused_heads {dtype} T={top_t} at V {vocab} differs from "
-              f"its plain version (err {err})")
-        results["fused_heads"]["max_abs_err"] = max(
-            results["fused_heads"]["max_abs_err"], err)
-    ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
-                                                      top_t=1))
-    two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w), 1))
-    bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * lanes, dtype)
-    log(f"  fused_heads {dtype} {model} ({n},{d})x({d},{lanes}) T=1: kernel "
-        f"{ms:.4f} ms, torch.mm then torch.topk {two_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by})")
-    del o, w
+    for n in rows:
+        o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+        for top_t in tops:
+            vals, ids = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+            torch.cuda.synchronize()
+            ok, ties, wv = heads_ids_agree(torch, vals, ids, o, w, vocab,
+                                           top_t)
+            err = (vals - wv).abs().max().item()
+            tol = ATTN_TOL[dtype]
+            ok = ok and torch.allclose(vals, wv, rtol=tol, atol=tol)
+            log(f"  fused_heads {dtype} T={top_t} {model} N {n}, lm_head "
+                f"({d},{lanes}), vocab {vocab}: max_abs_err={err:.3g} "
+                f"near-ties={ties} {'ok' if ok else 'FAIL'}")
+            check(ok and int(ids.max()) < vocab,
+                  f"fused_heads {dtype} T={top_t} N {n} at V {vocab} differs "
+                  f"from its plain version (err {err})")
+            results["fused_heads"]["max_abs_err"] = max(
+                results["fused_heads"]["max_abs_err"], err)
+        ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
+                                                          top_t=1))
+        two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w), 1))
+        bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * lanes, dtype)
+        log(f"  fused_heads {dtype} {model} ({n},{d})x({d},{lanes}) T=1: "
+            f"kernel {ms:.4f} ms, torch.mm then torch.topk {two_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        del o
+    del w
 
     b, k = 8, 8
     logits = torch.randn((b, k, vocab), generator=gen, device="cuda").to(dt)
@@ -1827,11 +1894,17 @@ def check_rwkv6_scan(torch, gen, results):
 # ---------------------------------------------------------------------------
 
 
-def p1_logits_after(torch, M, params, cfg, prefix):
+def p1_logits_after(torch, M, params, cfg, prefix, patches=None):
     """p_1's logits (V,) in fp32 after ``prefix`` (1-d token tensor), by one
-    full forward of the prefix."""
-    h = M.embed_inputs(params, cfg, {"tokens": prefix[None]})
-    hidden, _ = M.forward_hidden(params, cfg, h, moe_full_capacity=True)
+    full forward of the prefix (behind ``patches`` (P, d), a vision_text
+    row's patch embeddings, in chunks of KV_CHUNK keys)."""
+    batch = {"tokens": prefix[None]}
+    if patches is not None:
+        batch["patch_embeds"] = patches[None]
+    h = M.embed_inputs(params, cfg, batch)
+    hidden, _ = M.forward_hidden(params, cfg, h, moe_full_capacity=True,
+                                 kv_chunk=KV_CHUNK if patches is not None
+                                 else 0)
     return M.base_logits(params, cfg, hidden[:, -1])[0, :cfg.vocab_size].float()
 
 
@@ -1841,10 +1914,11 @@ def top2_gap(torch, logits) -> float:
     return float((top2[0] - top2[1]) / logits.abs().max())
 
 
-def near_tie(torch, M, params, cfg, prefix) -> float:
+def near_tie(torch, M, params, cfg, prefix, patches=None) -> float:
     """Greedy's top-2 p_1 logit gap after ``prefix``, as a fraction of
     max|logit|."""
-    return top2_gap(torch, p1_logits_after(torch, M, params, cfg, prefix))
+    return top2_gap(torch, p1_logits_after(torch, M, params, cfg, prefix,
+                                           patches))
 
 
 def bf16_ulp(x: float) -> float:
@@ -1866,10 +1940,14 @@ def divergence_at(torch, logits, bpd_tok, greedy_tok):
     return out
 
 
-def causal_logits_after(torch, M, params, cfg):
+def causal_logits_after(torch, M, params, cfg, batch=None):
     """``logits_after(row, prefix)`` of the decoder-only model: p_1's
-    logits after the 1-d token ``prefix``."""
-    return lambda r, prefix: p1_logits_after(torch, M, params, cfg, prefix)
+    logits after the 1-d token ``prefix`` (behind the row's patches when
+    ``batch`` carries them)."""
+    patches = (batch or {}).get("patch_embeds")
+    return lambda r, prefix: p1_logits_after(
+        torch, M, params, cfg, prefix,
+        None if patches is None else patches[r])
 
 
 class Routes:
@@ -2035,7 +2113,7 @@ def phase_decode(torch, results):
     from repro_torch.kernels.tree_mask import default_tree
     from repro_torch.models import model as M
 
-    cfg = get_config("granite-3-8b").replace(dtype="float32")
+    full = cfg = get_config("granite-3-8b").replace(dtype="float32")
     t0 = time.perf_counter()
     params = M.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2084,6 +2162,22 @@ def phase_decode(torch, results):
                             b_stats["text_len"], prompt_len)
     log(f"[decode] fp32 BPD tokens == greedy tokens in "
         f"{8 - len(diverged)}/8 rows (others at near-ties)")
+    phase4 = {"prompts": prompts.cpu(), "greedy": g_toks.cpu(),
+              "khat": b_stats["mean_accepted"],
+              "iterations": b_stats["iterations"]}
+
+    # ---- phases 4b-5c, 14, 15a-15d: fp32 at cut depth -----------------------
+    full_params = params
+    cfg = full.replace(num_layers=FAMILY_FP32_LAYERS["granite-3-8b"])
+    params = M.init(cfg, seed=0, device="cuda")
+    layers = cfg.num_layers
+    _build.reset_launches()
+    g_toks, g_stats = D.greedy_decode(params, cfg, dec, batch)
+    check(_build.LAUNCHES["verify_attention"] == layers * g_stats["iterations"],
+          f"greedy at {layers} layers: launches {dict(_build.LAUNCHES)}")
+    log(f"[decode] phases 4b-5c, 14, 15a-15d at {layers} of {full.num_layers} "
+        f"layers (seed 0): greedy {g_stats['iterations']} steps, the tokens "
+        f"they are held to")
 
     # ---- phase 4b: the paged cache and tree verification, fp32 -------------
     for label, kw, bpd in (
@@ -2221,8 +2315,10 @@ def phase_decode(torch, results):
                        steps_per_sync=4, alone=True)
     log(f"[draft] 15a, 15b fp32, 15d {time.perf_counter() - t15:.1f}s")
 
-    # ---- phase 6: bf16 serve ------------------------------------------------
-    del state
+    # ---- phase 6: bf16 serve, phase 4's weights at full depth ---------------
+    del state, params
+    gc.collect()
+    params, cfg, layers = full_params, full, full.num_layers
     # in place (frees the fp32 copy), the fp32-read leaves kept in fp32
     M.cast_for_compute(params, cfg.replace(dtype="bfloat16"))
     torch.cuda.empty_cache()
@@ -2306,8 +2402,7 @@ def phase_decode(torch, results):
 
     # ---- phase 15b bf16: draft_model on the cast weights -------------------
     phase_draft_bf16(torch, D, params, scfg, sdec, sbatch, static_tps)
-    return {"prompts": prompts.cpu(), "greedy": g_toks.cpu(),
-            "khat": b_stats["mean_accepted"], "iterations": b_stats["iterations"]}
+    return phase4
 
 
 # ---------------------------------------------------------------------------
@@ -2656,12 +2751,14 @@ def phase_engine_bf16(torch, params, cfg, dec, prompts, static_tps):
 
 
 def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
-                      seq2seq=False, policy=None, aux_params=None):
+                      seq2seq=False, policy=None, aux_params=None,
+                      kv_chunk=0):
     """One bf16 BPD iteration under torch.profiler: host wall time against
     the kernels' summed device time (the device's idle share), and the
     hand-written kernels' launches.  ``seq2seq``: an encoder-decoder,
     ``batch`` holding the sources; ``policy`` / ``aux_params``: a bound
-    policy and its session's auxiliary parameters (draft_model)."""
+    policy and its session's auxiliary parameters (draft_model);
+    ``kv_chunk``: the prefill's chunk of keys."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2674,7 +2771,8 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
         state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
                                                 max_new=dec.max_new_tokens,
                                                 policy=policy,
-                                                aux_params=aux_params)
+                                                aux_params=aux_params,
+                                                kv_chunk=kv_chunk)
         be = D.causal_lm_backend(cfg)
 
     def step(s):
@@ -3356,14 +3454,14 @@ def phase_locality(torch, card):
 
 
 def phase_kv_chunk(torch, params, cfg, dec, batch, g_toks, prompt_len):
-    """Phase 14: kv_chunk on granite-3-8b at full width and depth, fp32
-    (phase 4's weights).  A 2048-token MarkovLM prompt prefilled with
+    """Phase 14: kv_chunk on granite-3-8b at full width, fp32 (phase 4b's
+    cut weights).  A 2048-token MarkovLM prompt prefilled with
     kv_chunk 512 and without: final hidden states within KV_TOL of
     max|hidden|, each prefill's peak memory above the weights printed,
     and greedy's 16 new tokens equal (near-tie rule); then BPD exact
     through DecodeSession(kv_chunk=512) on that prompt emits the unchunked
     greedy's tokens, and through DecodeSession(kv_chunk=24) on phase 4's
-    batch (64-token prompts, three chunks) phase 4's greedy tokens (both
+    batch (64-token prompts, three chunks) that model's greedy tokens (both
     under the near-tie rule)."""
     import numpy as np
 
@@ -3422,7 +3520,7 @@ def phase_kv_chunk(torch, params, cfg, dec, batch, g_toks, prompt_len):
                             prompt_len)
     log(f"[kv_chunk] DecodeSession(kv_chunk={KV_SHORT_CHUNK}).decode of "
         f"phase 4's batch: k̂ {b_stats['mean_accepted']:.4f} in "
-        f"{b_stats['iterations']} iterations; tokens == phase 4's greedy in "
+        f"{b_stats['iterations']} iterations; tokens == greedy's in "
         f"{8 - len(diverged)}/8 rows (others at near-ties); "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -3529,16 +3627,17 @@ def phase_draft_self(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len):
 
 
 def phase_draft_small(torch, M, D, params, cfg, dec, batch, g_toks,
-                      prompt_len):
-    """15b fp32: the small random draft (``small_draft``) at granite's full
-    width: lossless against phase 4's greedy, k̂ about 1, launches exact.
-    Returns the draft bundle (15d serves with it)."""
+                      prompt_len, *, label="15b", kv_chunk=0):
+    """15b fp32: the small random draft (``small_draft``) at the primary's
+    full width (granite's; 19a llava's behind its patches, the prefill in
+    chunks of ``kv_chunk`` keys): lossless against greedy, k̂ about 1,
+    launches exact.  Returns the draft bundle (15d serves with it)."""
     from repro_torch import serving
     from repro_torch.kernels import _build
 
     bundle = small_draft(torch, cfg)
     sess = serving.DecodeSession(params, cfg, dec, policy="draft_model",
-                                 bundles={"draft": bundle})
+                                 bundles={"draft": bundle}, kv_chunk=kv_chunk)
     steps = sess.policy.drafter.draft_steps_per_iter(dec.block_k)
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -3546,18 +3645,19 @@ def phase_draft_small(torch, M, D, params, cfg, dec, batch, g_toks,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    log(f"[draft] 15b small draft fp32 ({bundle.cfg.num_layers} layers, d "
-        f"{bundle.cfg.d_model}, vocab {bundle.cfg.vocab_size}): k̂ "
+    log(f"[draft] {label} small draft fp32 ({bundle.cfg.num_layers} layers, "
+        f"d {bundle.cfg.d_model}, vocab {bundle.cfg.vocab_size}): k̂ "
         f"{stats['mean_accepted']:.4f} in {stats['iterations']} iterations, "
         f"{wall:.2f}s, launches {launches}")
     check_launches(launches, draft_launches(cfg, bundle.cfg,
                                             stats["iterations"], steps),
-                   "15b")
-    after = causal_logits_after(torch, M, params, cfg)
+                   label)
+    after = causal_logits_after(torch, M, params, cfg, batch)
     diverged = compare_rows(torch, after, toks, g_toks, stats["text_len"],
                             prompt_len)
-    log(f"[draft] 15b: tokens == greedy tokens in {8 - len(diverged)}/8 rows "
-        f"(others at near-ties)")
+    rows = toks.shape[0]
+    log(f"[draft] {label}: tokens == greedy tokens in {rows - len(diverged)}/"
+        f"{rows} rows (others at near-ties)")
     return bundle
 
 
@@ -3775,10 +3875,15 @@ def phase_draft_launcher(torch):
 FAMILY_MEM_GIB = 76.0   # the fp32 decodes' peak at full depth stays below it
 WINDOW_PROMPT = 4608    # starcoder2-7b's window + 512: the ring wraps
 WINDOW_CHUNK = 512
-# phase 16's fp32 decodes run at half depth, so that the script with phase
-# 18 stays within 75% of its time limit; each bf16 serve runs at full depth
-FAMILY_FP32_LAYERS = {"stablelm-12b": 20, "starcoder2-7b": 16,
-                      "nemotron-4-15b": 16}
+# the fp32 decodes of phases 4b-5c, 14, 15 and 16-18 run at a quarter of
+# the depth, so that the script with phases 19 and 20 stays within 75% of
+# its time limit on a slow host too (with granite's at full depth and the
+# families' at half, it took 916 s); phase 4 and each bf16 serve run at
+# full depth
+FAMILY_FP32_LAYERS = {"granite-3-8b": 10, "stablelm-12b": 10,
+                      "starcoder2-7b": 8, "nemotron-4-15b": 8,
+                      "olmoe-1b-7b": 4, "qwen2-moe-a2.7b": 6,
+                      "hymba-1.5b": 8}
 
 
 def attention_launches(cfg, dec) -> dict:
@@ -3801,13 +3906,15 @@ def attention_launches(cfg, dec) -> dict:
 
 
 def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
-                 label):
+                 label, *, kv_chunk=0):
     """greedy_decode, then each BPD path of ``paths`` ((name, decode
     overrides)), fp32: each must emit greedy's tokens (near-tie rule, for
     an MoE model with its router extension), its attention kernel launched
     once per layer and forward, fused_verify once per iteration,
-    fused_heads once per iteration and prefill.  Returns greedy's tokens
-    and, for an MoE model, greedy's ``Routes`` (else None)."""
+    fused_heads once per iteration and prefill.  The chain paths prefill in
+    chunks of ``kv_chunk`` keys (a tree's prefill cannot, as in the
+    reference).  Returns greedy's tokens and, for an MoE model, greedy's
+    ``Routes`` (else None)."""
     from repro_torch.kernels import _build
 
     g_toks = g_routes = None
@@ -3816,8 +3923,9 @@ def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
         _build.reset_launches()
         t0 = time.perf_counter()
         run = D.greedy_decode if name == "greedy" else D.bpd_decode
+        chunk = 0 if pdec.policy == "topk_tree" else kv_chunk
         with routes_for(torch, cfg) as rec:
-            toks, stats = run(params, cfg, pdec, batch)
+            toks, stats = run(params, cfg, pdec, batch, kv_chunk=chunk)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launch = dict(_build.LAUNCHES)
@@ -3838,11 +3946,13 @@ def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
             g_toks, g_routes = toks, rec
             continue
         diverged = compare_rows(
-            torch, causal_logits_after(torch, M, params, cfg), toks, g_toks,
-            stats["text_len"], prompt_len, cfg=cfg, label=f"{label} {name}",
+            torch, causal_logits_after(torch, M, params, cfg, batch), toks,
+            g_toks, stats["text_len"], prompt_len, cfg=cfg,
+            label=f"{label} {name}",
             routes=(g_routes, rec) if rec is not None else None)
+        rows = toks.shape[0]
         log(f"[families] {label} {name}: tokens == greedy tokens in "
-            f"{8 - len(diverged)}/8 rows (others at near-ties)")
+            f"{rows - len(diverged)}/{rows} rows (others at near-ties)")
     return g_toks, g_routes
 
 
@@ -4050,15 +4160,17 @@ MOE_TRAIN_LAYERS = 8    # 17c: olmoe-1b-7b fine-tuned at full width
 
 
 def phase_moe(torch, results):
-    """Phase 17: olmoe-1b-7b and qwen2-moe-a2.7b at full width and depth
-    from seed 0, fp32, phase 4's 8 prompts of 64, 64 new tokens, block_k 8,
+    """Phase 17: olmoe-1b-7b and qwen2-moe-a2.7b at full width from seed
+    0, the fp32 decodes at a quarter of the depth (FAMILY_FP32_LAYERS: 4 of
+    16 and 6 of 24 layers), phase 4's 8 prompts of 64, 64 new tokens,
+    block_k 8,
     every decode forward routing at full capacity: 17a olmoe's greedy,
     exact and topk_tree on both caches and its fp32 engine (5c's 16
     requests, unified on the managed page pool); 17b qwen2-moe's greedy,
     exact dense and topk_tree paged; each greedy's tokens under the
     near-tie rule with its router extension, launches exact, the fp32 peak
-    under FAMILY_MEM_GIB, then cast for bf16 and served (--full-config);
-    17c training (``phase_moe_train``)."""
+    under FAMILY_MEM_GIB; then each at full depth from seed 0, cast for
+    bf16 and served (--full-config); 17c training (``phase_moe_train``)."""
     import numpy as np
 
     from repro_torch.config import DecodeConfig, get_config
@@ -4078,12 +4190,14 @@ def phase_moe(torch, results):
     for name, paths in (("olmoe-1b-7b", chain_tree),
                         ("qwen2-moe-a2.7b", chain_tree[::3])):
         t0 = time.perf_counter()
-        cfg = get_config(name).replace(dtype="float32")
+        full = get_config(name).replace(dtype="float32")
+        cfg = full.replace(num_layers=FAMILY_FP32_LAYERS[name])
         torch.cuda.reset_peak_memory_stats()
         params = M.init(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in params.parameters())
-        log(f"[moe] {name} fp32: {n_params / 1e9:.3f} B parameters, "
+        log(f"[moe] {name} fp32 decodes at {cfg.num_layers} of "
+            f"{full.num_layers} layers: {n_params / 1e9:.3f} B parameters, "
             f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
             f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
             f"{cfg.num_experts} experts ({cfg.padded_num_experts} stored) "
@@ -4103,10 +4217,14 @@ def phase_moe(torch, results):
         log(f"[moe] {name} fp32 peak {peak:.2f} GiB; router near-ties "
             f"admitted {len(ROUTER_TIES) - ties0}; "
             f"{time.perf_counter() - t0:.1f}s")
-        check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes at full depth "
-                                     f"peak at {peak:.2f} GiB, over "
-                                     f"{FAMILY_MEM_GIB} GiB")
-        family_serve(torch, D, M, params, cfg, prompts, name)
+        check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes peak at "
+                                     f"{peak:.2f} GiB, over {FAMILY_MEM_GIB} "
+                                     f"GiB")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = M.init(full, seed=0, device="cuda")    # the serve: full depth
+        family_serve(torch, D, M, params, full, prompts, name)
         log(f"[moe] {name} {time.perf_counter() - t0:.1f}s")
         del params
         gc.collect()
@@ -4209,19 +4327,22 @@ def topk_within(torch, M, params, cfg, toks, prompt_len, n, top_k, label):
 
 
 def rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len,
-                   label):
-    """8b / 18c: from the prefill, one BPD iteration with greedy's
-    continuation as the proposals (k̂ = 8), then with slot 3 corrupted (k̂
-    = 3), each followed by a second iteration on the committed recurrent
-    state (RWKV-6's, or the Mamba heads' beside attention), which must give
-    greedy's tokens."""
+                   label, *, kv_chunk=0, corrupts=(None, 3)):
+    """8b / 18c / 19a: from the prefill (in chunks of ``kv_chunk`` keys),
+    one BPD iteration with greedy's continuation as the proposals (k̂ = 8),
+    then with slot 3 corrupted (k̂ = 3) (``corrupts``), each followed by a
+    second iteration on the committed state (RWKV-6's, the Mamba heads'
+    beside attention, or llava's KV cache behind its patch prefix), which
+    must give greedy's tokens."""
     block_k = dec.block_k
     cont = g_toks[:, prompt_len:prompt_len + block_k].contiguous()
     be = D.causal_lm_backend(cfg)
-    for corrupt in (None, 3):
+    patches = batch.get("patch_embeds")
+    for corrupt in corrupts:
         state, prefix = D.bpd_prefill_causal_lm(params, cfg, dec, batch,
-                                                max_new=dec.max_new_tokens)
-        check(prefix == cfg.num_meta_tokens, f"{label} prefix {prefix}")
+                                                max_new=dec.max_new_tokens,
+                                                kv_chunk=kv_chunk)
+        check(prefix == M.prefix_len(cfg, batch), f"{label} prefix {prefix}")
         check(torch.equal(state.proposals[:, 0], cont[:, 0]),
               f"{label} prefill's verified slot 0 != greedy's first token")
         props = cont.clone()
@@ -4240,7 +4361,8 @@ def rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len,
         for r, kh in enumerate(khat):
             if kh != want:
                 gap = near_tie(torch, M, params, cfg,
-                               g_toks[r, :prompt_len + kh])
+                               g_toks[r, :prompt_len + kh],
+                               None if patches is None else patches[r])
                 check(kh < want and gap < TIE_MARGIN,
                       f"{label} row {r}: k̂={kh}, expected {want} (gap {gap})")
         with torch.no_grad():           # the next block on the committed state
@@ -4248,14 +4370,14 @@ def rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, prompt_len,
                                     prefix_offset=prefix,
                                     max_new=dec.max_new_tokens)
         diverged = compare_rows(torch, causal_logits_after(torch, M, params,
-                                                           cfg),
+                                                           cfg, batch),
                                 state.tokens, g_toks, state.text_len,
                                 prompt_len)
         second = (state.text_len - prompt_len
                   - torch.tensor(khat, device="cuda")).tolist()
         log(f"[{label} accepts] second iteration on the committed state: k̂ "
             f"per row {second}; tokens == greedy tokens in "
-            f"{8 - len(diverged)}/8 rows")
+            f"{len(khat) - len(diverged)}/{len(khat)} rows")
 
 
 def hymba_prefill_profile(torch, D, params, cfg, dec, batch):
@@ -4298,20 +4420,21 @@ def hymba_prefill_profile(torch, D, params, cfg, dec, batch):
 def phase_hymba(torch, results):
     """Phase 18: hymba-1.5b (32 layers of attention beside Mamba heads,
     d 1600, 25/5 heads of 64, windows of 1024 outside layers 0, 15 and 31,
-    128 meta tokens, untied lm_head at vocab 32001) at full width and
-    depth from seed 0, fp32, phase 4's 8 prompts of 64, 64 new tokens,
-    block_k 8.  18a greedy, BPD exact, topk (T 2) and adaptive on the dense
-    cache and exact on the paged cache (the 3 global layers paged, the 29
-    windowed on their dense rings: 29 verify_attention + 3
+    128 meta tokens, untied lm_head at vocab 32001) at full width from seed
+    0, the fp32 decodes at a quarter of the depth (FAMILY_FP32_LAYERS: 8 of
+    32 layers, layer 0 the only global one), phase 4's 8 prompts of 64, 64
+    new tokens, block_k 8.  18a greedy, BPD exact, topk (T 2) and adaptive
+    on the dense cache and exact on the paged cache (the global layer
+    paged, the 7 windowed on their dense rings: 7 verify_attention + 1
     paged_verify_attention a forward), launches exact; exact and adaptive
     emit greedy's tokens (near-tie rule), topk's tokens lie within p_1's
     top-2; the fp32 peak.  18b the window: 2 prompts of 1,536 tokens, 16
     new, greedy and BPD exact equal, and a full forward over meta + prompt
     + greedy's tokens giving greedy's token past the wrapped ring.  18c
     hand-made accepts roll the Mamba state back (``rollback_check``).  18d
-    the weights cast for bf16 (A_log, D and the norm scales stay fp32) and
-    served (--full-config): tokens/s, k̂, one iteration and one prefill
-    profiled with the scan's launches.  18e training
+    the full depth from seed 0 cast for bf16 (A_log, D and the norm scales
+    stay fp32) and served (--full-config): tokens/s, k̂, one iteration and
+    one prefill profiled with the scan's launches.  18e training
     (``phase_hymba_train``)."""
     import numpy as np
 
@@ -4323,12 +4446,14 @@ def phase_hymba(torch, results):
 
     name = "hymba-1.5b"
     t0 = time.perf_counter()
-    cfg = get_config(name).replace(dtype="float32")
+    full = get_config(name).replace(dtype="float32")
+    cfg = full.replace(num_layers=FAMILY_FP32_LAYERS[name])
     torch.cuda.reset_peak_memory_stats()
     params = M.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"[hymba] {name} fp32: {n_params / 1e9:.3f} B parameters, "
+    log(f"[hymba] {name} fp32 decodes at {cfg.num_layers} of "
+        f"{full.num_layers} layers: {n_params / 1e9:.3f} B parameters, "
         f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
         f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, Mamba d_inner "
         f"{cfg.ssm_expand * cfg.d_model} x state {cfg.ssm_state_dim}, window "
@@ -4379,13 +4504,17 @@ def phase_hymba(torch, results):
                  prompt_len=HYMBA_WINDOW_PROMPT, kv_chunk=0, label=name)
     rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, 64, "hymba")
 
-    # ---- 18d: bf16 serve ----------------------------------------------------
-    family_serve(torch, D, M, params, cfg, prompts, name)
+    # ---- 18d: bf16 serve at full depth --------------------------------------
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init(full, seed=0, device="cuda")
+    family_serve(torch, D, M, params, full, prompts, name)
     kept = sorted({k.split(".")[-1] for k, v in params.state_dict().items()
                    if v.dtype == torch.float32})
     check(kept == ["A_log", "D", "scale"], f"{name} bf16 cast kept {kept} "
                                            f"in fp32")
-    hymba_prefill_profile(torch, D, params, cfg.replace(dtype="bfloat16"),
+    hymba_prefill_profile(torch, D, params, full.replace(dtype="bfloat16"),
                           dec, batch)
     log(f"[hymba] {name} {time.perf_counter() - t0:.1f}s")
     del params
@@ -4450,6 +4579,263 @@ def phase_hymba_train(torch, card):
     del params, opt, step
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 19: llava-next-34b, the vision_text backbone behind 2,880 patches
+# ---------------------------------------------------------------------------
+
+
+LLAVA_FP32_LAYERS = 8      # 19a: 7.73 B parameters, 28.8 GiB in fp32
+LLAVA_BATCH = 4            # 19b: 2.76 GiB of bf16 KV at 3,016 positions a row
+LLAVA_PARAMS = 36_737_948_672   # the reference's init, by jax.eval_shape
+LLAVA_SERVE_CHUNK = 256    # 19b: at 512 keys the prefill's fp32 chunk scores
+                           # did not fit beside 71.2 GiB of weights and KV
+LLAVA_SERVE_NEW = 32       # 19b's new tokens (19a decodes 64)
+
+
+def llava_batch(torch, cfg, prompts):
+    """LLAVA_BATCH rows: the stub frontend's 2,880 patch embeddings
+    (``stub_frontend_inputs`` from seed 0, as ``input_specs`` shapes them)
+    before the first of phase 4's MarkovLM prompts of 64 tokens."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import stub_frontend_inputs
+
+    stub = stub_frontend_inputs(cfg, np.random.default_rng(0), LLAVA_BATCH, 64)
+    return {"patch_embeds": torch.as_tensor(stub["patch_embeds"],
+                                            device="cuda"),
+            "tokens": prompts[:LLAVA_BATCH].contiguous()}
+
+
+def phase_llava(torch, results):
+    """Phase 19: llava-next-34b (60 layers, d 7168, 56/8 heads of 128,
+    untied lm_head at vocab 64000) behind the full 2,880-patch prefix.
+    19a fp32 at full width, depth cut to LLAVA_FP32_LAYERS (full depth is
+    137 GiB in fp32), B 4 x 64-token prompts, 64 new tokens, block_k 8,
+    the chain prefills in chunks of KV_CHUNK keys: greedy, BPD exact on
+    both caches and topk_tree paged, each greedy's tokens (near-tie rule,
+    each row's logits behind its own patches), launches exact;
+    ``draft_model`` with a small text draft (the pairing the reference
+    runs) greedy's tokens; one iteration with greedy's continuation as the
+    proposals gives k̂ = 8 at the patch offset.  19b (``phase_llava_serve``)
+    bf16 at full depth."""
+    import numpy as np
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import model as M
+
+    name = "llava-next-34b"
+    t0 = time.perf_counter()
+    log(f"[llava] earlier phases freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    full = get_config(name)
+    cfg = full.replace(num_layers=LLAVA_FP32_LAYERS, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = torch.as_tensor(MarkovLM(vocab=256, temperature=0.2, seed=0)
+                              .sample(np.random.default_rng(1), 8, 64),
+                              device="cuda")
+    batch = llava_batch(torch, cfg, prompts)
+    log(f"[llava] 19a {name} fp32 at {cfg.num_layers} of {full.num_layers} "
+        f"layers (full depth's 36.74 B parameters take 137 GiB in fp32): "
+        f"{n_params / 1e9:.3f} B parameters, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab_size}; batch {tuple(batch['patch_embeds'].shape)} "
+        f"patches + {tuple(batch['tokens'].shape)} tokens; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
+    paths = (("bpd exact dense", {}),
+             ("bpd exact paged", dict(cache_backend="paged")),
+             ("bpd topk_tree paged", dict(policy="topk_tree", top_k=2,
+                                          cache_backend="paged")))
+    g_toks, _ = family_paths(torch, M, D, params, cfg, dec, batch, 64, paths,
+                             name, kv_chunk=KV_CHUNK)
+
+    phase_draft_small(torch, M, D, params, cfg, dec, batch, g_toks, 64,
+                      label="19a llava, a patch-prefixed primary",
+                      kv_chunk=KV_CHUNK)
+    rollback_check(torch, M, D, params, cfg, dec, batch, g_toks, 64, "llava",
+                   kv_chunk=KV_CHUNK, corrupts=(None,))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[llava] 19a fp32 peak {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(peak < FAMILY_MEM_GIB, f"{name}: the fp32 decodes peak at "
+                                 f"{peak:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_llava_serve(torch, full, batch)
+    log(f"[llava] {name} {time.perf_counter() - t0:.1f}s")
+
+
+def phase_llava_serve(torch, full, batch):
+    """19b: llava-next-34b at full depth, its parameters drawn in bf16 on
+    the card (never an fp32 init cast down: that is 137 GiB), all 36.74 B
+    of them, before any workspace; BPD exact on the dense cache through
+    DecodeSession(kv_chunk=LLAVA_SERVE_CHUNK) behind the 2,880 patches:
+    tokens/s, k̂, iterations, launches exact; bf16 greedy, each row's first
+    divergence from BPD a near-tie of at most BF16_TIE_ULPS; one iteration
+    profiled; the peak memory; then repro_torch.launch.serve --full-config
+    with the reference's 4 zero patches on the same weights."""
+    from repro_torch import serving
+    from repro_torch.config import DecodeConfig
+    from repro_torch.core import decode as D
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = full.replace(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init(cfg, seed=0, device="cuda")
+    M.cast_for_compute(params, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[llava] 19b {cfg.name} bf16 at full depth ({cfg.num_layers} layers): "
+        f"{n_params:,} parameters, init {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    check(n_params == LLAVA_PARAMS, f"llava-next-34b: {n_params} parameters, "
+                                    f"the reference's init has {LLAVA_PARAMS}")
+    dec = DecodeConfig(max_new_tokens=LLAVA_SERVE_NEW, block_k=cfg.bpd_k)
+    sess = serving.DecodeSession(params, cfg, dec, kv_chunk=LLAVA_SERVE_CHUNK)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, stats = sess.decode(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(_build.LAUNCHES)
+    iters = stats["iterations"]
+    check_launches(launches, dict(verify_attention=cfg.num_layers * iters,
+                                  fused_verify=iters, fused_heads=iters + 1),
+                   "19b bf16 exact dense")
+    generated = int(stats["generated"].sum())
+    log(f"[llava] 19b bf16 BPD exact dense, B {LLAVA_BATCH} behind "
+        f"{batch['patch_embeds'].shape[1]} patches: {generated / wall:.1f} "
+        f"tokens/s ({generated} tokens, host wall {wall * 1e3:.1f} ms with "
+        f"the prefill), k̂={stats['mean_accepted']:.4f}, iterations={iters}, "
+        f"launches {launches}")
+    g_toks, _ = sess.greedy(batch)
+    torch.cuda.synchronize()
+    end = 64 + dec.max_new_tokens
+    same = toks[:, 64:end] == g_toks[:, 64:end]
+    div = report_divergences(torch, causal_logits_after(torch, M, params, cfg,
+                                                        batch),
+                             toks, g_toks, 64, end)
+    log(f"[llava] 19b BPD vs bf16 greedy: agreement "
+        f"{float(same.float().mean()):.4f} of tokens, "
+        f"{int(same.all(dim=1).sum())}/{LLAVA_BATCH} rows identical; first "
+        f"divergences at {[round(d['bpd_ulps'], 3) for d in div]} ulps below "
+        f"the top")
+    check(all(d["tie"] for d in div), f"19b: a bf16 divergence beyond "
+                                      f"{BF16_TIE_ULPS} ulps")
+    profile_iteration(torch, D, params, cfg, dec, batch,
+                      "llava-next-34b exact dense, 2,880 patches",
+                      kv_chunk=LLAVA_SERVE_CHUNK)
+    rows = batch["patch_embeds"].shape[1] + end + dec.block_k
+    kv = (cfg.num_layers * 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+          * LLAVA_BATCH * rows)
+    log(f"[llava] 19b peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated (weights {n_params * 2 / 2 ** 30:.2f} GiB, dense KV "
+        f"{kv / 2 ** 30:.2f} GiB for {LLAVA_BATCH} rows of {rows} positions)")
+    del sess
+    _build.reset_launches()
+    out = serve.main(["--arch", cfg.name, "--full-config", "--batch",
+                      str(LLAVA_BATCH), "--prompt-len", "64", "--max-new", "16",
+                      "--kv-chunk", str(LLAVA_SERVE_CHUNK), "--seed", "0"],
+                     params=params)
+    launches = dict(_build.LAUNCHES)
+    pe = out["batch"]["patch_embeds"]
+    check(tuple(pe.shape) == (LLAVA_BATCH, 4, cfg.d_model)
+          and not bool(pe.any()), f"19b launcher: patches {tuple(pe.shape)}")
+    s_stats = out["stats"]
+    check(launches["verify_attention"]
+          == 2 * cfg.num_layers * s_stats["iterations"],
+          f"19b launcher: launches {launches}")
+    log(f"[llava] 19b launcher (--full-config, the reference's 4 zero "
+        f"patches, 16 new tokens): "
+        f"{int(s_stats['generated'].sum()) / out['wall_s']:.1f} tokens/s, "
+        f"k̂={s_stats['mean_accepted']:.4f}, iterations "
+        f"{s_stats['iterations']}, launches {launches}")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 20: hubert-xlarge, encoder-only masked-prediction training
+# ---------------------------------------------------------------------------
+
+
+HUBERT_STEPS = 13     # 20b: 2 warm-up, 10 timed, 1 profiled
+HUBERT_B, HUBERT_S = 8, 512
+
+
+def phase_hubert(torch, card):
+    """Phase 20: 20a one make_train_step card vs CPU at a narrow
+    encoder-only geometry (d 320, 4 heads of 80, 2 layers, vocab 504;
+    ``card_vs_cpu`` on MaskedFrames).  20b hubert-xlarge at full width and
+    depth (48 layers, d 1280, 16 heads of 80: attention in plain PyTorch,
+    no hand-written kernel) in fp32, AdamW on MaskedFrames batches of
+    HUBERT_B x HUBERT_S: step ms, training frames/s, peak, one step
+    profiled; every loss finite.  Then repro_torch.launch.train on the
+    smoke config for 2 steps."""
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.data.synthetic import MaskedFrames
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer_init
+    from repro_torch.utils.tree import tree_size
+
+    t0 = time.perf_counter()
+    full = get_config("hubert-xlarge").replace(dtype="float32")
+    narrow = full.replace(num_layers=2, d_model=320, num_heads=4,
+                          num_kv_heads=4, d_ff=1280, max_seq_len=64)
+    card_vs_cpu(torch, narrow, {"masked prediction": (
+        TrainConfig(lr=1e-4, warmup_steps=1), None, False)},
+        "20a hubert narrow (d 320, 4 heads of 80)")
+
+    params = M.init(full, seed=0, device="cuda")
+    n = tree_size(params)
+    log(f"[train] 20b hubert-xlarge fp32 at full width and depth "
+        f"({full.num_layers} layers, d {full.d_model}, {full.num_heads} heads "
+        f"of {full.resolved_head_dim}, codebook {full.vocab_size}): "
+        f"{n / 1e9:.3f} B parameters, {n * 16 / 2 ** 30:.1f} GiB with "
+        f"gradients and AdamW moments")
+    tc = TrainConfig(lr=1e-4, warmup_steps=1, schedule="constant")
+    opt = optimizer_init(params, tc)
+    frames = MaskedFrames(full.d_model, codebook=min(full.vocab_size, 504),
+                          seed=0)
+    batches = prefetch(frames.batches(batch=HUBERT_B, seq_len=HUBERT_S, seed=1),
+                       device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(full, tc)
+    params, opt, losses, ms, _ = run_steps(
+        torch, step, params, opt, batches, torch.Generator().manual_seed(1),
+        HUBERT_STEPS, "20b hubert-xlarge")
+    batches.close()
+    step_report(torch, f"20b hubert-xlarge, {full.num_layers} layers, B "
+                f"{HUBERT_B} x S {HUBERT_S} frames", ms, HUBERT_B * HUBERT_S,
+                card)
+    check(all(x == x and abs(x) < float("inf") for x in losses),
+          f"20b: losses {losses}")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = train.main(["--arch", "hubert-xlarge", "--steps", "2", "--batch",
+                      "2", "--seq", "64", "--log-every", "1"])
+    loss = float(out["metrics"]["loss"])
+    check(loss == loss, f"20 launcher: loss {loss}")
+    log(f"[train] 20 repro_torch.launch.train --arch hubert-xlarge (smoke "
+        f"config, 2 steps on the card): loss {loss:.4f}; phase 20 "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -4567,7 +4953,8 @@ def phase_train_card_vs_cpu(torch, card):
 
 def card_vs_cpu(torch, cfg, runs, tag):
     """One make_train_step of ``cfg`` on the card and on the CPU from the
-    same fp32 weights (seed 0) and batch (B 2 x S 64 MarkovLM), for each of
+    same fp32 weights (seed 0) and batch (B 2 x S 64 MarkovLM, MaskedFrames
+    for an audio encoder), for each of
     ``runs`` ({label: (TrainConfig, head index, frozen)}), head index and
     swap mask injected: the loss, the gradient norm, an MoE model's three
     metrics and every gradient agree within TRAIN_TOL, and every leaf the
@@ -4582,13 +4969,17 @@ def card_vs_cpu(torch, cfg, runs, tag):
 
     import numpy as np
 
-    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.data.synthetic import MarkovLM, MaskedFrames
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
     from repro_torch.optim import freeze_mask, optimizer_init, optimizer_update
 
-    tokens = MarkovLM(vocab=256, temperature=0.2, seed=0).sample(
-        np.random.default_rng(2), 2, 64)
+    if cfg.modality == "audio":
+        data = MaskedFrames(cfg.d_model, codebook=min(cfg.vocab_size, 504),
+                            seed=0).sample(np.random.default_rng(2), 2, 64)
+    else:
+        data = {"tokens": MarkovLM(vocab=256, temperature=0.2, seed=0).sample(
+            np.random.default_rng(2), 2, 64)}
     swap = torch.as_tensor(np.random.default_rng(3).random((2, 64)) < 0.5)
     rtol, arel = TRAIN_TOL["rtol"], TRAIN_TOL["atol_of_max"]
     moe_keys = ("moe_aux_loss", "moe_z_loss", "moe_dropped_frac")
@@ -4600,7 +4991,8 @@ def card_vs_cpu(torch, cfg, runs, tag):
         out = {}
         for side, params in (("cpu", cpu), ("cuda", dev)):
             step = make_train_step(cfg, tc, mask)
-            batch = {"tokens": torch.as_tensor(tokens, device=side)}
+            batch = {k: torch.as_tensor(v, device=side)
+                     for k, v in data.items()}
             with routes_for(torch, cfg) as rec:
                 _, _, m = step(params, optimizer_init(params, tc, mask), batch,
                                None, head_idx=head, swap=swap)
@@ -4949,20 +5341,25 @@ def main() -> int:
             f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}, "
             f"{f32['ms'] / f32['bound_ms']:.1f}x), yardstick {yard}")
 
+    stamp(t_start, "phases 1-3")
     phase4 = phase_decode(torch, results)
+    stamp(t_start, "phases 4-7, 14, 15")
     gc.collect()                                  # granite's weights go first
     torch.cuda.empty_cache()
     log(f"[rwkv] granite freed: {torch.cuda.memory_allocated() / 2 ** 30:.1f} "
         f"GiB allocated")
     phase_rwkv(torch, results)
+    stamp(t_start, "phases 8-9")
     gc.collect()                                  # then rwkv6's
     torch.cuda.empty_cache()
     phase_mt(torch, results)
     exact_rows = phase_fixture(torch)
     phase_draft_fixture(torch, exact_rows)
     phase_draft_launcher(torch)
+    stamp(t_start, "phases 10, 15c, 15e")
     phase_quickstart(torch, card)
     phase_locality(torch, card)
+    stamp(t_start, "phases 12-13")
     gc.collect()                                  # every earlier phase's
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
@@ -4980,7 +5377,18 @@ def main() -> int:
     log(f"[hymba] phase 18 {time.perf_counter() - t18:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    phase_llava(torch, results)
+    log(f"[llava] phase 19 {time.perf_counter() - t19:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    phase_hubert(torch, card)
+    log(f"[hubert] phase 20 {time.perf_counter() - t20:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train(torch, phase4)
+    stamp(t_start, "phase 11")
 
     kernels = []
     for name in _build.KERNELS:

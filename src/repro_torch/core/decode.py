@@ -309,6 +309,14 @@ def decode_stats(final) -> Dict:
     }
 
 
+def _check_decoder(cfg: ModelConfig) -> None:
+    """An encoder-only model has no decode path (the reference fails on
+    its missing ``frame_embeds``; its serve launcher refuses it so)."""
+    if cfg.is_encoder_only:
+        raise NotImplementedError(f"{cfg.name} is encoder-only — no decode "
+                                  f"path")
+
+
 @torch.no_grad()
 def prefill_and_draft(params, cfg: ModelConfig, dec: DecodeConfig,
                       pol: DecodePolicy, batch: Dict, caches, plens,
@@ -363,6 +371,7 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
                           aux_params=None):
     """Prefill the caches from the prompt and produce the first proposals.
     The prompt's device is the decode's device."""
+    _check_decoder(cfg)
     pol = policy_lib.resolve_policy(dec, policy)
     block_k = dec.block_k or cfg.bpd_k
     prompt = batch["tokens"]
@@ -572,6 +581,7 @@ def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
                   batch: Dict, *, kv_chunk: int = 0) -> Tuple[torch.Tensor, Dict]:
     """Greedy decoding with p_1 (the paper's baseline); ``kv_chunk`` as in
     ``bpd_decode``."""
+    _check_decoder(cfg)
     max_new = dec.max_new_tokens
     prompt = batch["tokens"]
     b, prompt_len = prompt.shape

@@ -17,6 +17,8 @@
   router-z terms (``router_aux_coef`` · ``moe_aux_loss`` + ``router_z_coef``
   · ``moe_z_loss``, averaged over layers), from a capacity-bounded forward
   as in the reference: training drops the assignments past capacity.
+* **Masked prediction** (hubert, encoder-only): the codebook ids of the
+  masked frames from a bidirectional forward (``masked_prediction_loss``).
 * **Parallel scheduled sampling** (arXiv:1906.04331): one no-grad forward
   predicts every position of the gold stream; the conditioning stream
   swaps each token after the first for that prediction with probability
@@ -274,17 +276,36 @@ def seq2seq_loss(params, cfg: ModelConfig, tc: TrainConfig, batch: Dict, gen,
     return loss, m
 
 
+def masked_prediction_loss(params, cfg: ModelConfig, tc: TrainConfig,
+                           batch: Dict, gen=None, *, head_idx=None,
+                           swap=None) -> Tuple[torch.Tensor, Dict]:
+    """The encoder-only loss (hubert): batch frame_embeds (B, S, d), mask
+    (B, S) bool, targets (B, S) int32.  The masked frames are replaced by
+    ``mask_embed`` (``model.embed_inputs``), the stack runs bidirectional,
+    and the codebook cross-entropy with z-loss is averaged over the masked
+    frames only, the pad lanes of the vocab at -1e9.  It draws nothing:
+    ``gen``, ``head_idx`` and ``swap`` are taken, as ``make_train_step``
+    passes them to every loss, and unused."""
+    h = model_lib.embed_inputs(params, cfg, batch)
+    hidden, _ = model_lib.forward_hidden(params, cfg, h, bidirectional=True)
+    logits = model_lib.project_vocab(params, cfg, hidden)
+    loss, m = softmax_xent(logits, batch["targets"], mask=batch["mask"].float(),
+                           z_loss=tc.z_loss)
+    m["loss"] = loss.detach()
+    return loss, m
+
+
 def loss_fn_for(cfg: ModelConfig) -> Callable:
-    """``seq2seq_loss`` for an encoder-decoder, ``lm_loss`` for a
-    decoder-only attention model; the rest raise."""
-    if cfg.is_encoder_only:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-only masked-prediction loss (hubert) is "
-            f"not ported yet (ROADMAP.md §1 item 7)")
+    """The reference's choice, in its order: ``masked_prediction_loss`` for
+    an encoder-only model, ``seq2seq_loss`` for an encoder-decoder,
+    ``lm_loss`` for a decoder-only attention model; RWKV-6 and the
+    unported combinations raise."""
     if cfg.block_type == "rwkv6":
         raise NotImplementedError(
             f"{cfg.name}: training RWKV-6 needs a backward for the rwkv6_scan "
             f"kernel (an autograd.Function with a hand-written reverse scan), "
             f"which is not ported yet (ROADMAP.md §1 item 6)")
     check_supported(cfg)
+    if cfg.is_encoder_only:
+        return masked_prediction_loss
     return seq2seq_loss if cfg.is_encoder_decoder else lm_loss

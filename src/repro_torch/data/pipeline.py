@@ -1,9 +1,10 @@
 """Host batches to the device, as ``repro.data.pipeline``: numpy batches
 become tensors on an explicit device (through pinned host memory and a
 non-blocking copy on a card), and ``prefetch`` makes the next batches on a
-bounded background thread while the device trains on this one.  Sharding a
-batch over several cards is ROADMAP.md §1 item 8 (multi-GPU) and is
-refused here."""
+bounded background thread while the device trains on this one.
+``stub_frontend_inputs`` makes the stub inputs of a modality frontend (the
+vision_text patch embeddings).  Sharding a batch over several cards is
+ROADMAP.md §1 item 8 (multi-GPU) and is refused here."""
 from __future__ import annotations
 
 import itertools
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.config import ModelConfig
 
 
 def _refuse_sharding(sharding) -> None:
@@ -87,6 +89,21 @@ def prefetch(it: Iterator[Dict], depth: int = 2, *, device=None,
     finally:
         stop.set()
         worker.join(timeout=10)
+
+
+def stub_frontend_inputs(cfg: ModelConfig, rng: np.random.Generator,
+                         batch: int, text_len: int) -> Dict[str, np.ndarray]:
+    """The frontends are stubs: precomputed patch embeddings of the right
+    shape, (batch, ``num_patch_tokens``, d) for a vision_text config, then
+    the (batch, ``text_len``) tokens, drawn from ``rng`` in that order (the
+    reference's arrays for the same generator state)."""
+    out: Dict[str, np.ndarray] = {}
+    if cfg.modality == "vision_text" and cfg.num_patch_tokens:
+        out["patch_embeds"] = rng.normal(
+            size=(batch, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32)
+    out["tokens"] = rng.integers(0, cfg.vocab_size,
+                                 (batch, text_len)).astype(np.int32)
+    return out
 
 
 def take(it: Iterator, n: int):

@@ -5,7 +5,8 @@ give the same arrays): the order-2 Markov LM; the seq2seq tasks
 (1-D smooth curves quantized to ``levels`` tokens) and ``OrdinalField``
 (2-D smooth fields, serialized row-major or in the locality-aware
 progressive-lattice order of ``locality_plan`` that the ``locality`` decode
-policy consumes)."""
+policy consumes); and ``MaskedFrames``, the frame embeddings and codebook
+targets of hubert-style masked prediction."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional
@@ -316,3 +317,41 @@ class OrdinalField:
         rng = np.random.default_rng(seed)
         while True:
             yield {"tokens": self.sample(rng, batch, seq_len)}
+
+
+# ---------------------------------------------------------------------------
+# Masked audio frames (hubert-style)
+# ---------------------------------------------------------------------------
+
+
+class MaskedFrames:
+    """Frame embeddings whose codebook id is a function of the frame, so the
+    masked-prediction task is learnable: embedding = codeword + small
+    noise, target = the codeword's index; spans of ``span`` frames from
+    ``mask_prob`` · S random starts per row are masked."""
+
+    def __init__(self, d_model: int, codebook: int = 504, *, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.codebook = rng.normal(size=(codebook, d_model)).astype(np.float32)
+        self.nc = codebook
+        self.d = d_model
+
+    def sample(self, rng: np.random.Generator, batch: int, seq_len: int,
+               *, mask_prob: float = 0.08, span: int = 10):
+        ids = rng.integers(0, self.nc, (batch, seq_len))
+        emb = self.codebook[ids] + 0.1 * rng.normal(
+            size=(batch, seq_len, self.d)).astype(np.float32)
+        mask = np.zeros((batch, seq_len), bool)
+        n_starts = max(1, int(mask_prob * seq_len))
+        for b in range(batch):
+            starts = rng.integers(0, max(seq_len - span, 1), n_starts)
+            for s in starts:
+                mask[b, s:s + span] = True
+        return {"frame_embeds": emb.astype(np.float32),
+                "mask": mask, "targets": ids.astype(np.int32)}
+
+    def batches(self, *, batch: int, seq_len: int, seed: int = 0, **kw
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(seed)
+        while True:
+            yield self.sample(rng, batch, seq_len, **kw)

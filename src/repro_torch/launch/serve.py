@@ -17,8 +17,10 @@ over HTTP (``repro.launch.serve`` on one card).
         --full-config --batch 8 --prompt-len 64 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --full-config --batch 8 --prompt-len 64 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \
+        --full-config --batch 4 --prompt-len 64 --max-new 64
 
-``--arch`` takes the nine archs the port runs: the dense text decoders
+``--arch`` takes the registered archs: the dense text decoders
 granite-3-8b, stablelm-12b (head_dim 160, per-head QK norm), starcoder2-7b
 (36 heads over 4 KV heads, a 4096-token window on every layer) and
 nemotron-4-15b (vocab 256000, LayerNorm, squared ReLU); the MoE decoders
@@ -26,12 +28,15 @@ olmoe-1b-7b (64 experts, top-8) and qwen2-moe-a2.7b (60 experts, top-4,
 and a gated shared MLP), whose every forward here routes at full capacity;
 rwkv6-1.6b; the hybrid hymba-1.5b (attention and Mamba heads in every
 layer, 128 meta tokens before each prompt, windowed attention outside
-layers 0, 15 and 31); and the encoder-decoder paper-mt-base (refused here,
-see below).  Any other
-registered name raises at model construction.
+layers 0, 15 and 31); the vision-language backbone llava-next-34b, whose
+static batch carries 4 zero patch embeddings before each prompt, as the
+reference's does; and the encoder-decoder paper-mt-base and the
+encoder-only hubert-xlarge (refused here, see below).
 
 Without ``--full-config`` the registered smoke config runs in fp32, as the
-reference serves it; with it the full config runs in its own compute dtype.
+reference serves it; with it the full config runs in its own compute dtype,
+its random weights drawn in that dtype (an fp32 draw of llava-next-34b's
+36.7 B parameters would not fit on the card).
 ``--device`` defaults to ``cuda`` (``--device cpu`` runs the plain versions
 of the kernels on the CPU).  Every registered decode policy runs
 (``--policy exact|topk|distance|adaptive|topk_tree|locality|draft_model``,
@@ -55,7 +60,8 @@ as they are); ``topk_tree`` raises as for rwkv6, and so does
 ``--policy draft_model``: the meta tokens put the primary's positions ahead
 of a draft's.  An encoder-decoder ``--arch`` (paper-mt-base) is
 refused, as the reference's serve has no seq2seq path: its entry point is
-``repro_torch.core.decode.bpd_decode_seq2seq``.
+``repro_torch.core.decode.bpd_decode_seq2seq``.  An encoder-only ``--arch``
+(hubert-xlarge) exits with the reference's words: it has no decode path.
 
 ``--engine`` schedules 2 × ``--batch`` mixed-length requests through
 ``--batch`` slots of ``repro_torch.serving.ContinuousBatchingEngine`` with
@@ -69,9 +75,10 @@ disaggregates prefill into batches of W behind a handoff queue of
 ``--http`` serves the engine over HTTP/SSE (``repro_torch.serving.server``:
 POST /v1/generate, /drain; GET /healthz /readyz /metrics) on ``--host`` /
 ``--port`` with a wait queue of ``--max-queue``; ``--http-demo`` streams one
-request through it and exits.  The engine serves attention models only,
-as the reference's does (rwkv6-1.6b and hymba-1.5b raise).  ``--mesh-*`` (multi-GPU,
-ROADMAP.md §1 item 8) is not ported and raises.
+request through it and exits.  The engine serves text attention models
+only, as the reference's does (rwkv6-1.6b, hymba-1.5b and llava-next-34b
+raise).  ``--mesh-*`` (multi-GPU, ROADMAP.md §1 item 8) is not ported and
+raises.
 """
 from __future__ import annotations
 
@@ -245,6 +252,8 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
             f"{cfg.name} is an encoder-decoder: this launcher serves "
             f"decoder-only prompts, as the reference's does; decode a source "
             f"with repro_torch.core.decode.bpd_decode_seq2seq")
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only — no decode path")
     if not args.full_config:
         cfg = cfg.replace(dtype="float32")
     if params is None:
@@ -252,7 +261,9 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
             params = bridge.load_checkpoint(args.ckpt_dir, cfg, device=dev)
             print(f"[serve] restored {args.ckpt_dir}")
         else:
-            params = M.init(cfg, seed=args.seed, device=dev)
+            # drawn in the dtype the serve reads them in
+            params = M.init(cfg.replace(param_dtype=cfg.dtype), seed=args.seed,
+                            device=dev)
     params = M.cast_for_compute(params, cfg)
     bundles = draft_bundle(cfg, args, groups)
 
@@ -275,6 +286,9 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
     prompts = task.sample(np.random.default_rng(args.seed + 1), args.batch,
                           args.prompt_len)
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if cfg.modality == "vision_text":
+        batch["patch_embeds"] = torch.zeros((args.batch, 4, cfg.d_model),
+                                            dtype=torch.float32, device=dev)
 
     def sync():
         if dev.type == "cuda":

@@ -23,12 +23,13 @@ def text_len_for(cfg: ModelConfig, seq_len: int) -> int:
 
 def differentiated(cfg: ModelConfig, tc: TrainConfig, params) -> Dict[str, float]:
     """The leaves the reference's gradient reaches ({name: 1.0 or 0.0}):
-    every leaf of a fine-tuned model, or of an MoE model, whose router
-    terms reach the trunk past the frozen hidden states; with a frozen
+    every leaf of a fine-tuned model, of an MoE model, whose router terms
+    reach the trunk past the frozen hidden states, or of an encoder-only
+    model, whose masked-prediction loss stops no gradient; with a frozen
     base otherwise only the heads and the vocab projection, whose gradient
     counts in the clip's global norm even where a mask freezes it."""
     proj = "embed/table" if cfg.tie_embeddings else "lm_head/"
-    every = not tc.freeze_base or cfg.mlp_type == "moe"
+    every = not tc.freeze_base or cfg.mlp_type == "moe" or cfg.is_encoder_only
     return tree_map_with_name(
         lambda name, p: float(every or name.startswith("bpd_heads")
                               or name.startswith(proj)), params)

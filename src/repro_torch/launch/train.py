@@ -8,6 +8,10 @@
         --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
         --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llava-next-34b \
+        --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+        --device cpu --steps 20
 
 Without ``--full-config`` the registered smoke config trains, as the
 reference's launcher trains it; with it the full config.  Both train in
@@ -20,7 +24,9 @@ does.  Metrics are read on the host every ``--log-every`` steps only; an
 MoE arch (olmoe-1b-7b, qwen2-moe-a2.7b) also logs its router terms and the
 share of assignments dropped past capacity.  hymba-1.5b trains through
 autograd over its Mamba scan, on ``--seq`` text tokens after its meta
-tokens.
+tokens.  llava-next-34b trains on ``--seq`` text tokens behind 4 zero patch
+embeddings, as the reference's launcher feeds it; hubert-xlarge on
+``MaskedFrames`` (masked prediction over a codebook of min(vocab, 504)).
 """
 from __future__ import annotations
 
@@ -28,13 +34,14 @@ import argparse
 import time
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.config import TrainConfig, get_config
 from repro_torch.data.pipeline import prefetch
-from repro_torch.data.synthetic import MarkovLM, PhraseMT
+from repro_torch.data.synthetic import MarkovLM, MaskedFrames, PhraseMT
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
 from repro_torch.optim import optimizer_init
@@ -42,12 +49,26 @@ from repro_torch.optim import optimizer_init
 
 def data_for(cfg, batch: int, seq: int, seed: int):
     """The arch's synthetic batches: PhraseMT pairs (source seq // 2, target
-    twice that) for an encoder-decoder, MarkovLM streams for a text LM."""
+    twice that) for an encoder-decoder, MaskedFrames for an audio encoder,
+    MarkovLM streams for an LM, a vision_text one's behind 4 zero patch
+    embeddings."""
     if cfg.is_encoder_decoder:
         task = PhraseMT(vocab=cfg.vocab_size, expand=2, seed=seed)
         return task.batches(batch=batch, src_len=max(seq // 2, 4), seed=seed)
+    if cfg.modality == "audio":
+        task = MaskedFrames(d_model=cfg.d_model,
+                            codebook=min(cfg.vocab_size, 504), seed=seed)
+        return task.batches(batch=batch, seq_len=seq, seed=seed)
     task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2, seed=seed)
-    return task.batches(batch=batch, seq_len=seq, seed=seed)
+    gen = task.batches(batch=batch, seq_len=seq, seed=seed)
+    if cfg.modality == "vision_text":
+        def with_patches():
+            for b in gen:
+                b["patch_embeds"] = np.zeros((batch, 4, cfg.d_model),
+                                             np.float32)
+                yield b
+        return with_patches()
+    return gen
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -3,7 +3,8 @@ time mix + channel mix, or Hymba's attention and Mamba heads side by side +
 dense MLP (the ``attn`` × ``dense``, ``attn`` × ``moe``, ``rwkv6`` ×
 ``rwkv_channel_mix`` and ``hymba`` × ``dense`` paths of
 ``repro.models.blocks``).  An encoder-decoder's decoder blocks add cross
-attention between self attention and the MLP.
+attention between self attention and the MLP; an encoder's blocks
+(hubert's, the encoder-decoder's) attend ``bidirectional``.
 
 Two execution modes:
   * full   — whole-sequence parallel forward (prefill); optionally fills the
@@ -46,27 +47,38 @@ SUPPORTED_BLOCKS = (("attn", "dense"), ("attn", "moe"),
                     ("rwkv6", "rwkv_channel_mix"), ("hymba", "dense"))
 PORTED_ARCHS = ("granite-3-8b", "stablelm-12b", "starcoder2-7b",
                 "nemotron-4-15b", "olmoe-1b-7b", "qwen2-moe-a2.7b",
-                "rwkv6-1.6b", "hymba-1.5b", "paper-mt-base")
+                "rwkv6-1.6b", "hymba-1.5b", "llava-next-34b",
+                "hubert-xlarge", "paper-mt-base")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs text models: decoder-only with attention + dense or
-    MoE MLP blocks, RWKV-6 blocks or Hymba blocks (which alone may prepend
-    meta tokens), and encoder-decoders with attention + dense MLP blocks;
-    other families raise here, before any work."""
+    """The combinations the reference's registered archs use, and no other:
+    decoder-only text models with attention + dense or MoE MLP blocks,
+    RWKV-6 blocks or Hymba blocks (which alone may prepend meta tokens);
+    a vision_text decoder with attention + dense MLP blocks behind its
+    patch prefix (llava-next-34b); an audio encoder with attention + dense
+    MLP blocks (hubert-xlarge); and encoder-decoders with attention +
+    dense MLP blocks.  Anything else raises here, before any work."""
     pair = (cfg.block_type, cfg.mlp_type)
-    ok = pair == SUPPORTED_BLOCKS[0] if cfg.is_encoder_decoder \
-        else pair in SUPPORTED_BLOCKS
-    if not ok or cfg.modality != "text" or cfg.is_encoder_only \
-            or (cfg.num_meta_tokens and cfg.block_type != "hymba"):
+    plain = pair == SUPPORTED_BLOCKS[0]
+    if cfg.is_encoder_decoder:
+        ok = plain and cfg.modality == "text" and not cfg.is_encoder_only
+    elif cfg.is_encoder_only:
+        ok = plain and cfg.modality == "audio"
+    elif cfg.modality == "vision_text":
+        ok = plain
+    else:
+        ok = pair in SUPPORTED_BLOCKS and cfg.modality == "text"
+    if not ok or (cfg.num_meta_tokens and cfg.block_type != "hymba"):
         raise NotImplementedError(
             f"{cfg.name}: block_type={cfg.block_type!r}, mlp_type="
             f"{cfg.mlp_type!r}, modality={cfg.modality!r}, "
-            f"is_encoder_decoder={cfg.is_encoder_decoder} is not ported yet "
-            f"(see ROADMAP.md, 'Modules to port'); the port runs text models "
-            f"with (block_type, mlp_type) in {SUPPORTED_BLOCKS}, "
-            f"encoder-decoders with {SUPPORTED_BLOCKS[0]}: of the registered "
-            f"archs {PORTED_ARCHS}")
+            f"is_encoder_decoder={cfg.is_encoder_decoder}, is_encoder_only="
+            f"{cfg.is_encoder_only} is not ported (see ROADMAP.md, 'Modules "
+            f"to port'); the port runs text decoders with (block_type, "
+            f"mlp_type) in {SUPPORTED_BLOCKS}, and vision_text decoders, "
+            f"audio encoders and encoder-decoders with {SUPPORTED_BLOCKS[0]}: "
+            f"the registered archs {PORTED_ARCHS}")
 
 
 def check_tree_supported(cfg: ModelConfig) -> None:

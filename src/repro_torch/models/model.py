@@ -1,5 +1,7 @@
-"""Model assembly: the decoder-only text ``CausalLM`` of ``repro.models.model``
-(the encoder-decoder lives in ``seq2seq``; ``init`` sends its configs there).
+"""Model assembly, as ``repro.models.model``: the decoder-only ``CausalLM``
+(the text families, llava-next-34b's backbone behind its patch prefix, the
+RWKV-6 and Hymba families) and the encoder-only stack (hubert-xlarge).  The
+encoder-decoder lives in ``seq2seq``; ``init`` sends its configs there.
 
 Parameters live in a ``ParamTree``: the reference's nested dict / list
 pytree as an ``nn.Module``, so ``state_dict()`` keys are the reference's key
@@ -99,6 +101,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
     if cfg.num_meta_tokens:
         p["meta_tokens"] = normal(gen, (cfg.num_meta_tokens, cfg.d_model),
                                   std=0.02, **kw)
+    if cfg.is_encoder_only:
+        p["pos_embed"] = normal(gen, (cfg.max_seq_len, cfg.d_model), std=0.02,
+                                **kw)
+        p["mask_embed"] = normal(gen, (cfg.d_model,), std=0.02, **kw)
     return ParamTree(p)
 
 
@@ -148,25 +154,44 @@ def set_trainable(params: ParamTree, mask) -> ParamTree:
 
 
 # ---------------------------------------------------------------------------
-# Input embedding (text)
+# Input embedding (text / vision_text / audio)
 # ---------------------------------------------------------------------------
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
-    """batch: {"tokens": (B, S) int32} -> (B, M + S, d) in the compute
-    dtype, the M = ``num_meta_tokens`` learnt meta tokens (Hymba) first."""
+    """The (B, S, d) input embeddings in the compute dtype.  batch keys by
+    modality:
+       text        : tokens (B, T) int32
+       vision_text : patch_embeds (B, P, d) float + tokens (B, T); without
+                     patch_embeds the batch is text only
+       audio       : frame_embeds (B, S, d) float [+ mask (B, S) bool]
+    The M = ``num_meta_tokens`` learnt meta tokens (Hymba) come first, then
+    the patches, then the tokens.  An audio frame where ``mask`` is set is
+    replaced by ``mask_embed`` (masked-prediction training), and every
+    frame gets ``pos_embed`` of its position."""
     dtype = cfg.compute_dtype
+    if cfg.modality == "audio":
+        h = batch["frame_embeds"].to(dtype)
+        if "mask" in batch:
+            h = torch.where(batch["mask"][..., None].to(torch.bool),
+                            params["mask_embed"].to(dtype), h)
+        return h + params["pos_embed"][:h.shape[1]].to(dtype)
     h = embed_apply(params["embed"], batch["tokens"]).to(dtype)
-    if not cfg.num_meta_tokens:
-        return h
-    meta = params["meta_tokens"].to(dtype).expand(h.shape[0], -1, -1)
-    return torch.cat([meta, h], dim=1)
+    parts = []
+    if cfg.num_meta_tokens:
+        parts.append(params["meta_tokens"].to(dtype).expand(h.shape[0], -1, -1))
+    if cfg.modality == "vision_text" and "patch_embeds" in batch:
+        parts.append(batch["patch_embeds"].to(dtype))
+    return torch.cat(parts + [h], dim=1) if parts else h
 
 
 def prefix_len(cfg: ModelConfig, batch: Dict) -> int:
     """Number of non-text positions preceding the text tokens: the meta
-    tokens."""
-    return cfg.num_meta_tokens
+    tokens, then a vision_text batch's patches."""
+    n = cfg.num_meta_tokens
+    if cfg.modality == "vision_text" and "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -174,22 +199,25 @@ def prefix_len(cfg: ModelConfig, batch: Dict) -> int:
 # ---------------------------------------------------------------------------
 
 
-def forward_hidden(params, cfg: ModelConfig, h, *, positions=None, caches=None,
+def forward_hidden(params, cfg: ModelConfig, h, *, positions=None,
+                   bidirectional: bool = False, caches=None,
                    kv_chunk: int = 0, moe_full_capacity: bool = False,
                    metrics: Optional[Dict] = None):
     """Whole-sequence forward.  h: (B,S,d) embeddings.
     Returns (hidden, caches) — caches filled if given (prefill).
-    ``kv_chunk`` > 0 bounds each layer's score matrix to (S, kv_chunk)
-    (``attention.attn_full``).  MoE layers drop nothing under
-    ``moe_full_capacity`` (every decode path's prefill; training leaves it
-    off, as the reference does); ``metrics``, a dict, receives their
-    metrics averaged over layers (the reference returns them as a middle
-    element)."""
+    ``bidirectional``: every position sees every other, with no RoPE (the
+    encoder-only stack).  ``kv_chunk`` > 0 bounds each layer's score
+    matrix to (S, kv_chunk) (``attention.attn_full``).  MoE layers drop
+    nothing under ``moe_full_capacity`` (every decode path's prefill;
+    training leaves it off, as the reference does); ``metrics``, a dict,
+    receives their metrics averaged over layers (the reference returns
+    them as a middle element)."""
     new_caches = list(caches) if caches is not None else None
     for i, bp in enumerate(params["blocks"]):
         c = caches[i] if caches is not None else None
         m = {} if metrics is not None else None
-        h, c_out = block_full(bp, cfg, i, h, positions=positions, cache=c,
+        h, c_out = block_full(bp, cfg, i, h, positions=positions,
+                              bidirectional=bidirectional, cache=c,
                               kv_chunk=kv_chunk,
                               moe_full_capacity=moe_full_capacity, metrics=m)
         for k, v in (m or {}).items():

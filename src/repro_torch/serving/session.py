@@ -212,6 +212,9 @@ class DecodeSession:
     def _build_serving_fns(self, ecfg: EngineConfig, pol) -> ServingFns:
         cfg, dec, dev = self.cfg, self.dec, self.device
         block_k = dec.block_k or cfg.bpd_k
+        # the prefix every request shares: the meta tokens.  The admission
+        # batch carries tokens only, so no per-request patch prefix reaches
+        # a shared page (the engine refuses modality != "text" besides)
         prefix = cfg.num_meta_tokens
         plen_max = ecfg.max_prompt_len
         context_len = prefix + plen_max + ecfg.max_new_cap

@@ -319,7 +319,14 @@ def test_forward_hidden_and_decode_block_step(dense):
 
 
 def test_unported_families_raise():
-    llava = jconfig.get_config("llava-next-34b", smoke=True)    # vision_text
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init(tconfig.ModelConfig(**dataclasses.asdict(llava)),
-                    device="cpu")
+    """Every registered arch is ported; a combination none of them uses
+    still raises before any work: a vision_text backbone with MoE MLPs, an
+    audio decoder, a text encoder, an encoder-decoder with MoE MLPs."""
+    llava = tconfig.get_config("llava-next-34b", smoke=True)
+    hubert = tconfig.get_config("hubert-xlarge", smoke=True)
+    moe = dict(mlp_type="moe", num_experts=4, num_experts_per_tok=2)
+    for cfg in (llava.replace(**moe), hubert.replace(is_encoder_only=False),
+                hubert.replace(modality="text"),
+                tconfig.get_config("paper-mt-base", smoke=True).replace(**moe)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmodel.init(cfg, device="cpu")

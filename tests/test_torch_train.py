@@ -552,11 +552,17 @@ def test_rwkv6_training_refused():
 
 
 def test_encoder_only_and_unported_families_refused():
-    with pytest.raises(NotImplementedError, match="masked-prediction.*ROADMAP"):
+    """An audio encoder trains on the masked-prediction loss; a text
+    encoder and a vision_text backbone with MoE MLPs, which no registered
+    arch uses, raise."""
+    assert ttrain.loss_fn_for(port_cfg(tiny_dense(
+        is_encoder_only=True, modality="audio"))) is ttrain.masked_prediction_loss
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.loss_fn_for(port_cfg(tiny_dense(is_encoder_only=True)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.loss_fn_for(port_cfg(jconfig.get_config("llava-next-34b",
-                                                       smoke=True)))
+                                                       smoke=True)).replace(
+            mlp_type="moe", num_experts=4, num_experts_per_tok=2))
     moe = tconfig.get_config("olmoe-1b-7b", smoke=True)     # ported since MoE
     assert ttrain.loss_fn_for(moe) is ttrain.lm_loss
 
