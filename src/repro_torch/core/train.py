@@ -298,13 +298,9 @@ def masked_prediction_loss(params, cfg: ModelConfig, tc: TrainConfig,
 def loss_fn_for(cfg: ModelConfig) -> Callable:
     """The reference's choice, in its order: ``masked_prediction_loss`` for
     an encoder-only model, ``seq2seq_loss`` for an encoder-decoder,
-    ``lm_loss`` for a decoder-only attention model; RWKV-6 and the
-    unported combinations raise."""
-    if cfg.block_type == "rwkv6":
-        raise NotImplementedError(
-            f"{cfg.name}: training RWKV-6 needs a backward for the rwkv6_scan "
-            f"kernel (an autograd.Function with a hand-written reverse scan), "
-            f"which is not ported yet (ROADMAP.md §1 item 6)")
+    ``lm_loss`` for a decoder-only model, RWKV-6 included (its prefill scan
+    runs ``kernels.rwkv6_scan.RWKV6Scan`` under autograd, whose backward is
+    the reverse scan); the unported combinations raise."""
     check_supported(cfg)
     if cfg.is_encoder_only:
         return masked_prediction_loss

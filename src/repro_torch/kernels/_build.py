@@ -26,7 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("verify_attention", "fused_verify", "fused_heads",
-           "tree_verify_attention", "paged_verify_attention", "rwkv6_scan")
+           "tree_verify_attention", "paged_verify_attention", "rwkv6_scan",
+           "rwkv6_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -35,14 +36,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches per kernel since the last reset_launches(); read by chip_smoke.py
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# of LAUNCHES["rwkv6_scan"], those that wrote the training forward's
+# checkpoints (kernels/rwkv6_scan.py); reset with LAUNCHES
+CHECKPOINTED_SCANS = 0
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
+    global CHECKPOINTED_SCANS
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    CHECKPOINTED_SCANS = 0
 
 
 def require(kernel: str, cond: bool, msg: str) -> None:

@@ -47,6 +47,14 @@
 // its products take two terms.  Plain TF32 misses the 1e-4 tolerance
 // (tests/test_torch_rwkv6_chunk.py).
 // The result does not depend on the chunk length the caller names.
+//
+// Checkpoints (the training path): given a non-null ckpt and a chunk of C
+// steps, C a multiple of the 16-step tile, the consumers also write the
+// state at the start of every chunk, (B, H, ceil(S / C), D, D) f32, from
+// the accumulators they hold at that tile boundary: what the backward
+// (csrc/rwkv6_scan_bwd.cu) recomputes each chunk's states from.  A null
+// ckpt writes nothing and leaves y and the final state bit for bit as they
+// are.
 #include "common.cuh"
 
 #include <cstdint>
@@ -318,10 +326,26 @@ __device__ __forceinline__ void produce(unsigned char* smem, float* own,
 // consumers: the state's columns, a tile at a time
 // ---------------------------------------------------------------------------
 
+// S^T's accumulator slice of this warp's columns, as (i, j) rows of the
+// (D, D) state at ``out``.
+template <int D>
+__device__ __forceinline__ void store_state(float* out, const float (&st)[D / 8][4],
+                                            int j0, int g, int q) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int i = 8 * n + 2 * q;
+    out[i * D + j0 + g] = st[n][0];
+    out[(i + 1) * D + j0 + g] = st[n][1];
+    out[i * D + j0 + g + 8] = st[n][2];
+    out[(i + 1) * D + j0 + g + 8] = st[n][3];
+  }
+}
+
 template <typename T, int D>
 __device__ __forceinline__ void consume(const float* bufs, float* y,
-                                        float* state, size_t base, size_t step,
-                                        int S, int tiles, int bh) {
+                                        float* state, float* ckpt,
+                                        int chunk_tiles, size_t base,
+                                        size_t step, int S, int tiles, int bh) {
   using L = Layout<T, D>;
   constexpr bool kVExact = sizeof(T) == 2;   // bf16 is exact in TF32
   constexpr int PB = L::kPadB, PP = L::kPadP;
@@ -335,9 +359,13 @@ __device__ __forceinline__ void consume(const float* bufs, float* y,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
 
+  const int nchunks = (tiles + chunk_tiles - 1) / chunk_tiles;
   for (int tile = 0; tile < tiles; ++tile) {
     const int pb = tile & 1;
     const float* buf = bufs + pb * L::kBuf;
+    if (ckpt != nullptr && tile % chunk_tiles == 0)   // a chunk starts here
+      store_state<D>(ckpt + (size_t(bh) * nchunks + tile / chunk_tiles) * D * D,
+                     st, j0, g, q);
     bar_sync(kBarFull + pb, L::kThreads);
 
     // V^T as the A operand (rows j, k index s), a k tile per sub-chunk
@@ -422,15 +450,7 @@ __device__ __forceinline__ void consume(const float* bufs, float* y,
     if (tile + 2 < tiles) bar_arrive(kBarEmpty + pb, L::kThreads);
   }
 
-  float* out = state + size_t(bh) * D * D;   // (b, h, i, j)
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int i = 8 * n + 2 * q;
-    out[i * D + j0 + g] = st[n][0];
-    out[(i + 1) * D + j0 + g] = st[n][1];
-    out[i * D + j0 + g + 8] = st[n][2];
-    out[(i + 1) * D + j0 + g + 8] = st[n][3];
-  }
+  store_state<D>(state + size_t(bh) * D * D, st, j0, g, q);   // (b, h, i, j)
 }
 
 template <typename T, int D>
@@ -438,7 +458,8 @@ __global__ void __launch_bounds__(Layout<T, D>::kThreads)
 rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ logw,
                   const float* __restrict__ u, float* __restrict__ y,
-                  float* __restrict__ state, int S, int H) {
+                  float* __restrict__ state, float* __restrict__ ckpt,
+                  int chunk_tiles, int S, int H) {
   using L = Layout<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* own = reinterpret_cast<float*>(smem + L::kStages * L::kStageBytes);
@@ -456,13 +477,14 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     produce<T, D>(smem, own, bufs, r, k, v, logw,
                   u[h * D + (threadIdx.x - L::kCons) % D], base, step, S, tiles);
   else
-    consume<T, D>(bufs, y, state, base, step, S, tiles, bh);
+    consume<T, D>(bufs, y, state, ckpt, chunk_tiles, base, step, S, tiles, bh);
 }
 
 template <typename T, int D>
 cudaError_t launch_d(const void* r, const void* k, const void* v,
                      const float* logw, const float* u, float* y, float* state,
-                     int B, int S, int H, cudaStream_t stream) {
+                     float* ckpt, int chunk_tiles, int B, int S, int H,
+                     cudaStream_t stream) {
   using L = Layout<T, D>;
   auto kernel = rwkv6_scan_kernel<T, D>;
   static std::atomic<unsigned long long> configured{0};
@@ -470,19 +492,20 @@ cudaError_t launch_d(const void* r, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   kernel<<<B * H, L::kThreads, L::kBytes, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), logw, u, y, state, S, H);
+      static_cast<const T*>(v), logw, u, y, state, ckpt, chunk_tiles, S, H);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const float* logw, const float* u, float* y, float* state,
-                   int B, int S, int H, int D, cudaStream_t stream) {
+                   float* ckpt, int ct, int B, int S, int H, int D,
+                   cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_d<T, 16>(r, k, v, logw, u, y, state, B, S, H, stream);
-    case 32: return launch_d<T, 32>(r, k, v, logw, u, y, state, B, S, H, stream);
-    case 64: return launch_d<T, 64>(r, k, v, logw, u, y, state, B, S, H, stream);
-    case 128: return launch_d<T, 128>(r, k, v, logw, u, y, state, B, S, H, stream);
+    case 16: return launch_d<T, 16>(r, k, v, logw, u, y, state, ckpt, ct, B, S, H, stream);
+    case 32: return launch_d<T, 32>(r, k, v, logw, u, y, state, ckpt, ct, B, S, H, stream);
+    case 64: return launch_d<T, 64>(r, k, v, logw, u, y, state, ckpt, ct, B, S, H, stream);
+    case 128: return launch_d<T, 128>(r, k, v, logw, u, y, state, ckpt, ct, B, S, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -491,13 +514,18 @@ cudaError_t launch(const void* r, const void* k, const void* v,
 
 // The wrapper (kernels/rwkv6_scan.py) has checked devices, shapes, dtypes,
 // contiguity and 16-byte alignment; this re-checks what would make the
-// launch unsafe.
+// launch unsafe.  ckpt may be null (no checkpoints; chunk is then not
+// read), else chunk is a positive multiple of 16.
 BPD_EXPORT int rwkv6_scan(const void* r, const void* k, const void* v,
                           const void* logw, const void* u, void* y,
-                          void* state, int dtype, int B, int S, int H, int D,
-                          void* stream) {
+                          void* state, void* ckpt, int chunk, int dtype, int B,
+                          int S, int H, int D, void* stream) {
   if (B < 1 || S < 1 || H < 1 || size_t(B) * H > size_t(INT_MAX))
     return cudaErrorInvalidValue;
+  if (ckpt != nullptr && (chunk < kTile || chunk % kTile != 0))
+    return cudaErrorInvalidValue;
+  const int ct = ckpt != nullptr ? chunk / kTile : 1;
+  float* ck = static_cast<float*>(ckpt);
   for (const void* p : {r, k, v, logw})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
   const float* lw = static_cast<const float*>(logw);
@@ -506,8 +534,8 @@ BPD_EXPORT int rwkv6_scan(const void* r, const void* k, const void* v,
   float* st = static_cast<float*>(state);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(r, k, v, lw, uu, yy, st, B, S, H, D, s);
+    return launch<float>(r, k, v, lw, uu, yy, st, ck, ct, B, S, H, D, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(r, k, v, lw, uu, yy, st, B, S, H, D, s);
+    return launch<__nv_bfloat16>(r, k, v, lw, uu, yy, st, ck, ct, B, S, H, D, s);
   return cudaErrorInvalidValue;
 }

@@ -14,7 +14,7 @@ from repro_torch.kernels.block_attention import (tree_verify_attention_cuda,
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda
 from repro_torch.kernels.fused_verify import fused_verify_cuda
 from repro_torch.kernels.paged_attention import paged_verify_attention_cuda
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+from repro_torch.kernels.rwkv6_scan import RWKV6Scan, rwkv6_scan_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -68,11 +68,22 @@ def fused_heads_topk(o, w_vocab, *, vocab: int, top_t: int = 4):
 
 def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 16):
     """RWKV-6 wkv scan from a zero state (see kernels.rwkv6_scan).  Returns
-    (y (B, S, H, D) f32, final state (B, H, D, D) f32).  ``chunk`` is the
-    reference's tile length, taken for call compatibility; the result does
-    not depend on it (the kernel runs the closed form on 8-step
-    sub-chunks, the plain version runs step by step)."""
+    (y (B, S, H, D) f32, final state (B, H, D, D) f32).
+
+    With grad enabled and any of r, k, v, logw or u requiring grad, the
+    scan runs as ``RWKV6Scan`` (either device): the forward also writes the
+    state at the start of every ``chunk`` steps, and the backward is the
+    reverse scan from those checkpoints (``rwkv6_scan_bwd``).  ``chunk`` is
+    thus the reference's checkpoint interval (its ``_wkv_scan(chunk=)``);
+    on the card it is a multiple of 16.  Otherwise (decode, serve, anything
+    under ``torch.no_grad``) the plain forward: no checkpoints, no saved
+    inputs.  The result does not depend on ``chunk`` (the kernel runs the
+    closed form on 8-step sub-chunks, the plain version step by step)."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    fn = rwkv6_scan_cuda if _on_card(r) else ref.rwkv6_scan
+    on_card = _on_card(r)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, logw, u)):
+        return RWKV6Scan.apply(r, k, v, logw, u, chunk)
+    fn = rwkv6_scan_cuda if on_card else ref.rwkv6_scan
     return fn(r, k, v, logw, u)

@@ -101,22 +101,76 @@ def paged_verify_attention(q, kp, vp, tbl, q_pos, kv_pos, *, window: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def rwkv6_scan(r, k, v, logw, u):
+def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 0):
     """r/k/v/logw: (B, S, H, D); u: (H, D).  Zero initial state;
     S_t = diag(w_t) S_{t-1} + k_tᵀ v_t, y_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)
     with w = exp(logw).  Returns (y (B, S, H, D) f32, final state (B, H, D,
-    D) f32)."""
+    D) f32); with ``chunk`` > 0 also the state at the start of every chunk
+    of that many steps, (B, H, ⌈S / chunk⌉, D, D) f32 (the first zero): the
+    checkpoints ``rwkv6_scan_bwd`` recomputes each chunk's states from."""
     b, s, h, d = r.shape
     rf, kf, vf = (t.float() for t in (r, k, v))
     wf = torch.exp(logw.float())
     uf = u.float()[None, :, :, None]
     state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
-    ys = []
+    ys, checkpoints = [], []
     for t in range(s):
+        if chunk and t % chunk == 0:
+            checkpoints.append(state)
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B, H, D, D)
         ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], state + uf * kv))
         state = wf[:, t, :, :, None] * state + kv
+    if chunk:
+        return torch.stack(ys, dim=1), state, torch.stack(checkpoints, dim=2)
     return torch.stack(ys, dim=1), state
+
+
+def rwkv6_scan_bwd(r, k, v, logw, u, checkpoints, dy, dstate, *, chunk: int):
+    """The gradient of ``rwkv6_scan`` by the sequential fp32 reverse scan.
+
+    ``checkpoints`` (B, H, ⌈S / chunk⌉, D, D) are the forward's states at
+    the chunk starts; ``dy`` (B, S, H, D) and ``dstate`` (B, H, D, D, or
+    None for zeros) the cotangents of y and of the final state.  Each chunk,
+    last first, recomputes its states S_{t-1} from its checkpoint, then
+    walks back through its steps carrying dS = ∂L/∂S_t (``dstate`` after
+    the last step):
+
+      dr_t[i]    = Σ_j dy_t[j] (S_{t-1}[i,j] + u[i] k_t[i] v_t[j])
+      dk_t[i]    = Σ_j dS[i,j] v_t[j] + u[i] r_t[i] (dy_t · v_t)
+      dv_t[j]    = Σ_i dS[i,j] k_t[i] + (Σ_i r_t[i] u[i] k_t[i]) dy_t[j]
+      dlogw_t[i] = w_t[i] Σ_j dS[i,j] S_{t-1}[i,j]
+      du[i]     += Σ_b r_t[i] k_t[i] (dy_t · v_t)
+      dS        ← diag(w_t) dS + r_tᵀ dy_t
+
+    Returns (dr, dk, dv, dlogw (B, S, H, D), du (H, D)), all f32."""
+    b, s, h, d = r.shape
+    rf, kf, vf, dyf = (t.float() for t in (r, k, v, dy))
+    wf = torch.exp(logw.float())
+    uf = u.float()
+    ds = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+          if dstate is None else dstate.float())
+    dr, dk, dv, dlogw = (torch.zeros((b, s, h, d), dtype=torch.float32,
+                                     device=r.device) for _ in range(4))
+    du = torch.zeros((h, d), dtype=torch.float32, device=r.device)
+    for c in reversed(range(-(-s // chunk))):
+        t0, t1 = c * chunk, min(s, (c + 1) * chunk)
+        state, prev = checkpoints[:, :, c].float(), []
+        for t in range(t0, t1):
+            prev.append(state)
+            state = (wf[:, t, :, :, None] * state
+                     + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+        for t in reversed(range(t0, t1)):
+            sp = prev[t - t0]
+            rt, kt, vt, wt, dyt = (x[:, t] for x in (rf, kf, vf, wf, dyf))
+            dyv = (dyt * vt).sum(-1, keepdim=True)                 # (B, H, 1)
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + uf * kt * dyv
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", ds, vt) + uf * rt * dyv
+            dv[:, t] = (torch.einsum("bhij,bhi->bhj", ds, kt)
+                        + (rt * uf * kt).sum(-1, keepdim=True) * dyt)
+            dlogw[:, t] = wt * (ds * sp).sum(-1)
+            du += (rt * kt * dyv).sum(0)
+            ds = wt[..., None] * ds + rt[..., :, None] * dyt[..., None, :]
+    return dr, dk, dv, dlogw, du
 
 
 # ---------------------------------------------------------------------------

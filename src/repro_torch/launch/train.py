@@ -8,6 +8,8 @@
         --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
         --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+        --device cpu --steps 20 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch llava-next-34b \
         --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
@@ -24,7 +26,10 @@ does.  Metrics are read on the host every ``--log-every`` steps only; an
 MoE arch (olmoe-1b-7b, qwen2-moe-a2.7b) also logs its router terms and the
 share of assignments dropped past capacity.  hymba-1.5b trains through
 autograd over its Mamba scan, on ``--seq`` text tokens after its meta
-tokens.  llava-next-34b trains on ``--seq`` text tokens behind 4 zero patch
+tokens.  rwkv6-1.6b trains on MarkovLM through its prefill scan's
+autograd.Function (``kernels.rwkv6_scan.RWKV6Scan``: on the card the CUDA
+scan with checkpoints every 16 steps and the CUDA reverse scan).
+llava-next-34b trains on ``--seq`` text tokens behind 4 zero patch
 embeddings, as the reference's launcher feeds it; hubert-xlarge on
 ``MaskedFrames`` (masked prediction over a codebook of min(vocab, 504)).
 """

@@ -11,9 +11,13 @@ The decay chain is fp32 from the fp32 decay weights, as the reference
 reads them (``models.model.cast_for_compute`` keeps those leaves fp32).
 The prefill's wkv recurrence (zero initial state, final state only) runs
 ``ops.rwkv6_scan``: the CUDA kernel on the card, its plain version on the
-CPU.  The decode block keeps the per-step states that blockwise parallel
-decoding rolls back to (``blocks.commit_cache``), in the reference's
-per-step loop.
+CPU.  It is also the training forward: under autograd it runs as
+``kernels.rwkv6_scan.RWKV6Scan``, which saves the state every 16 steps and
+whose backward is the reverse scan from them (a second CUDA kernel on the
+card), where the reference differentiates its jnp scan of 128-step chunks
+under ``jax.checkpoint``.  The decode block keeps the per-step states that
+blockwise parallel decoding rolls back to (``blocks.commit_cache``), in the
+reference's per-step loop.
 """
 from __future__ import annotations
 
@@ -93,9 +97,9 @@ def _wkv_step(uf):
 def _wkv_scan(r, k, v, logw, u, state0=None, *, return_states: bool = False):
     """The wkv recurrence.  r, k, v, logw: (B,S,H,D); u: (H,D).
 
-    return_states=False (prefill): from a zero state through
-    ``ops.rwkv6_scan``; returns (y (B,S,H,D) f32, final state (B,H,D,D)
-    f32).  A carried-in ``state0`` raises: the reference never scans a
+    return_states=False (prefill and training): from a zero state through
+    ``ops.rwkv6_scan`` (differentiable); returns (y (B,S,H,D) f32, final
+    state (B,H,D,D) f32).  A carried-in ``state0`` raises: the reference never scans a
     prefill from one, and the kernel starts from zero.
 
     return_states=True (decode, S == block_k): the per-step loop from

@@ -18,7 +18,8 @@ from repro_torch.kernels.block_attention import (  # noqa: E402
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
 from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_verify_attention_cuda  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    RWKV6Scan, rwkv6_scan_bwd_cuda, rwkv6_scan_cuda)
 from repro_torch.kernels.tree_mask import TreeTopology, default_tree  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 
@@ -600,6 +601,85 @@ def test_rwkv6_scan_kernel_extreme_decay(cuda, d, kind, dtype):
                                    atol=1e-4 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_rwkv6_scan_checkpoints_leave_the_forward_bit_for_bit(cuda, chunk, dtype):
+    """With checkpoints the kernel's y and final state are bit for bit those
+    without, and each checkpoint is the plain recurrence's state at its
+    chunk's start."""
+    gen = torch.Generator().manual_seed(chunk)
+    b, s, h, d = 2, 77, 3, 64
+    r, k, v = (_randn(gen, (b, s, h, d), dtype, cuda) for _ in range(3))
+    logw = -torch.exp(_randn(gen, (b, s, h, d), torch.float32, cuda) * 0.5 - 1.0)
+    u = _randn(gen, (h, d), torch.float32, cuda) * 0.1
+    y0, s0 = rwkv6_scan_cuda(r, k, v, logw, u)
+    y1, s1, ck = rwkv6_scan_cuda(r, k, v, logw, u, chunk=chunk)
+    _, _, want = ref.rwkv6_scan(r, k, v, logw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+    assert ck.shape == want.shape == (b, h, -(-s // chunk), d, d)
+    torch.testing.assert_close(ck, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,chunk,logw_kind,with_dstate", [
+    (1, 1, 2, 16, 16, "mild", False),
+    (2, 17, 3, 32, 16, "mild", True),
+    (2, 37, 2, 64, 32, "-8", True),
+    (1, 40, 2, 128, 16, "-20", False),
+    (2, 33, 2, 64, 16, "mixed", True),
+    (4, 512, 32, 64, 16, "mild", False),    # rwkv6-1.6b's training shape
+])
+def test_rwkv6_scan_bwd_kernel_matches_plain(cuda, b, s, h, d, chunk,
+                                             logw_kind, with_dstate, dtype):
+    """The reverse scan against its plain version from the same
+    checkpoints: each output within 1e-4 of its own max |value|."""
+    gen = torch.Generator().manual_seed(s * 10 + d)
+    r, k, v = (_randn(gen, (b, s, h, d), dtype, cuda) for _ in range(3))
+    if logw_kind == "mild":
+        logw = -torch.exp(_randn(gen, (b, s, h, d), torch.float32, cuda) * 0.5 - 1.0)
+    else:
+        logw = torch.full((b, s, h, d), -20.0 if logw_kind != "-8" else -8.0,
+                          device=cuda)
+        if logw_kind == "mixed":
+            logw[..., ::2] = 0.0
+    u = _randn(gen, (h, d), torch.float32, cuda) * 0.1
+    dy = _randn(gen, (b, s, h, d), torch.float32, cuda)
+    ds = _randn(gen, (b, h, d, d), torch.float32, cuda) if with_dstate else None
+    _, _, ck = ref.rwkv6_scan(r, k, v, logw, u, chunk=chunk)
+    got = rwkv6_scan_bwd_cuda(r, k, v, logw, u, ck, dy, ds, chunk=chunk)
+    want = ref.rwkv6_scan_bwd(r, k, v, logw, u, ck, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def test_rwkv6_scan_autograd_on_the_card(cuda):
+    """``RWKV6Scan`` on CUDA tensors launches the forward with checkpoints
+    and the backward once each, and its gradients equal the CPU's."""
+    gen = torch.Generator().manual_seed(5)
+    b, s, h, d = 2, 45, 2, 32
+    cpu = [torch.randn((b, s, h, d), generator=gen) for _ in range(3)]
+    cpu.append(-torch.exp(torch.randn((b, s, h, d), generator=gen) * 0.5 - 1.0))
+    cpu.append(torch.randn((h, d), generator=gen) * 0.1)
+    w_y = torch.randn((b, s, h, d), generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = [x.detach().to(dev).requires_grad_(True) for x in cpu]
+        _build.reset_launches()
+        y, state = RWKV6Scan.apply(*xs, 16)
+        (y * w_y.to(dev)).sum().backward()
+        grads.append([x.grad.cpu() for x in xs])
+    assert _build.LAUNCHES["rwkv6_scan"] == _build.LAUNCHES["rwkv6_scan_bwd"] == 1
+    assert _build.CHECKPOINTED_SCANS == 1
+    for g, w in zip(grads[1], grads[0]):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
 def test_rwkv6_scan_kernel_refuses_other_head_dims(cuda):
     x = torch.zeros((1, 4, 1, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim 48"):
@@ -635,7 +715,11 @@ def test_every_launch_is_counted(cuda):
                                 torch.ones((1, 2), dtype=torch.int32, device=cuda),
                                 pos, node + 1)
     rkv = torch.zeros((1, 3, 2, 16), device=cuda)
-    rwkv6_scan_cuda(rkv, rkv, rkv, rkv, torch.zeros((2, 16), device=cuda))
+    u = torch.zeros((2, 16), device=cuda)
+    rwkv6_scan_cuda(rkv, rkv, rkv, rkv, u)
+    rwkv6_scan_bwd_cuda(rkv, rkv, rkv, rkv, u,
+                        torch.zeros((1, 2, 1, 16, 16), device=cuda), rkv, None,
+                        chunk=16)
     assert _build.LAUNCHES == {name: 1 for name in _build.KERNELS}
 
 

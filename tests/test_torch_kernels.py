@@ -20,7 +20,8 @@ from repro_torch.kernels.block_attention import (  # noqa: E402
 from repro_torch.kernels.fused_heads import fused_heads_topk_cuda  # noqa: E402
 from repro_torch.kernels.fused_verify import fused_verify_cuda  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_verify_attention_cuda  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    rwkv6_scan_bwd_cuda, rwkv6_scan_cuda)
 from repro_torch.kernels.tree_mask import TreeTopology, default_tree  # noqa: E402
 
 torch.set_num_threads(2)
@@ -408,7 +409,8 @@ def test_other_devices_raise():
 
 @pytest.mark.parametrize("call", ["verify_attention", "fused_verify",
                                   "fused_heads", "tree_verify_attention",
-                                  "paged_verify_attention", "rwkv6_scan"])
+                                  "paged_verify_attention", "rwkv6_scan",
+                                  "rwkv6_scan_bwd"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers check their inputs before any launch: a CPU
     tensor is refused, never computed."""
@@ -431,6 +433,11 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
         elif call == "rwkv6_scan":
             rkv = torch.zeros((1, 3, 2, 16))
             rwkv6_scan_cuda(rkv, rkv, rkv, rkv, torch.zeros((2, 16)))
+        elif call == "rwkv6_scan_bwd":
+            rkv = torch.zeros((1, 3, 2, 16))
+            rwkv6_scan_bwd_cuda(rkv, rkv, rkv, rkv, torch.zeros((2, 16)),
+                                torch.zeros((1, 2, 1, 16, 16)), rkv, None,
+                                chunk=16)
         elif call == "fused_verify":
             fused_verify_cuda(torch.zeros((1, 3, 16)),
                               torch.zeros((1, 3), dtype=torch.int32),

@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from conftest import tiny_dense, tiny_rwkv, tiny_seq2seq  # noqa: E402
+from conftest import tiny_dense, tiny_seq2seq  # noqa: E402
 from repro import config as jconfig  # noqa: E402
 from repro.core import distill as jdistill  # noqa: E402
 from repro.core import heads as jheads  # noqa: E402
@@ -542,13 +542,6 @@ def test_distill_seq2seq_to_causal_batches_match_reference(s2s):
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
-
-
-def test_rwkv6_training_refused():
-    with pytest.raises(NotImplementedError, match="rwkv6_scan.*ROADMAP"):
-        ttrain.loss_fn_for(port_cfg(tiny_rwkv()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(port_cfg(tiny_rwkv()), tconfig.TrainConfig())
 
 
 def test_encoder_only_and_unported_families_refused():
