@@ -27,10 +27,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 attention the faster of SDPA on repeated K/V and SDPA with
                 enable_gqa), the fp32 time of every kernel beside its fp32
                 bound (operations over the 67 TFLOP/s CUDA-core peak, or
+                for fused_heads three TF32 products over the 495 TFLOP/s
+                TF32 peak with its old CUDA-core bound beside it, or
                 bytes) and its fp32 yardstick where there is one (SDPA;
                 torch.mm with TF32 off, then torch.topk; torch.argmax,
                 then the compare and scan), fused_heads at
-                rwkv6's shape, fused_heads and fused_verify beside a
+                rwkv6's shape in bf16 and fp32, fused_heads and
+                fused_verify beside a
                 two-call comparator (torch.mm then torch.topk; torch.argmax
                 then the compare and scan; not one call, so not
                 library_ms), and the bound (bytes / 3.35 TB/s or FLOPs /
@@ -426,7 +429,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core rate
-              "float32": 67e12}           # fp32 outside the tensor cores
+              "float32": 67e12,           # fp32 outside the tensor cores
+              "tf32": 495e12}             # dense TF32 tensor-core rate
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_TOL = 1e-4                           # relative, and of max|out| absolute:
                                           # fp32 sums in another order
@@ -505,11 +509,14 @@ def bound(byte_count: int, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fp32_row(ms, byte_count, flops, yardstick_ms=None, yardstick=None):
+def fp32_row(ms, byte_count, flops, yardstick_ms=None, yardstick=None, *,
+             peak="float32"):
     """A kernel's fp32 numbers for the kernel table: its time, its bound
-    (bytes over 3.35 TB/s or the operations over the fp32 CUDA-core peak)
-    and, where there is one, the fp32 yardstick's time (TF32 off)."""
-    bms, by = bound(byte_count, flops, "float32")
+    (bytes over 3.35 TB/s or the operations over the peak of the units
+    that run them: the fp32 CUDA cores, or ``peak="tf32"`` for fp32 work
+    done as TF32 products on the tensor cores) and, where there is one,
+    the fp32 yardstick's time (TF32 off)."""
+    bms, by = bound(byte_count, flops, peak)
     return {"ms": ms, "bound_ms": bms, "bound_by": by,
             "yardstick_ms": yardstick_ms, "yardstick": yardstick}
 
@@ -1470,10 +1477,9 @@ def check_family_vocab_case(torch, gen, results, model, rows, d, vocab, lanes,
         ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, w, vocab=vocab,
                                                           top_t=1))
         two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w), 1))
-        bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * lanes, dtype)
         log(f"  fused_heads {dtype} {model} ({n},{d})x({d},{lanes}) T=1: "
             f"kernel {ms:.4f} ms, torch.mm then torch.topk {two_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
+            f"{heads_bounds(nbytes(o, w) + n * 8, n, d, lanes, dtype, ms)}")
         del o
     del w
 
@@ -1677,6 +1683,21 @@ def heads_ids_agree(torch, vals, ids, o, w, vocab, top_t):
     return bool((near | ~diff).all()), int(diff.sum()), wv
 
 
+def heads_bounds(byte_count, n, d, lanes, dtype, ms) -> str:
+    """fused_heads' bound at (n, d) x (d, lanes) as text.  fp32 runs three
+    TF32 products on the tensor cores (3 x 2 n d lanes operations at the
+    TF32 rate); the CUDA-core bound of the first fp32 body (2 n d lanes at
+    the fp32 rate) is printed beside it."""
+    flops = 2.0 * n * d * lanes
+    if dtype != "float32":
+        bms, by = bound(byte_count, flops, dtype)
+        return f"bound {bms:.4f} ms ({by})"
+    bms, by = bound(byte_count, 3 * flops, "tf32")
+    old_ms, old_by = bound(byte_count, flops, "float32")
+    return (f"bound {bms:.4f} ms ({by}, 3xTF32; kernel {ms / bms:.2f}x), "
+            f"CUDA-core bound {old_ms:.4f} ms ({old_by})")
+
+
 def check_fused_heads(torch, gen, results):
     from repro_torch.kernels.fused_heads import (fused_heads_topk_cuda,
                                                  heads_topk_plain)
@@ -1744,26 +1765,37 @@ def check_fused_heads(torch, gen, results):
     two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, w)[:, :vocab], 1))
     rwkv_two_ms = time_ms(torch, lambda: torch.topk(torch.mm(ro, rw), 1))
     o32, w32 = timed["float32"]
+    ro32, rw32 = timed["float32 rwkv6"]
     # fp32 with TF32 off (main sets it): the CUDA-core product, then topk
     two32_ms = time_ms(torch, lambda: torch.topk(torch.mm(o32, w32)[:, :vocab],
                                                  1))
+    rwkv_two32_ms = time_ms(torch, lambda: torch.topk(torch.mm(ro32, rw32), 1))
     rbms, _ = bound(nbytes(ro, rw) + n * 8, 2.0 * n * 2048 * 65536, "bfloat16")
     log(f"  fused_heads two calls (torch.mm in bf16, then torch.topk; not one "
         f"call, so not library_ms): granite {two_ms:.4f} ms, rwkv6 "
         f"{rwkv_two_ms:.4f} ms")
+    for label, ms, two, (o_, w_) in (
+            ("granite tied (4096,49408)", fp32_ms, two32_ms, (o32, w32)),
+            ("rwkv6 row-major (2048,65536)", rwkv_fp32_ms, rwkv_two32_ms,
+             (ro32, rw32))):
+        bounds = heads_bounds(nbytes(o_, w_) + n * 8, n, *w_.shape,
+                              "float32", ms)
+        log(f"  fused_heads fp32 {label} T=1: kernel {ms:.4f} ms, torch.mm "
+            f"(TF32 off) then torch.topk {two:.4f} ms, {bounds}")
     bms, by = bound(nbytes(o, w) + n * 8, 2.0 * n * d * vp, "bfloat16")
     results["fused_heads"] = dict(
         source="src/repro_torch/kernels/csrc/fused_heads.cu",
         replaces="src/repro/kernels/fused_heads.py:63",
         max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None,
-        fp32=fp32_row(fp32_ms, nbytes(o32, w32) + n * 8, 2.0 * n * d * vp,
+        fp32=fp32_row(fp32_ms, nbytes(o32, w32) + n * 8, 3 * 2.0 * n * d * vp,
                       two32_ms, "two calls: torch.mm in fp32 (TF32 off), "
-                                "then torch.topk"),
+                                "then torch.topk", peak="tf32"),
         extra=f"rwkv6's (2048,65536) row-major "
               f"lm_head: bf16 {rwkv_ms:.4f} ms (bound {rbms:.4f}), fp32 "
               f"{rwkv_fp32_ms:.4f} ms; two calls (mm + topk) {two_ms:.4f} / "
-              f"{rwkv_two_ms:.4f} ms",
+              f"{rwkv_two_ms:.4f} ms, fp32 {two32_ms:.4f} / "
+              f"{rwkv_two32_ms:.4f} ms",
         shape="bf16 o (56,4096), tied table view (4096,49408), T=1")
 
 
@@ -2949,11 +2981,12 @@ def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
             f"profiler saw no kernels, device time not measured")
         return
     attn_ms = sum(ms for name, ms in busy.items() if "attention_kernel" in name)
-    # fused_heads: its product-and-fold kernel (bf16 heads_tc_kernel, fp32
-    # chunk_topk_kernel) and the merge of the blocks' partials
+    # fused_heads: its product-and-fold kernel (heads_tc_kernel, both
+    # dtypes), fp32's split of o into TF32 parts and the merge of the
+    # blocks' partials
     heads_ms = sum(ms for name, ms in busy.items()
                    if any(k in name for k in ("heads_tc_kernel",
-                                              "chunk_topk_kernel",
+                                              "split_o_kernel",
                                               "merge_topk_kernel")))
     log(f"[profile] one bf16 BPD iteration ({label}): wall {wall_ms:.2f} ms, "
         f"{len(kernels)} kernels busy {busy_ms:.2f} ms, of which attention "

@@ -515,6 +515,8 @@ def test_fused_heads_kernel_matches_plain(cuda, n, top_t, layout, dtype):
                                         (64, 128, 5),         # one tile
                                         (2048, 65536, 65536),  # rwkv6's head
                                         (4096, 8192, 8000),
+                                        (6144, 4096, 4000),   # nemotron's d
+                                        (7168, 4096, 4096),   # llava's d
                                         (96, 256, 32),        # quickstart
                                         (64, 256, 16)])       # superres grid
 def test_fused_heads_kernel_shapes(cuda, d, vp, vocab, layout, dtype):

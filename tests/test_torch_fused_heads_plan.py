@@ -1,7 +1,7 @@
 """The fused-heads kernel's vocab tiling and refusals, on the CPU.
 
-``vocab_plan(Vp, SMs)`` says how the bf16 kernel (``csrc/fused_heads.cu``)
-cuts the vocab into 128-lane tiles walked by persistent blocks, each block
+``vocab_plan(Vp, SMs)`` says how the kernel (``csrc/fused_heads.cu``, bf16
+and fp32) cuts the vocab into 128-lane tiles walked by persistent blocks, each block
 carrying a per-row top-T over its contiguous range; the kernel refuses a
 block count outside [1, tiles].  These tests need no card.
 """
@@ -107,10 +107,39 @@ def test_both_layouts_pass_the_bf16_checks(no_build, layout):
         fh.fused_heads_topk_cuda(o, w, vocab=200, top_t=2)
 
 
-def test_fp32_takes_any_positive_strides(no_build):
-    """The fp32 body reads w through any strides: only the device is
-    refused."""
-    o = torch.zeros((3, 12))
-    w = torch.zeros((12, 2 * 40))[:, ::2]
+@pytest.mark.parametrize("case,match", [
+    ("fp32 pitch 13", "multiple of 16 bytes"),
+    ("fp32 no unit stride", "one must be 1"),
+    ("fp32 d", "d=6"),
+    ("fp32 misaligned", "16-byte boundaries"),
+])
+def test_wrapper_refuses_fp32_layouts_before_any_build(no_build, case, match):
+    """fp32 takes bf16's layout rule (its tiles come by TMA too): one
+    stride 1 and the other a multiple of 16 bytes (4 elements), d a
+    multiple of 4, both tensors on 16-byte boundaries."""
+    o = torch.zeros((56, 64))
+    w = _table(256, 64, torch.float32)
+    if case == "fp32 pitch 13":             # rows of 13 elements: 52 bytes
+        o = torch.zeros((56, 12))
+        w = _table(256, 12, torch.float32, pad=1)
+    elif case == "fp32 no unit stride":
+        w = torch.zeros((64, 2 * 256))[:, ::2]
+    elif case == "fp32 d":
+        o = torch.zeros((56, 6))
+        w = _table(256, 6, torch.float32, pad=2)
+    elif case == "fp32 misaligned":         # a contiguous view 4 bytes in
+        o = torch.zeros(56 * 64 + 1)[1:].view(56, 64)
+    with pytest.raises(ValueError, match=match):
+        fh.fused_heads_topk_cuda(o, w, vocab=200, top_t=2)
+
+
+@pytest.mark.parametrize("layout", ["tied", "row-major"])
+def test_both_layouts_pass_the_fp32_checks(no_build, layout):
+    """The path's two fp32 layouts (a tied table view, a row-major
+    lm_head) pass every check the kernel makes; only the device is
+    refused here."""
+    o = torch.zeros((56, 64))
+    w = (_table(256, 64, torch.float32) if layout == "tied"
+         else torch.zeros((64, 256)))
     with pytest.raises(ValueError, match="CUDA device"):
-        fh.fused_heads_topk_cuda(o, w, vocab=40, top_t=2)
+        fh.fused_heads_topk_cuda(o, w, vocab=200, top_t=2)
