@@ -93,7 +93,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 128, logw -8, -20 and 0 beside -20, f32 and bf16, with and
                 without dstate, chunks of 16 and 32, timed at rwkv6-1.6b's
                 training shape (fp32, B 4, S 512, H 32, D 64) beside the
-                plain version and the bound.
+                plain version and the bound, and each kernel of that call
+                from a profiled one.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -419,6 +420,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -2049,6 +2051,21 @@ def check_rwkv6_scan_bwd(torch, gen, results):
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
         f"({by}: {(in_bytes + out_bytes) / 1e6:.1f} MB, {flops / 1e9:.2f} "
         f"GFLOP), checkpoints {nbytes(ins[5]) / 2 ** 20:.1f} MiB a layer")
+    # the call's kernels one by one (the reverse scan, dv's zeroing at D
+    # 128, the wrapper's sum of du over B), from a profiled call, L2 warm
+    _, busy_ms, count, busy = profiled_busy(
+        torch, lambda: rwkv6_scan_bwd_cuda(*ins, chunk=chunk))
+    if busy_ms is None:
+        log("  rwkv6_scan_bwd kernels one by one: not measured (no profiler trace)")
+    else:
+        names = {}
+        for k in busy:                  # the kernel's own name, unmangled
+            m = re.search(r"(\w+)[<(]", k)
+            names[k] = m.group(1) if m else k
+        log(f"  rwkv6_scan_bwd kernels one by one ({count} in the call, "
+            f"{busy_ms:.4f} ms busy): "
+            + ", ".join(f"{names[k]} {t:.4f} ms" for k, t in
+                        sorted(busy.items(), key=lambda kv: -kv[1])))
     results["rwkv6_scan_bwd"] = dict(
         source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
         replaces="src/repro/models/rwkv6.py:90",
@@ -5138,7 +5155,7 @@ def phase_rwkv_train(torch, results, card):
         busy = prof["busy"]
         total = prof["busy_ms"]
         fwd = sum(t for k, t in busy.items() if "rwkv6_scan_kernel" in k)
-        bwd_ms = sum(t for k, t in busy.items() if "rwkv6_scan_bwd_kernel" in k)
+        bwd_ms = sum(t for k, t in busy.items() if "rwkv6_scan_bwd" in k)
         gemm = sum(t for k, t in busy.items() if "gemm" in k or "nvjet" in k)
         log(f"[train] 21b one step's device time {total:.1f} ms: the scan "
             f"{fwd:.2f} ms ({fwd / total:.3f}), its backward {bwd_ms:.2f} ms "

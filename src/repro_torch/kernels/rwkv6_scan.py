@@ -18,18 +18,20 @@ every chunk: the training forward's checkpoints.
 
 The backward kernel (``csrc/rwkv6_scan_bwd.cu``) replaces no TPU kernel:
 the reference trains through its jnp scan and XLA differentiates it
-(``repro/models/rwkv6.py:90 _wkv_scan``).  It is the sequential reverse
-scan in fp32 on the CUDA cores, one block per (batch row, head), each
-chunk's states recomputed from its checkpoint; ``rwkv6_scan_bwd_plain``
-(``kernels/ref.py``) is its plain version.  ``RWKV6Scan`` joins the two
-under autograd: the CUDA kernels for CUDA tensors, the plain versions for
-CPU tensors.
+(``repro/models/rwkv6.py:90 _wkv_scan``).  It runs the reverse scan in the
+same closed chunk form on the same tensor-core products, tiles of 16 steps
+last first, each from its start state (the checkpoint, or replayed from it
+past a chunk's first tile) and the carried dL/dS; dlogw comes from per-tile
+sums of exact terms, with no per-step state and no scratch.  At D 128 the
+key channels of a (batch row, head) are cut into ``bwd_splits(D)`` blocks,
+which add their dv partials into a zeroed dv.  ``rwkv6_scan_bwd_plain``
+(``kernels/ref.py``: the sequential reverse scan) is its plain version.
+``RWKV6Scan`` joins the two under autograd: the CUDA kernels for CUDA
+tensors, the plain versions for CPU tensors.
 
 Checkpoint memory: ⌈S / chunk⌉ (D, D) fp32 states a (batch row, head), so
 at rwkv6-1.6b's training shape (B 4, S 512, H 32, D 64) and the default
-``TRAIN_CHUNK`` of 16, 32 × 4 × 32 × 16 KiB = 64 MiB a layer; the backward
-adds a transient scratch of chunk · D² floats a (batch row, head), 32 MiB
-there.
+``TRAIN_CHUNK`` of 16, 32 × 4 × 32 × 16 KiB = 64 MiB a layer.
 """
 from __future__ import annotations
 
@@ -50,13 +52,20 @@ LOGW_FLOOR = -16.0
 TRAIN_CHUNK = 16                  # steps between the training forward's checkpoints
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
-_BWD_ARGTYPES = [_P] * 14 + [_I] * 6 + [_P]
+_BWD_ARGTYPES = [_P] * 13 + [_I] * 6 + [_P]
 
 _require = functools.partial(_build.require, "rwkv6_scan")
 _require_bwd = functools.partial(_build.require, "rwkv6_scan_bwd")
 
-__all__ = ["RWKV6Scan", "rwkv6_scan_bwd_cuda", "rwkv6_scan_bwd_plain",
+__all__ = ["RWKV6Scan", "bwd_splits", "rwkv6_scan_bwd_cuda",
+           "rwkv6_scan_bwd_plain",
            "rwkv6_scan_cuda", "rwkv6_scan_plain"]
+
+
+def bwd_splits(d: int) -> int:
+    """The backward kernel's blocks per (batch row, head), each over D /
+    splits of the key channels (twin of csrc/rwkv6_scan_bwd.cu's kSplit)."""
+    return 2 if d >= 128 else 1
 
 
 def _check_inputs(require, r, k, v, logw, u):
@@ -112,14 +121,17 @@ def rwkv6_scan_cuda(r, k, v, logw, u, *, chunk: int = 0):
 def rwkv6_scan_bwd_cuda(r, k, v, logw, u, checkpoints, dy, dstate, *,
                         chunk: int):
     """The gradient of ``rwkv6_scan_cuda`` from its checkpoints of every
-    ``chunk`` steps: r/k/v/logw/u as the forward takes them; checkpoints
-    (B, H, ⌈S / chunk⌉, D, D) f32; dy (B, S, H, D) f32; dstate (B, H, D, D)
-    f32 or None (zeros); all contiguous on r's device.  Returns (dr, dk,
-    dv, dlogw (B, S, H, D) f32, du (H, D) f32), as
-    ``rwkv6_scan_bwd_plain``."""
+    ``chunk`` steps (a positive multiple of ``STAGE_STEPS``): r/k/v/logw/u
+    as the forward takes them; checkpoints (B, H, ⌈S / chunk⌉, D, D) f32;
+    dy (B, S, H, D) f32; dstate (B, H, D, D) f32 or None (zeros); all
+    contiguous on r's device, r/k/v/logw/dy/checkpoints on 16-byte
+    boundaries.  Returns (dr, dk, dv, dlogw (B, S, H, D) f32, du (H, D)
+    f32), as ``rwkv6_scan_bwd_plain``; at D 128 the call launches dv's
+    zeroing before the reverse scan."""
     _check_inputs(_require_bwd, r, k, v, logw, u)
     b, s, h, d = r.shape
-    _require_bwd(chunk >= 1, f"chunk must be positive, got {chunk}")
+    _require_bwd(chunk > 0 and chunk % STAGE_STEPS == 0,
+                 f"chunk {chunk} is not a positive multiple of {STAGE_STEPS}")
     n = -(-s // chunk)
     grads = (checkpoints, dy) + (() if dstate is None else (dstate,))
     _require_bwd(all(t.is_cuda and t.device == r.device for t in grads),
@@ -133,12 +145,13 @@ def rwkv6_scan_bwd_cuda(r, k, v, logw, u, checkpoints, dy, dstate, *,
     _require_bwd(dy.shape == r.shape, "dy must have r's shape (B, S, H, D)")
     _require_bwd(dstate is None or tuple(dstate.shape) == (b, h, d, d),
                  "dstate must be (B, H, D, D)")
+    _require_bwd(all(t.data_ptr() % 16 == 0
+                     for t in (r, k, v, logw, dy, checkpoints)),
+                 "r/k/v/logw/dy/checkpoints must start on 16-byte boundaries")
     dev = r.device
     dr, dk, dv, dlogw = (torch.empty((b, s, h, d), dtype=torch.float32,
                                      device=dev) for _ in range(4))
     du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    scratch = torch.empty((b * h * chunk * d * d,), dtype=torch.float32,
-                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("rwkv6_scan_bwd", "rwkv6_scan_bwd", _BWD_ARGTYPES,
@@ -147,7 +160,7 @@ def rwkv6_scan_bwd_cuda(r, k, v, logw, u, checkpoints, dy, dstate, *,
                       dy.data_ptr(),
                       None if dstate is None else dstate.data_ptr(),
                       dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                      dlogw.data_ptr(), du_part.data_ptr(), scratch.data_ptr(),
+                      dlogw.data_ptr(), du_part.data_ptr(),
                       _build.DTYPE_CODES[r.dtype], b, s, h, d, chunk, stream)
     return dr, dk, dv, dlogw, du_part.sum(0)
 

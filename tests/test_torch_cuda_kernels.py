@@ -631,6 +631,7 @@ def test_rwkv6_scan_checkpoints_leave_the_forward_bit_for_bit(cuda, chunk, dtype
     (2, 37, 2, 64, 32, "-8", True),
     (1, 40, 2, 128, 16, "-20", False),
     (2, 33, 2, 64, 16, "mixed", True),
+    (1, 77, 2, 128, 64, "mild", True),      # three tiles replayed a chunk
     (4, 512, 32, 64, 16, "mild", False),    # rwkv6-1.6b's training shape
 ])
 def test_rwkv6_scan_bwd_kernel_matches_plain(cuda, b, s, h, d, chunk,
