@@ -1801,6 +1801,84 @@ def check_fused_heads(torch, gen, results):
         shape="bf16 o (56,4096), tied table view (4096,49408), T=1")
 
 
+# granite-3-8b's local shapes on the sharded path (phase 22): a rank's
+# query / KV heads of 128 at model 2 and 4, and its row block of the tied
+# table (Vp 49408 over model; the last block holds the 253 pad lanes)
+MESH_HEADS = ((2, 16, 4), (4, 8, 2))
+MESH_VOCAB, MESH_VP = 49155, 49408
+
+
+def check_mesh_shapes(torch, gen, results):
+    """The decode kernels at the local shapes of phase 22's ranks, bf16 and
+    fp32, against their plain versions: the three split-KV kernels at 16/4
+    and 8/2 heads of 128 (B 8, kq 8, L 256: the ring of 64 + 64 + 8
+    positions; the paged kernel over 16 pages), bit for bit batch-invariant
+    and timed at model 2; fused_heads on each rank's (Vp / M, 4096) row
+    block of the tied table (the kernel's transpose view of it, vocab cut
+    at the block's real lanes) at T 1, 2 and 4, and the blocks' top-T
+    merged as ``comm.merge_top_t`` merges them equal to one launch over the
+    whole table; timed at model 2's first block."""
+    from repro_torch.kernels.fused_heads import (fused_heads_topk_cuda,
+                                                 heads_topk_plain)
+
+    for m, h, kvh in MESH_HEADS:
+        for dtype in ("bfloat16", "float32"):
+            check_split_kv(torch, gen, results, model=f"granite model {m}",
+                           hd=128, h=h, kvh=kvh, kq=8, l=256, dtype=dtype,
+                           timed=m == 2)
+    n, d = 56, 4096
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        table = (torch.randn((MESH_VP, d), generator=gen, device="cuda")
+                 * 0.02).to(dt)
+        o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+        for m, _, _ in MESH_HEADS:
+            vl = MESH_VP // m
+            for top_t in (1, 2, 4):
+                vals, ids = [], []
+                for i in range(m):
+                    block = table[i * vl:(i + 1) * vl].contiguous()
+                    real = min(MESH_VOCAB - i * vl, vl)
+                    kv, ki = fused_heads_topk_cuda(o, block.t(), vocab=real,
+                                                   top_t=top_t)
+                    torch.cuda.synchronize()
+                    ok, ties, pv = heads_ids_agree(torch, kv, ki, o, block.t(),
+                                                   real, top_t)
+                    err = (kv - pv).abs().max().item()
+                    tol = ATTN_TOL[dtype]
+                    check(ok and torch.allclose(kv, pv, rtol=tol, atol=tol),
+                          f"fused_heads {dtype} block {i} of {m} T={top_t} "
+                          f"differs from its plain version (err {err})")
+                    results["fused_heads"]["max_abs_err"] = max(
+                        results["fused_heads"]["max_abs_err"], err)
+                    vals.append(kv)
+                    ids.append(ki.long() + i * vl)
+                v, i_ = torch.cat(vals, 1), torch.cat(ids, 1)
+                by_id = torch.argsort(i_, dim=1, stable=True)
+                v, i_ = v.gather(1, by_id), i_.gather(1, by_id)
+                top = torch.argsort(v, dim=1, descending=True,
+                                    stable=True)[:, :top_t]
+                _, whole = fused_heads_topk_cuda(o, table.t(),
+                                                 vocab=MESH_VOCAB, top_t=top_t)
+                check(torch.equal(i_.gather(1, top).int(), whole),
+                      f"fused_heads {dtype}: the {m} blocks' merged top-"
+                      f"{top_t} differs from one launch over the table")
+            log(f"  fused_heads {dtype} on the {m} ({vl}, {d}) row blocks of "
+                f"the tied table, T 1/2/4: each == its plain version, merged "
+                f"== one launch over (4096, {MESH_VP}) ok")
+        vl = MESH_VP // 2
+        block = table[:vl].contiguous()
+        ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, block.t(),
+                                                          vocab=vl, top_t=1))
+        plain_ms = time_ms(torch, lambda: heads_topk_plain(o, block.t(),
+                                                           vocab=vl, top_t=1))
+        two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, block.t()), 1))
+        bounds = heads_bounds(nbytes(o, block) + n * 8, n, d, vl, dtype, ms)
+        log(f"  fused_heads {dtype} granite model 2 block ({n}, {d}) x ({d}, "
+            f"{vl}) T=1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.mm then torch.topk {two_ms:.4f} ms, {bounds}")
+
+
 def check_mt_heads_verify(torch, gen):
     """fused_heads and fused_verify at the shapes phases 10-10c give them:
     paper-mt-base's untied row-major lm_head (512, 32000) and (8, 8, 32000)
@@ -2547,6 +2625,8 @@ def phase_decode(torch, results):
         f"{[round(d['bpd_ulps'], 3) for d in div]}")
     for name in chain_path:
         results[name]["launches"] = launches[name]
+    phase4["bf16"] = {"tokens": s_toks.cpu(), "tps": static_tps,
+                      "iterations": s_stats["iterations"]}
     profile_iteration(torch, D, params, scfg, sdec, sbatch, "exact dense")
 
     # ---- phase 6b: bf16 serve, topk_tree on the paged cache ----------------
@@ -5776,6 +5856,362 @@ def phase_train(torch, phase4):
     log(f"[train] phase 11 {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: sharded serving on a ("data", "model") mesh of processes
+# ---------------------------------------------------------------------------
+
+
+# granite-3-8b's fp32 depth on the mesh: 4 of 40 layers, cut from the 10
+# of its other fp32 paths to keep the script within 900 s
+MESH_FP32_LAYERS = 4
+MESH_BUDGETS = (64, 16, 40, 56, 24, 48, 32, 8)
+MESH_PATHS = {            # label -> (DecodeConfig keywords, BPD?, budgets?)
+    "greedy": ({}, False, False),
+    "exact dense": ({}, True, False),
+    "exact paged": ({"cache_backend": "paged"}, True, False),
+    "topk_tree dense": ({"policy": "topk_tree", "top_k": 2}, True, False),
+    "exact budgets": ({}, True, True),
+}
+MESH_RUNS = {(1, 2): tuple(MESH_PATHS), (2, 2): ("exact dense",)}
+# the (1, 2) paths split between the pair of ranks 0, 1 and the pair of
+# ranks 2, 3, which run them side by side on the card
+MESH_PAIR_PATHS = (("greedy", "exact dense", "exact budgets"),
+                   ("exact paged", "topk_tree dense"))
+GLOO_DTYPES = ("float32", "bfloat16", "float16", "int32", "int64")
+
+
+def mesh_decode(torch, D, params, cfg, dec, batch, label, mesh=None):
+    """One of MESH_PATHS on the card (sharded over ``mesh`` when given):
+    {tokens, generated, text_len, iterations, launches, wall}, the launches
+    counted from 0 and checked against the forwards the run made, as phase
+    4b counts them (on every rank: each launches its own kernels)."""
+    from repro_torch.kernels import _build
+
+    kw, bpd, budgets = MESH_PATHS[label]
+    pdec = dec.replace(**kw)
+    rows = list(MESH_BUDGETS) if budgets else None
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if bpd:
+        toks, st = D.bpd_decode(params, cfg, pdec, batch, max_new_rows=rows,
+                                mesh=mesh)
+    else:
+        toks, st = D.greedy_decode(params, cfg, pdec, batch, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    iters = st["iterations"]
+    want = {name: 0 for name in launches}
+    want[next(iter(attention_launches(cfg, pdec)))] = cfg.num_layers * iters
+    if bpd:
+        want.update(fused_verify=iters, fused_heads=iters + 1)
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    budget = torch.as_tensor(rows if rows else [dec.max_new_tokens] * len(toks))
+    check(bool((st["generated"].cpu() == budget).all()),
+          f"{label}: generated {st['generated'].tolist()}")
+    return {"tokens": toks, "generated": st["generated"],
+            "text_len": st["text_len"], "iterations": iters,
+            "launches": launches, "wall": wall}
+
+
+def nonzero(launches: dict) -> dict:
+    return {name: n for name, n in launches.items() if n}
+
+
+def collectives(torch, mesh) -> dict:
+    """Which dtypes the process group's all_reduce and all_gather_into_tensor
+    take on CUDA tensors over the ``model`` axis (the sharded path sums in
+    fp32 or int64 and gathers in each tensor's own dtype), and the ms of one
+    fp32 all_reduce of 4 KiB and of a layer's (8, 8, 4096) sum (1 MiB), and
+    of p_1's (8, 8, 49408) logits (12.6 MB) gathered both ways: as the
+    all_reduce of a zero-filled full buffer and as all_gather_into_tensor of
+    each rank's lanes; each the mean of 20 after 3."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import comm
+
+    out = {}
+    group = mesh.groups["model"]
+    m = mesh.shape["model"]
+    for name in GLOO_DTYPES:
+        x = torch.ones(4, dtype=getattr(torch, name), device=mesh.device)
+        try:
+            dist.all_reduce(x, group=group)
+            out[name] = float(x[0]) == m
+        except (RuntimeError, ValueError) as exc:
+            out[name] = f"refused: {str(exc).splitlines()[0][:80]}"
+        x = torch.full((4,), mesh.coords["model"] + 1,
+                       dtype=getattr(torch, name), device=mesh.device)
+        y = torch.empty(4 * m, dtype=x.dtype, device=mesh.device)
+        try:
+            comm.all_gather_into_tensor(y, x, group=group)
+            out[f"gather {name}"] = y.cpu().tolist() == [
+                float(i // 4 + 1) for i in range(4 * m)]
+        except (RuntimeError, ValueError) as exc:
+            out[f"gather {name}"] = f"refused: {str(exc).splitlines()[0][:80]}"
+
+    def timed(fn):
+        for i in range(23):
+            if i == 3:
+                torch.cuda.synchronize(mesh.device)
+                t0 = time.perf_counter()
+            fn()
+        torch.cuda.synchronize(mesh.device)
+        return round((time.perf_counter() - t0) / 20 * 1e3, 3)
+
+    for label, n in (("4 KiB", 1024), ("1 MiB", 8 * 8 * 4096),
+                     ("12.6 MB", 8 * 8 * 49408)):
+        x = torch.zeros(n, device=mesh.device)
+        out[f"{label} ms"] = timed(lambda: dist.all_reduce(x, group=group))
+    lanes = torch.zeros(8 * 8 * 49408 // m, device=mesh.device)
+    full = torch.zeros(8 * 8 * 49408, device=mesh.device)
+    out["12.6 MB gather ms"] = timed(
+        lambda: comm.all_gather_into_tensor(full, lanes, group=group))
+    return out
+
+
+def mesh_rank_runs(torch, mesh, job, paths):
+    """One mesh's share of a phase 22 rank: granite-3-8b's blocks of this
+    rank (drawn from seed 0, ``model.init(mesh=)``) at MESH_FP32_LAYERS in
+    fp32 through ``paths``.  Only the mesh's rank 0 prints."""
+    import contextlib
+    import io
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.models import model as M
+
+    dev = mesh.device
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.index
+             else contextlib.nullcontext())
+    out = {"device": f"{dev} ({torch.cuda.get_device_name(dev)})",
+           "backend": mesh.backend, "coords": dict(mesh.coords), "runs": {},
+           "collectives": collectives(torch, mesh)}
+    cfg = get_config("granite-3-8b").replace(dtype="float32",
+                                             num_layers=MESH_FP32_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init(cfg, seed=0, mesh=mesh)
+    batch = {"tokens": torch.as_tensor(job["prompts"], device=dev)}
+    dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
+    with quiet:
+        for label in paths:
+            out["runs"][label] = mesh_decode(torch, D, params, cfg, dec, batch,
+                                             label, mesh)
+    out["fp32_peak"] = torch.cuda.max_memory_allocated(dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_bf16(torch, mesh, job):
+    """A phase 22 rank's bf16 serve: granite-3-8b's blocks at full depth
+    (phase 4's draw, phase 6's cast), BPD exact dense timed, each first
+    divergence from phase 6's tokens (``job["bf16"]``) a near-tie of at
+    most BF16_TIE_ULPS (by the sharded full forward)."""
+    import contextlib
+    import io
+
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.models import model as M
+
+    dev = mesh.device
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.index
+             else contextlib.nullcontext())
+    full = get_config("granite-3-8b").replace(dtype="float32")
+    batch = {"tokens": torch.as_tensor(job["prompts"], device=dev)}
+    dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init(full, seed=0, mesh=mesh)        # phase 4's draw, then
+    bcfg = full.replace(dtype="bfloat16")           # phase 6's cast
+    M.cast_for_compute(params, bcfg)
+    torch.cuda.empty_cache()
+    with quiet:
+        run = mesh_decode(torch, D, params, bcfg, dec, batch, "exact dense",
+                          mesh)
+        prompt_len = batch["tokens"].shape[1]
+        div = report_divergences(torch, causal_logits_after(
+            torch, M, params, bcfg), run["tokens"],
+            torch.as_tensor(job["bf16"], device=dev), prompt_len,
+            prompt_len + job["max_new"])
+    check(all(d["tie"] for d in div),
+          f"22: a sharded bf16 divergence beyond {BF16_TIE_ULPS} ulps")
+    run.update(divergences=div, peak=torch.cuda.max_memory_allocated(dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase22_rank(mesh22, job):
+    """One of phase 22's four ranks: the (1, 2) mesh of its pair (ranks 0,
+    1 or ranks 2, 3, made by all four), the pair's MESH_PAIR_PATHS side by
+    side with the other pair's; then the (2, 2) mesh of all four, BPD exact
+    dense; then ranks 0 and 1 alone the bf16 serve, while 2 and 3 wait at
+    the last barrier.  Returns {(1, 2): ..., (2, 2): ...[, "bf16": ...]}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    side = mesh22.index // 2
+    pairs = [make_mesh(1, 2, device=mesh22.device, ranks=r)
+             for r in ((0, 1), (2, 3))]
+    out = {(1, 2): mesh_rank_runs(torch, pairs[side], job,
+                                  MESH_PAIR_PATHS[side])}
+    out[(2, 2)] = mesh_rank_runs(torch, mesh22, job, MESH_RUNS[(2, 2)])
+    if side == 0:
+        out["bf16"] = mesh_rank_bf16(torch, pairs[0], job)
+    dist.barrier(group=mesh22.groups["world"])
+    return out
+
+
+def repeats(toks, prompt_len: int, end: int) -> list:
+    """Each row's count of new tokens equal to the token before them: where
+    a random-weight model repeats itself, heads that copy the hidden state
+    propose right, and the row with the fewest sets the iterations (and so
+    k̂) of the batch."""
+    new = toks[:, prompt_len - 1:end]
+    return (new[:, 1:] == new[:, :-1]).sum(dim=1).tolist()
+
+
+def compare_mesh_run(torch, after, got, want, label, prompt_len) -> bool:
+    """A sharded fp32 run against the single-device one: tokens equal
+    except at rows that diverge at a near-tie (``compare_rows``), and with
+    every row equal the counters equal too.  Returns whether every row
+    was equal."""
+    diverged = compare_rows(torch, after,
+                            torch.as_tensor(got["tokens"]).cuda(),
+                            want["tokens"].cuda(), want["text_len"],
+                            prompt_len)
+    if diverged:
+        log(f"[mesh] {label}: rows {diverged} diverge at near-ties; "
+            f"iterations {got['iterations']} vs {want['iterations']}")
+        return False
+    for key in ("generated", "text_len"):
+        check(torch.equal(torch.as_tensor(got[key]), want[key]),
+              f"{label}: {key} {got[key]} vs {want[key].tolist()}")
+    check(got["iterations"] == want["iterations"],
+          f"{label}: iterations {got['iterations']} vs {want['iterations']}")
+    return True
+
+
+def phase_mesh(torch, phase4, card):
+    """Phase 22: granite-3-8b at full width sharded over meshes of ranks
+    that share the one card (gloo), against the single-device port on the
+    same seed, prompts and depth (``phase22_rank``: one spawn of four ranks,
+    two (1, 2) pairs side by side, then the (2, 2) mesh, then the bf16
+    serve on the first pair)."""
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.launch.mesh import choose_backend, spawn
+    from repro_torch.models import model as M
+
+    import threading
+
+    t0 = time.perf_counter()
+    prompts = phase4["prompts"]
+    prompt_len, max_new, block_k = prompts.shape[1], 64, 8
+    backend, why = choose_backend(4, "cuda")
+    check(backend == "gloo", f"ranks on one card: backend {backend}")
+    # the ranks start (about 10 s to reach the card) while this process
+    # decodes the single-device references
+    spawned = {}
+
+    def ranks_run():
+        try:
+            spawned["ranks"] = spawn(phase22_rank, 2, 2, device="cuda",
+                                     timeout=400, args=(
+                {"prompts": prompts.numpy(), "max_new": max_new,
+                 "block_k": block_k, "bf16": phase4["bf16"]["tokens"].numpy()},))
+        except BaseException as exc:           # raised below, in this thread
+            spawned["error"] = exc
+
+    worker = threading.Thread(target=ranks_run, name="phase22-ranks")
+    worker.start()
+    batch = {"tokens": prompts.to("cuda")}
+    dec = DecodeConfig(max_new_tokens=max_new, block_k=block_k)
+    cfg = get_config("granite-3-8b").replace(dtype="float32",
+                                             num_layers=MESH_FP32_LAYERS)
+    params = M.init(cfg, seed=0, device="cuda")
+    after = causal_logits_after(torch, M, params, cfg)
+    singles = {}
+    for label in MESH_PATHS:
+        r = mesh_decode(torch, D, params, cfg, dec, batch, label)
+        singles[label] = {k: (v.cpu() if hasattr(v, "cpu") else v)
+                          for k, v in r.items()}
+    log(f"[mesh] single-device references at {MESH_FP32_LAYERS} of 40 layers "
+        f"in {time.perf_counter() - t0:.1f}s, beside the ranks' start")
+    worker.join(timeout=430)
+    check(not worker.is_alive(), "phase 22: the ranks outlived their limit")
+    if "error" in spawned:
+        raise spawned["error"]
+    ranks = spawned["ranks"]
+    log(f"[mesh] 4 ranks, backend {backend} ({why}): "
+        f"{time.perf_counter() - t0:.1f}s with their start")
+    equal = 0
+    for shape in MESH_RUNS:
+        group = [(i, r[shape]) for i, r in enumerate(ranks) if shape in r]
+        for i, r in group:
+            log(f"    {shape} rank {i} at {r['coords']} on {r['device']}, "
+                f"{r['backend']}: fp32 peak {r['fp32_peak'] / 2 ** 30:.2f} GiB; "
+                + "; ".join(f"{label} launches {nonzero(run['launches'])}, "
+                            f"{run['wall']:.2f}s"
+                            for label, run in r["runs"].items())
+                + f"; collectives on CUDA tensors: {r['collectives']}")
+        for label in MESH_RUNS[shape]:
+            want = singles[label]
+            holders = [(i, r) for i, r in group if label in r["runs"]]
+            check(len(holders) == shape[0] * shape[1],
+                  f"22: {shape} {label} ran on {len(holders)} ranks")
+            for i, r in holders:
+                equal += compare_mesh_run(torch, after, r["runs"][label], want,
+                                          f"{shape} rank {i} {label}",
+                                          prompt_len)
+            got = holders[0][1]["runs"][label]
+            log(f"[mesh] {shape} {label}: k̂="
+                f"{float(want['generated'].sum()) / want['iterations'] / 8:.4f}"
+                f", iterations {got['iterations']} (single device "
+                f"{want['iterations']}), tokens checked on ranks "
+                f"{[i for i, _ in holders]}; "
+                f"{got['wall']:.2f}s (single device {want['wall']:.2f}s)")
+    pair = {**ranks[2][(1, 2)]["runs"], **ranks[0][(1, 2)]["runs"]}
+    greedy = torch.as_tensor(pair["greedy"]["tokens"]).cuda()
+    for label in MESH_RUNS[(1, 2)][1:]:
+        diverged = compare_rows(torch, after, torch.as_tensor(
+            pair[label]["tokens"]).cuda(), greedy, pair[label]["text_len"],
+            prompt_len)
+        log(f"[mesh] (1, 2) sharded BPD {label} == sharded greedy's tokens in "
+            f"{8 - len(diverged)}/8 rows (others at near-ties)")
+    runs = [r["bf16"] for r in ranks if "bf16" in r]
+    check(len(runs) == 2, f"22: the bf16 serve ran on {len(runs)} ranks")
+    for i, b in enumerate(runs):
+        check(torch.equal(torch.as_tensor(b["tokens"]),
+                          torch.as_tensor(runs[0]["tokens"])),
+              f"22 bf16: rank {i}'s tokens differ from rank 0's")
+        log(f"    (1, 2) rank {i} bf16 full depth: peak "
+            f"{b['peak'] / 2 ** 30:.2f} GiB, launches "
+            f"{nonzero(b['launches'])}, wall {b['wall']:.2f}s")
+    b = runs[0]
+    gen = int(b["generated"].sum())
+    end = prompt_len + max_new
+    log(f"[mesh] bf16 granite-3-8b, 40 layers, sharded over (1, 2): "
+        f"{gen / b['wall']:.1f} tokens/s (two ranks sharing one card, gloo), "
+        f"beside phase 6's single-device {phase4['bf16']['tps']:.1f} "
+        f"tokens/s; k̂={gen / b['iterations'] / 8:.4f}, iterations "
+        f"{b['iterations']} (phase 6: {phase4['bf16']['iterations']}); "
+        f"repeated new tokens a row {repeats(torch.as_tensor(b['tokens']), prompt_len, end)}"
+        f" (phase 6: {repeats(phase4['bf16']['tokens'], prompt_len, end)}); "
+        f"first divergences from phase 6's tokens: {len(b['divergences'])} "
+        f"rows, all within {BF16_TIE_ULPS} bf16 ulps of the top logit; {card}")
+    log(f"[mesh] fp32 sharded runs with every row equal to the single-device "
+        f"port's: {equal}; phase 22 {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the repo "
@@ -5818,6 +6254,7 @@ def main() -> int:
     check_family_vocab(torch, gen, results)
     check_rwkv6_scan(torch, gen, results)
     check_mt_heads_verify(torch, gen)
+    check_mesh_shapes(torch, gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         extra = f"; {r['extra']}" if "extra" in r else ""
@@ -5885,6 +6322,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train(torch, phase4)
     stamp(t_start, "phase 11")
+    gc.collect()                                  # every model freed
+    torch.cuda.empty_cache()
+    phase_mesh(torch, phase4, card)
+    stamp(t_start, "phase 22")
 
     kernels = []
     for name in _build.KERNELS:

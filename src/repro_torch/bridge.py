@@ -17,6 +17,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.config import ModelConfig
 from repro_torch.models import model as model_lib
+from repro_torch.sharding import shard_params
 
 
 def _to_torch(tree, device):
@@ -27,9 +28,11 @@ def _to_torch(tree, device):
     return torch.tensor(np.asarray(tree), device=device)
 
 
-def from_jax_params(np_tree: Dict, cfg: ModelConfig, device=None):
+def from_jax_params(np_tree: Dict, cfg: ModelConfig, device=None, *,
+                    mesh=None):
     """A reference param pytree (nested dicts / lists of arrays) -> the
-    port's ``ParamTree`` on ``device`` (default the card)."""
+    port's ``ParamTree`` on ``device`` (default the card); with ``mesh``,
+    this rank's blocks of it (``sharding.shard_params``)."""
     dev = resolve_device(device)
     params = model_lib.ParamTree(_to_torch(np_tree, dev))
     want = {k: tuple(v.shape) for k, v in
@@ -42,13 +45,15 @@ def from_jax_params(np_tree: Dict, cfg: ModelConfig, device=None):
         raise ValueError(
             f"parameters do not match {cfg.name}: missing {missing}, "
             f"unexpected {extra}, wrong shape {[(k, got[k], want[k]) for k in shapes]}")
-    return params
+    return params if mesh is None else shard_params(params, mesh)
 
 
 def load_checkpoint(ckpt_dir: str, cfg: ModelConfig, device=None, *,
-                    step: Optional[int] = None):
+                    step: Optional[int] = None, mesh=None):
     """Read ``<ckpt_dir>/step_<N>/arrays.npz`` (the latest step unless
     ``step`` is given), written by the reference or by
-    ``repro_torch.checkpoint.save``, into the port's ``ParamTree``."""
+    ``repro_torch.checkpoint.save``, into the port's ``ParamTree``; with
+    ``mesh``, this rank's blocks of it."""
     path = ckpt_lib.step_path(ckpt_dir, step)
-    return from_jax_params(ckpt_lib.nest(ckpt_lib.read_arrays(path)), cfg, device)
+    return from_jax_params(ckpt_lib.nest(ckpt_lib.read_arrays(path)), cfg,
+                           device, mesh=mesh)

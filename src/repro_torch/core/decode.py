@@ -32,6 +32,11 @@ kernels: their (k, L) scores need no bound.  A tree-drafting policy with
 ``core.bundle.ModelBundle``s, e.g. the ``draft_model`` policy's draft) are
 bound into the policy there, and their parameters reach the loop as
 ``aux_params``, which the drafter reads from ``DraftInputs.aux``.
+``mesh=`` (``bpd_decode``, ``greedy_decode``) shards the decode over a
+("data", "model") process mesh there: on sharded parameters the loop's
+host read becomes the world-wide "all finished" flag
+(``sharding.comm.all_finished``), so every rank runs the single-device
+iteration count and no rank leaves its peers waiting in a collective.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from repro_torch.models import seq2seq as seq2seq_lib
 from repro_torch.models.attention import tree_tables
 from repro_torch.models.blocks import check_tree_supported
 from repro_torch.models.layers import embed_apply
+from repro_torch.sharding import comm
 
 I32 = torch.int32
 
@@ -296,6 +302,16 @@ def initial_draft(pol: DecodePolicy, hidden: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _all_finished(params, finished) -> bool:
+    """The loop's exit test: every row finished, on every rank of the mesh
+    when ``params`` are sharded (``comm.all_finished``), so the ranks step
+    in lock-step and a data rank whose rows are done keeps stepping them
+    frozen, as one device does."""
+    mesh = getattr(params, "mesh", None)
+    return bool(finished.all()) if mesh is None else comm.all_finished(
+        mesh, finished)
+
+
 def decode_stats(final) -> Dict:
     """``mean_accepted`` is the paper's headline k̂; ``invocations`` counts
     model calls (prefill + loop iterations)."""
@@ -379,7 +395,8 @@ def bpd_prefill_causal_lm(params, cfg: ModelConfig, dec: DecodeConfig,
     dev = prompt.device
     prefix = model_lib.prefix_len(cfg, batch)
     context_len = prefix + prompt_len + max_new
-    caches = model_lib.init_caches(cfg, b, context_len, block_k, device=dev,
+    caches = model_lib.init_caches(model_lib.cache_config(params, cfg), b,
+                                   context_len, block_k, device=dev,
                                    backend=cache_lib.get_backend(dec))
     caches, proposals, ps = prefill_and_draft(params, cfg, dec, pol, batch,
                                               caches, prompt_len, block_k,
@@ -417,19 +434,20 @@ def _bpd_decode_impl(params, cfg: ModelConfig, dec: DecodeConfig,
     be = causal_lm_backend(cfg)
     budget = max_new if max_new_rows is None else torch.as_tensor(
         max_new_rows, dtype=I32, device=state.text_len.device)
-    while not bool(state.finished.all()) and state.iters < max_new:
+    while not _all_finished(params, state.finished) and state.iters < max_new:
         state = bpd_iteration(params, cfg, dec, be, state,
                               prefix_offset=prefix, max_new=budget, policy=pol,
                               aux_params=aux_params)
     return state.tokens, decode_stats(state)
 
 
-def _session_for(params, cfg, dec, *, session=None, kv_chunk=0, policy=None,
-                 bundles=None):
+def _session_for(params, cfg, dec, *, mesh=None, session=None, kv_chunk=0,
+                 policy=None, bundles=None):
     """The ``DecodeSession`` a decode wrapper runs through: ``session``
     when given (its parameters then stand in for ``params``; cfg, dec and
     policy must match its own, and its bundles were fixed at
-    construction), else a new one on ``params``' device."""
+    construction), else a new one on ``params``' device (sharded over
+    ``mesh`` when given)."""
     if session is not None:
         if session.cfg is not cfg and session.cfg != cfg:
             raise ValueError(
@@ -454,13 +472,14 @@ def _session_for(params, cfg, dec, *, session=None, kv_chunk=0, policy=None,
         return session
     from repro_torch.serving.session import DecodeSession  # session <- decode
 
-    return DecodeSession(params, cfg, dec, kv_chunk=kv_chunk, policy=policy,
-                         bundles=bundles)
+    return DecodeSession(params, cfg, dec, mesh=mesh, kv_chunk=kv_chunk,
+                         policy=policy, bundles=bundles)
 
 
 def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
                max_new_rows=None, policy=None, kv_chunk: int = 0,
-               bundles=None, session=None) -> Tuple[torch.Tensor, Dict]:
+               bundles=None, mesh=None,
+               session=None) -> Tuple[torch.Tensor, Dict]:
     """Full blockwise parallel decode for the decoder-only model.
 
     Returns (tokens (B, buf), stats).  max_new_rows: optional (B,) per-row
@@ -468,11 +487,13 @@ def bpd_decode(params, cfg: ModelConfig, dec: DecodeConfig, batch: Dict, *,
     kv_chunk: > 0 bounds the prefill's score matrix (see the module).
     bundles: optional {name: core.bundle.ModelBundle} of auxiliary models
     (``{"draft": ModelBundle(draft_params, draft_cfg)}`` for the
-    ``draft_model`` policy).  session: a ``DecodeSession`` to run through
+    ``draft_model`` policy).  mesh: this rank's ``launch.mesh.Mesh``: the
+    decode runs sharded over it (``DecodeSession(mesh=)``) and returns the
+    whole batch on every rank.  session: a ``DecodeSession`` to run through
     (its parameters, policy and bundles; see ``_session_for``).
     """
-    sess = _session_for(params, cfg, dec, session=session, kv_chunk=kv_chunk,
-                        policy=policy, bundles=bundles)
+    sess = _session_for(params, cfg, dec, mesh=mesh, session=session,
+                        kv_chunk=kv_chunk, policy=policy, bundles=bundles)
     return sess.decode(batch, max_new_rows=max_new_rows)
 
 
@@ -576,11 +597,23 @@ class GreedyState(NamedTuple):
     generated: torch.Tensor    # (B,) int32 — committed tokens so far
 
 
-@torch.no_grad()
 def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
-                  batch: Dict, *, kv_chunk: int = 0) -> Tuple[torch.Tensor, Dict]:
+                  batch: Dict, *, kv_chunk: int = 0, mesh=None,
+                  session=None) -> Tuple[torch.Tensor, Dict]:
     """Greedy decoding with p_1 (the paper's baseline); ``kv_chunk`` as in
-    ``bpd_decode``."""
+    ``bpd_decode``.  ``mesh`` / ``session`` run it through a
+    ``DecodeSession`` (sharded over the mesh), as ``bpd_decode`` does."""
+    if mesh is None and session is None:
+        return _greedy_decode_impl(params, cfg, dec, batch, kv_chunk=kv_chunk)
+    return _session_for(params, cfg, dec, mesh=mesh, session=session,
+                        kv_chunk=kv_chunk).greedy(batch)
+
+
+@torch.no_grad()
+def _greedy_decode_impl(params, cfg: ModelConfig, dec: DecodeConfig,
+                        batch: Dict, *,
+                        kv_chunk: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """Prefill + the greedy loop; ``DecodeSession.greedy`` runs it."""
     _check_decoder(cfg)
     max_new = dec.max_new_tokens
     prompt = batch["tokens"]
@@ -588,7 +621,8 @@ def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
     dev = prompt.device
     prefix = model_lib.prefix_len(cfg, batch)
     context_len = prefix + prompt_len + max_new
-    caches = model_lib.init_caches(cfg, b, context_len, 1, device=dev,
+    caches = model_lib.init_caches(model_lib.cache_config(params, cfg), b,
+                                   context_len, 1, device=dev,
                                    backend=cache_lib.get_backend(dec))
 
     h = model_lib.embed_inputs(params, cfg, batch)
@@ -612,7 +646,7 @@ def greedy_decode(params, cfg: ModelConfig, dec: DecodeConfig,
         generated=torch.zeros((b,), dtype=I32, device=dev),
     )
 
-    while not bool(s.finished.all()) and s.iters < max_new:
+    while not _all_finished(params, s.finished) and s.iters < max_new:
         live = ~s.finished
         adv = live.to(I32)
         idx = s.text_len.long()[:, None]

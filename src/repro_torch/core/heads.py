@@ -6,6 +6,11 @@ after the decoder output, a residual from the decoder output into each of
 the k outputs, and the vocabulary projection applied to each output.  With
 ``identity_p1`` (the default) p_1 is the base model itself, so exact
 blockwise decoding reproduces greedy decoding of p_1.
+
+On a sharded ``ParamTree`` the hidden width is cut over the ``model`` axis
+(``w1`` / ``b1`` column-parallel, ``w2`` row-parallel): ``w2``'s partial
+products are summed there, and ``b2`` and the residual are added once,
+after the sum.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import normal
+from repro_torch.sharding import comm
 
 
 def heads_init(gen, cfg: ModelConfig, *, dtype=torch.float32,
@@ -36,7 +42,7 @@ def heads_apply(p, cfg: ModelConfig, hidden, *,
     dt = hidden.dtype
     h = torch.einsum("...d,dkh->...kh", hidden, p["w1"].to(dt))
     h = F.relu(h + p["b1"].to(dt))
-    out = torch.einsum("...kh,khd->...kd", h, p["w2"].to(dt))
+    out = _w2_product(p, h)
     out = out + p["b2"].to(dt) + hidden[..., None, :]
     if identity_p1:
         out[..., 0, :] = hidden
@@ -54,7 +60,21 @@ def head_apply_single(p, cfg: ModelConfig, hidden, head_idx: int, *,
     w2 = p["w2"][head_idx].to(dt)
     b2 = p["b2"][head_idx].to(dt)
     h = F.relu(hidden @ w1 + b1)
-    return h @ w2 + b2 + hidden
+    if comm.cut(p, "w2") is None:
+        return h @ w2 + b2 + hidden
+    y = comm.row_sum(p.mesh, h.reshape(-1, w2.shape[0]), w2)
+    return y.reshape(*h.shape[:-1], -1) + b2 + hidden
+
+
+def _w2_product(p, h):
+    """h: (..., k, dh) -> (..., k, d), every head's ``w2`` product, summed
+    over the ``model`` axis when the hidden width is cut over it."""
+    w2 = p["w2"]
+    if comm.cut(p, "w2") is None:
+        return torch.einsum("...kh,khd->...kd", h, w2.to(h.dtype))
+    k, dh = h.shape[-2:]
+    y = comm.row_sum(p.mesh, h.reshape(-1, k, dh).transpose(0, 1), w2)
+    return y.transpose(0, 1).reshape(*h.shape[:-1], -1)
 
 
 def head_apply_dynamic(p, cfg: ModelConfig, hidden, head_idx: int, *,

@@ -517,15 +517,32 @@ class DecodePolicy:
             drafter=self.drafter.init_state(cfg, dec, batch, b, aux=aux),
             schedule=self.schedule.init_state(b, device))
 
-    def bind(self, bundles: Dict, cfg) -> "DecodePolicy":
+    def bind(self, bundles: Dict, cfg, *, mesh=None,
+             dec: Optional[DecodeConfig] = None) -> "DecodePolicy":
         """Attach the session's auxiliary ``ModelBundle``s (their static
         half) to the drafter: a no-op for single-model policies, while a
         model-backed drafter checks and absorbs its bundle here, so a
-        missing or incompatible draft model fails before any decode."""
+        missing or incompatible draft model fails before any decode.  Under
+        a ``mesh`` only the policies the sharded path runs bind: the heads
+        drafter under any ported acceptor with a static or adaptive
+        schedule, and the top-k tree on the dense cache (``dec``'s)."""
+        if mesh is not None:
+            self._check_mesh(dec)
         drafter = self.drafter.bind(bundles or {}, cfg)
         if drafter is self.drafter:
             return self
         return dataclasses.replace(self, drafter=drafter)
+
+    def _check_mesh(self, dec: Optional[DecodeConfig]) -> None:
+        paged = getattr(dec, "cache_backend", "dense") == "paged"
+        heads = type(self.drafter) is HeadsDrafter or (
+            type(self.drafter) is TopKTreeDrafter and not paged)
+        if not (heads and type(self.schedule) in (StaticSchedule,
+                                                  AdaptiveSchedule)):
+            raise NotImplementedError(
+                f"policy {self.name!r} under a mesh is not ported yet "
+                f"(ROADMAP.md §1 item 8c): a sharded decode runs exact, topk, "
+                f"distance and adaptive, and topk_tree on the dense cache")
 
     @property
     def cache_key(self):

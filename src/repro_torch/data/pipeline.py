@@ -3,8 +3,10 @@ become tensors on an explicit device (through pinned host memory and a
 non-blocking copy on a card), and ``prefetch`` makes the next batches on a
 bounded background thread while the device trains on this one.
 ``stub_frontend_inputs`` makes the stub inputs of a modality frontend (the
-vision_text patch embeddings).  Sharding a batch over several cards is
-ROADMAP.md §1 item 8 (multi-GPU) and is refused here."""
+vision_text patch embeddings).  ``sharding=`` a ``launch.mesh.Mesh`` puts
+this rank's rows of each batch on its device (the reference's
+``sharding=``, whose batch dim lies over the data axis: ``comm.data_rows``);
+any other sharding is refused."""
 from __future__ import annotations
 
 import itertools
@@ -17,19 +19,28 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.launch.mesh import Mesh
+from repro_torch.sharding import comm
 
 
-def _refuse_sharding(sharding) -> None:
-    if sharding is not None:
+def _check_sharding(sharding) -> None:
+    if sharding is not None and not isinstance(sharding, Mesh):
         raise NotImplementedError(
-            "sharding a batch over several devices is not ported yet "
-            "(ROADMAP.md §1 item 8, multi-GPU); pass device= instead")
+            f"sharding={type(sharding).__name__}: a batch shards over a "
+            f"repro_torch.launch.mesh.Mesh's data axis only; other shardings "
+            f"are not ported yet (ROADMAP.md §1 item 8d, sharded training)")
 
 
 def to_device(batch: Dict[str, np.ndarray], device=None, *,
               sharding=None) -> Dict[str, torch.Tensor]:
-    """``batch``'s arrays as tensors on ``device`` (default the card)."""
-    _refuse_sharding(sharding)
+    """``batch``'s arrays (this rank's rows of them under a ``Mesh``
+    ``sharding``) as tensors on ``device`` (default the mesh's device, else
+    the card)."""
+    _check_sharding(sharding)
+    if sharding is not None:
+        rows = comm.data_rows(sharding, len(next(iter(batch.values()))))
+        batch = {k: np.asarray(v)[rows] for k, v in batch.items()}
+        device = sharding.device if device is None else device
     dev = resolve_device(device)
     if dev.type != "cuda":
         return {k: torch.as_tensor(np.asarray(v), device=dev)
@@ -51,8 +62,10 @@ def prefetch(it: Iterator[Dict], depth: int = 2, *, device=None,
     """Yield ``it``'s batches on ``device`` in order, made and copied by a
     background thread that runs at most ``depth`` batches ahead.  An
     exception in ``it`` is raised here; closing the generator stops the
-    thread."""
-    _refuse_sharding(sharding)
+    thread.  ``sharding`` as ``to_device``."""
+    _check_sharding(sharding)
+    if device is None and sharding is not None:
+        device = sharding.device
     dev = resolve_device(device)
     slots: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -69,7 +82,7 @@ def prefetch(it: Iterator[Dict], depth: int = 2, *, device=None,
     def work():
         try:
             for batch in it:
-                if not put(to_device(batch, dev)):
+                if not put(to_device(batch, dev, sharding=sharding)):
                     return
         except Exception as exc:              # handed to the consumer
             put(_Failed(exc))

@@ -77,8 +77,17 @@ POST /v1/generate, /drain; GET /healthz /readyz /metrics) on ``--host`` /
 ``--port`` with a wait queue of ``--max-queue``; ``--http-demo`` streams one
 request through it and exits.  The engine serves text attention models
 only, as the reference's does (rwkv6-1.6b, hymba-1.5b and llava-next-34b
-raise).  ``--mesh-*`` (multi-GPU, ROADMAP.md §1 item 8) is not ported and
-raises.
+raise).
+
+``--mesh-data D --mesh-model M`` serves the static batch sharded over a
+("data", "model") process mesh: one command spawns the D·M ranks
+(``launch.mesh.spawn``), each draws its block of the weights
+(``model.init(mesh=)``) and runs ``DecodeSession(mesh=)``, and rank 0
+prints the lines above.  Ranks sharing one card use gloo, ranks with a card
+each NCCL (printed).  The mesh runs the dense text trunk (granite-3-8b,
+stablelm-12b, starcoder2-7b, nemotron-4-15b) under exact, topk, distance,
+adaptive, and topk_tree on the dense cache.  ``--engine`` and ``--http``
+under a mesh, and ``--mesh-pod``, raise (ROADMAP.md §1 item 8b).
 """
 from __future__ import annotations
 
@@ -86,6 +95,7 @@ import argparse
 import asyncio
 import json
 import signal
+import sys
 import time
 from typing import Dict, Optional, Sequence
 
@@ -95,8 +105,9 @@ import torch
 from repro_torch import bridge, resolve_device
 from repro_torch.config import DecodeConfig, get_config
 from repro_torch.core.bundle import ModelBundle
-from repro_torch.core.policy import list_policies
+from repro_torch.core.policy import list_policies, resolve_policy
 from repro_torch.data.synthetic import MarkovLM
+from repro_torch.launch.mesh import Mesh, choose_backend, spawn
 from repro_torch.models import model as M
 from repro_torch.serving import (ContinuousBatchingEngine, DecodeSession,
                                  EngineConfig, Frontend, HTTPServer, Request,
@@ -194,9 +205,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args) -> Optional[str]:
-    if args.mesh_data or args.mesh_model > 1 or args.mesh_pod > 1:
-        return "--mesh-* (multi-GPU: ROADMAP.md §1 item 8)"
+    if args.mesh_pod > 1:
+        return "--mesh-pod (the pod axis: ROADMAP.md §1 item 8b)"
+    if _mesh_shape(args) and (args.engine or args.http):
+        return ("--engine / --http under --mesh-* (the engine under a mesh: "
+                "ROADMAP.md §1 item 8b)")
     return None
+
+
+def _mesh_shape(args) -> Optional[tuple]:
+    """(D, M) when ``--mesh-data`` or ``--mesh-model`` asks for a mesh."""
+    if args.mesh_data <= 0 and args.mesh_model <= 0:
+        return None
+    return max(args.mesh_data, 1), max(args.mesh_model, 1)
 
 
 def parse_policy_groups(spec: str):
@@ -245,7 +266,32 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         raise SystemExit("--policies configures slot groups of the "
                          "continuous-batching engine: add --engine (or "
                          "--http)")
+    mesh_shape = _mesh_shape(args)
+    if mesh_shape:
+        if params is not None:
+            raise ValueError("params= is single-device: under --mesh-* each "
+                             "rank draws or restores its own block")
+        return serve_mesh(sys.argv[1:] if argv is None else list(argv),
+                          args, *mesh_shape)
     dev = resolve_device(args.device)
+    cfg, dec = _configs(args)
+    if params is None:
+        params = _params(cfg, args, dev)
+    params = M.cast_for_compute(params, cfg)
+    bundles = draft_bundle(cfg, args, groups)
+    task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
+                    seed=args.seed)
+    if args.http:
+        return serve_http(params, cfg, dec, args, groups, bundles)
+    if args.engine:
+        return serve_engine(params, cfg, dec, args, task, groups, bundles)
+    sess = DecodeSession(params, cfg, dec, kv_chunk=args.kv_chunk,
+                         bundles=bundles)
+    return serve_static(sess, args, task, dev)
+
+
+def _configs(args):
+    """The served (ModelConfig, DecodeConfig) of ``args``."""
     cfg = get_config(args.arch, smoke=not args.full_config)
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
@@ -256,17 +302,6 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         raise SystemExit(f"{args.arch} is encoder-only — no decode path")
     if not args.full_config:
         cfg = cfg.replace(dtype="float32")
-    if params is None:
-        if args.ckpt_dir:
-            params = bridge.load_checkpoint(args.ckpt_dir, cfg, device=dev)
-            print(f"[serve] restored {args.ckpt_dir}")
-        else:
-            # drawn in the dtype the serve reads them in
-            params = M.init(cfg.replace(param_dtype=cfg.dtype), seed=args.seed,
-                            device=dev)
-    params = M.cast_for_compute(params, cfg)
-    bundles = draft_bundle(cfg, args, groups)
-
     dec = DecodeConfig(max_new_tokens=args.max_new,
                        block_k=args.block_k or cfg.bpd_k,
                        policy=args.policy or args.criterion,
@@ -277,12 +312,28 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
                        image_height=args.image_height,
                        image_width=args.image_width,
                        locality_stride=args.locality_stride)
-    task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
-                    seed=args.seed)
-    if args.http:
-        return serve_http(params, cfg, dec, args, groups, bundles)
-    if args.engine:
-        return serve_engine(params, cfg, dec, args, task, groups, bundles)
+    return cfg, dec
+
+
+def _params(cfg, args, dev, mesh=None):
+    """The served weights, or this rank's blocks of them: restored from
+    ``--ckpt-dir``, else random from ``--seed``, drawn in the dtype the
+    serve reads them in."""
+    if args.ckpt_dir:
+        params = bridge.load_checkpoint(args.ckpt_dir, cfg, device=dev,
+                                        mesh=mesh)
+        if mesh is None or mesh.index == 0:
+            print(f"[serve] restored {args.ckpt_dir}")
+        return params
+    return M.init(cfg.replace(param_dtype=cfg.dtype), seed=args.seed,
+                  device=dev, mesh=mesh)
+
+
+def serve_static(sess, args, task, dev) -> Dict:
+    """Decode ``--batch`` MarkovLM prompts as one static batch through
+    ``sess`` (a warm-up, then the timed run) and print the summary (on
+    rank 0 of a mesh)."""
+    cfg, dec = sess.cfg, sess.dec
     prompts = task.sample(np.random.default_rng(args.seed + 1), args.batch,
                           args.prompt_len)
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
@@ -294,8 +345,6 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    sess = DecodeSession(params, cfg, dec, kv_chunk=args.kv_chunk,
-                         bundles=bundles)
     sess.decode(batch)                                          # warm-up
     sync()
     t0 = time.perf_counter()
@@ -303,20 +352,60 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
     sync()
     dt = time.perf_counter() - t0
 
-    generated = int(stats["generated"].sum())
-    print(f"[serve] {args.batch} requests, {args.max_new} tokens each, "
-          f"policy={dec.policy}, {dec.cache_backend} cache, {cfg.name} "
-          f"({cfg.dtype}) on {dev}")
-    print(f"[serve] mean accepted block size k̂ = "
-          f"{stats['mean_accepted']:.2f}  invocations = "
-          f"{stats['invocations']} (greedy would need {args.max_new + 1})  "
-          f"wall = {dt * 1e3:.0f}ms  {generated / dt:.1f} tokens/s")
-    text_len = stats["text_len"].tolist()
-    rows = toks.tolist()
-    for r in range(args.batch):
-        print(f"    row {r}: {rows[r][args.prompt_len:text_len[r]]}")
+    if sess.mesh is None or sess.mesh.index == 0:
+        where = (f"{dev}" if sess.mesh is None else
+                 f"mesh {sess.mesh.shape} of {sess.mesh.size} ranks "
+                 f"({sess.mesh.backend}), rank 0 on {dev}")
+        generated = int(stats["generated"].sum())
+        print(f"[serve] {args.batch} requests, {args.max_new} tokens each, "
+              f"policy={dec.policy}, {dec.cache_backend} cache, {cfg.name} "
+              f"({cfg.dtype}) on {where}")
+        print(f"[serve] mean accepted block size k̂ = "
+              f"{stats['mean_accepted']:.2f}  invocations = "
+              f"{stats['invocations']} (greedy would need {args.max_new + 1})"
+              f"  wall = {dt * 1e3:.0f}ms  {generated / dt:.1f} tokens/s")
+        text_len = stats["text_len"].tolist()
+        rows = toks.tolist()
+        for r in range(args.batch):
+            print(f"    row {r}: {rows[r][args.prompt_len:text_len[r]]}",
+                  flush=True)
     return {"tokens": toks, "stats": stats, "wall_s": dt, "batch": batch,
-            "cfg": cfg, "dec": dec, "params": params, "session": sess}
+            "cfg": cfg, "dec": dec, "params": sess.params, "session": sess}
+
+
+def serve_mesh(argv: Sequence[str], args, data: int, model: int) -> Dict:
+    """The static batch on a ``data`` × ``model`` mesh: spawn the ranks
+    (``_serve_rank``) and return rank 0's tokens and stats (and every
+    rank's summary under ``ranks``)."""
+    cfg, dec = _configs(args)                  # refusals before any spawn
+    layout = Mesh(data, model)
+    M.check_mesh_supported(cfg, layout)
+    resolve_policy(dec).bind({}, cfg, mesh=layout, dec=dec)
+    backend, why = choose_backend(data * model, args.device)
+    print(f"[serve] mesh {{'data': {data}, 'model': {model}}}: {data * model} "
+          f"ranks, backend {backend} ({why})", flush=True)
+    ranks = spawn(_serve_rank, data, model, args=(list(argv),),
+                  device=args.device)
+    out = dict(ranks[0])
+    out["tokens"] = torch.as_tensor(out["tokens"])
+    out["stats"] = dict(out["stats"], **{
+        k: torch.as_tensor(out["stats"][k]) for k in ("generated", "text_len")})
+    return dict(out, ranks=ranks)
+
+
+def _serve_rank(mesh, argv: Sequence[str]) -> Dict:
+    """One rank of ``serve_mesh``: its blocks of the weights, the sharded
+    session, ``serve_static``."""
+    args = build_parser().parse_args(argv)
+    cfg, dec = _configs(args)
+    params = M.cast_for_compute(_params(cfg, args, mesh.device, mesh), cfg)
+    sess = DecodeSession(params, cfg, dec, mesh=mesh, kv_chunk=args.kv_chunk)
+    task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
+                    seed=args.seed)
+    out = serve_static(sess, args, task, mesh.device)
+    return {"tokens": out["tokens"], "stats": out["stats"],
+            "wall_s": out["wall_s"], "device": str(mesh.device),
+            "backend": mesh.backend}
 
 
 def draft_bundle(cfg, args, groups=None):

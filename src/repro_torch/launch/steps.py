@@ -14,7 +14,7 @@ serving on one device.
 
 The reference's ``input_specs``, ``serve_state_struct`` and
 ``adapt_config`` shape its multi-pod dry run, which is not ported
-(ROADMAP.md §1 item 8).  The prefill and serve steps run under
+(ROADMAP.md §1 item 8e).  The prefill and serve steps run under
 ``torch.no_grad``, as every decode entry point does.
 """
 from __future__ import annotations

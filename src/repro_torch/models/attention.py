@@ -29,6 +29,13 @@ Entry points, as in ``repro.models.attention``:
 Masking is computed from absolute positions, so the BPD rollback ("length
 decreases by up to k-1") moves no data.  Caches are written in place (the
 reference returns new ones).
+
+On a sharded ``ParamTree`` a rank computes its own query heads (``wq`` cut
+over the ``model`` axis, head numbering h = kv·G + g kept) against the KV
+heads they read (``wk`` / ``wv`` cut the same way, or, where the KV heads
+do not divide the axis, the one KV head the rank's heads share:
+``sharding.local_kv_heads``), and ``wo``'s partial products are summed over
+``model``.  Its caches hold those KV heads only.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, norm_apply, norm_init
+from repro_torch.sharding import comm
 
 NEG_INF = -1e30
 
@@ -66,9 +74,14 @@ def attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32,
 def _project_qkv(p, cfg: ModelConfig, x, positions, *, rope: bool = True):
     """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd); RoPE applied unless
     ``rope`` is False (the encoder)."""
+    wk, wv = p["wk"], p["wv"]
+    if comm.cut(p, "wq") is not None and comm.cut(p, "wk") is None:
+        # the KV head this rank's query heads share (sharding.local_kv_heads)
+        kv0 = p.mesh.coords["model"] * p["wq"].shape[1] // cfg.num_kv_groups
+        wk, wv = wk[:, kv0:kv0 + 1], wv[:, kv0:kv0 + 1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, wv.to(x.dtype))
     if "q_norm" in p:
         q = norm_apply(p["q_norm"], q)
         k = norm_apply(p["k_norm"], k)
@@ -79,8 +92,14 @@ def _project_qkv(p, cfg: ModelConfig, x, positions, *, rope: bool = True):
 
 
 def _out_proj(p, ctx):
-    """ctx: (B, S, H, hd) -> (B, S, d)."""
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype))
+    """ctx: (B, S, H, hd) -> (B, S, d), summed over the ``model`` axis
+    when ``wo``'s heads are cut over it."""
+    wo = p["wo"]
+    if comm.cut(p, "wo") is None:
+        return torch.einsum("bshk,hkd->bsd", ctx, wo.to(ctx.dtype))
+    b, s, h, k = ctx.shape
+    return comm.row_sum(p.mesh, ctx.reshape(b * s, h * k),
+                        wo.reshape(h * k, -1)).reshape(b, s, -1)
 
 
 def _gqa_attend(q, k, v, mask, *, head_dim: int):

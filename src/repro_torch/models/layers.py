@@ -2,7 +2,10 @@
 
 Functions take parameters as nested dicts of tensors (``p["w"]``), as the
 reference's pure functions take pytrees; ``p["w"].to(x.dtype)`` is a no-op
-once the parameter set has been cast to the compute dtype.
+once the parameter set has been cast to the compute dtype.  On a sharded
+``ParamTree`` the MLP is column-parallel in ``w1`` / ``w3`` and
+row-parallel in ``w2`` (summed over the ``model`` axis, the bias added
+once after the sum), and the embedding is vocab-parallel.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.sharding import comm
 
 # ---------------------------------------------------------------------------
 # Initializers: draws from one explicit torch.Generator (None on the meta
@@ -137,6 +141,17 @@ def mlp_init(gen, cfg: ModelConfig, *, d_ff: Optional[int] = None,
     return p
 
 
+def row_parallel_apply(p, x):
+    """``dense_apply`` of a weight whose input dim may be cut over the
+    ``model`` axis: the partial products summed there, then the bias."""
+    if comm.cut(p, "w") is None:
+        return dense_apply(p, x)
+    w = p["w"]
+    y = comm.row_sum(p.mesh, x.reshape(-1, w.shape[0]), w).reshape(
+        *x.shape[:-1], w.shape[1])
+    return y + p["b"].to(x.dtype) if "b" in p else y
+
+
 def mlp_apply(p, x, *, act: str):
     h = dense_apply(p["w1"], x)
     if "w3" in p:
@@ -144,7 +159,7 @@ def mlp_apply(p, x, *, act: str):
         h = activation("silu" if act == "geglu" else act, h) * dense_apply(p["w3"], x)
     else:
         h = activation(act, h)
-    return dense_apply(p["w2"], h)
+    return row_parallel_apply(p["w2"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -159,9 +174,19 @@ def embed_init(gen, vocab: int, dim: int, *, dtype=torch.float32,
 
 
 def embed_apply(p, ids):
+    """Rows ``ids`` of the table.  A table cut over the ``model`` axis
+    (vocab-parallel) gives zeros for the ids outside this rank's rows and
+    sums the ranks' rows: one non-zero term each."""
     table = p["table"]
-    return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape,
-                                                          table.shape[1])
+    if comm.cut(p, "table") is None:
+        return table.index_select(0, ids.reshape(-1)).reshape(
+            *ids.shape, table.shape[1])
+    n = table.shape[0]
+    local = ids - p.mesh.coords["model"] * n
+    mine = (local >= 0) & (local < n)
+    rows = table.index_select(0, torch.where(mine, local, 0).reshape(-1))
+    rows = torch.where(mine.reshape(-1, 1), rows, 0)
+    return comm.model_sum(p.mesh, rows).reshape(*ids.shape, table.shape[1])
 
 
 def unembed_apply(p, x):

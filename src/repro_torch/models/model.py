@@ -45,21 +45,39 @@ from repro_torch.models.layers import (
     normal,
     unembed_apply,
 )
+from repro_torch.sharding import comm
+from repro_torch.sharding.policy import local_kv_heads, shard_leaves
 from repro_torch.utils.tree import flatten_with_names
 
 
 class ParamTree(nn.Module):
-    """A nested dict (lists for ``blocks``) of tensors as an ``nn.Module``."""
+    """A nested dict (lists for ``blocks``) of tensors as an ``nn.Module``.
 
-    def __init__(self, tree: Dict):
+    A sharded tree (``sharding.shard_params``, ``init(mesh=)``) holds this
+    rank's block of each leaf, as a JAX array carries its sharding: every
+    node keeps the ``mesh`` and, in ``shard_dims``, the dim of each of its
+    own leaves cut over the ``model`` axis.  The layers read them to issue
+    their collectives (``sharding.comm``)."""
+
+    def __init__(self, tree: Dict, *, mesh=None,
+                 sharded: Optional[Dict[str, int]] = None, prefix: str = ""):
         super().__init__()
+        self.mesh = mesh
+        self.shard_dims: Dict[str, int] = {}
+        sharded = sharded or {}
         for key, val in tree.items():
+            path = f"{prefix}/{key}" if prefix else key
             if isinstance(val, torch.Tensor):
                 self.register_parameter(key, nn.Parameter(val, requires_grad=False))
+                if path in sharded:
+                    self.shard_dims[key] = sharded[path]
             elif isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, mesh=mesh, sharded=sharded,
+                                               prefix=path))
             elif isinstance(val, (list, tuple)):
-                self.add_module(key, nn.ModuleList(ParamTree(v) for v in val))
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(v, mesh=mesh, sharded=sharded,
+                              prefix=f"{path}/{i}") for i, v in enumerate(val)))
             else:
                 raise TypeError(f"param {key!r}: unsupported leaf {type(val)}")
 
@@ -75,29 +93,51 @@ class ParamTree(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
+def init(cfg: ModelConfig, *, seed: int = 0, device=None,
+         mesh=None) -> ParamTree:
     """Random parameters in ``cfg.param_dtype`` from a seeded
-    ``torch.Generator`` on ``device`` (default the card; ``"meta"`` gives
-    shapes only).  Same distributions as the reference's ``init``; the
-    numbers differ, as the two frameworks' generators do.  An
-    encoder-decoder config goes to ``seq2seq.init``."""
+    ``torch.Generator`` on ``device`` (default ``mesh``'s device, else the
+    card; ``"meta"`` gives shapes only).  Same distributions as the
+    reference's ``init``; the numbers differ, as the two frameworks'
+    generators do.  An encoder-decoder config goes to ``seq2seq.init``.
+
+    With ``mesh`` (a ``launch.mesh.Mesh``) every leaf is drawn whole, in
+    the single-device order and from the same generator, and only this
+    rank's block is kept (``sharding.shard_leaves``), one layer's leaves at
+    a time: the blocks equal the single-device draw's, and no rank holds a
+    second full copy."""
+    if mesh is not None:
+        check_mesh_supported(cfg, mesh)
     if cfg.is_encoder_decoder:
         from repro_torch.models import seq2seq   # seq2seq imports this module
 
         return seq2seq.init(cfg, seed=seed, device=device)
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if device is None and mesh is not None
+                         else device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     kw = dict(dtype=cfg.params_dtype, device=dev)
+    sharded: Dict[str, int] = {}
+
+    def keep(name: str, tree):
+        if mesh is None:
+            return tree
+        blocks, dims = shard_leaves(tree, mesh, prefix=name)
+        sharded.update(dims)
+        return blocks
+
     p: Dict = {
-        "embed": embed_init(gen, cfg.padded_vocab_size, cfg.d_model, **kw),
-        "blocks": [block_init(gen, cfg, i, **kw) for i in range(cfg.num_layers)],
+        "embed": keep("embed", embed_init(gen, cfg.padded_vocab_size,
+                                          cfg.d_model, **kw)),
+        "blocks": [keep(f"blocks/{i}", block_init(gen, cfg, i, **kw))
+                   for i in range(cfg.num_layers)],
         "final_norm": norm_init(cfg.d_model, kind=cfg.norm_type, **kw),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size, **kw)
+        p["lm_head"] = keep("lm_head", dense_init(
+            gen, cfg.d_model, cfg.padded_vocab_size, **kw))
     if cfg.bpd_enabled:
-        p["bpd_heads"] = heads_init(gen, cfg, **kw)
+        p["bpd_heads"] = keep("bpd_heads", heads_init(gen, cfg, **kw))
     if cfg.num_meta_tokens:
         p["meta_tokens"] = normal(gen, (cfg.num_meta_tokens, cfg.d_model),
                                   std=0.02, **kw)
@@ -105,7 +145,33 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> ParamTree:
         p["pos_embed"] = normal(gen, (cfg.max_seq_len, cfg.d_model), std=0.02,
                                 **kw)
         p["mask_embed"] = normal(gen, (cfg.d_model,), std=0.02, **kw)
-    return ParamTree(p)
+    return ParamTree(p, mesh=mesh, sharded=sharded)
+
+
+def check_mesh_supported(cfg: ModelConfig, mesh) -> None:
+    """The sharded decode path runs the dense trunk (attention + dense
+    MLP, text in and out) whose query heads split into whole KV heads or
+    whole groups of a KV head (``sharding.local_kv_heads``); anything else
+    raises before any work."""
+    if not (cfg.block_type == "attn" and cfg.mlp_type == "dense"
+            and cfg.modality == "text" and not cfg.is_encoder_decoder
+            and not cfg.is_encoder_only):
+        raise NotImplementedError(
+            f"{cfg.name} (block_type={cfg.block_type!r}, mlp_type="
+            f"{cfg.mlp_type!r}, modality={cfg.modality!r}, encoder-decoder="
+            f"{cfg.is_encoder_decoder}, encoder-only={cfg.is_encoder_only}) "
+            f"under a mesh is not ported yet (ROADMAP.md §1 item 8c): the "
+            f"sharded path runs the dense text trunk (attention + dense MLP)")
+    local_kv_heads(cfg, mesh.shape["model"])
+
+
+def cache_config(params, cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` as this rank's caches see it: at the KV heads the rank keeps
+    (``sharding.local_kv_heads``) when ``params`` are sharded."""
+    mesh = getattr(params, "mesh", None)
+    if mesh is None:
+        return cfg
+    return cfg.replace(num_kv_heads=local_kv_heads(cfg, mesh.shape["model"]))
 
 
 # Leaves the reference reads in fp32 whatever the compute dtype: every
@@ -293,41 +359,65 @@ def scatter_cache_row(caches, row_caches, slot, *, row=0, tbl_row=None,
 
 
 def vocab_matrix(params, cfg: ModelConfig) -> torch.Tensor:
-    """The (d, Vp) vocab projection: the tied table's transpose view (no
-    copy) or the untied ``lm_head``."""
+    """The (d, Vp) vocab projection, or this rank's (d, Vp / M) lanes of it
+    when sharded: the tied table's transpose view (no copy) or the untied
+    ``lm_head``."""
     if cfg.tie_embeddings:
         return params["embed"]["table"].t()
     return params["lm_head"]["w"]
 
 
+def vocab_lanes(params, cfg: ModelConfig):
+    """(mesh, first lane): the first global vocab lane of this rank's block
+    of the vocab projection, and the mesh that holds the others (None when
+    the projection is whole)."""
+    node, leaf = ((params["embed"], "table") if cfg.tie_embeddings
+                  else (params["lm_head"], "w"))
+    dim = comm.cut(node, leaf)
+    if dim is None:
+        return None, 0
+    return node.mesh, node.mesh.coords["model"] * node[leaf].shape[dim]
+
+
 def project_vocab(params, cfg: ModelConfig, h) -> torch.Tensor:
-    """(..., d) -> (..., padded_vocab) logits; pad lanes set to -1e9 so
-    argmax / softmax never select them."""
+    """(..., d) -> (..., padded_vocab) logits, or this rank's lanes of them
+    when the projection is sharded (``vocab_lanes``); pad lanes set to -1e9
+    (on the rank that holds them) so argmax / softmax never select them."""
     if cfg.tie_embeddings:
         logits = unembed_apply(params["embed"], h)
     else:
         logits = dense_apply(params["lm_head"], h)
-    if cfg.padded_vocab_size != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
+    _, lo = vocab_lanes(params, cfg)
+    real = cfg.vocab_size - lo
+    if real < logits.shape[-1]:
+        logits[..., max(real, 0):] = -1e9
     return logits
+
+
+def _whole_vocab(params, cfg: ModelConfig, logits) -> torch.Tensor:
+    """Logits over the whole padded vocab: a sharded projection's lanes
+    gathered over the ``model`` axis."""
+    mesh, _ = vocab_lanes(params, cfg)
+    return logits if mesh is None else comm.model_gather(mesh, logits)
 
 
 def all_head_logits(params, cfg: ModelConfig, hidden) -> torch.Tensor:
     """hidden: (..., d) -> (..., k, V) logits of p_1..p_k (paper Fig. 3);
     a headless model gives p_1 alone, (..., 1, V)."""
     if not cfg.bpd_enabled or "bpd_heads" not in params:
-        return project_vocab(params, cfg, hidden)[..., None, :]
+        return _whole_vocab(params, cfg,
+                            project_vocab(params, cfg, hidden)[..., None, :])
     outs = heads_apply(params["bpd_heads"], cfg, hidden,
                        identity_p1=cfg.bpd_identity_p1)
-    return project_vocab(params, cfg, outs)
+    return _whole_vocab(params, cfg, project_vocab(params, cfg, outs))
 
 
 def base_logits(params, cfg: ModelConfig, hidden) -> torch.Tensor:
-    """p_1 logits only."""
+    """p_1 logits only, over the whole padded vocab on every rank."""
     if cfg.bpd_enabled and not cfg.bpd_identity_p1:
         hidden = head_apply_single(params["bpd_heads"], cfg, hidden, 0,
                                    identity_p1=False)
-    return project_vocab(params, cfg, hidden)
+    return _whole_vocab(params, cfg, project_vocab(params, cfg, hidden))
 
 
 def greedy_token(logits) -> torch.Tensor:
@@ -340,15 +430,37 @@ def head_topk(params, cfg: ModelConfig, hidden, n: int,
               top_t: int = 1) -> torch.Tensor:
     """Top-``top_t`` ids of heads p_2..p_{n+1} at hidden (B, d) ->
     (B, n, top_t) int32, ordered by (logit desc, id asc), from one
-    fused-heads launch over the B·n rows: the heads' logits are never
-    written."""
+    fused-heads launch over the B·n rows (``vocab_top_t``): the heads'
+    logits are never written."""
     b, d = hidden.shape
     if n >= cfg.bpd_k:
         raise ValueError(f"{n + 1} proposal slots need {n + 1} heads; "
                          f"{cfg.name} has bpd_k={cfg.bpd_k}")
     outs = heads_apply(params["bpd_heads"], cfg, hidden,
                        identity_p1=cfg.bpd_identity_p1)[:, 1:1 + n]
-    _, ids = ops.fused_heads_topk(outs.reshape(b * n, d),
-                                  vocab_matrix(params, cfg),
-                                  vocab=cfg.vocab_size, top_t=top_t)
-    return ids.reshape(b, n, top_t)
+    return vocab_top_t(params, cfg, outs.reshape(b * n, d),
+                       top_t).reshape(b, n, top_t)
+
+
+def vocab_top_t(params, cfg: ModelConfig, o, top_t: int) -> torch.Tensor:
+    """The (N, top_t) int32 ids of the top-``top_t`` vocab logits of
+    ``o`` (N, d), ordered by (logit desc, id asc), by the fused-heads
+    kernel.  A sharded projection launches on this rank's lanes and merges
+    the ranks' top-T by that same rule (``comm.merge_top_t``), so the ids
+    are those of one launch over the whole vocab."""
+    w = vocab_matrix(params, cfg)
+    mesh, lo = vocab_lanes(params, cfg)
+    if mesh is None:
+        return ops.fused_heads_topk(o, w, vocab=cfg.vocab_size,
+                                    top_t=top_t)[1]
+    real = min(max(cfg.vocab_size - lo, 0), w.shape[1])
+    n = o.shape[0]
+    vals = torch.full((n, top_t), float("-inf"), device=o.device)
+    ids = torch.full((n, top_t), torch.iinfo(torch.int32).max,
+                     dtype=torch.int32, device=o.device)
+    t = min(top_t, real)      # a rank of pad lanes alone launches nothing
+    if t:
+        vals[:, :t], ids[:, :t] = ops.fused_heads_topk(o, w, vocab=real,
+                                                       top_t=t)
+        ids[:, :t] += lo
+    return comm.merge_top_t(mesh, vals, ids, top_t)[1]

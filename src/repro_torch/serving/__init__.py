@@ -1,5 +1,6 @@
 """Continuous-batching serving for blockwise parallel decoding, on one
-device (the port of ``repro.serving``, without its mesh).
+device (the port of ``repro.serving``; under a mesh ``DecodeSession``
+serves a static batch, and the engine raises: ROADMAP.md §1 item 8b).
 
 Layering:
   types.py     — Request / FinishedRequest / PreemptedRequest /

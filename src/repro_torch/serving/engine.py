@@ -32,7 +32,7 @@ and each *group step* costs exactly ONE fused device→host sync.
 The engine itself is a **scheduler + slot-metadata shell**: all device
 functions are owned by a ``serving.session.DecodeSession`` and built once
 per (policy, geometry) (padded prompts, static slot counts).  A mesh is
-not ported (ROADMAP.md §1 item 8).
+refused (ROADMAP.md §1 item 8b).
 
 The host loop performs exactly ONE device→host read per group step: the
 step returns a (S,) int8 status (bit 0 = active, bit 1 = harvestable) and
@@ -70,7 +70,8 @@ from repro_torch.core.policy import resolve_policy
 from repro_torch.serving.pages import PageAllocator, PagePoolExhausted
 from repro_torch.serving.session import DecodeSession, ServingFns
 from repro_torch.serving.types import (EngineConfig, FinishedRequest,
-                                       PreemptedRequest, Request, SlotBatch)
+                                       PreemptedRequest, Request, SlotBatch,
+                                       refuse_mesh)
 
 __all__ = ["ContinuousBatchingEngine", "PolicyGroup", "SlotBatch",
            "PagePoolExhausted", "PreemptedRequest", "HandoffRecord"]
@@ -185,6 +186,7 @@ class ContinuousBatchingEngine:
                  bundles=None,
                  policies: Union[None, Dict[str, int],
                                  Sequence[Tuple[str, int]]] = None):
+        refuse_mesh(mesh if session is None else session.mesh)
         if cfg.block_type != "attn":
             raise NotImplementedError(
                 f"serving engine requires an attention-cache family "

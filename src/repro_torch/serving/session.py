@@ -28,7 +28,16 @@ drafter ``grid`` and schedule ``pos`` as much as ``adaptive``'s ``rate`` and
 graph is ROADMAP.md §1 item 1; until then each call launches its kernels
 from the host.
 
-A mesh is not ported (ROADMAP.md §1 item 8).
+``mesh`` (this rank's ``launch.mesh.Mesh``) shards the run-to-completion
+entry points over a ("data", "model") process mesh, as the reference's
+mesh-backed session does: the parameters over ``model``
+(``sharding.shard_params``, unless they are sharded already, as
+``model.init(mesh=)`` and ``bridge.from_jax_params(mesh=)`` make them),
+the batch and the per-row budgets over ``data`` (``comm.data_rows``), and
+``decode`` / ``greedy`` return the whole batch's tokens and stats on every
+rank.  The sharded path runs the dense text trunk (``model.
+check_mesh_supported``) under the policies ``DecodePolicy.bind`` admits;
+the engine's serving functions under a mesh are ROADMAP.md §1 item 8b.
 """
 from __future__ import annotations
 
@@ -42,7 +51,9 @@ from repro_torch.core import decode as decode_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
-from repro_torch.serving.types import EngineConfig, SlotBatch
+from repro_torch.serving.types import EngineConfig, SlotBatch, refuse_mesh
+from repro_torch.sharding import comm
+from repro_torch.sharding.policy import shard_params
 
 I32 = torch.int32
 
@@ -136,15 +147,24 @@ class DecodeSession:
     ``EngineConfig``), so two groups that run equal policies at one
     geometry share one set.  The device is the parameters' device.
     ``kv_chunk`` > 0 runs every prefill's attention in chunks of that many
-    keys (the reference's long-prefill bound).
+    keys (the reference's long-prefill bound).  ``mesh``: see the module.
     """
 
     def __init__(self, params, cfg: ModelConfig, dec: DecodeConfig, *,
                  mesh=None, kv_chunk: int = 0, policy=None, bundles=None):
+        held = getattr(params, "mesh", None)
+        mesh = held if mesh is None else mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded DecodeSession is not ported yet (ROADMAP.md, "
-                "'Modules to port', item 8: multi-GPU)")
+            model_lib.check_mesh_supported(cfg, mesh)
+            if bundles:
+                raise NotImplementedError(
+                    "auxiliary bundles under a mesh are not ported yet "
+                    "(ROADMAP.md §1 item 8c: draft_model's bundle shardings)")
+            if held is None:
+                params = shard_params(params, mesh)
+            elif held is not mesh:
+                raise ValueError(f"params are sharded for {held}, not for "
+                                 f"the session's {mesh}")
         self.params = params
         self.cfg = cfg
         self.dec = dec
@@ -159,7 +179,7 @@ class DecodeSession:
                     f"{cfg.compute_dtype}: casting it would recast the "
                     f"primary's own tensors")
         self.policy = policy_lib.resolve_policy(dec, policy).bind(
-            self.bundles, cfg)
+            self.bundles, cfg, mesh=mesh, dec=dec)
         # each bundle on this device in its own compute dtype (in place: a
         # self-draft's bundle is the primary's ParamTree, not a copy)
         self.aux_params = {
@@ -171,10 +191,14 @@ class DecodeSession:
     def decode(self, batch: Dict, *, max_new_rows=None):
         """Blockwise parallel decode of ``batch`` under the session's policy
         (``core.decode.bpd_decode``)."""
-        return decode_lib._bpd_decode_impl(
-            self.params, self.cfg, self.dec, batch, max_new_rows=max_new_rows,
-            policy=self.policy, kv_chunk=self.kv_chunk,
-            aux_params=self.aux_params)
+        rows = self._rows(batch)
+        if max_new_rows is not None and rows is not None:
+            max_new_rows = torch.as_tensor(max_new_rows, dtype=I32)[rows]
+        out = decode_lib._bpd_decode_impl(
+            self.params, self.cfg, self.dec, self._local(batch, rows),
+            max_new_rows=max_new_rows, policy=self.policy,
+            kv_chunk=self.kv_chunk, aux_params=self.aux_params)
+        return self._whole(batch, out)
 
     def decode_seq2seq(self, batch: Dict):
         """Encode ``batch["src"]`` and BPD the decoder under the session's
@@ -185,8 +209,44 @@ class DecodeSession:
 
     def greedy(self, batch: Dict):
         """The greedy baseline (``core.decode.greedy_decode``)."""
-        return decode_lib.greedy_decode(self.params, self.cfg, self.dec, batch,
-                                        kv_chunk=self.kv_chunk)
+        out = decode_lib._greedy_decode_impl(
+            self.params, self.cfg, self.dec,
+            self._local(batch, self._rows(batch)), kv_chunk=self.kv_chunk)
+        return self._whole(batch, out)
+
+    # -- the mesh's data axis --------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The mesh the parameters are sharded over (None on one device):
+        the one the decode loop's collectives run on too."""
+        return getattr(self.params, "mesh", None)
+
+    def _rows(self, batch: Dict) -> Optional[slice]:
+        """This rank's rows of ``batch`` (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        return comm.data_rows(self.mesh, batch["tokens"].shape[0])
+
+    @staticmethod
+    def _local(batch: Dict, rows: Optional[slice]) -> Dict:
+        return batch if rows is None else {k: v[rows] for k, v in batch.items()}
+
+    def _whole(self, batch: Dict, out):
+        """A decode's (tokens, stats) of this rank's rows -> the whole
+        batch's, on every rank: tokens, ``generated`` and ``text_len``
+        gathered over ``data``, ``mean_accepted`` over every row (the loop's
+        ``iterations`` are the world's already)."""
+        if self.mesh is None:
+            return out
+        toks, stats = out
+        b = batch["tokens"].shape[0]
+        gen = comm.data_gather(self.mesh, stats["generated"], b)
+        stats = dict(stats, generated=gen,
+                     text_len=comm.data_gather(self.mesh, stats["text_len"], b),
+                     mean_accepted=float(gen.sum()) / max(stats["iterations"],
+                                                          1) / b)
+        return comm.data_gather(self.mesh, toks, b), stats
 
     def bound_policy(self, policy=None):
         """Resolve ``policy`` (a registered name, a DecodePolicy, or None
@@ -200,6 +260,7 @@ class DecodeSession:
     def serving_fns(self, ecfg: EngineConfig, *, policy=None) -> ServingFns:
         """The engine's functions for ``policy`` at geometry ``ecfg``, built
         on first use and cached per (policy identity, geometry)."""
+        refuse_mesh(self.mesh)
         pol = self.bound_policy(policy)
         key = ("serving", pol.cache_key, ecfg)
         fns = self._fns.get(key)

@@ -16,6 +16,18 @@ import numpy as np
 import torch
 
 
+def refuse_mesh(mesh) -> None:
+    """The engine, its scheduler and its HTTP server serve on one device:
+    under a mesh they raise (ROADMAP.md §1 item 8b)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the engine under a mesh (slot groups, the scheduler, the HTTP "
+            "server, the pod axis, the disaggregated KV handoff) is not "
+            "ported yet (ROADMAP.md §1 item 8b); a mesh serves a static "
+            "batch (DecodeSession.decode / greedy), the engine one device "
+            "with mesh=None")
+
+
 class SlotBatch(NamedTuple):
     """Device-side state: ``BPDState`` generalized to reusable slots.
 
@@ -80,13 +92,9 @@ class EngineConfig:
         dec  : optional DecodeConfig: ``max_new_cap`` must fit inside its
                ``max_new_tokens``; its ``cache_backend`` / ``page_size``
                gate the page-pool geometry checks.
-        mesh : must be None; the port serves on one device.
+        mesh : must be None; the engine serves on one device.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded engine is not ported yet (ROADMAP.md, "
-                "'Modules to port', item 8: multi-GPU); serve on one device "
-                "with mesh=None")
+        refuse_mesh(mesh)
         if self.num_slots <= 0:
             raise ValueError(
                 f"EngineConfig.num_slots must be positive, got "

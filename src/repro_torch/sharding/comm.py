@@ -1,0 +1,153 @@
+"""The collectives of the sharded decode path.  In the reference GSPMD
+inserts them; here they are explicit, on the process groups of a
+``launch.mesh.Mesh``.
+
+  * ``row_sum``      — a row-parallel product (attention's ``wo``, the
+                       MLP's ``w2``, the BPD heads' ``w2``): each rank's
+                       partial product summed over ``model``;
+  * ``model_sum``    — the ``model``-axis sum (also the vocab-parallel
+                       embedding's rows, one non-zero term each);
+  * ``model_gather`` — a vocab-sharded last dimension put back together;
+  * ``merge_top_t``  — per-shard top-T values and ids merged into the
+                       whole vocabulary's top-T;
+  * ``data_gather``  — batch rows sharded over ``data`` put back together;
+  * ``all_finished`` — the world-wide "every row is done" flag that keeps
+                       every rank's decode loop in step.
+
+Each is the identity on a 1-sized axis.  Sums are ``all_reduce`` in fp32
+(float64 stays float64), integer ones in int64.  A row-parallel partial
+product of 16-bit inputs is formed in fp32 (``torch.mm(..., out_dtype=)``
+on the card) and rounded to the compute dtype once, after the sum, as one
+device's product accumulates in fp32 and rounds once.  Gathers are
+``all_gather_into_tensor``, which NCCL and gloo both have, gloo on CUDA
+tensors as on the CPU: they move each rank's slice in its own dtype and do
+no arithmetic.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.policy import batch_axes
+
+# all_gather_single is all_gather_into_tensor's newer name
+all_gather_into_tensor = (getattr(dist, "all_gather_single", None)
+                          or dist.all_gather_into_tensor)
+
+
+def cut(node, leaf: str):
+    """The dim of ``node[leaf]`` cut over the ``model`` axis, or None for a
+    whole leaf: what a sharded ``models.model.ParamTree`` records."""
+    return getattr(node, "shard_dims", {}).get(leaf)
+
+
+def _reduce(x: torch.Tensor, mesh, axis: str, op=dist.ReduceOp.SUM):
+    """``x`` all-reduced in place over ``mesh``'s ``axis`` group."""
+    dist.all_reduce(x, op=op, group=mesh.groups[axis])
+    return x
+
+
+def _wide(x: torch.Tensor) -> torch.dtype:
+    if x.dtype == torch.float64:
+        return x.dtype
+    return torch.float32 if x.is_floating_point() else torch.int64
+
+
+def _gather0(mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """(...) on each ``axis`` rank -> (n, ...), rank i's ``x`` at [i]."""
+    n = mesh.shape[axis]
+    out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
+    all_gather_into_tensor(out, x.contiguous().reshape(-1),
+                           group=mesh.groups[axis])
+    return out.reshape(n, *x.shape)
+
+
+def model_sum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Sum of every ``model`` rank's ``x``, in fp32, in ``x``'s dtype."""
+    if mesh.shape["model"] == 1:
+        return x
+    return _reduce(x.to(_wide(x), copy=True), mesh, "model").to(x.dtype)
+
+
+def _fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` ((N, n) @ (n, d), or batched (k, N, n) @ (k, n, d)) with an
+    fp32 result: 16-bit inputs are multiplied with fp32 accumulation and not
+    rounded (on the card ``out_dtype``; on the CPU widened first)."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x @ w
+    if not x.is_cuda:
+        return x.float() @ w.float()
+    mm = torch.mm if x.dim() == 2 else torch.bmm
+    return mm(x, w, out_dtype=torch.float32)
+
+
+def row_sum(mesh, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` where the inner dim of ``w`` (its rows) is cut over the
+    ``model`` axis and ``x`` holds this rank's matching columns: (N, n) @
+    (n, d) -> (N, d), or (k, N, n) @ (k, n, d) -> (k, N, d).  Each rank's
+    partial product in fp32, summed in fp32, rounded once to ``x``'s
+    dtype."""
+    part = _fp32_product(x, w.to(x.dtype))
+    if mesh.shape["model"] > 1:
+        _reduce(part, mesh, "model")
+    return part.to(x.dtype)
+
+
+def model_gather(mesh, x: torch.Tensor) -> torch.Tensor:
+    """(..., n) on each ``model`` rank -> (..., M·n), rank m's ``x`` at
+    lanes [m·n, (m+1)·n)."""
+    m = mesh.shape["model"]
+    if m == 1:
+        return x
+    return _gather0(mesh, "model", x).movedim(0, -2).reshape(
+        *x.shape[:-1], m * x.shape[-1])
+
+
+def merge_top_t(mesh, vals: torch.Tensor, ids: torch.Tensor, top_t: int):
+    """Each ``model`` rank's (N, T) fp32 top-T ``vals`` and int32 global
+    ``ids`` -> the (N, top_t) top-T of their union, ordered by (value desc,
+    id asc): the tie rule of the fused-heads kernel and of ``lax.top_k``, so
+    the merged ids are those of one launch over the whole vocabulary.  One
+    gather carries both, the ids as the bits of fp32 lanes (a gather copies
+    bits)."""
+    t = vals.shape[-1]
+    both = model_gather(mesh, torch.cat(
+        [vals.float(), ids.to(torch.int32).view(torch.float32)], -1))
+    both = both.reshape(*both.shape[:-1], -1, 2, t)
+    vals = both[..., 0, :].flatten(-2)
+    ids = both[..., 1, :].flatten(-2).contiguous().view(torch.int32)
+    by_id = torch.argsort(ids, dim=-1, stable=True)
+    vals, ids = vals.gather(-1, by_id), ids.gather(-1, by_id)
+    order = torch.argsort(vals, dim=-1, descending=True, stable=True)[..., :top_t]
+    return vals.gather(-1, order), ids.gather(-1, order)
+
+
+def data_rows(mesh, batch_size: int) -> slice:
+    """The rows of a ``batch_size`` batch this rank's ``data`` coordinate
+    holds: its 1/D of them where ``policy.batch_axes`` shards the batch,
+    else all of them (the batch replicated over ``data``)."""
+    if batch_axes(mesh, batch_size) is None:
+        return slice(0, batch_size)
+    n = batch_size // mesh.shape["data"]
+    i = mesh.coords["data"]
+    return slice(i * n, (i + 1) * n)
+
+
+def data_gather(mesh, x: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """This rank's rows ``data_rows(mesh, batch_size)`` of a batch-leading
+    tensor -> the whole batch, on every rank."""
+    rows = data_rows(mesh, batch_size)
+    if rows.stop - rows.start == batch_size:
+        return x
+    return _gather0(mesh, "data", x).reshape(batch_size, *x.shape[1:])
+
+
+def all_finished(mesh, finished: torch.Tensor) -> bool:
+    """True when every row of every rank of the mesh is finished: the
+    decode loop's exit test, so that no rank leaves while its peers still
+    wait for it in a collective.  One host read, as the loop makes without
+    a mesh."""
+    done = finished.all().to(torch.int32).reshape(1)
+    if "world" in mesh.groups:
+        _reduce(done, mesh, "world", op=dist.ReduceOp.MIN)
+    return bool(done.item())

@@ -230,15 +230,35 @@ def test_serve_static_path_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2"],
                                   ["--http", "--mesh-model", "2"],
-                                  ["--mesh-data", "2"],
-                                  ["--engine", "--mesh-pod", "2"],
-                                  ["--mesh-model", "2"]])
+                                  ["--engine", "--mesh-pod", "2"]])
 def test_unported_serving_options_raise(argv):
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         serve.main(["--arch", "granite-3-8b", "--device", "cpu", "--max-new",
                     "2", "--batch", "1", "--prompt-len", "4", *argv])
+
+
+@pytest.mark.parametrize("argv", [["--mesh-data", "2"], ["--mesh-model", "2"]])
+def test_serve_static_mesh_on_cpu(argv, capfd):
+    """The static batch on a mesh of 2 spawned CPU ranks prints the rows
+    the single-device launcher prints."""
+    from repro_torch.launch import serve
+
+    base = ["--arch", "granite-3-8b", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--max-new", "6"]
+    out = serve.main(base + argv)
+    meshed = capfd.readouterr().out
+    one = serve.main(base)
+    single = capfd.readouterr().out
+
+    def rows(text):
+        return [ln for ln in text.splitlines() if ln.startswith("    row ")]
+
+    assert "backend gloo" in meshed and len(out["ranks"]) == 2
+    assert rows(meshed) == rows(single) and len(rows(single)) == 2
+    assert _rows(out["tokens"].numpy(), out["stats"]) == _rows(
+        one["tokens"].numpy(), one["stats"])
 
 
 def test_exact_resolves_and_unported_policies_raise():
@@ -251,3 +271,33 @@ def test_exact_resolves_and_unported_policies_raise():
     assert pol.name == "draft_model" and pol.drafter.cfg is None
     with pytest.raises(ValueError, match="unknown decode policy"):
         tpolicy.resolve_policy(DecodeConfig(policy="no_such_policy"))
+
+
+def test_serve_ckpt_dir_single_and_mesh(tmp_path, capfd):
+    """``--ckpt-dir`` serves the restored weights, on one device and on a
+    ``model`` mesh of 2 spawned CPU ranks, with equal rows, and those rows
+    are greedy's on the saved weights."""
+    from repro_torch.checkpoint import ckpt as tckpt
+    from repro_torch.config import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("granite-3-8b", smoke=True).replace(dtype="float32")
+    saved = tmodel.init(cfg.replace(param_dtype="float32"), seed=11,
+                        device="cpu")
+    tckpt.save(str(tmp_path), 3, saved)
+    base = ["--arch", "granite-3-8b", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--max-new", "6", "--ckpt-dir", str(tmp_path)]
+    one = serve.main(base)
+    single = capfd.readouterr().out
+    out = serve.main(base + ["--mesh-model", "2"])
+    meshed = capfd.readouterr().out
+
+    def rows(text):
+        return [ln for ln in text.splitlines() if ln.startswith("    row ")]
+
+    assert f"restored {tmp_path}" in single and f"restored {tmp_path}" in meshed
+    assert rows(meshed) == rows(single) and len(rows(single)) == 2
+    assert _rows(out["tokens"].numpy(), out["stats"]) == _rows(
+        one["tokens"].numpy(), one["stats"])
+    gt, gs = tdecode.greedy_decode(saved, one["cfg"], one["dec"], one["batch"])
+    assert _rows(one["tokens"].numpy(), one["stats"]) == _rows(gt.numpy(), gs)

@@ -1,0 +1,330 @@
+"""The port's sharding policy, process mesh and refusals against the
+reference's, on the CPU in one process (no ranks are spawned here; the
+sharded decodes are ``test_torch_sharded_decode.py``'s).
+
+  * specs: ``param_specs``, ``cache_specs`` (dense and paged), ``state_specs``
+    (BPD and greedy loop states) and ``batch_axes`` equal the reference's,
+    leaf by leaf, for every registered config's smoke parameters at meshes
+    (1, 1), (1, 2), (2, 2), (1, 4) and (2, 4): both read only a mesh's
+    ``shape`` and ``axis_names``, so a stand-in object serves;
+  * blocks: ``shard_params`` and ``model.init(mesh=)`` give every rank a
+    block, and the blocks put back together along each spec's dims equal
+    the single-device leaf exactly;
+  * a (1, 1) mesh decodes as no mesh does, and the data pipeline takes a
+    rank's rows;
+  * refusals: a world that is not data × model, the engine and its serving
+    functions under a mesh, the configs and policies the sharded path does
+    not run, and the removed criterion-string API of ``core.verify``.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from conftest import tiny_dense  # noqa: E402
+from repro.config import DecodeConfig as JDecodeConfig  # noqa: E402
+from repro.config import get_config as jget_config  # noqa: E402
+from repro.config import list_archs  # noqa: E402
+from repro.core import decode as jdecode  # noqa: E402
+from repro.core import policy as jpolicy  # noqa: E402
+from repro.models import cache as jcache  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.models import seq2seq as jseq2seq  # noqa: E402
+from repro.sharding import policy as jshard  # noqa: E402
+from repro.utils.tree import path_str  # noqa: E402
+from repro_torch import serving as tserving  # noqa: E402
+from repro_torch.config import DecodeConfig, ModelConfig, get_config  # noqa: E402
+from repro_torch.core import decode as tdecode  # noqa: E402
+from repro_torch.core import policy as tpolicy  # noqa: E402
+from repro_torch.core import verify as tverify  # noqa: E402
+from repro_torch.data import pipeline as tpipeline  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
+from repro_torch.models import cache as tcache  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models import seq2seq as tseq2seq  # noqa: E402
+from repro_torch.sharding import policy as tshard  # noqa: E402
+from repro_torch.utils.tree import flatten_with_names  # noqa: E402
+
+torch.set_num_threads(2)
+MESHES = [(1, 1), (1, 2), (2, 2), (1, 4), (2, 4)]
+ARCHS = list_archs()
+B, CTX, K = 8, 40, 4
+
+
+class StandIn:
+    """What the spec functions of both packages read of a mesh."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, data, model):
+        self.shape = {"data": data, "model": model}
+
+
+def _ref_specs(tree):
+    """{'/'-path: spec tuple} of a reference pytree of PartitionSpecs."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, P))
+    return {path_str(p): tuple(s) for p, s in leaves}
+
+
+@functools.lru_cache(maxsize=None)
+def _configs(arch):
+    jcfg = jget_config(arch, smoke=True)
+    return jcfg, ModelConfig(**dataclasses.asdict(jcfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(arch):
+    jcfg, tcfg = _configs(arch)
+    jinit = jseq2seq.init if jcfg.is_encoder_decoder else jmodel.init
+    return (jax.eval_shape(lambda: jinit(jax.random.PRNGKey(0), jcfg)),
+            tmodel.init(tcfg, device="meta"))
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_specs_equal_reference(arch, mesh):
+    jshapes, tparams = _param_shapes(arch)
+    m = StandIn(*mesh)
+    want = _ref_specs(jshard.param_specs(jshapes, m))
+    got = tshard.param_specs(tparams, m)
+    assert got == want
+    if mesh[1] > 1 and arch == "granite-3-8b":
+        assert got["blocks/0/attn/wq"] == (None, "model", None)
+
+
+def _caches(arch, backend):
+    """(reference cache shapes, port meta caches) of ``backend``."""
+    jcfg, tcfg = _configs(arch)
+    if jcfg.is_encoder_decoder:
+        return (jax.eval_shape(lambda: jseq2seq.init_caches(jcfg, B, CTX, K)),
+                tseq2seq.init_caches(tcfg, B, CTX, K, device="meta"))
+    jdec = JDecodeConfig(cache_backend=backend)
+    tdec = DecodeConfig(cache_backend=backend)
+    return (jax.eval_shape(lambda: jmodel.init_caches(
+                jcfg, B, CTX, K, backend=jcache.get_backend(jdec))),
+            tmodel.init_caches(tcfg, B, CTX, K, device="meta",
+                               backend=tcache.get_backend(tdec)))
+
+
+def _states(jcaches, tcaches, policy_state):
+    """Reference and port BPD / greedy loop states around the caches."""
+    sds = jax.ShapeDtypeStruct
+    i32 = np.int32
+
+    def rows(*shape, dtype=i32):
+        return sds((B,) + shape, dtype)
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty((B,) + shape, dtype=dtype, device="meta")
+
+    jps, tps = policy_state
+    jb = jdecode.BPDState(tokens=rows(20), text_len=rows(), proposals=rows(K),
+                          caches=jcaches, finished=rows(dtype=bool),
+                          iters=sds((), i32), generated=rows(),
+                          policy_state=jps)
+    tb = tdecode.BPDState(tokens=meta(20), text_len=meta(), proposals=meta(K),
+                          caches=tcaches, finished=meta(dtype=torch.bool),
+                          iters=0, generated=meta(), policy_state=tps)
+    jg = jdecode.GreedyState(tokens=rows(20), text_len=rows(), tok=rows(),
+                             caches=jcaches, finished=rows(dtype=bool),
+                             iters=sds((), i32), generated=rows())
+    tg = tdecode.GreedyState(tokens=meta(20), text_len=meta(), tok=meta(),
+                             caches=tcaches, finished=meta(dtype=torch.bool),
+                             iters=0, generated=meta())
+    return (jb, tb), (jg, tg)
+
+
+DECODE_ARCHS = [a for a in ARCHS if not jget_config(a, smoke=True).is_encoder_only]
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_cache_and_state_specs_equal_reference(arch, mesh):
+    jcfg, tcfg = _configs(arch)
+    m = StandIn(*mesh)
+    backends = ("dense",) if jcfg.is_encoder_decoder else ("dense", "paged")
+    # adaptive's per-row schedule state rides the loop state
+    jps = jpolicy.PolicyState(drafter=(), schedule={
+        "rate": jax.ShapeDtypeStruct((B,), np.float32),
+        "cap": jax.ShapeDtypeStruct((B,), np.int32)})
+    tps = tpolicy.PolicyState(drafter=(), schedule={
+        "rate": torch.empty((B,), device="meta"),
+        "cap": torch.empty((B,), dtype=torch.int32, device="meta")})
+    for backend in backends:
+        jc, tc = _caches(arch, backend)
+        assert tshard.cache_specs(tcfg, tc, m, B) == _ref_specs(
+            jshard.cache_specs(jcfg, jc, m, B))
+        for jstate, tstate in _states(jc, tc, (jps, tps)):
+            want = _ref_specs(jshard.state_specs(jcfg, jstate, m))
+            assert tshard.state_specs(tcfg, tstate, m) == want
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+def test_batch_axes_and_data_specs_equal_reference(mesh):
+    m = StandIn(*mesh)
+    for b in (1, 2, 3, 4, 6, 8):
+        assert tshard.batch_axes(m, b) == jshard.batch_axes(m, b)
+        assert tshard.data_spec(m, b, 3) == tuple(jshard.data_spec(m, b, 3))
+    assert tshard.data_axis_size(m) == jshard.data_axis_size(m) == mesh[0]
+    batch = {"tokens": torch.zeros((4, 6), dtype=torch.int32)}
+    assert tshard.batch_specs(m, batch) == {
+        "tokens": tuple(jshard.batch_specs(m, {"tokens": np.zeros((4, 6))})[
+            "tokens"])}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _put_back(ranks, meshes, full):
+    """Every leaf of ``full`` against the ranks' blocks concatenated along
+    its spec's ``model`` dim (any data coordinate: parameters replicate
+    over ``data``)."""
+    specs = tshard.param_specs(full, meshes[0])
+    blocks = [dict(flatten_with_names(r)) for r in ranks]
+    for name, leaf in flatten_with_names(full):
+        s = specs[name]
+        if "model" not in s:
+            for b in blocks:
+                assert torch.equal(b[name], leaf), name
+            continue
+        dim = s.index("model")
+        by_m = {}
+        for mesh, b in zip(meshes, blocks):
+            by_m.setdefault(mesh.coords["model"], []).append(b[name])
+        for parts in zip(*(by_m[i] for i in sorted(by_m))):
+            assert torch.equal(torch.cat(parts, dim=dim), leaf), name
+        for mesh, r in zip(meshes, ranks):
+            node = r
+            *path, leaf_name = name.split("/")
+            for key in path:
+                node = node[int(key)] if key.isdigit() else node[key]
+            assert node.shard_dims.get(leaf_name) == dim and node.mesh is mesh
+
+
+CONFIGS = {"tiny_dense": lambda: tiny_dense(),
+           "granite_smoke": lambda: get_config("granite-3-8b", smoke=True)}
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (1, 4)], ids=str)
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_blocks_put_back_equal_the_single_device_leaves(name, mesh):
+    cfg = CONFIGS[name]()
+    tcfg = cfg if isinstance(cfg, ModelConfig) else ModelConfig(
+        **dataclasses.asdict(cfg))
+    meshes = [Mesh(*mesh, index=i) for i in range(mesh[0] * mesh[1])]
+    full = tmodel.init(tcfg, seed=5, device="cpu")
+    _put_back([tshard.shard_params(full, m) for m in meshes], meshes, full)
+    # init(mesh=) draws each leaf whole and keeps the rank's block
+    _put_back([tmodel.init(tcfg, seed=5, device="cpu", mesh=m)
+               for m in meshes], meshes, full)
+
+
+def test_one_rank_mesh_decodes_as_no_mesh():
+    cfg = ModelConfig(**dataclasses.asdict(tiny_dense()))
+    params = tmodel.init(cfg, seed=2, device="cpu")
+    mesh = make_mesh(1, 1, device="cpu")
+    assert mesh.shape == {"data": 1, "model": 1} and not mesh.groups
+    dec = DecodeConfig(max_new_tokens=8, block_k=4)
+    batch = {"tokens": torch.as_tensor(
+        np.random.default_rng(0).integers(0, 97, (3, 5)), dtype=torch.int32)}
+    for run in (tdecode.bpd_decode, tdecode.greedy_decode):
+        want, ws = run(params, cfg, dec, batch)
+        got, gs = run(params, cfg, dec, batch, mesh=mesh)
+        assert torch.equal(got, want) and gs["iterations"] == ws["iterations"]
+
+
+def test_pipeline_takes_a_ranks_rows():
+    batch = {"tokens": np.arange(12).reshape(4, 3)}
+    out = tpipeline.to_device(batch, sharding=Mesh(2, 1, index=1, device="cpu"))
+    assert out["tokens"].tolist() == batch["tokens"][2:].tolist()
+    odd = {"tokens": np.arange(9).reshape(3, 3)}     # 3 rows: replicated
+    out = tpipeline.to_device(odd, sharding=Mesh(2, 1, index=1, device="cpu"))
+    assert out["tokens"].tolist() == odd["tokens"].tolist()
+    got = list(tpipeline.prefetch(iter([batch, batch]), sharding=Mesh(
+        2, 2, index=2, device="cpu")))
+    assert [g["tokens"].tolist() for g in got] == [[[6, 7, 8], [9, 10, 11]]] * 2
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
+
+
+def test_a_world_that_is_not_data_times_model_is_refused():
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
+        make_mesh(1, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="needs 4 ranks"):
+        make_mesh(2, 2, device="cpu")
+
+
+def test_engine_and_serving_fns_refuse_a_mesh():
+    cfg = ModelConfig(**dataclasses.asdict(tiny_dense()))
+    params = tmodel.init(cfg, seed=0, device="cpu")
+    mesh = make_mesh(1, 1, device="cpu")
+    dec = DecodeConfig(max_new_tokens=8)
+    sess = tserving.DecodeSession(params, cfg, dec, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        sess.serving_fns(tserving.EngineConfig(max_new_cap=8))
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        tserving.ContinuousBatchingEngine(params, cfg, dec,
+                                          tserving.EngineConfig(), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        tserving.ContinuousBatchingEngine(params, cfg, dec,
+                                          tserving.EngineConfig(), session=sess)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b",
+                                  "rwkv6-1.6b", "hymba-1.5b", "paper-mt-base",
+                                  "llava-next-34b", "hubert-xlarge"])
+def test_configs_the_mesh_does_not_run_are_refused(arch):
+    cfg = get_config(arch, smoke=True)
+    params = tmodel.init(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        tserving.DecodeSession(params, cfg, DecodeConfig(),
+                               mesh=make_mesh(1, 1, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        tmodel.init(cfg, device="meta", mesh=Mesh(1, 2))
+
+
+@pytest.mark.parametrize("kw", [dict(policy="draft_model"),
+                                dict(policy="input_copy"),
+                                dict(policy="locality", image_height=4,
+                                     image_width=4),
+                                dict(policy="topk_tree",
+                                     cache_backend="paged")],
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_policies_the_mesh_does_not_run_are_refused(kw):
+    cfg = ModelConfig(**dataclasses.asdict(tiny_dense()))
+    params = tmodel.init(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        tserving.DecodeSession(params, cfg, DecodeConfig(**kw),
+                               mesh=make_mesh(1, 1, device="cpu"))
+
+
+def test_heads_that_straddle_kv_heads_are_refused():
+    # 6 query heads a rank over KV heads of 4 queries: a rank would read
+    # parts of two KV heads (the reference length-shards that cache)
+    cfg = ModelConfig(name="odd", num_layers=1, d_model=96, num_heads=12,
+                      num_kv_heads=3, head_dim=8, d_ff=64, vocab_size=97,
+                      dtype="float32")
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        tmodel.init(cfg, device="meta", mesh=Mesh(1, 2))
+    assert tshard.local_kv_heads(cfg, 1) == 3
+    assert tshard.local_kv_heads(cfg, 3) == 1        # 4 heads share one
+    assert tshard.local_kv_heads(cfg, 12) == 1
+    assert tshard.local_kv_heads(cfg, 5) == 3         # heads replicated
+
+
+def test_removed_criterion_api_names_the_policy_path():
+    for fn in (tverify.position_accepts, tverify.accepted_block_size):
+        with pytest.raises(ValueError, match="resolve_policy"):
+            fn(None, None)
