@@ -100,7 +100,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 BPD must emit greedy's tokens, and the kernels' launch counts
                 must match the forwards run.
   4b. paths   — phases 4b-5c, 14 and 15a-15d run granite-3-8b at full
-                width and 10 of its 40 layers (seed 0; FAMILY_FP32_LAYERS),
+                width and 4 of its 40 layers (seed 0; FAMILY_FP32_LAYERS),
                 held to that model's own greedy: greedy on the paged
                 cache, BPD exact on the paged cache, BPD topk_tree on the
                 dense and the paged cache; each must emit greedy's tokens,
@@ -231,9 +231,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 --policies exact=2,draft_model=2.
   16. families — everything earlier freed; stablelm-12b, starcoder2-7b and
                 nemotron-4-15b at full width from seed 0, the fp32 decodes
-                at a quarter of the depth (FAMILY_FP32_LAYERS: 10 of 40, 8
-                of 32 and 8 of 32 layers, cut so that the script with
-                phases 17-20 stays within 75% of its time limit), each
+                at a tenth to an eighth of the depth (FAMILY_FP32_LAYERS: 4
+                of 40, 4 of 32 and 4 of 32 layers, cut so that the script
+                with phase 22 stays within 75% of its time limit), each
                 bf16 serve at
                 full depth, phase 4's 8 prompts x 64 new tokens at
                 block_k 8: greedy, then BPD exact and topk_tree on the
@@ -254,7 +254,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
   17. moe     — after phase 16, before 11: olmoe-1b-7b (16 layers, 64
                 experts top-8) and qwen2-moe-a2.7b (24 layers, 60 experts
                 top-4 and a shared MLP) at full width from seed 0, the
-                fp32 decodes at a quarter of the depth (4 of 16 and 6 of 24
+                fp32 decodes at an eighth of the depth (2 of 16 and 3 of 24
                 layers, FAMILY_FP32_LAYERS), each bf16 serve at full
                 depth, phase
                 4's prompts, 64 new tokens, block_k 8,
@@ -284,7 +284,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 attention beside Mamba heads, d 1600, 25/5 heads of 64,
                 windows of 1024 outside layers 0, 15 and 31, 128 meta
                 tokens, untied lm_head at vocab 32001) at full width from
-                seed 0, the fp32 decodes at a quarter of the depth (8 of
+                seed 0, the fp32 decodes at an eighth of the depth (4 of
                 32 layers, layer 0 the only global one), the bf16 serve at
                 full depth, phase 4's prompts, 64 new tokens, block_k 8:
                 18a greedy, BPD exact, adaptive and topk (T 2) on the
@@ -310,7 +310,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 7168, 56/8 heads of 128, vocab 64000, untied) behind the
                 full 2,880-patch prefix (stub_frontend_inputs, seed 0)
                 before the first 4 of phase 4's prompts, 64 new tokens,
-                block_k 8.  19a fp32 at full width, depth cut to 8 of 60
+                block_k 8.  19a fp32 at full width, depth cut to 4 of 60
                 layers (full depth is 137 GiB in fp32), the chain paths
                 prefilled in chunks of 512 keys: greedy, BPD exact on both
                 caches, topk_tree paged (unchunked, as the reference
@@ -395,6 +395,25 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 decodes the same tokens (bpd_decode_seq2seq, 8 sources);
                 a second run resumes from its step; then the launcher's
                 step timed and one step profiled outside it.
+  22. mesh    — last: granite-3-8b at full width over meshes of processes
+                sharing the card (gloo), one spawn of four ranks: fp32 at 4
+                of 40 layers, the static paths over two (1, 2) pairs side
+                by side; the engine (phase 5c's 16 requests, exact and
+                topk_tree groups of 4) unified dense and paged over (1, 2)
+                beside (2, 1); the (2, 2) mesh's BPD exact dense; the
+                disaggregated engine (prefill batches of 4, windows of 4)
+                over the pod mesh (2, 1, 2), each pod prefilling its 2 rows
+                and handing them over ``pod``: every sharded run's tokens
+                and records equal to the single-device port's (computed in
+                this process meanwhile), each rank's launches of the five
+                decode kernels equal to one device's at (1, 2) and (2, 1);
+                bf16 at full depth over (1, 2): the static serve beside
+                phase 6 and the unified paged engine beside phase 6c
+                (tokens/s, TTFT, host ms and collectives a scheduler step),
+                each first divergence a near-tie; meanwhile
+                repro_torch.launch.serve --mesh-model 2 --http --http-demo
+                at its smoke config, the stream equal to both ranks'
+                finish records.
 
 Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
@@ -405,11 +424,11 @@ rwkv6_scan from phase 9, rwkv6_scan_bwd from phase 21b's training run
 phases 8-9 write no checkpoints and launch no backward).  The engine's path (phase 5c) is read the same
 way, each of its two runs between a reset and a read, and checked exactly:
 its group's attention kernel (paged_verify_attention or verify_attention
-for exact, tree_verify_attention for topk_tree) 40 times per forward the
-group dispatched, fused_verify once per forward, fused_heads once per
+for exact, tree_verify_attention for topk_tree) once a layer per forward
+the group dispatched, fused_verify once per forward, fused_heads once per
 forward and per prefill forward; each of those five kernels must have run
 in one of the two.  Phases 16-19 read each of their decode paths the same
-way (hymba-1.5b's paged forward at 8 layers: 7 verify_attention + 1
+way (hymba-1.5b's paged forward at 4 layers: 3 verify_attention + 1
 paged_verify_attention).
 
 Any failure exits non-zero.  The second-to-last lines are the kernels' JSON
@@ -2665,7 +2684,8 @@ def phase_decode(torch, results):
     profile_iteration(torch, D, params, tcfg, tdec, tbatch, "topk_tree paged")
 
     # ---- phase 6c: the bf16 engine and the HTTP server ---------------------
-    phase_engine_bf16(torch, params, scfg, sdec, prompts, static_tps)
+    phase4["engine_bf16"] = phase_engine_bf16(torch, params, scfg, sdec,
+                                              prompts, static_tps)
 
     # ---- phase 15b bf16: draft_model on the cast weights -------------------
     phase_draft_bf16(torch, D, params, scfg, sdec, sbatch, static_tps)
@@ -2730,37 +2750,66 @@ def profiled_busy(torch, fn):
     return out, (sum(busy.values()) if kernels else None), len(kernels), busy
 
 
-def drive_engine(torch, serving, engine, reqs, label, *, profile_step=6):
+def quantile(values, q: float) -> float:
+    """The ``q`` quantile of ``values`` (nearest rank)."""
+    v = sorted(values)
+    return float(v[min(len(v) - 1, int(round(q * (len(v) - 1))))])
+
+
+def drive_engine(torch, serving, engine, reqs, label, *, profile_step=6,
+                 ttft=False):
     """Serve ``reqs`` through ``engine`` with a virtual clock (one scheduler
     step per second of arrival time).  Scheduler step ``profile_step`` is
     timed alone (host wall, synced) and the next one profiled (device
-    busy), so the sample's idle share is 1 - busy / wall.  Returns (the
-    finished requests, host wall s, harvest reads, the sample)."""
+    busy), so the sample's idle share is 1 - busy / wall (None: no
+    sample).  ``ttft``: the committed tokens are polled after each step
+    (``poll_progress``), and each request's time to first token is the host
+    wall from the start of the step its arrival made it visible to the
+    step that committed its first token (``sample["ttft"]``).  The sample
+    also holds the scheduler steps and the collectives issued
+    (``sharding.comm.CALLS``).  Returns (the finished requests, host wall
+    s, harvest reads, the sample)."""
+    from repro_torch.sharding import comm
+
     sched = serving.Scheduler(engine)
     for r in reqs:
         sched.submit(r)
     now, done, pulls, sample = 0.0, [], 0, {}
+    seen, first = {}, {}
+    calls = sum(comm.CALLS.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while not sched.drained():
         step = int(now)
+        start = time.perf_counter()
+        for r in reqs:
+            if r.arrival <= now:
+                seen.setdefault(r.rid, start)
         if step == profile_step:
             torch.cuda.synchronize()
             ts = time.perf_counter()
             got = sched.step(now=now)
             torch.cuda.synchronize()
             sample["wall_ms"] = (time.perf_counter() - ts) * 1e3
-        elif step == profile_step + 1:
+        elif profile_step is not None and step == profile_step + 1:
             got, busy, n_kernels, names = profiled_busy(
                 torch, lambda: sched.step(now=now))
             sample.update(busy_ms=busy, kernels=n_kernels, names=names)
         else:
             got = sched.step(now=now)
+        if ttft:
+            fresh = [req.rid for req, _ in engine.poll_progress()]
+            at = time.perf_counter()
+            for rid in fresh + [f.rid for f in got]:
+                first.setdefault(rid, at)
         pulls += len({f.policy for f in got})
         done += got
         now += 1.0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    sample.update(steps=int(now), collectives=sum(comm.CALLS.values()) - calls)
+    if ttft:
+        sample["ttft"] = [first[r.rid] - seen[r.rid] for r in reqs]
     groups = {g.name: g for g in engine.groups}
     # k̂ per group: accepted tokens per request iteration (invocations less
     # the admission prefill)
@@ -2775,11 +2824,12 @@ def drive_engine(torch, serving, engine, reqs, label, *, profile_step=6):
         f"{ {n: g.num_forwards // engine.ecfg.steps_per_sync for n, g in groups.items()} }"
         f", iterations {engine.num_steps}, forwards {engine.num_forwards}, "
         f"prefills { {n: g.num_prefills for n, g in groups.items()} }, host "
-        f"reads {engine.num_host_syncs} ({pulls} harvest); sampled scheduler "
-        f"step: host wall {sample.get('wall_ms', float('nan')):.2f} ms, "
-        + ("device busy not measured" if busy is None else
-           f"{sample['kernels']} kernels busy {busy:.2f} ms, idle share "
-           f"{1 - busy / sample['wall_ms']:.3f}"))
+        f"reads {engine.num_host_syncs} ({pulls} harvest); "
+        + ("no sampled scheduler step" if profile_step is None else
+           f"sampled scheduler step: host wall {sample['wall_ms']:.2f} ms, "
+           + ("device busy not measured" if busy is None else
+              f"{sample['kernels']} kernels busy {busy:.2f} ms, idle share "
+              f"{1 - busy / sample['wall_ms']:.3f}")))
     return done, wall, pulls, sample
 
 
@@ -2914,11 +2964,12 @@ def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks, *,
 
 
 def phase_engine_bf16(torch, params, cfg, dec, prompts, static_tps):
-    """Phase 6c: the bf16 engine on the managed page pool (tokens/s beside
-    the static serve's, one scheduler step profiled), then the HTTP server
-    on 127.0.0.1 answering 8 concurrent streamed requests from a client in
-    this process: each stream must be byte-identical to its finish
-    record."""
+    """Phase 6c: the bf16 engine on the managed page pool (tokens/s and
+    TTFT beside the static serve's, one scheduler step profiled), then the
+    HTTP server on 127.0.0.1 answering 8 concurrent streamed requests from
+    a client in this process: each stream must be byte-identical to its
+    finish record.  Returns the engine run's tokens, tokens/s, TTFTs and
+    host ms a scheduler step, for phase 22."""
     import asyncio
     import http.client
     import threading
@@ -2932,11 +2983,20 @@ def phase_engine_bf16(torch, params, cfg, dec, prompts, static_tps):
                                               policies=ENGINE_GROUPS)
     done, wall, _, sample = drive_engine(
         torch, serving, engine, engine_requests(serving, prompts),
-        "bf16 unified, paged")
+        "bf16 unified, paged", ttft=True)
     tokens = sum(f.generated for f in done)
+    ttft = sample["ttft"]
     log(f"[engine] bf16: {tokens / wall:.1f} tokens/s through the engine "
         f"(16 requests, budgets 16-64) beside {static_tps:.1f} tokens/s of "
-        f"phase 6's static serve (8 x 64)")
+        f"phase 6's static serve (8 x 64); TTFT p50 "
+        f"{quantile(ttft, 0.5) * 1e3:.1f} ms, p99 "
+        f"{quantile(ttft, 0.99) * 1e3:.1f} ms (host wall from the step of "
+        f"arrival, committed tokens polled each step); "
+        f"{wall / sample['steps'] * 1e3:.1f} host ms a scheduler step (the "
+        f"poll after each step inside the window, as in the tokens/s)")
+    run = {"tokens": {f.rid: f.tokens.tolist() for f in done},
+           "tps": tokens / wall, "ttft": ttft,
+           "step_ms": wall / sample["steps"] * 1e3}
     names = sample.get("names") or {}
     attn_ms = sum(ms for n, ms in names.items() if "attention_kernel" in n)
     for n, ms in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
@@ -3008,13 +3068,13 @@ def phase_engine_bf16(torch, params, cfg, dec, prompts, static_tps):
         want = direct[rid]
         same += sum(a == b for a, b in zip(toks, want))
         total += len(want)
-    q = lambda x: float(sorted(ttfts)[min(len(ttfts) - 1,  # noqa: E731
-                                          int(round(x * (len(ttfts) - 1))))])
     log(f"[http] 8 concurrent streamed requests in {http_wall:.2f}s: every "
         f"stream byte-identical to its finish record; TTFT p50 "
-        f"{q(0.5) * 1e3:.1f} ms, p99 {q(0.99) * 1e3:.1f} ms; agreement with "
+        f"{quantile(ttfts, 0.5) * 1e3:.1f} ms, p99 "
+        f"{quantile(ttfts, 0.99) * 1e3:.1f} ms; agreement with "
         f"the direct engine run {same / total:.4f} of tokens (reported, not "
         f"required in bf16); builds {engine.compile_counts()}")
+    return run
 
 
 def profile_iteration(torch, D, params, cfg, dec, batch, label, *,
@@ -4147,15 +4207,14 @@ def phase_draft_launcher(torch):
 FAMILY_MEM_GIB = 76.0   # the fp32 decodes' peak at full depth stays below it
 WINDOW_PROMPT = 4608    # starcoder2-7b's window + 512: the ring wraps
 WINDOW_CHUNK = 512
-# the fp32 decodes of phases 4b-5c, 14, 15 and 16-18 run at a quarter of
-# the depth, so that the script with phases 19 and 20 stays within 75% of
-# its time limit on a slow host too (with granite's at full depth and the
-# families' at half, it took 916 s); phase 4 and each bf16 serve run at
-# full depth
-FAMILY_FP32_LAYERS = {"granite-3-8b": 10, "stablelm-12b": 10,
-                      "starcoder2-7b": 8, "nemotron-4-15b": 8,
-                      "olmoe-1b-7b": 4, "qwen2-moe-a2.7b": 6,
-                      "hymba-1.5b": 8}
+# the fp32 decodes of phases 4b-5c, 14, 15 and 16-18 run at a tenth to an
+# eighth of the depth (cut from a quarter to pay for phase 22's sharded
+# engine), so that the script stays within 75% of its time limit; phase 4
+# and each bf16 serve run at full depth
+FAMILY_FP32_LAYERS = {"granite-3-8b": 4, "stablelm-12b": 4,
+                      "starcoder2-7b": 4, "nemotron-4-15b": 4,
+                      "olmoe-1b-7b": 2, "qwen2-moe-a2.7b": 3,
+                      "hymba-1.5b": 4}
 
 
 def attention_launches(cfg, dec) -> dict:
@@ -4433,8 +4492,8 @@ MOE_TRAIN_LAYERS = 8    # 17c: olmoe-1b-7b fine-tuned at full width
 
 def phase_moe(torch, results):
     """Phase 17: olmoe-1b-7b and qwen2-moe-a2.7b at full width from seed
-    0, the fp32 decodes at a quarter of the depth (FAMILY_FP32_LAYERS: 4 of
-    16 and 6 of 24 layers), phase 4's 8 prompts of 64, 64 new tokens,
+    0, the fp32 decodes at an eighth of the depth (FAMILY_FP32_LAYERS: 2 of
+    16 and 3 of 24 layers), phase 4's 8 prompts of 64, 64 new tokens,
     block_k 8,
     every decode forward routing at full capacity: 17a olmoe's greedy,
     exact and topk_tree on both caches and its fp32 engine (5c's 16
@@ -4693,11 +4752,11 @@ def phase_hymba(torch, results):
     """Phase 18: hymba-1.5b (32 layers of attention beside Mamba heads,
     d 1600, 25/5 heads of 64, windows of 1024 outside layers 0, 15 and 31,
     128 meta tokens, untied lm_head at vocab 32001) at full width from seed
-    0, the fp32 decodes at a quarter of the depth (FAMILY_FP32_LAYERS: 8 of
+    0, the fp32 decodes at an eighth of the depth (FAMILY_FP32_LAYERS: 4 of
     32 layers, layer 0 the only global one), phase 4's 8 prompts of 64, 64
     new tokens, block_k 8.  18a greedy, BPD exact, topk (T 2) and adaptive
     on the dense cache and exact on the paged cache (the global layer
-    paged, the 7 windowed on their dense rings: 7 verify_attention + 1
+    paged, the 3 windowed on their dense rings: 3 verify_attention + 1
     paged_verify_attention a forward), launches exact; exact and adaptive
     emit greedy's tokens (near-tie rule), topk's tokens lie within p_1's
     top-2; the fp32 peak.  18b the window: 2 prompts of 1,536 tokens, 16
@@ -4858,7 +4917,7 @@ def phase_hymba_train(torch, card):
 # ---------------------------------------------------------------------------
 
 
-LLAVA_FP32_LAYERS = 8      # 19a: 7.73 B parameters, 28.8 GiB in fp32
+LLAVA_FP32_LAYERS = 4      # 19a: 4 of 60 layers in fp32
 LLAVA_BATCH = 4            # 19b: 2.76 GiB of bf16 KV at 3,016 positions a row
 LLAVA_PARAMS = 36_737_948_672   # the reference's init, by jax.eval_shape
 LLAVA_SERVE_CHUNK = 256    # 19b: at 512 keys the prefill's fp32 chunk scores
@@ -5857,7 +5916,8 @@ def phase_train(torch, phase4):
 
 
 # ---------------------------------------------------------------------------
-# phase 22: sharded serving on a ("data", "model") mesh of processes
+# phase 22: sharded serving on ("data", "model") and ("pod", "data",
+# "model") meshes of processes: the static serve, the engine, the HTTP server
 # ---------------------------------------------------------------------------
 
 
@@ -5874,10 +5934,26 @@ MESH_PATHS = {            # label -> (DecodeConfig keywords, BPD?, budgets?)
 }
 MESH_RUNS = {(1, 2): tuple(MESH_PATHS), (2, 2): ("exact dense",)}
 # the (1, 2) paths split between the pair of ranks 0, 1 and the pair of
-# ranks 2, 3, which run them side by side on the card
-MESH_PAIR_PATHS = (("greedy", "exact dense", "exact budgets"),
-                   ("exact paged", "topk_tree dense"))
+# ranks 2, 3, which run them side by side on the card (ranks 0, 1 then
+# serve the engine over (1, 2), whose collectives make it 4x the (2, 1)
+# engine of ranks 2, 3: so these take the third path)
+MESH_PAIR_PATHS = (("greedy", "exact dense"),
+                   ("exact paged", "topk_tree dense", "exact budgets"))
 GLOO_DTYPES = ("float32", "bfloat16", "float16", "int32", "int64")
+# the engine on the mesh, phase 5c's plan and groups: label -> (DecodeConfig
+# keywords, EngineConfig keywords); the unified runs over (1, 2) on ranks 0,
+# 1 beside (2, 1) on ranks 2, 3, the disaggregated one over the pod mesh
+# (2, 1, 2) of all four (each pod prefills 2 of a batch of 4 and hands them
+# to every rank over ``pod``)
+MESH_ENGINE_RUNS = {
+    "unified dense": ({"cache_backend": "dense"}, {}),
+    "unified paged": ({"cache_backend": "paged"}, {}),
+    "disaggregated dense, windows of 4": (
+        {"cache_backend": "dense"}, {"prefill_slots": 4, "steps_per_sync": 4}),
+}
+MESH_ENGINE_PAIRS = ("unified dense", "unified paged")
+ENGINE_KERNELS = ("verify_attention", "tree_verify_attention",
+                  "paged_verify_attention", "fused_heads", "fused_verify")
 
 
 def mesh_decode(torch, D, params, cfg, dec, batch, label, mesh=None):
@@ -5971,55 +6047,119 @@ def collectives(torch, mesh) -> dict:
     return out
 
 
-def mesh_rank_runs(torch, mesh, job, paths):
-    """One mesh's share of a phase 22 rank: granite-3-8b's blocks of this
-    rank (drawn from seed 0, ``model.init(mesh=)``) at MESH_FP32_LAYERS in
-    fp32 through ``paths``.  Only the mesh's rank 0 prints."""
+def rebind(params, mesh):
+    """``params``, a rank's blocks, under another mesh of the same
+    ``model`` axis: a rank's blocks depend on its ``model`` coordinate
+    alone, so the (1, 2) pairs' blocks are the (2, 2) and (2, 1, 2) ranks'
+    (rank r at model coordinate r % 2 on all three)."""
+    from repro_torch.models import model as M
+
+    for node in params.modules():
+        if isinstance(node, M.ParamTree):
+            node.mesh = mesh
+    return params
+
+
+def mesh_weights(torch, mesh):
+    """granite-3-8b's blocks of this rank at MESH_FP32_LAYERS in fp32, drawn
+    from seed 0 (``model.init(mesh=)``), and the config."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("granite-3-8b").replace(dtype="float32",
+                                             num_layers=MESH_FP32_LAYERS)
+    return M.init(cfg, seed=0, mesh=mesh), cfg
+
+
+def quiet_unless_first(mesh):
     import contextlib
     import io
 
-    from repro_torch.config import DecodeConfig, get_config
+    return (contextlib.redirect_stdout(io.StringIO()) if mesh.index
+            else contextlib.nullcontext())
+
+
+def mesh_rank_runs(torch, mesh, job, paths, params, cfg):
+    """One mesh's static share of a phase 22 rank: ``paths`` on this rank's
+    blocks ``params``.  Only the mesh's rank 0 prints."""
+    from repro_torch.config import DecodeConfig
     from repro_torch.core import decode as D
-    from repro_torch.models import model as M
 
     dev = mesh.device
-    quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.index
-             else contextlib.nullcontext())
     out = {"device": f"{dev} ({torch.cuda.get_device_name(dev)})",
            "backend": mesh.backend, "coords": dict(mesh.coords), "runs": {},
            "collectives": collectives(torch, mesh)}
-    cfg = get_config("granite-3-8b").replace(dtype="float32",
-                                             num_layers=MESH_FP32_LAYERS)
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = M.init(cfg, seed=0, mesh=mesh)
     batch = {"tokens": torch.as_tensor(job["prompts"], device=dev)}
     dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
-    with quiet:
+    with quiet_unless_first(mesh):
         for label in paths:
             out["runs"][label] = mesh_decode(torch, D, params, cfg, dec, batch,
                                              label, mesh)
-    out["fp32_peak"] = torch.cuda.max_memory_allocated(dev)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
     return out
 
 
-def mesh_rank_bf16(torch, mesh, job):
-    """A phase 22 rank's bf16 serve: granite-3-8b's blocks at full depth
-    (phase 4's draw, phase 6's cast), BPD exact dense timed, each first
-    divergence from phase 6's tokens (``job["bf16"]``) a near-tie of at
-    most BF16_TIE_ULPS (by the sharded full forward)."""
-    import contextlib
-    import io
+def engine_record(f) -> tuple:
+    return (f.rid, f.tokens.tolist(), f.generated, f.invocations, f.policy)
 
+
+def engine_run(torch, params, cfg, dec, prompts, label, mesh=None, *,
+               ttft=False):
+    """One of MESH_ENGINE_RUNS (``dec`` the base DecodeConfig) through the
+    engine on phase 5c's plan and virtual clock: on one device, or sharded
+    over ``mesh`` (rank 0 schedules, the others replay its plans).  Returns
+    {records, launches, wall, counters, ``drive_engine``'s sample,
+    handoff}."""
+    from repro_torch import serving
+    from repro_torch.kernels import _build
+
+    dkw, ekw = MESH_ENGINE_RUNS[label]
+    edec = dec.replace(top_k=2, page_size=16, **dkw)
+    ecfg = serving.EngineConfig(num_slots=8, max_prompt_len=64,
+                                max_new_cap=64, **ekw)
+    engine = serving.ContinuousBatchingEngine(params, cfg, edec, ecfg,
+                                              mesh=mesh,
+                                              policies=ENGINE_GROUPS)
+    where = "one device" if mesh is None else f"mesh {mesh.shape}"
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample = {}
+    if mesh is None or mesh.index == 0:
+        done, _, _, sample = drive_engine(
+            torch, serving, engine, engine_requests(serving, prompts),
+            f"{label}, {where}", profile_step=None, ttft=ttft)
+        engine.release_followers()
+    else:
+        done = engine.follow()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sess = engine.session
+    return {"records": [engine_record(f) for f in done],
+            "launches": {n: _build.LAUNCHES[n] for n in ENGINE_KERNELS},
+            "wall": wall, "sample": sample,
+            "counters": {"iterations": engine.num_steps,
+                         "forwards": engine.num_forwards,
+                         "prefill_batches": engine.num_prefill_batches,
+                         "plans": engine.num_plans,
+                         "cow": {g.name: g.pages.cow_hits
+                                 for g in engine.groups if g.pages}},
+            "handoff": (sess.handoffs, sess.handoff_bytes,
+                        sess.handoff_seconds)}
+
+
+def mesh_rank_bf16(torch, mesh, job):
+    """A phase 22 rank's bf16 runs over (1, 2): granite-3-8b's blocks at
+    full depth (phase 4's draw, phase 6's cast); BPD exact dense timed, each
+    first divergence from phase 6's tokens (``job["bf16"]``) a near-tie of
+    at most BF16_TIE_ULPS (by the sharded full forward); then the unified
+    paged engine on phase 6c's plan, TTFT polled, each request's first
+    divergence from phase 6c's (``job["engine_bf16"]``) a near-tie too."""
     from repro_torch.config import DecodeConfig, get_config
     from repro_torch.core import decode as D
     from repro_torch.models import model as M
+    from repro_torch.sharding import comm
 
     dev = mesh.device
-    quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.index
-             else contextlib.nullcontext())
     full = get_config("granite-3-8b").replace(dtype="float32")
     batch = {"tokens": torch.as_tensor(job["prompts"], device=dev)}
     dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
@@ -6028,17 +6168,40 @@ def mesh_rank_bf16(torch, mesh, job):
     bcfg = full.replace(dtype="bfloat16")           # phase 6's cast
     M.cast_for_compute(params, bcfg)
     torch.cuda.empty_cache()
-    with quiet:
+    with quiet_unless_first(mesh):
         run = mesh_decode(torch, D, params, bcfg, dec, batch, "exact dense",
                           mesh)
         prompt_len = batch["tokens"].shape[1]
-        div = report_divergences(torch, causal_logits_after(
-            torch, M, params, bcfg), run["tokens"],
-            torch.as_tensor(job["bf16"], device=dev), prompt_len,
-            prompt_len + job["max_new"])
-    check(all(d["tie"] for d in div),
-          f"22: a sharded bf16 divergence beyond {BF16_TIE_ULPS} ulps")
-    run.update(divergences=div, peak=torch.cuda.max_memory_allocated(dev))
+        after = causal_logits_after(torch, M, params, bcfg)
+        div = report_divergences(torch, after, run["tokens"],
+                                 torch.as_tensor(job["bf16"], device=dev),
+                                 prompt_len, prompt_len + job["max_new"])
+        check(all(d["tie"] for d in div),
+              f"22: a sharded bf16 divergence beyond {BF16_TIE_ULPS} ulps")
+        calls = sum(comm.CALLS.values())
+        eng = engine_run(torch, params, bcfg, dec, batch["tokens"],
+                         "unified paged", mesh, ttft=True)
+        eng["collectives_all"] = sum(comm.CALLS.values()) - calls
+        want = job["engine_bf16"]["tokens"]
+        host = batch["tokens"].cpu()
+        plan = {p[0]: p for p in engine_plan()}
+        eng["divergences"] = []
+        for rid, toks, *_ in eng["records"]:
+            ref = want[rid]
+            if toks == ref:
+                continue
+            i = next(i for i, (a, b) in enumerate(zip(toks, ref)) if a != b)
+            _, row, plen, *_ = plan[rid]
+            prefix = torch.cat([host[row, :plen],
+                                torch.as_tensor(ref[:i], dtype=host.dtype)])
+            d = divergence_at(torch, after(0, prefix.to(dev)), toks[i], ref[i])
+            d.update(rid=rid, at=i, tie=d["bpd_ulps"] <= BF16_TIE_ULPS)
+            eng["divergences"].append(d)
+        check(all(d["tie"] for d in eng["divergences"]),
+              f"22: a sharded bf16 engine divergence from phase 6c beyond "
+              f"{BF16_TIE_ULPS} ulps: {eng['divergences']}")
+    run.update(divergences=div, peak=torch.cuda.max_memory_allocated(dev),
+               engine=eng)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6046,11 +6209,16 @@ def mesh_rank_bf16(torch, mesh, job):
 
 
 def phase22_rank(mesh22, job):
-    """One of phase 22's four ranks: the (1, 2) mesh of its pair (ranks 0,
-    1 or ranks 2, 3, made by all four), the pair's MESH_PAIR_PATHS side by
-    side with the other pair's; then the (2, 2) mesh of all four, BPD exact
-    dense; then ranks 0 and 1 alone the bf16 serve, while 2 and 3 wait at
-    the last barrier.  Returns {(1, 2): ..., (2, 2): ...[, "bf16": ...]}."""
+    """One of phase 22's four ranks.  Every rank makes every mesh first, in
+    one order: the (1, 2) pairs of ranks 0, 1 and 2, 3, the (2, 1) mesh of
+    ranks 2, 3 and the pod mesh (2, 1, 2) of all four.  Then: each pair's
+    MESH_PAIR_PATHS side by side on the pair's fp32 blocks, and the
+    unified engine (MESH_ENGINE_PAIRS) over (1, 2) on ranks 0, 1 beside
+    (2, 1) on ranks 2, 3 (whole fp32 weights of their own); then, on the
+    pairs' blocks, the (2, 2) mesh's BPD exact dense and the disaggregated
+    engine over the pod mesh; then ranks 0 and 1 alone the bf16 runs,
+    while 2 and 3 wait at the last barrier.  Returns {(1, 2): ..., (2, 2):
+    ..., "engine": {shape: {label: run}}[, "bf16": ...]}."""
     import torch
     import torch.distributed as dist
 
@@ -6059,11 +6227,39 @@ def phase22_rank(mesh22, job):
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 means fp32
     torch.backends.cudnn.allow_tf32 = False
     side = mesh22.index // 2
-    pairs = [make_mesh(1, 2, device=mesh22.device, ranks=r)
-             for r in ((0, 1), (2, 3))]
+    dev = mesh22.device
+    pairs = [make_mesh(1, 2, device=dev, ranks=r) for r in ((0, 1), (2, 3))]
+    m21 = make_mesh(2, 1, device=dev, ranks=(2, 3))
+    pod = make_mesh(1, 2, pod=2, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, cfg = mesh_weights(torch, pairs[side])
     out = {(1, 2): mesh_rank_runs(torch, pairs[side], job,
-                                  MESH_PAIR_PATHS[side])}
-    out[(2, 2)] = mesh_rank_runs(torch, mesh22, job, MESH_RUNS[(2, 2)])
+                                  MESH_PAIR_PATHS[side], params, cfg),
+           "engine": {}}
+    prompts = torch.as_tensor(job["prompts"], device=dev)
+    from repro_torch.config import DecodeConfig
+
+    dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
+    if side == 0:
+        shape, mesh, blocks = (1, 2), pairs[0], params
+    else:
+        shape, mesh = (2, 1), m21
+        blocks, _ = mesh_weights(torch, m21)
+    with quiet_unless_first(mesh):
+        out["engine"][shape] = {
+            label: engine_run(torch, blocks, cfg, dec, prompts, label, mesh)
+            for label in MESH_ENGINE_PAIRS}
+    del blocks
+    out[(2, 2)] = mesh_rank_runs(torch, mesh22, job, MESH_RUNS[(2, 2)],
+                                 rebind(params, mesh22), cfg)
+    label = "disaggregated dense, windows of 4"
+    with quiet_unless_first(pod):
+        out["engine"][(2, 1, 2)] = {label: engine_run(
+            torch, rebind(params, pod), cfg, dec, prompts, label, pod)}
+    out["fp32_peak"] = torch.cuda.max_memory_allocated(dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     if side == 0:
         out["bf16"] = mesh_rank_bf16(torch, pairs[0], job)
     dist.barrier(group=mesh22.groups["world"])
@@ -6100,12 +6296,53 @@ def compare_mesh_run(torch, after, got, want, label, prompt_len) -> bool:
     return True
 
 
+def http_demo(torch):
+    """The launcher's HTTP demo over a ``model`` mesh of two ranks sharing
+    the card, at its default smoke config: one streamed request whose SSE
+    tokens equal the done payload (the launcher checks), and that payload
+    equal to rank 0's finish record and the other rank's.  Returns the
+    seconds it took."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", "granite-3-8b", "--mesh-model", "2", "--http",
+                      "--http-demo", "--port", "0"])
+    done = out["demo"]
+    records = [[engine_record(f) for f in r["finished"]] for r in out["ranks"]]
+    check(len(records[0]) == 1 and records[1] == records[0],
+          f"22 http: finish records differ between ranks: {records}")
+    rid, toks, generated, invocations, _ = records[0][0]
+    check(done["tokens"] == toks and done["generated"] == generated
+          and done["invocations"] == invocations,
+          f"22 http: the stream's done payload {done} differs from its "
+          f"finish record {records[0][0]}")
+    wall = time.perf_counter() - t0
+    log(f"[mesh] http --mesh-model 2 --http-demo: {generated} tokens "
+        f"streamed over SSE equal to the finish record of rank 0 and of rank "
+        f"1 ({invocations} invocations); {wall:.1f}s with its two ranks' "
+        f"start")
+    return wall
+
+
+def compare_engine_runs(got, want, label):
+    """A sharded engine run's finish records equal the single-device
+    engine's, record for record (tokens, generated, invocations, policy),
+    and its iterations and forwards too."""
+    check(got["records"] == want["records"],
+          f"22 {label}: records differ from the single-device engine's")
+    for key in ("iterations", "forwards", "prefill_batches", "cow"):
+        check(got["counters"][key] == want["counters"][key],
+              f"22 {label}: {key} {got['counters'][key]} vs "
+              f"{want['counters'][key]}")
+
+
 def phase_mesh(torch, phase4, card):
     """Phase 22: granite-3-8b at full width sharded over meshes of ranks
     that share the one card (gloo), against the single-device port on the
-    same seed, prompts and depth (``phase22_rank``: one spawn of four ranks,
-    two (1, 2) pairs side by side, then the (2, 2) mesh, then the bf16
-    serve on the first pair)."""
+    same seed, prompts and depth: the static serve, the engine
+    unified and disaggregated, the bf16 engine beside phase 6c, and the
+    launcher's HTTP demo over a ``model`` mesh (``phase22_rank``: one spawn
+    of four ranks; the demo spawns two more beside them)."""
     from repro_torch.config import DecodeConfig, get_config
     from repro_torch.core import decode as D
     from repro_torch.launch.mesh import choose_backend, spawn
@@ -6119,15 +6356,16 @@ def phase_mesh(torch, phase4, card):
     backend, why = choose_backend(4, "cuda")
     check(backend == "gloo", f"ranks on one card: backend {backend}")
     # the ranks start (about 10 s to reach the card) while this process
-    # decodes the single-device references
+    # runs the single-device references and the HTTP demo
     spawned = {}
+    job = {"prompts": prompts.numpy(), "max_new": max_new,
+           "block_k": block_k, "bf16": phase4["bf16"]["tokens"].numpy(),
+           "engine_bf16": {"tokens": phase4["engine_bf16"]["tokens"]}}
 
     def ranks_run():
         try:
             spawned["ranks"] = spawn(phase22_rank, 2, 2, device="cuda",
-                                     timeout=400, args=(
-                {"prompts": prompts.numpy(), "max_new": max_new,
-                 "block_k": block_k, "bf16": phase4["bf16"]["tokens"].numpy()},))
+                                     timeout=700, args=(job,))
         except BaseException as exc:           # raised below, in this thread
             spawned["error"] = exc
 
@@ -6144,9 +6382,12 @@ def phase_mesh(torch, phase4, card):
         r = mesh_decode(torch, D, params, cfg, dec, batch, label)
         singles[label] = {k: (v.cpu() if hasattr(v, "cpu") else v)
                           for k, v in r.items()}
+    engines = {label: engine_run(torch, params, cfg, dec, batch["tokens"],
+                                 label) for label in MESH_ENGINE_RUNS}
     log(f"[mesh] single-device references at {MESH_FP32_LAYERS} of 40 layers "
         f"in {time.perf_counter() - t0:.1f}s, beside the ranks' start")
-    worker.join(timeout=430)
+    http_s = http_demo(torch)
+    worker.join(timeout=730)
     check(not worker.is_alive(), "phase 22: the ranks outlived their limit")
     if "error" in spawned:
         raise spawned["error"]
@@ -6158,7 +6399,7 @@ def phase_mesh(torch, phase4, card):
         group = [(i, r[shape]) for i, r in enumerate(ranks) if shape in r]
         for i, r in group:
             log(f"    {shape} rank {i} at {r['coords']} on {r['device']}, "
-                f"{r['backend']}: fp32 peak {r['fp32_peak'] / 2 ** 30:.2f} GiB; "
+                f"{r['backend']}: "
                 + "; ".join(f"{label} launches {nonzero(run['launches'])}, "
                             f"{run['wall']:.2f}s"
                             for label, run in r["runs"].items())
@@ -6179,6 +6420,8 @@ def phase_mesh(torch, phase4, card):
                 f"{want['iterations']}), tokens checked on ranks "
                 f"{[i for i, _ in holders]}; "
                 f"{got['wall']:.2f}s (single device {want['wall']:.2f}s)")
+    log(f"[mesh] fp32 peak a rank: "
+        f"{[round(r['fp32_peak'] / 2 ** 30, 2) for r in ranks]} GiB")
     pair = {**ranks[2][(1, 2)]["runs"], **ranks[0][(1, 2)]["runs"]}
     greedy = torch.as_tensor(pair["greedy"]["tokens"]).cuda()
     for label in MESH_RUNS[(1, 2)][1:]:
@@ -6187,12 +6430,55 @@ def phase_mesh(torch, phase4, card):
             prompt_len)
         log(f"[mesh] (1, 2) sharded BPD {label} == sharded greedy's tokens in "
             f"{8 - len(diverged)}/8 rows (others at near-ties)")
+
+    # ---- the engine: fp32 records and launches against one device --------
+    t_engine = 0.0
+    for shape, idx in (((1, 2), (0, 1)), ((2, 1), (2, 3)),
+                       ((2, 1, 2), (0, 1, 2, 3))):
+        for label, want in engines.items():
+            runs = [(i, ranks[i]["engine"][shape][label]) for i in idx
+                    if label in ranks[i]["engine"].get(shape, {})]
+            if not runs:
+                continue
+            check(len(runs) == len(idx), f"22 engine {shape} {label}: ran on "
+                                         f"{len(runs)} ranks")
+            for i, got in runs:
+                compare_engine_runs(got, want, f"engine {shape} {label} rank "
+                                               f"{i}")
+                if len(shape) == 2:
+                    check(got["launches"] == want["launches"],
+                          f"22 engine {shape} {label} rank {i}: launches "
+                          f"{got['launches']} vs one device's "
+                          f"{want['launches']}")
+            lead = runs[0][1]
+            t_engine = max(t_engine, lead["wall"])
+            n, nbytes, secs = lead["handoff"]
+            steps = lead["sample"]["steps"]
+            hand = ("" if not n else
+                    f"; pod handoff {n} gathers, {nbytes / n / 2 ** 20:.2f} "
+                    f"MiB and {secs / n * 1e3:.1f} ms a gather "
+                    f"({nbytes / steps / 2 ** 20:.3f} MiB a scheduler step)")
+            log(f"[mesh] engine {shape} {label}: 16 records equal to one "
+                f"device's on ranks {list(idx)}, iterations "
+                f"{lead['counters']['iterations']}, forwards "
+                f"{lead['counters']['forwards']}, CoW {lead['counters']['cow']}"
+                f"; launches a rank {[nonzero(g['launches']) for _, g in runs]}"
+                f" ({'equal to' if len(shape) == 2 else 'beside'} one "
+                f"device's {nonzero(want['launches'])}); {lead['wall']:.2f}s "
+                f"(one device {want['wall']:.2f}s), {steps} scheduler steps, "
+                f"{lead['counters']['plans']} plans, "
+                f"{lead['sample']['collectives'] / steps:.1f} collectives a "
+                f"scheduler step on rank 0{hand}")
+
+    # ---- bf16 over (1, 2): the static serve and the engine -----------------
     runs = [r["bf16"] for r in ranks if "bf16" in r]
     check(len(runs) == 2, f"22: the bf16 serve ran on {len(runs)} ranks")
     for i, b in enumerate(runs):
         check(torch.equal(torch.as_tensor(b["tokens"]),
                           torch.as_tensor(runs[0]["tokens"])),
               f"22 bf16: rank {i}'s tokens differ from rank 0's")
+        check(b["engine"]["records"] == runs[0]["engine"]["records"],
+              f"22 bf16 engine: rank {i}'s records differ from rank 0's")
         log(f"    (1, 2) rank {i} bf16 full depth: peak "
             f"{b['peak'] / 2 ** 30:.2f} GiB, launches "
             f"{nonzero(b['launches'])}, wall {b['wall']:.2f}s")
@@ -6208,8 +6494,28 @@ def phase_mesh(torch, phase4, card):
         f" (phase 6: {repeats(phase4['bf16']['tokens'], prompt_len, end)}); "
         f"first divergences from phase 6's tokens: {len(b['divergences'])} "
         f"rows, all within {BF16_TIE_ULPS} bf16 ulps of the top logit; {card}")
+    e, one = b["engine"], phase4["engine_bf16"]
+    tokens = sum(rec[2] for rec in e["records"])
+    sample, ttft = e["sample"], e["sample"]["ttft"]
+    log(f"[mesh] bf16 engine over (1, 2), unified paged, phase 6c's 16 "
+        f"requests: {tokens / e['wall']:.1f} tokens/s beside phase 6c's "
+        f"{one['tps']:.1f}; TTFT p50 {quantile(ttft, 0.5) * 1e3:.1f} / p99 "
+        f"{quantile(ttft, 0.99) * 1e3:.1f} ms beside "
+        f"{quantile(one['ttft'], 0.5) * 1e3:.1f} / "
+        f"{quantile(one['ttft'], 0.99) * 1e3:.1f}; "
+        f"{e['wall'] / sample['steps'] * 1e3:.1f} host ms a scheduler step "
+        f"beside {one['step_ms']:.1f}; {sample['collectives'] / sample['steps']:.1f}"
+        f" collectives a scheduler step on rank 0 ({e['counters']['plans']} "
+        f"plans over {sample['steps']} steps); launches a rank "
+        f"{nonzero(e['launches'])}; {len(e['divergences'])} of 16 requests "
+        f"leave phase 6c's tokens, each first at a near-tie "
+        f"({[(d['rid'], d['at'], round(d['bpd_ulps'], 3)) for d in e['divergences']]}"
+        f": request, new token, ulps below the top); {card}")
     log(f"[mesh] fp32 sharded runs with every row equal to the single-device "
-        f"port's: {equal}; phase 22 {time.perf_counter() - t0:.1f}s")
+        f"port's: {equal}; the longest fp32 engine run on the ranks "
+        f"{t_engine:.1f}s, the bf16 engine {e['wall']:.1f}s, the HTTP demo "
+        f"{http_s:.1f}s (beside the ranks); phase 22 "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:

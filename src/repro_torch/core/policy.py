@@ -517,32 +517,30 @@ class DecodePolicy:
             drafter=self.drafter.init_state(cfg, dec, batch, b, aux=aux),
             schedule=self.schedule.init_state(b, device))
 
-    def bind(self, bundles: Dict, cfg, *, mesh=None,
-             dec: Optional[DecodeConfig] = None) -> "DecodePolicy":
+    def bind(self, bundles: Dict, cfg, *, mesh=None) -> "DecodePolicy":
         """Attach the session's auxiliary ``ModelBundle``s (their static
         half) to the drafter: a no-op for single-model policies, while a
         model-backed drafter checks and absorbs its bundle here, so a
         missing or incompatible draft model fails before any decode.  Under
         a ``mesh`` only the policies the sharded path runs bind: the heads
-        drafter under any ported acceptor with a static or adaptive
-        schedule, and the top-k tree on the dense cache (``dec``'s)."""
+        drafter or the top-k tree under any ported acceptor with a static
+        or adaptive schedule (the tree on the paged cache through the
+        pool's dense view, as on one device)."""
         if mesh is not None:
-            self._check_mesh(dec)
+            self._check_mesh()
         drafter = self.drafter.bind(bundles or {}, cfg)
         if drafter is self.drafter:
             return self
         return dataclasses.replace(self, drafter=drafter)
 
-    def _check_mesh(self, dec: Optional[DecodeConfig]) -> None:
-        paged = getattr(dec, "cache_backend", "dense") == "paged"
-        heads = type(self.drafter) is HeadsDrafter or (
-            type(self.drafter) is TopKTreeDrafter and not paged)
+    def _check_mesh(self) -> None:
+        heads = type(self.drafter) in (HeadsDrafter, TopKTreeDrafter)
         if not (heads and type(self.schedule) in (StaticSchedule,
                                                   AdaptiveSchedule)):
             raise NotImplementedError(
                 f"policy {self.name!r} under a mesh is not ported yet "
                 f"(ROADMAP.md §1 item 8c): a sharded decode runs exact, topk, "
-                f"distance and adaptive, and topk_tree on the dense cache")
+                f"distance, adaptive and topk_tree")
 
     @property
     def cache_key(self):

@@ -79,20 +79,27 @@ request through it and exits.  The engine serves text attention models
 only, as the reference's does (rwkv6-1.6b, hymba-1.5b and llava-next-34b
 raise).
 
-``--mesh-data D --mesh-model M`` serves the static batch sharded over a
-("data", "model") process mesh: one command spawns the D·M ranks
-(``launch.mesh.spawn``), each draws its block of the weights
-(``model.init(mesh=)``) and runs ``DecodeSession(mesh=)``, and rank 0
-prints the lines above.  Ranks sharing one card use gloo, ranks with a card
-each NCCL (printed).  The mesh runs the dense text trunk (granite-3-8b,
+``--mesh-data D --mesh-model M [--mesh-pod P]`` serves sharded over a
+("data", "model") process mesh, or a ("pod", "data", "model") one when P >
+1: one command spawns the P·D·M ranks (``launch.mesh.spawn``), each draws
+its block of the weights (``model.init(mesh=)``) and runs
+``DecodeSession(mesh=)``, and rank 0 prints the lines above.  The static
+batch shards over the batch axes; ``--engine`` and ``--http`` keep each
+rank's slots of every group (``--batch`` must divide over pod×data, or
+data), rank 0 runs the scheduler (and the HTTP server) and the other ranks
+replay its plans (``ContinuousBatchingEngine.follow``); ``--prefill-slots
+W`` on a pod mesh prefills each pod's rows of a batch and hands them to
+every rank over ``pod``.  Ranks sharing one card use gloo, ranks with a
+card each NCCL (printed).  The mesh runs the dense text trunk (granite-3-8b,
 stablelm-12b, starcoder2-7b, nemotron-4-15b) under exact, topk, distance,
-adaptive, and topk_tree on the dense cache.  ``--engine`` and ``--http``
-under a mesh, and ``--mesh-pod``, raise (ROADMAP.md §1 item 8b).
+adaptive and topk_tree; the other families and ``draft_model`` under a mesh
+raise (ROADMAP.md §1 item 8c).
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import signal
 import sys
@@ -204,20 +211,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _not_ported(args) -> Optional[str]:
-    if args.mesh_pod > 1:
-        return "--mesh-pod (the pod axis: ROADMAP.md §1 item 8b)"
-    if _mesh_shape(args) and (args.engine or args.http):
-        return ("--engine / --http under --mesh-* (the engine under a mesh: "
-                "ROADMAP.md §1 item 8b)")
-    return None
-
-
 def _mesh_shape(args) -> Optional[tuple]:
-    """(D, M) when ``--mesh-data`` or ``--mesh-model`` asks for a mesh."""
-    if args.mesh_data <= 0 and args.mesh_model <= 0:
+    """(P, D, M) when ``--mesh-data``, ``--mesh-model`` or ``--mesh-pod``
+    asks for a mesh."""
+    if max(args.mesh_data, args.mesh_model, args.mesh_pod) <= 0:
         return None
-    return max(args.mesh_data, 1), max(args.mesh_model, 1)
+    return (max(args.mesh_pod, 1), max(args.mesh_data, 1),
+            max(args.mesh_model, 1))
 
 
 def parse_policy_groups(spec: str):
@@ -258,9 +258,6 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
     done payload).
     """
     args = build_parser().parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        raise NotImplementedError(f"{missing} is not ported yet")
     groups = parse_policy_groups(args.policies)
     if groups and not (args.engine or args.http):
         raise SystemExit("--policies configures slot groups of the "
@@ -373,39 +370,64 @@ def serve_static(sess, args, task, dev) -> Dict:
             "cfg": cfg, "dec": dec, "params": sess.params, "session": sess}
 
 
-def serve_mesh(argv: Sequence[str], args, data: int, model: int) -> Dict:
-    """The static batch on a ``data`` × ``model`` mesh: spawn the ranks
-    (``_serve_rank``) and return rank 0's tokens and stats (and every
-    rank's summary under ``ranks``)."""
+def serve_mesh(argv: Sequence[str], args, pod: int, data: int,
+               model: int) -> Dict:
+    """Serve on a ``pod`` × ``data`` × ``model`` mesh: spawn the ranks
+    (``_serve_rank``) and return rank 0's results (the static batch's
+    tokens and stats, or the engine's finished requests and stats), with
+    every rank's under ``ranks``."""
     cfg, dec = _configs(args)                  # refusals before any spawn
-    layout = Mesh(data, model)
+    layout = Mesh(data, model, pod=pod)
     M.check_mesh_supported(cfg, layout)
-    resolve_policy(dec).bind({}, cfg, mesh=layout, dec=dec)
-    backend, why = choose_backend(data * model, args.device)
-    print(f"[serve] mesh {{'data': {data}, 'model': {model}}}: {data * model} "
-          f"ranks, backend {backend} ({why})", flush=True)
-    ranks = spawn(_serve_rank, data, model, args=(list(argv),),
-                  device=args.device)
+    groups = parse_policy_groups(args.policies)
+    for name in groups or [None]:        # draft_model among the refused
+        resolve_policy(dec, name).bind({}, cfg, mesh=layout)
+    if args.engine or args.http:
+        ecfg = _engine_config(args)
+        for n in (groups or {"": args.batch}).values():
+            dataclasses.replace(ecfg, num_slots=n).validate(dec=dec,
+                                                            mesh=layout)
+    backend, why = choose_backend(layout.size, args.device)
+    print(f"[serve] mesh {layout.shape}: {layout.size} ranks, backend "
+          f"{backend} ({why})", flush=True)
+    # an --http server runs until drained: only its collectives time out
+    # (an idle server's rank 0 sends heartbeats, engine.keep_alive)
+    ranks = spawn(_serve_rank, data, model, pod=pod, args=(list(argv),),
+                  device=args.device,
+                  limit_run=not args.http or args.http_demo)
     out = dict(ranks[0])
-    out["tokens"] = torch.as_tensor(out["tokens"])
-    out["stats"] = dict(out["stats"], **{
-        k: torch.as_tensor(out["stats"][k]) for k in ("generated", "text_len")})
+    if "tokens" in out:
+        out["tokens"] = torch.as_tensor(out["tokens"])
+        out["stats"] = dict(out["stats"], **{
+            k: torch.as_tensor(out["stats"][k])
+            for k in ("generated", "text_len")})
     return dict(out, ranks=ranks)
 
 
 def _serve_rank(mesh, argv: Sequence[str]) -> Dict:
     """One rank of ``serve_mesh``: its blocks of the weights, the sharded
-    session, ``serve_static``."""
+    session, then ``serve_static``, ``serve_engine`` or ``serve_http``
+    (rank 0 scheduling and printing, the others replaying its plans)."""
     args = build_parser().parse_args(argv)
     cfg, dec = _configs(args)
     params = M.cast_for_compute(_params(cfg, args, mesh.device, mesh), cfg)
+    groups = parse_policy_groups(args.policies)
+    where = {"device": str(mesh.device), "backend": mesh.backend}
+    if args.http:
+        out = serve_http(params, cfg, dec, args, groups, mesh=mesh)
+        return dict(where, demo=out.get("demo"), finished=out["finished"])
+    if args.engine:
+        task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
+                        seed=args.seed)
+        out = serve_engine(params, cfg, dec, args, task, groups, mesh=mesh)
+        return dict(where, finished=out["finished"], stats=out["stats"],
+                    plans=out["engine"].num_plans)
     sess = DecodeSession(params, cfg, dec, mesh=mesh, kv_chunk=args.kv_chunk)
     task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
                     seed=args.seed)
     out = serve_static(sess, args, task, mesh.device)
-    return {"tokens": out["tokens"], "stats": out["stats"],
-            "wall_s": out["wall_s"], "device": str(mesh.device),
-            "backend": mesh.backend}
+    return dict(where, tokens=out["tokens"], stats=out["stats"],
+                wall_s=out["wall_s"])
 
 
 def draft_bundle(cfg, args, groups=None):
@@ -437,19 +459,25 @@ def _engine_config(args) -> EngineConfig:
                         steps_per_sync=args.steps_per_sync)
 
 
-def _engine(params, cfg, dec, args, groups,
-            bundles=None) -> ContinuousBatchingEngine:
+def _engine(params, cfg, dec, args, groups, bundles=None,
+            mesh=None) -> ContinuousBatchingEngine:
     session = DecodeSession(params, cfg, dec, kv_chunk=args.kv_chunk,
-                            bundles=bundles)
+                            bundles=bundles, mesh=mesh)
     return ContinuousBatchingEngine(params, cfg, dec, _engine_config(args),
                                     session=session, policies=groups)
 
 
-def serve_engine(params, cfg, dec, args, task, groups, bundles=None) -> Dict:
+def serve_engine(params, cfg, dec, args, task, groups, bundles=None,
+                 mesh=None) -> Dict:
     """Mixed-length (and, with ``groups``, mixed-policy) traffic through the
     continuous-batching engine: 2 × ``--batch`` requests, all arrived at
-    the start."""
-    engine = _engine(params, cfg, dec, args, groups, bundles)
+    the start.  On a mesh rank 0 schedules and prints, the other ranks
+    replay its plans."""
+    engine = _engine(params, cfg, dec, args, groups, bundles, mesh)
+    if mesh is not None and mesh.index:
+        finished = engine.follow()
+        return {"finished": finished, "stats": None, "engine": engine,
+                "cfg": cfg, "dec": dec, "params": params}
     sched = Scheduler(engine, policy=args.sched)
     rng = np.random.default_rng(args.seed + 2)
     names = engine.policy_names()
@@ -465,12 +493,13 @@ def serve_engine(params, cfg, dec, args, task, groups, bundles=None) -> Dict:
     t0 = time.perf_counter()
     finished = sched.run()
     wall = time.perf_counter() - t0
+    engine.release_followers()
     stats = aggregate_stats(finished, wall)
     print(f"[serve] engine: {n} requests over {args.batch} slots "
           f"(sched={args.sched}, "
           f"{'groups=' + str(groups) if groups else 'policy=' + engine.policy.name}"
           f", {dec.cache_backend} cache, prefill_slots={args.prefill_slots}, "
-          f"steps_per_sync={args.steps_per_sync}) on {engine.session.device}")
+          f"steps_per_sync={args.steps_per_sync}) on {_where(engine)}")
     print(f"[serve] {stats['total_tokens']} tokens in "
           f"{stats['total_invocations']} invocations, "
           f"{stats['tokens_per_sec']:.1f} tok/s, "
@@ -485,10 +514,24 @@ def serve_engine(params, cfg, dec, args, task, groups, bundles=None) -> Dict:
             "cfg": cfg, "dec": dec, "params": params}
 
 
-def serve_http(params, cfg, dec, args, groups, bundles=None) -> Dict:
+def _where(engine) -> str:
+    mesh = engine.mesh
+    if mesh is None:
+        return f"{engine.session.device}"
+    return (f"mesh {mesh.shape} of {mesh.size} ranks ({mesh.backend}), rank "
+            f"0 on {engine.session.device}")
+
+
+def serve_http(params, cfg, dec, args, groups, bundles=None,
+               mesh=None) -> Dict:
     """Serve the engine over HTTP/SSE until drained (SIGTERM, SIGINT or
-    POST /drain); ``--http-demo`` streams one request and exits."""
-    engine = _engine(params, cfg, dec, args, groups, bundles)
+    POST /drain); ``--http-demo`` streams one request and exits.  On a
+    mesh the server and the scheduler run on rank 0, whose shutdown
+    releases the other ranks (``release_followers``); they replay its
+    plans meanwhile and return their finish records."""
+    engine = _engine(params, cfg, dec, args, groups, bundles, mesh)
+    if mesh is not None and mesh.index:
+        return {"engine": engine, "finished": engine.follow()}
     frontend = Frontend(Scheduler(engine, policy=args.sched),
                         max_queue=args.max_queue)
     srv = HTTPServer(frontend, host=args.host, port=args.port)
@@ -507,7 +550,7 @@ def serve_http(params, cfg, dec, args, groups, bundles=None) -> Dict:
         print(f"[serve] http on {srv.host}:{srv.port} — POST /v1/generate "
               f"/drain, GET /healthz /readyz /metrics (slots={args.batch}, "
               f"sched={args.sched}, max_queue={args.max_queue}, {mode}) on "
-              f"{engine.session.device}", flush=True)
+              f"{_where(engine)}", flush=True)
         if args.http_demo:
             out["demo"] = await _http_demo(srv)
             await srv.stop()
@@ -516,6 +559,8 @@ def serve_http(params, cfg, dec, args, groups, bundles=None) -> Dict:
             print("[serve] drained — exiting", flush=True)
 
     asyncio.run(run())
+    engine.release_followers()
+    out["finished"] = frontend.scheduler.finished
     return out
 
 

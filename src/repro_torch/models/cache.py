@@ -160,8 +160,29 @@ def scatter_row(cache: Dict, row_cache: Dict, slot, *, row=0) -> Dict:
     return cache
 
 
+def write_pages(cache: Dict, row_cache: Dict, tbl_row, write_mask, *,
+                row=0) -> Dict:
+    """The pool half of a paged admission, in place: logical page i of
+    packet row ``row`` (keys ``[i*ps, (i+1)*ps)`` of ``row_cache``'s
+    attention buffers, exactly ``P * page_size`` long) into physical page
+    ``tbl_row[i]`` wherever ``write_mask[i]``; masked pages (copy-on-write
+    prefix hits, unmapped tail pages) go to the trash page 0, so a shared
+    page is never written by an admission.  ``tbl_row`` / ``write_mask``
+    are (P,) or (n, P) with ``row`` an int or (n,) index tensor."""
+    a, r = cache["attn"], row_cache["attn"]
+    num_pages, ps, kvh, hd = a["kp"].shape
+    n_pages = a["tbl"].shape[1]
+    dst = torch.where(write_mask.reshape(-1, n_pages),
+                      tbl_row.reshape(-1, n_pages).to(torch.int32),
+                      0).reshape(-1).long()
+    for name, src in (("kp", "k"), ("vp", "v")):
+        pages = r[src][_rows(row)].reshape(-1, ps, kvh, hd)
+        a[name][dst] = pages.to(a[name].dtype)
+    return cache
+
+
 def scatter_row_paged(cache: Dict, row_cache: Dict, slot, tbl_row,
-                      write_mask, *, row=0) -> Dict:
+                      write_mask, *, row=0, pages: bool = True) -> Dict:
     """Paged admission: install prefilled dense rows into the page pool, in
     place.
 
@@ -169,21 +190,17 @@ def scatter_row_paged(cache: Dict, row_cache: Dict, slot, tbl_row,
     (``PagedBackend.row_init``), so logical page i of a row is its keys
     ``[i*ps, (i+1)*ps)``.  ``tbl_row`` ((P,) or (n, P) int32) is the host
     allocator's physical mapping of each slot and ``write_mask`` (same
-    shape, bool) the pages to write: False entries are copy-on-write prefix
-    hits (their bytes already live in the pool) or unmapped tail pages.
-    Masked pages are redirected to the trash page 0, so a shared page is
-    never written by an admission.  ``slot`` / ``row`` as in
+    shape, bool) the pages to write (``write_pages``); ``pages`` False
+    leaves the pool to a ``write_pages`` call of its own (a sharded engine
+    writes an admission's pages on every rank of a replicated pool, its
+    slot rows only where the slot lives).  ``slot`` / ``row`` as in
     ``scatter_row``.  Non-attention parts scatter densely.
     """
+    if pages:
+        write_pages(cache, row_cache, tbl_row, write_mask, row=row)
     a, r = cache["attn"], row_cache["attn"]
-    num_pages, ps, kvh, hd = a["kp"].shape
-    n_pages = a["tbl"].shape[1]
-    tbl_row = tbl_row.reshape(-1, n_pages).to(torch.int32)
-    dst = torch.where(write_mask.reshape(-1, n_pages), tbl_row, 0).reshape(-1).long()
-    for name, src in (("kp", "k"), ("vp", "v")):
-        pages = r[src][_rows(row)].reshape(-1, ps, kvh, hd)
-        a[name][dst] = pages.to(a[name].dtype)
-    a["tbl"][_rows(slot)] = tbl_row
+    a["tbl"][_rows(slot)] = tbl_row.reshape(-1, a["tbl"].shape[1]).to(
+        torch.int32)
     a["pos"][_rows(slot)] = r["pos"][_rows(row)]
     for key in cache:
         if key != "attn":

@@ -338,18 +338,28 @@ def reset_cache_rows(caches, mask):
 
 
 def scatter_cache_row(caches, row_caches, slot, *, row=0, tbl_row=None,
-                      write_mask=None):
+                      write_mask=None, pages: bool = True):
     """Install prefilled rows into slots of batched caches, in place:
     prefill-into-freed-slot for the continuous-batching engine (see
     ``cache.scatter_row``; ``slot`` / ``row`` ints or (n,) index tensors).
     Paged layers take the host allocator's page mapping ``tbl_row`` /
-    ``write_mask``, one mapping for every layer (``cache.scatter_row_paged``)."""
+    ``write_mask``, one mapping for every layer (``cache.scatter_row_paged``;
+    ``pages`` False leaves the pool to ``write_cache_pages``)."""
     for c, rc in zip(caches, row_caches):
         if cache_lib.is_paged(c):
             cache_lib.scatter_row_paged(c, rc, slot, tbl_row, write_mask,
-                                        row=row)
+                                        row=row, pages=pages)
         else:
             cache_lib.scatter_row(c, rc, slot, row=row)
+    return caches
+
+
+def write_cache_pages(caches, row_caches, rows, tbl_rows, write_masks):
+    """The pool half of a paged admission in every paged layer, in place
+    (``cache.write_pages``): packet ``rows`` into their mapped pages."""
+    for c, rc in zip(caches, row_caches):
+        if cache_lib.is_paged(c):
+            cache_lib.write_pages(c, rc, tbl_rows, write_masks, row=rows)
     return caches
 
 

@@ -1,6 +1,8 @@
-"""Continuous-batching serving for blockwise parallel decoding, on one
-device (the port of ``repro.serving``; under a mesh ``DecodeSession``
-serves a static batch, and the engine raises: ROADMAP.md §1 item 8b).
+"""Continuous-batching serving for blockwise parallel decoding (the port of
+``repro.serving``), on one device or on a ("data", "model") or ("pod",
+"data", "model") process mesh: each rank keeps its slots of every group,
+rank 0 runs the scheduler and the HTTP server and the other ranks replay
+its plans (``ContinuousBatchingEngine.follow``).
 
 Layering:
   types.py     — Request / FinishedRequest / PreemptedRequest /

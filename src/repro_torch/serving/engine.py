@@ -1,5 +1,5 @@
 """Continuous-batching engine on top of the BPD decode loop (the port of
-``repro.serving.engine``, on one device).
+``repro.serving.engine``, on one device or a process mesh).
 
 The run-to-completion ``bpd_decode`` keeps a whole batch resident until its
 slowest row finishes — dead rows still cost a model invocation per
@@ -31,8 +31,27 @@ and each *group step* costs exactly ONE fused device→host sync.
 
 The engine itself is a **scheduler + slot-metadata shell**: all device
 functions are owned by a ``serving.session.DecodeSession`` and built once
-per (policy, geometry) (padded prompts, static slot counts).  A mesh is
-refused (ROADMAP.md §1 item 8b).
+per (policy, geometry) (padded prompts, static slot counts).
+
+**On a mesh** (``mesh=``, or a ``session=`` on one: a ("data", "model") or
+("pod", "data", "model") ``launch.mesh.Mesh`` of processes) each rank
+keeps its slots of every group (``ServingFns.local``) and the whole
+host mirror: after each group step the status is gathered over the slots
+(``comm.data_gather``), so ``free_slots`` / ``has_active`` / harvest read
+the same global view on every rank, and every rank steps each group that
+is active anywhere on the mesh (its model-axis sums and a window's ``go``
+need all of its ranks).  Harvest gathers the group's rows; every rank
+makes the same finish records.  The reference has one controller; here
+rank 0 alone runs the scheduler and the front end, whose admission reads
+``time.monotonic()``: rank 0's engine broadcasts each call the scheduler
+makes (``_planned``), with its arguments and its clock, over the gloo
+control group (``comm.broadcast_plan``) before it runs it.
+The other ranks run ``follow()``: they replay each call on their engine,
+so their allocators and mirrors take the same decisions, until rank 0's
+``release_followers()``.  While a server idles, rank 0 sends an empty
+plan every ``HEARTBEAT_S`` seconds (``keep_alive``), so the others' wait
+never nears the collectives' time limit and a stuck collective still
+fails the run.
 
 The host loop performs exactly ONE device→host read per group step: the
 step returns a (S,) int8 status (bit 0 = active, bit 1 = harvestable) and
@@ -57,10 +76,12 @@ padded prompt) as for the primary model.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 import time
 from collections import deque
-from typing import (Any, Deque, Dict, List, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Any, Deque, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -70,20 +91,65 @@ from repro_torch.core.policy import resolve_policy
 from repro_torch.serving.pages import PageAllocator, PagePoolExhausted
 from repro_torch.serving.session import DecodeSession, ServingFns
 from repro_torch.serving.types import (EngineConfig, FinishedRequest,
-                                       PreemptedRequest, Request, SlotBatch,
-                                       refuse_mesh)
+                                       PreemptedRequest, Request, SlotBatch)
+from repro_torch.sharding import comm
 
 __all__ = ["ContinuousBatchingEngine", "PolicyGroup", "SlotBatch",
            "PagePoolExhausted", "PreemptedRequest", "HandoffRecord"]
 
 I32 = torch.int32
+# seconds between rank 0's empty plans while a mesh server idles
+HEARTBEAT_S = 5.0
 
 
-def _read(tensors) -> np.ndarray:
-    """One device→host transfer of int tensors of one leading size
-    (concatenated as int32 columns); the caller counts it."""
-    cols = [t.reshape(t.shape[0], -1).to(I32) for t in tensors]
-    return torch.cat(cols, dim=1).cpu().numpy()
+class _GroupRef(NamedTuple):
+    """A ``PolicyGroup`` argument of a planned call, by its index."""
+    gid: int
+
+
+class _PullRef(NamedTuple):
+    """A ``pull_group`` result passed back to ``preempt``: each rank's own
+    last pull of the group."""
+    gid: int
+
+
+class _Raised(NamedTuple):
+    """Rank 0's word after a planned call that raised ``PagePoolExhausted``
+    (the one error the scheduler recovers from): the other ranks' replay,
+    on allocators that are its twins, is to raise it too."""
+    error: str
+
+
+def _planned(method):
+    """An engine call the other ranks of a mesh replay.  On rank 0 the
+    call is broadcast to them with its arguments (and, where it takes a
+    ``now`` left None, rank 0's clock, so every rank stamps the same
+    times) over the control group, then run; every rank runs its device
+    work at once.  A call that finds the page pool full on rank 0 is
+    followed by a ``_Raised``, so the others take the same error of their
+    replay for rank 0's; any other error ends rank 0, and with it the run.
+    One device, the other ranks and calls made inside a planned call run
+    as they are."""
+    timed = "now" in inspect.signature(method).parameters
+
+    @functools.wraps(method)
+    def inner(self, *args, **kwargs):
+        if not self._leads or self._in_plan:
+            return method(self, *args, **kwargs)
+        if timed and kwargs.get("now") is None:
+            kwargs["now"] = time.monotonic()
+        self._broadcast((method.__name__, tuple(map(self._encode, args)),
+                         {k: self._encode(v) for k, v in kwargs.items()}))
+        self._in_plan = True
+        try:
+            return method(self, *args, **kwargs)
+        except PagePoolExhausted as exc:
+            self._broadcast(_Raised(type(exc).__name__))
+            raise
+        finally:
+            self._in_plan = False
+
+    return inner
 
 
 class _Pending:
@@ -186,7 +252,6 @@ class ContinuousBatchingEngine:
                  bundles=None,
                  policies: Union[None, Dict[str, int],
                                  Sequence[Tuple[str, int]]] = None):
-        refuse_mesh(mesh if session is None else session.mesh)
         if cfg.block_type != "attn":
             raise NotImplementedError(
                 f"serving engine requires an attention-cache family "
@@ -208,8 +273,15 @@ class ContinuousBatchingEngine:
                     f"{b.cfg.block_type!r}: the engine's padded admission "
                     f"prefill is only sound for attention caches (same "
                     f"argument as the primary model)")
+        self.mesh = mesh = self.session.mesh
         ecfg.validate(dec=self.session.dec, mesh=mesh)
         self.policy = self.session.policy
+        # rank 0 of a mesh plans; the others replay its plans (follow)
+        self._leads = mesh is not None and mesh.index == 0
+        self._in_plan = False
+        self.num_plans = 0          # plans rank 0 sent / another received
+        self._last_plan = time.monotonic()
+        self._last_pull: Dict[int, Tuple] = {}   # gid -> last pull_group
 
         # the session is the source of truth for model/decode config — a
         # caller-provided session may differ from the cfg/dec args, and the
@@ -231,7 +303,8 @@ class ContinuousBatchingEngine:
         offset = 0
         for gid, (name, slots) in enumerate(specs):
             gecfg = dataclasses.replace(ecfg, num_slots=slots)
-            gecfg.validate(dec=dec)
+            # each group's view shards the data axes on its own
+            gecfg.validate(dec=dec, mesh=mesh)
             # the default group (policies=None) serves the session's BOUND
             # policy object — re-resolving its name through the registry
             # would silently replace a caller-supplied / hand-built
@@ -303,6 +376,89 @@ class ContinuousBatchingEngine:
         by the DecodeSession."""
         return self.session.aux_params
 
+    # -- the mesh: plans and gathers -----------------------------------------
+
+    def _encode(self, v):
+        """A planned call's argument as the other ranks can read it back:
+        a group by its index, a ``pull_group`` result by its group."""
+        if isinstance(v, PolicyGroup):
+            return _GroupRef(v.gid)
+        for gid, pulled in self._last_pull.items():
+            if v is pulled:
+                return _PullRef(gid)
+        return v
+
+    def _decode(self, v):
+        if isinstance(v, _GroupRef):
+            return self.groups[v.gid]
+        if isinstance(v, _PullRef):
+            return self._last_pull[v.gid]
+        return v
+
+    def _broadcast(self, plan) -> None:
+        comm.broadcast_plan(self.mesh, plan)
+        self.num_plans += 1
+        self._last_plan = time.monotonic()
+
+    def keep_alive(self) -> None:
+        """On rank 0 of a mesh, between ticks of an idle server: an empty
+        plan to the other ranks once ``HEARTBEAT_S`` has passed since the
+        last plan, so their wait in ``follow`` stays far inside the
+        collectives' time limit; a no-op elsewhere."""
+        if (self._leads
+                and time.monotonic() - self._last_plan >= HEARTBEAT_S):
+            self._broadcast(None)
+
+    def _read_rows(self, g: PolicyGroup, tensors) -> np.ndarray:
+        """One device→host read of int tensors of group ``g``'s slots
+        (concatenated as int32 columns): every slot of the group, gathered
+        from the ranks that keep them under a mesh.  The caller counts
+        it."""
+        cols = torch.cat([t.reshape(t.shape[0], -1).to(I32) for t in tensors],
+                         dim=1)
+        if self.mesh is not None:
+            cols = comm.data_gather(self.mesh, cols, g.num_slots)
+        return cols.cpu().numpy()
+
+    def _receive(self):
+        plan = comm.broadcast_plan(self.mesh)
+        self.num_plans += 1
+        return plan
+
+    def follow(self) -> List[FinishedRequest]:
+        """The serving loop of a mesh rank other than 0: replay rank 0's
+        calls on this engine until its ``release_followers``.  Returns the
+        finish records of every step and harvest, in order: the records
+        rank 0's engine made."""
+        if self.mesh is None or self._leads:
+            raise RuntimeError("follow() runs on a mesh rank other than 0")
+        done: List[FinishedRequest] = []
+        while True:
+            plan = self._receive()
+            if plan is None:                # rank 0 idles: a heartbeat
+                continue
+            if isinstance(plan, _Raised):
+                raise RuntimeError(f"rank 0's last call raised "
+                                   f"{plan.error}; this rank's replay did not")
+            name, args, kwargs = plan
+            if name == "release_followers":
+                return done
+            try:
+                out = getattr(self, name)(
+                    *map(self._decode, args),
+                    **{k: self._decode(v) for k, v in kwargs.items()})
+            except PagePoolExhausted as exc:
+                if self._receive() != _Raised(type(exc).__name__):
+                    raise
+                continue        # rank 0's call raised the same: it goes on
+            if name in ("step", "harvest"):
+                done += out
+
+    @_planned
+    def release_followers(self) -> None:
+        """On rank 0 of a mesh: end the other ranks' ``follow`` (after the
+        scheduler drained, or the server shut down); a no-op elsewhere."""
+
     @property
     def state(self) -> SlotBatch:
         """The slot state — single-group engines only (the historical
@@ -365,6 +521,7 @@ class ContinuousBatchingEngine:
         max_new = int(np.clip(req.max_new, 1, self.ecfg.max_new_cap))
         return prompt, p, src, max_new
 
+    @_planned
     def admit(self, req: Request, *, now: Optional[float] = None) -> int:
         """Admit a request into a free slot of its policy's group; returns
         the global slot index."""
@@ -414,6 +571,7 @@ class ContinuousBatchingEngine:
         unboundedly when decode stalls)."""
         return self.handoff_cap - self.handoff_backlog()
 
+    @_planned
     def queue_prefill(self, req: Request, *, now: Optional[float] = None) -> None:
         """Stage a request for the prefill workers (disaggregated mode
         only).  Validates geometry now so malformed requests fail at
@@ -436,6 +594,7 @@ class ContinuousBatchingEngine:
             req.arrival = t
         self._staged[g.name].append((req, t))
 
+    @_planned
     def run_prefills(self, *, now: Optional[float] = None) -> int:
         """Dispatch prefill-worker batches for everything staged: each
         batch prefills up to ``prefill_slots`` prompts in ONE forward
@@ -483,6 +642,7 @@ class ContinuousBatchingEngine:
         self.time_in_prefill += time.monotonic() - t0
         return parked
 
+    @_planned
     def attach_ready(self, *, now: Optional[float] = None) -> int:
         """Install parked handoff rows into freed decode slots (the
         prefill→decode KV handoff).  FIFO per group;
@@ -554,6 +714,7 @@ class ContinuousBatchingEngine:
                     break
         return attached
 
+    @_planned
     def step(self, *, now: Optional[float] = None) -> List[FinishedRequest]:
         """One BPD iteration over every active slot group, then
         harvest+evict.
@@ -565,7 +726,7 @@ class ContinuousBatchingEngine:
         of group A overlaps group B's still-in-flight device step (counted
         in ``num_overlap_harvests``).  Each group step costs exactly one
         fused device→host read: its status and its window's iteration
-        count in one tensor.
+        count in one tensor, gathered from every rank's slots under a mesh.
         """
         t0 = time.monotonic()
         n = len(self.groups)
@@ -577,8 +738,10 @@ class ContinuousBatchingEngine:
                 continue                     # idle group: no device work
             g.state, status, iters = g.fns.step(self.params, g.state,
                                                 aux=self.aux_params)
-            # the group's one read, queued right behind its own step
-            readout = _Pending(torch.cat([status.to(I32), iters.reshape(1)]))
+            # the group's one read, queued right behind its own step (under
+            # a mesh, a gather over the slots when it is read)
+            readout = iters if self.mesh is not None else _Pending(
+                torch.cat([status.to(I32), iters.reshape(1)]))
             stepped.append((g, status, readout))
         self.time_in_decode_dispatch += time.monotonic() - t0
         # the ONE per-group-step device->host round-trip: a fused (S,) int8
@@ -592,9 +755,15 @@ class ContinuousBatchingEngine:
             # one fused pull: the (S,) status plus the window's iteration
             # count (a windowed step dispatches steps_per_sync forwards, of
             # which the count did work)
-            host = readout.wait()
-            g.status = host[:-1].astype(np.int8)     # writable host copy
-            it = int(host[-1])
+            if self.mesh is None:
+                host = readout.wait()
+                g.status = host[:-1].astype(np.int8)     # writable host copy
+                it = int(host[-1])
+            else:       # every rank's statuses, the window's count beside
+                host = self._read_rows(g, [status,
+                                           readout.expand(len(status))])
+                g.status = host[:, 0].astype(np.int8)
+                it = int(host[0, 1])
             self.num_steps += it
             g.num_steps += it
             self.num_forwards += spd
@@ -609,6 +778,7 @@ class ContinuousBatchingEngine:
         self.time_in_harvest += time.monotonic() - t1
         return out
 
+    @_planned
     def harvest(self, *, now: Optional[float] = None) -> List[FinishedRequest]:
         """Retire finished slots of every group: copy outputs out, free
         the slots (host-cached status decides — a no-finish group costs
@@ -628,7 +798,8 @@ class ContinuousBatchingEngine:
         only pulled when something actually finished (one pull per
         finishing group, counted in ``num_host_syncs``).  ``status`` is the
         step's device status, from which the evict mask is made on the
-        device (no host-to-device copy behind the later groups' steps).
+        device (no host-to-device copy behind the later groups' steps; this
+        rank's slots under a mesh).
         """
         done_mask = (g.status & 2).astype(bool)
         if not done_mask.any():
@@ -661,6 +832,7 @@ class ContinuousBatchingEngine:
 
     # -- streaming + preemption (serving front end) --------------------------
 
+    @_planned
     def poll_progress(self) -> List[Tuple[Request, np.ndarray]]:
         """Committed-but-unstreamed tokens per ACTIVE slot since the last
         poll: ``[(request, new_tokens), ...]``.
@@ -672,6 +844,8 @@ class ContinuousBatchingEngine:
         never stream never pay it).  A slot that finished in the preceding
         step was already harvested (its meta is gone); its tail tokens
         reach the front end through ``FinishedRequest.tokens`` instead.
+        Under a mesh the live rows are gathered from the ranks that keep
+        them, and every rank keeps the same ``emitted`` counts.
         """
         out: List[Tuple[Request, np.ndarray]] = []
         for g in self.groups:
@@ -679,7 +853,7 @@ class ContinuousBatchingEngine:
                     if (g.status[i] & 1) and g.slot_meta[i] is not None]
             if not live:
                 continue
-            host = _read([g.state.tokens, g.state.text_len])
+            host = self._read_rows(g, [g.state.tokens, g.state.text_len])
             tokens, text_len = host[:, :-1], host[:, -1]
             self.num_stream_syncs += 1
             for i in live:
@@ -691,6 +865,7 @@ class ContinuousBatchingEngine:
                     meta["emitted"] = end - meta["prompt_len"]
         return out
 
+    @_planned
     def pull_group(self, g: PolicyGroup) -> Tuple[np.ndarray, np.ndarray,
                                                   np.ndarray, np.ndarray]:
         """One host pull of group ``g``'s per-slot progress arrays
@@ -700,16 +875,18 @@ class ContinuousBatchingEngine:
         and evicting cost a single sync together."""
         pulled = self._pull(g)
         self.num_host_syncs += 1
+        self._last_pull[g.gid] = pulled
         return pulled
 
-    @staticmethod
-    def _pull(g: PolicyGroup):
+    def _pull(self, g: PolicyGroup):
         """(tokens, text_len, generated, invocations) of group ``g`` in one
         device→host transfer."""
         st = g.state
-        host = _read([st.tokens, st.text_len, st.generated, st.invocations])
+        host = self._read_rows(g, [st.tokens, st.text_len, st.generated,
+                                   st.invocations])
         return host[:, :-3], host[:, -3], host[:, -2], host[:, -1]
 
+    @_planned
     def preempt(self, g: PolicyGroup, slot: int,
                 pulled=None) -> PreemptedRequest:
         """Evict the ACTIVE request in group ``g``'s local ``slot`` and

@@ -27,6 +27,12 @@ never re-emits them); the finish record's unstreamed tail is emitted
 before the ``done`` event.  Summed, the streamed tokens are byte-identical
 to ``FinishedRequest.tokens`` — the SLO harness gates on this.
 
+On a mesh the front end, its engine thread and the scheduler run on rank
+0; each tick's engine calls reach the other ranks as plans from that
+thread (``ContinuousBatchingEngine.follow``), an idle tick sends them a
+heartbeat now and then (``keep_alive``), and whoever stops the front end
+releases them afterwards (``release_followers``).
+
 Back-pressure is explicit at admission: ``submit`` raises ``Backpressure``
 (HTTP 429 + Retry-After upstream) when the wait queue is saturated.  The
 page pool's ``PagePoolExhausted`` feeds the same signal — pool-starved
@@ -242,6 +248,7 @@ class Frontend:
         for req in drained:
             self.scheduler.submit(req)
         if self.scheduler.drained():
+            self.engine.keep_alive()    # a mesh's other ranks wait on rank 0
             return []
         finished = self.scheduler.step()
         events: List[Tuple[int, StreamEvent]] = []

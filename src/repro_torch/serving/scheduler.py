@@ -48,6 +48,11 @@ with future arrival times are invisible until the clock reaches them
 (open-loop traffic).  The async
 HTTP front end (``serving.frontend``) drives ``step()`` itself and drains
 ``take_preempt_events()`` for stream bookkeeping.
+
+On a mesh the scheduler runs on rank 0 alone (its admission reads rank 0's
+clock); its engine calls reach the other ranks as plans, which they replay
+in ``ContinuousBatchingEngine.follow`` until ``release_followers``, and an
+idle ``run`` sends them heartbeats (``keep_alive``).
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.serving.engine import (ContinuousBatchingEngine,
+from repro_torch.serving.engine import (HEARTBEAT_S, ContinuousBatchingEngine,
                                         PagePoolExhausted, PolicyGroup)
 from repro_torch.serving.types import (FinishedRequest, PreemptedRequest,
                                        Request, percentile)
@@ -313,9 +318,11 @@ class Scheduler:
             if (not self.engine.has_active() and not self.pending(now)
                     and self.engine.handoff_backlog() == 0):
                 # idle: sleep until the next arrival (drained() was false
-                # with nothing in flight, so the queue is non-empty)
+                # with nothing in flight, so the queue is non-empty), a
+                # mesh's other ranks kept waiting on rank 0's heartbeats
                 nxt = min(r.arrival for r in self.queue)
-                time.sleep(max(nxt - now, 0.0))
+                time.sleep(min(max(nxt - now, 0.0), HEARTBEAT_S))
+                self.engine.keep_alive()
                 continue
             self.step()
             steps += 1

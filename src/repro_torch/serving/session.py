@@ -28,19 +28,38 @@ drafter ``grid`` and schedule ``pos`` as much as ``adaptive``'s ``rate`` and
 graph is ROADMAP.md §1 item 1; until then each call launches its kernels
 from the host.
 
-``mesh`` (this rank's ``launch.mesh.Mesh``) shards the run-to-completion
-entry points over a ("data", "model") process mesh, as the reference's
-mesh-backed session does: the parameters over ``model``
+``mesh`` (this rank's ``launch.mesh.Mesh``) shards the session over a
+("data", "model") or ("pod", "data", "model") process mesh, as the
+reference's mesh-backed session does: the parameters over ``model``
 (``sharding.shard_params``, unless they are sharded already, as
-``model.init(mesh=)`` and ``bridge.from_jax_params(mesh=)`` make them),
-the batch and the per-row budgets over ``data`` (``comm.data_rows``), and
-``decode`` / ``greedy`` return the whole batch's tokens and stats on every
-rank.  The sharded path runs the dense text trunk (``model.
-check_mesh_supported``) under the policies ``DecodePolicy.bind`` admits;
-the engine's serving functions under a mesh are ROADMAP.md §1 item 8b.
+``model.init(mesh=)`` and ``bridge.from_jax_params(mesh=)`` make them).
+``decode`` / ``greedy`` shard the batch and the per-row budgets over the
+batch axes (``comm.data_rows``) and return the whole batch's tokens and
+stats on every rank.  The serving functions keep this rank's slots of a
+group (``ServingFns.local``: the slot slab over pod×data, or data alone,
+``sharding.policy.batch_shard``):
+
+  * ``init`` / ``step`` / ``evict`` run on those slots only; a window's
+    ``go`` is the mesh-wide "no row harvestable" (``comm.any_row``);
+  * ``prefill`` runs replicated over ``data`` (every rank prefills every
+    row, as the reference's replicated admission prefill), and on a pod
+    mesh each pod prefills its rows of a batch that divides the pod axis
+    (``policy.prefill_axes``), which ``comm.pod_gather`` then hands to
+    every rank: the prefill→decode KV handoff;
+  * ``attach`` / ``attach_many`` / ``admit`` write a slot's rows only on
+    the ranks that keep it.  The paged pool is replicated over pod×data as
+    the reference's (``policy.cache_specs``), so an admission's pages —
+    the prompt's pages, the only ones a copy-on-write hit can map — are
+    written on every rank; decode-time pages are written by the slot's
+    ranks and read by no other.
+
+The sharded path runs the dense text trunk (``model.check_mesh_supported``)
+under the policies ``DecodePolicy.bind`` admits; auxiliary bundles under a
+mesh are ROADMAP.md §1 item 8c.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -51,9 +70,11 @@ from repro_torch.core import decode as decode_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
-from repro_torch.serving.types import EngineConfig, SlotBatch, refuse_mesh
+from repro_torch.serving.types import EngineConfig, SlotBatch
 from repro_torch.sharding import comm
-from repro_torch.sharding.policy import shard_params
+from repro_torch.sharding.policy import (batch_shard, packet_pod,
+                                         prefill_axes, shard_params,
+                                         slot_owner)
 
 I32 = torch.int32
 
@@ -124,6 +145,9 @@ class ServingFns(NamedTuple):
                         #  in one indexed write
     paged: Optional[PagedGeometry] = None   # page-pool geometry (None=dense)
     key: Any = None                         # the session's cache key
+    local: slice = slice(None)              # the group's slots this rank
+                                            # keeps (all of them on one
+                                            # device)
 
 
 def _map(fn, *trees):
@@ -179,7 +203,7 @@ class DecodeSession:
                     f"{cfg.compute_dtype}: casting it would recast the "
                     f"primary's own tensors")
         self.policy = policy_lib.resolve_policy(dec, policy).bind(
-            self.bundles, cfg, mesh=mesh, dec=dec)
+            self.bundles, cfg, mesh=mesh)
         # each bundle on this device in its own compute dtype (in place: a
         # self-draft's bundle is the primary's ParamTree, not a copy)
         self.aux_params = {
@@ -187,6 +211,11 @@ class DecodeSession:
             for n, b in self.bundles.items()}
         self._fns: Dict[Any, ServingFns] = {}
         self.builds: Dict[Any, int] = {}   # serving-fns key -> builds
+        # the pod handoff (``comm.pod_gather``): gathers, bytes a rank
+        # received, and their host seconds (each waits for the prefill)
+        self.handoffs = 0
+        self.handoff_bytes = 0
+        self.handoff_seconds = 0.0
 
     def decode(self, batch: Dict, *, max_new_rows=None):
         """Blockwise parallel decode of ``batch`` under the session's policy
@@ -255,12 +284,11 @@ class DecodeSession:
         if policy is None:
             return self.policy
         return policy_lib.resolve_policy(self.dec, policy).bind(
-            self.bundles, self.cfg)
+            self.bundles, self.cfg, mesh=self.mesh)
 
     def serving_fns(self, ecfg: EngineConfig, *, policy=None) -> ServingFns:
         """The engine's functions for ``policy`` at geometry ``ecfg``, built
         on first use and cached per (policy identity, geometry)."""
-        refuse_mesh(self.mesh)
         pol = self.bound_policy(policy)
         key = ("serving", pol.cache_key, ecfg)
         fns = self._fns.get(key)
@@ -271,7 +299,7 @@ class DecodeSession:
         return fns
 
     def _build_serving_fns(self, ecfg: EngineConfig, pol) -> ServingFns:
-        cfg, dec, dev = self.cfg, self.dec, self.device
+        cfg, dec, dev, mesh = self.cfg, self.dec, self.device, self.mesh
         block_k = dec.block_k or cfg.bpd_k
         # the prefix every request shares: the meta tokens.  The admission
         # batch carries tokens only, so no per-request patch prefix reaches
@@ -281,7 +309,13 @@ class DecodeSession:
         context_len = prefix + plen_max + ecfg.max_new_cap
         buf_len = plen_max + ecfg.max_new_cap + block_k
         backend = decode_lib.causal_lm_backend(cfg)
+        ccfg = model_lib.cache_config(self.params, cfg)   # the rank's KV heads
         s = ecfg.num_slots
+        # this rank's slots of the group: [lo, lo + s_loc)
+        shards, shard = (1, 0) if mesh is None else batch_shard(mesh, s)
+        s_loc = s // shards
+        lo = shard * s_loc
+        local = slice(lo, lo + s_loc)
 
         paged_geom = None
         if dec.cache_backend == "paged":
@@ -303,13 +337,16 @@ class DecodeSession:
             return {"tokens": z, "src": z}
 
         # eviction's fresh per-row policy state (made once: it is constant)
-        fresh = pol.init_state(cfg, dec, slots_batch(s), s)
+        fresh = pol.init_state(cfg, dec, slots_batch(s_loc), s_loc)
 
         def to_device(*arrays) -> list:
             """The host arrays in one host-to-device copy, as int32 device
             tensors of their own shapes."""
             flat = [np.asarray(a).astype(np.int32).reshape(-1) for a in arrays]
-            packed = torch.from_numpy(np.concatenate(flat)).to(dev)
+            packed = torch.from_numpy(np.concatenate(flat))
+            if dev.type == "cuda":      # pinned: the copy waits for no
+                packed = packed.pin_memory()    # work queued before it
+            packed = packed.to(dev, non_blocking=True)
             out, at = [], 0
             for a, f in zip(arrays, flat):
                 out.append(packed[at:at + f.size].reshape(np.shape(a)))
@@ -317,22 +354,36 @@ class DecodeSession:
             return out
 
         def init_slots(gid) -> SlotBatch:
-            zeros = lambda: torch.zeros((s,), dtype=I32, device=dev)  # noqa: E731
+            zeros = lambda: torch.zeros((s_loc,), dtype=I32, device=dev)  # noqa: E731
             return SlotBatch(
-                tokens=torch.zeros((s, buf_len), dtype=I32, device=dev),
+                tokens=torch.zeros((s_loc, buf_len), dtype=I32, device=dev),
                 text_len=zeros(),
                 prompt_len=zeros(),
-                proposals=torch.zeros((s, block_k), dtype=I32, device=dev),
-                caches=model_lib.init_caches(cfg, s, context_len, block_k,
+                proposals=torch.zeros((s_loc, block_k), dtype=I32, device=dev),
+                caches=model_lib.init_caches(ccfg, s_loc, context_len, block_k,
                                              device=dev, backend=kv_backend),
-                active=torch.zeros((s,), dtype=torch.bool, device=dev),
-                finished=torch.ones((s,), dtype=torch.bool, device=dev),
+                active=torch.zeros((s_loc,), dtype=torch.bool, device=dev),
+                finished=torch.ones((s_loc,), dtype=torch.bool, device=dev),
                 generated=zeros(),
                 max_new=zeros(),
                 invocations=zeros(),
-                policy_state=pol.init_state(cfg, dec, slots_batch(s), s),
-                group=torch.full((s,), int(gid), dtype=I32, device=dev),
+                policy_state=pol.init_state(cfg, dec, slots_batch(s_loc),
+                                            s_loc),
+                group=torch.full((s_loc,), int(gid), dtype=I32, device=dev),
             )
+
+        def handoff(packet: PrefillPacket, w: int) -> PrefillPacket:
+            """Each pod's rows of ``packet`` to every rank (``comm.
+            pod_gather``, one gather of every leaf's bytes)."""
+            leaves = []
+            _map(lambda t: leaves.append(t) or t, packet)
+            t0 = time.perf_counter()
+            whole, nbytes = comm.pod_gather(mesh, leaves, w)
+            self.handoffs += 1
+            self.handoff_bytes += nbytes
+            self.handoff_seconds += time.perf_counter() - t0
+            it = iter(whole)
+            return _map(lambda _: next(it), packet)
 
         @torch.no_grad()
         def prefill(params, prompts, plens, srcs, aux=()) -> PrefillPacket:
@@ -342,43 +393,80 @@ class DecodeSession:
             install directly.  The per-row policy state is fresh and the
             policy's drafter proposes the first block from each row's last
             real position (a draft model prefills its own cache on the
-            padded prompts, with its parameters from ``aux``)."""
+            padded prompts, with its parameters from ``aux``).  On a pod
+            mesh each pod prefills its rows of a batch that divides the pod
+            axis, and every rank gets the whole packet (``handoff``)."""
             w = np.shape(prompts)[0]
+            pods = mesh is not None and prefill_axes(mesh, w) is not None
+            if pods:
+                mine = [r for r in range(w)
+                        if packet_pod(mesh, w, r) == mesh.coords["pod"]]
+                prompts, plens, srcs = (np.asarray(a)[mine]
+                                        for a in (prompts, plens, srcs))
+            rows = np.shape(prompts)[0]
             prompts_d, srcs_d, plens_d = to_device(prompts, srcs, plens)
-            row_caches = kv_backend.row_init(cfg, context_len, block_k,
-                                             batch=w, device=dev)
+            row_caches = kv_backend.row_init(ccfg, context_len, block_k,
+                                             batch=rows, device=dev)
             row_caches, proposals, row_ps = decode_lib.prefill_and_draft(
                 params, cfg, dec, pol, {"tokens": prompts_d, "src": srcs_d},
                 row_caches, plens_d, block_k, kv_chunk=self.kv_chunk,
                 aux_params=aux)
-            tokens = torch.zeros((w, buf_len), dtype=I32, device=dev)
+            tokens = torch.zeros((rows, buf_len), dtype=I32, device=dev)
             tokens[:, :plen_max] = prompts_d
-            return PrefillPacket(tokens=tokens, prompt_len=plens_d,
-                                 proposals=proposals, caches=row_caches,
-                                 policy_state=row_ps)
+            packet = PrefillPacket(tokens=tokens, prompt_len=plens_d,
+                                   proposals=proposals, caches=row_caches,
+                                   policy_state=row_ps)
+            return handoff(packet, w) if pods else packet
 
         def install(state: SlotBatch, packet: PrefillPacket, rows, slots,
                     max_news, tbl_rows=None, write_masks=None) -> SlotBatch:
-            """Copy packet ``rows`` into slots ``slots`` (ints, or (n,)
-            device index tensors), in place.  Every write copies out of
-            the packet, so no slot aliases a packet row another lane still
+            """Copy packet ``rows`` into the group's slots ``slots`` (host
+            int arrays of one length; ``tbl_rows`` / ``write_masks`` the
+            host allocator's (n, P) mappings), in place: every lane's pages
+            into this rank's copy of the pool (replicated under a mesh),
+            then the rows of the slots this rank keeps, their indices in
+            the same host-to-device copy.  Every write copies out of the
+            packet, so no slot aliases a packet row another lane still
             reads."""
-            plen = packet.prompt_len[rows]
-            state.tokens[slots] = packet.tokens[rows]
-            state.text_len[slots] = plen
-            state.prompt_len[slots] = plen
-            state.proposals[slots] = packet.proposals[rows]
-            model_lib.scatter_cache_row(
-                state.caches, packet.caches, slots, row=rows,
-                tbl_row=tbl_rows, write_mask=write_masks)
-            state.active[slots] = True
-            state.finished[slots] = False
-            state.generated[slots] = 0
-            state.max_new[slots] = max_news
-            state.invocations[slots] = 1          # the prefill call
+            rows, slots, max_news = (np.asarray(a).reshape(-1)
+                                     for a in (rows, slots, max_news))
+            # this rank's lanes first, so that their indices are a prefix
+            mine = np.array([mesh is None
+                             or slot_owner(mesh, s, int(j)) == shard
+                             for j in slots], bool)
+            order = np.argsort(~mine, kind="stable")
+            n = int(mine.sum())
+            arrays = [rows[order], slots[order][:n] - lo, max_news[order][:n]]
+            paged = tbl_rows is not None
+            if paged:
+                arrays += [np.asarray(a).reshape(len(order), -1)[order]
+                           for a in (tbl_rows, write_masks)]
+            dev_arrays = to_device(*arrays)
+            rows_d = dev_arrays[0].long()
+            row, slot, max_new = rows_d[:n], dev_arrays[1].long(), dev_arrays[2]
+            tbl = None
+            if paged:
+                tbl = dev_arrays[3]
+                model_lib.write_cache_pages(state.caches, packet.caches,
+                                            rows_d, tbl, dev_arrays[4].bool())
+                tbl = tbl[:n]
+            if n == 0:
+                return state
+            plen = packet.prompt_len[row]
+            state.tokens[slot] = packet.tokens[row]
+            state.text_len[slot] = plen
+            state.prompt_len[slot] = plen
+            state.proposals[slot] = packet.proposals[row]
+            model_lib.scatter_cache_row(state.caches, packet.caches, slot,
+                                        row=row, tbl_row=tbl, pages=False)
+            state.active[slot] = True
+            state.finished[slot] = False
+            state.generated[slot] = 0
+            state.max_new[slot] = max_new
+            state.invocations[slot] = 1          # the prefill call
 
             def put(full, row_vals):
-                full[slots] = row_vals[rows].to(full.dtype)
+                full[slot] = row_vals[row].to(full.dtype)
 
             _map(put, state.policy_state, packet.policy_state)
             return state
@@ -391,12 +479,10 @@ class DecodeSession:
             paged backend ``tbl_row`` / ``write_mask`` are the host
             allocator's mapping for this slot; copy-on-write prefix hits
             arrive with ``write_mask`` False and are left untouched."""
-            tbl = mask = None
-            if tbl_row is not None:
-                tbl, mask = to_device(tbl_row, write_mask)
-                mask = mask.bool()
-            return install(state, packet, int(row), int(slot), int(max_new),
-                           tbl, mask)
+            paged = tbl_row is not None
+            return install(state, packet, [row], [slot], [max_new],
+                           [tbl_row] if paged else None,
+                           [write_mask] if paged else None)
 
         def attach_many(state: SlotBatch, packet: PrefillPacket, rows, slots,
                         max_news, valid, tbl_rows=None,
@@ -407,18 +493,9 @@ class DecodeSession:
             lanes = np.nonzero(np.asarray(valid))[0]
             if lanes.size == 0:
                 return state
-            arrays = [np.asarray(rows)[lanes], np.asarray(slots)[lanes],
-                      np.asarray(max_news)[lanes]]
-            if tbl_rows is not None:
-                arrays += [np.asarray(tbl_rows)[lanes],
-                           np.asarray(write_masks)[lanes]]
-            dev_arrays = to_device(*arrays)
-            rows_d, slots_d, max_d = (a.long() for a in dev_arrays[:3])
-            tbl = mask = None
-            if tbl_rows is not None:
-                tbl, mask = dev_arrays[3], dev_arrays[4].bool()
-            return install(state, packet, rows_d, slots_d, max_d.to(I32),
-                           tbl, mask)
+            pick = lambda a: None if a is None else np.asarray(a)[lanes]  # noqa: E731
+            return install(state, packet, pick(rows), pick(slots),
+                           pick(max_news), pick(tbl_rows), pick(write_masks))
 
         def admit(params, state: SlotBatch, slot, prompt, prompt_len,
                   max_new, src, tbl_row=None, write_mask=None,
@@ -460,30 +537,38 @@ class DecodeSession:
 
         k_win = ecfg.steps_per_sync
 
+        def harvestable(status) -> torch.Tensor:
+            """Whether any row of the group can be harvested: of every
+            rank's slots under a mesh (one ``any_row`` over the slots)."""
+            flag = torch.any((status & 2) > 0)
+            return flag if mesh is None else comm.any_row(mesh, flag, s)
+
         @torch.no_grad()
         def step_windowed(params, state: SlotBatch, aux=()):
             """``steps_per_sync`` iterations in one call with no host read
             between them.  The reference's window is a device while_loop
-            that exits once a row can be harvested; here every iteration
-            after that point runs with all rows frozen (``go`` False,
-            computed on the device), so tokens, statuses and counts are
-            those of the early exit.  Returns (state, status, iterations
-            that did work), the last two on the device."""
+            that exits once a row of the group can be harvested; here every
+            iteration after that point runs with all rows frozen (``go``
+            False, computed on the device, and mesh-wide under a mesh), so
+            tokens, statuses and counts are those of the early exit.
+            Returns (state, status of this rank's slots, iterations that
+            did work), the last two on the device."""
             state, status = one_step(params, state, None, aux)
             iters = torch.ones((), dtype=I32, device=dev)
             for _ in range(k_win - 1):
-                go = ~torch.any((status & 2) > 0)
+                go = ~harvestable(status)
                 state, status = one_step(params, state, go, aux)
                 iters = iters + go.to(I32)
             return state, status, iters
 
         def evict(state: SlotBatch, mask) -> SlotBatch:
-            """Retire rows ``mask``: inactive, KV rows invalidated in place
-            (``pos`` -1, paged tables to the trash page) and the policy
-            state of those rows fresh, so no slot leaks drafter or schedule
-            history into its next request."""
+            """Retire rows ``mask`` — a host (S,) bool over the group's
+            slots, or this rank's (S_loc,) device bool: inactive, KV rows
+            invalidated in place (``pos`` -1, paged tables to the trash
+            page) and the policy state of those rows fresh, so no slot
+            leaks drafter or schedule history into its next request."""
             if not isinstance(mask, torch.Tensor):
-                mask = torch.from_numpy(np.asarray(mask, bool)).to(dev)
+                mask = torch.from_numpy(np.asarray(mask, bool)[local]).to(dev)
             model_lib.reset_cache_rows(state.caches, mask)
 
             def reset(full, init):
@@ -501,4 +586,4 @@ class DecodeSession:
                           prefill=ServingFn(prefill),
                           attach=ServingFn(attach),
                           attach_many=ServingFn(attach_many),
-                          paged=paged_geom)
+                          paged=paged_geom, local=local)

@@ -16,18 +16,6 @@ import numpy as np
 import torch
 
 
-def refuse_mesh(mesh) -> None:
-    """The engine, its scheduler and its HTTP server serve on one device:
-    under a mesh they raise (ROADMAP.md §1 item 8b)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the engine under a mesh (slot groups, the scheduler, the HTTP "
-            "server, the pod axis, the disaggregated KV handoff) is not "
-            "ported yet (ROADMAP.md §1 item 8b); a mesh serves a static "
-            "batch (DecodeSession.decode / greedy), the engine one device "
-            "with mesh=None")
-
-
 class SlotBatch(NamedTuple):
     """Device-side state: ``BPDState`` generalized to reusable slots.
 
@@ -92,9 +80,11 @@ class EngineConfig:
         dec  : optional DecodeConfig: ``max_new_cap`` must fit inside its
                ``max_new_tokens``; its ``cache_backend`` / ``page_size``
                gate the page-pool geometry checks.
-        mesh : must be None; the engine serves on one device.
+        mesh : optional ``launch.mesh.Mesh``: ``num_slots`` must shard over
+               its batch axes (pod×data, or data alone:
+               ``sharding.policy.batch_axes``) wherever they have more
+               than one shard.
         """
-        refuse_mesh(mesh)
         if self.num_slots <= 0:
             raise ValueError(
                 f"EngineConfig.num_slots must be positive, got "
@@ -157,6 +147,20 @@ class EngineConfig:
                         f"{1 + self.num_slots * per_slot} to rule out "
                         f"admission back-pressure entirely; 0 auto-sizes to "
                         f"the worst case)")
+        if mesh is not None:
+            from repro_torch.sharding.policy import batch_axes, data_axis_size
+
+            # batch_axes is the one rule for how the slot batch shards (it
+            # falls back from pod×data to data alone): refuse only what it
+            # cannot shard at all, which would replicate the whole slab
+            dsz = data_axis_size(mesh)
+            if dsz > 1 and batch_axes(mesh, self.num_slots) is None:
+                raise ValueError(
+                    f"EngineConfig.num_slots={self.num_slots} is not "
+                    f"divisible by the mesh data axes (data-axis product "
+                    f"{dsz}, mesh axes {dict(mesh.shape)}): the slot "
+                    f"batch cannot shard and would be replicated — pick "
+                    f"num_slots as a multiple of the data axis size")
 
 
 @dataclasses.dataclass

@@ -23,12 +23,15 @@ replicates the paged pool; the port keeps, unsharded, the KV head its rank's
 query heads read (``local_kv_heads``), the same function in another layout.
 
 The port's path reads ``PARAM_RULES`` (through ``shard_params`` /
-``shard_leaves``), ``batch_axes`` and ``local_kv_heads``.  The spec tables
+``shard_leaves``), ``batch_axes``, ``prefill_axes``, ``batch_shard`` and
+``local_kv_heads``; the serving engine reads ``slot_owner`` and
+``packet_pod``, plain functions every rank computes alike.  The spec tables
 ``param_specs``, ``data_spec``, ``batch_specs``, ``cache_specs``,
-``state_specs`` and ``data_axis_size`` are kept to be held against the
-reference's, leaf by leaf, and are read by nothing else: ``cache_specs``
-describes the reference's cache layout (the length sharded where the KV
-heads do not divide ``model``), which the port's caches do not have.
+``state_specs``, ``slot_specs``, ``packet_specs`` and ``data_axis_size``
+are kept to be held against the reference's, leaf by leaf, and are read by
+nothing else: ``cache_specs`` describes the reference's cache layout (the
+length sharded where the KV heads do not divide ``model``), which the
+port's caches do not have.
 """
 from __future__ import annotations
 
@@ -152,6 +155,45 @@ def batch_axes(mesh, batch_size: int):
     return None
 
 
+def prefill_axes(mesh, batch_size: int):
+    """Mesh axes a prefill-worker batch shards over: the ``pod`` axis alone
+    (None = replicated: on pod-less meshes, and where the width does not
+    divide the pod axis, as the batch-1 admission's prefill)."""
+    if ("pod" in mesh.axis_names and mesh.shape["pod"] > 1
+            and batch_size % mesh.shape["pod"] == 0):
+        return ("pod",)
+    return None
+
+
+def batch_shard(mesh, batch_size: int, axes: Any = "auto") -> Tuple[int, int]:
+    """(number of shards, this rank's shard) of a ``batch_size`` batch split
+    over ``axes`` (default ``batch_axes``), row-major over the axes as
+    GSPMD lays out ``P(("pod", "data"))``; (1, 0) where it is replicated."""
+    if axes == "auto":
+        axes = batch_axes(mesh, batch_size)
+    n, i = 1, 0
+    for a in axes or ():
+        n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.coords[a]
+    return n, i
+
+
+def slot_owner(mesh, num_slots: int, slot: int) -> int:
+    """The shard (``batch_shard``'s index) that keeps slot ``slot`` of a
+    group of ``num_slots``: every rank of that shard holds the slot's rows
+    (its ``model`` ranks, and its pod replicas where the group shards over
+    ``data`` alone); 0 where the group is replicated."""
+    n, _ = batch_shard(mesh, num_slots)
+    return slot // (num_slots // n)
+
+
+def packet_pod(mesh, width: int, row: int) -> Optional[int]:
+    """The pod that prefills row ``row`` of a ``width``-wide prefill batch,
+    or None where every rank prefills every row (``prefill_axes``)."""
+    if prefill_axes(mesh, width) is None:
+        return None
+    return row // (width // mesh.shape["pod"])
+
+
 def data_spec(mesh, batch_size: int, ndim: int) -> Tuple:
     """(batch_axes, None, ...) for a batch-leading array."""
     return spec(*([batch_axes(mesh, batch_size)] + [None] * (ndim - 1)))
@@ -208,16 +250,18 @@ def cache_specs(cfg: ModelConfig, caches, mesh, batch_size: int, *,
 
 
 def state_specs(cfg: ModelConfig, state, mesh, *,
-                batch_size: Optional[int] = None) -> Dict[str, Tuple]:
+                batch_size: Optional[int] = None,
+                ax: Any = "auto") -> Dict[str, Tuple]:
     """{'/'-path name: spec} for a batch-leading decode loop state (a
     NamedTuple: ``BPDState``, ``GreedyState``, ``SlotBatch``).  Its
     ``caches`` get ``cache_specs``; every other (B, ...) leaf, the policy
     state's included, shards its leading dim over the data axes; scalars
     and non-tensors are replicated.  (A draft model's cache in the policy
     state, specced under the draft's config, comes with ROADMAP.md §1 item
-    8c.)"""
+    8c.)  ``ax`` overrides the batch-dim axes (a prefill packet's)."""
     b = batch_size if batch_size is not None else state.tokens.shape[0]
-    ax = batch_axes(mesh, b)
+    if ax == "auto":
+        ax = batch_axes(mesh, b)
 
     def leaf(x) -> Tuple:
         if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == b:
@@ -242,6 +286,23 @@ def state_specs(cfg: ModelConfig, state, mesh, *,
         else:
             out.update(leaves(name, val))
     return out
+
+
+def slot_specs(cfg: ModelConfig, slots, mesh) -> Dict[str, Tuple]:
+    """Specs of a serving group's ``SlotBatch``: the slot dim is the decode
+    batch dim (``state_specs``), so a group's slots shard over pod×data
+    (falling back to data alone) and admission's writes stay on the
+    owning shard."""
+    return state_specs(cfg, slots, mesh, batch_size=slots.tokens.shape[0])
+
+
+def packet_specs(cfg: ModelConfig, packet, mesh) -> Dict[str, Tuple]:
+    """Specs of a prefill worker's handoff packet: as ``state_specs`` with
+    the width dim over ``prefill_axes`` (the pod axis alone); attaching a
+    row into the pod×data slot slab is the prefill→decode handoff."""
+    b = packet.tokens.shape[0]
+    return state_specs(cfg, packet, mesh, batch_size=b,
+                       ax=prefill_axes(mesh, b))
 
 
 def data_axis_size(mesh) -> int:

@@ -228,13 +228,19 @@ def test_serve_static_path_on_cpu(capsys):
     assert _rows(out["tokens"].numpy(), out["stats"]) == _rows(gt.numpy(), gs)
 
 
-@pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2"],
-                                  ["--http", "--mesh-model", "2"],
-                                  ["--engine", "--mesh-pod", "2"]])
+@pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2", "--batch",
+                                   "2", "--policies", "exact=1,draft_model=1"],
+                                  ["--http", "--mesh-model", "2", "--arch",
+                                   "olmoe-1b-7b"],
+                                  ["--engine", "--mesh-pod", "2", "--policy",
+                                   "input_copy"]])
 def test_unported_serving_options_raise(argv):
+    """The engine, the HTTP server and the pod axis serve under a mesh;
+    draft_model, the other families and the other policies there stay
+    ROADMAP.md §1 item 8c, refused before any rank starts."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         serve.main(["--arch", "granite-3-8b", "--device", "cpu", "--max-new",
                     "2", "--batch", "1", "--prompt-len", "4", *argv])
 

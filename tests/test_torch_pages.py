@@ -190,8 +190,26 @@ def test_engine_config_errors_equal_reference(kw, match):
 
 
 def test_engine_config_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        EngineConfig().validate(mesh=object())
+    """Under a mesh the slot count must shard over the batch axes
+    (pod×data, falling back to data): the port refuses what the
+    reference's validate refuses, with the same message."""
+    from repro_torch.launch.mesh import Mesh
+
+    for shape, slots in (((1, 2, 1), 3), ((2, 1, 1), 1), ((2, 2, 1), 1),
+                         ((1, 2, 2), 4), ((2, 2, 1), 2), ((2, 1, 2), 4)):
+        pod, data, model = shape
+        mesh = Mesh(data, model, pod=pod)
+        errs = []
+        for cls in (EngineConfig, JEngineConfig):
+            try:
+                cls(num_slots=slots).validate(mesh=mesh)
+                errs.append(None)
+            except ValueError as e:
+                errs.append(str(e))
+        assert errs[0] == errs[1], shape
+        assert (errs[0] is None) == (slots % data == 0), (shape, slots)
+        if errs[0] is not None:
+            assert "divisible" in errs[0]
 
 
 # ---------------------------------------------------------------------------

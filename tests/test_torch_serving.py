@@ -491,11 +491,15 @@ def test_recurrent_and_encoder_decoder_are_refused(make):
 
 
 def test_mesh_bundles_and_unported_policies_are_refused(stack):
+    from repro_torch.core.bundle import ModelBundle
+    from repro_torch.launch.mesh import make_mesh
+
     _, params, cfg, _ = stack["torch"]
     with pytest.raises(NotImplementedError, match="item 8"):
-        tserving.ContinuousBatchingEngine(params, cfg, DecodeConfig(),
-                                          tserving.EngineConfig(),
-                                          mesh=object())
+        tserving.ContinuousBatchingEngine(
+            params, cfg, DecodeConfig(), tserving.EngineConfig(),
+            mesh=make_mesh(1, 1, device="cpu"),
+            bundles={"draft": ModelBundle(params, cfg)})
     # draft_model is ported: without its draft bundle it is refused at
     # construction, by the session and by an engine group alike
     with pytest.raises(ValueError, match="ModelBundle"):

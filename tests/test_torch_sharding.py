@@ -267,19 +267,29 @@ def test_a_world_that_is_not_data_times_model_is_refused():
 
 
 def test_engine_and_serving_fns_refuse_a_mesh():
+    """Under a mesh the serving functions build for the policies the mesh
+    runs, and the engine and its groups refuse what stays ROADMAP.md §1
+    item 8c: another policy's group and auxiliary bundles."""
+    from repro_torch.core.bundle import ModelBundle
+
     cfg = ModelConfig(**dataclasses.asdict(tiny_dense()))
     params = tmodel.init(cfg, seed=0, device="cpu")
     mesh = make_mesh(1, 1, device="cpu")
     dec = DecodeConfig(max_new_tokens=8)
     sess = tserving.DecodeSession(params, cfg, dec, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        sess.serving_fns(tserving.EngineConfig(max_new_cap=8))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tserving.ContinuousBatchingEngine(params, cfg, dec,
-                                          tserving.EngineConfig(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tserving.ContinuousBatchingEngine(params, cfg, dec,
-                                          tserving.EngineConfig(), session=sess)
+    ecfg = tserving.EngineConfig(num_slots=2, max_new_cap=8)
+    assert sess.serving_fns(ecfg).local == slice(0, 2)
+    assert sess.serving_fns(ecfg, policy="topk_tree").local == slice(0, 2)
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        sess.serving_fns(ecfg, policy="input_copy")
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        tserving.ContinuousBatchingEngine(
+            params, cfg, dec, ecfg, mesh=mesh,
+            bundles={"draft": ModelBundle(params, cfg)})
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        tserving.ContinuousBatchingEngine(params, cfg, dec, ecfg, session=sess,
+                                          policies={"exact": 1,
+                                                    "input_copy": 1})
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b",
@@ -299,7 +309,7 @@ def test_configs_the_mesh_does_not_run_are_refused(arch):
                                 dict(policy="input_copy"),
                                 dict(policy="locality", image_height=4,
                                      image_width=4),
-                                dict(policy="topk_tree",
+                                dict(policy="input_copy",
                                      cache_backend="paged")],
                          ids=lambda kw: "-".join(map(str, kw.values())))
 def test_policies_the_mesh_does_not_run_are_refused(kw):
@@ -328,3 +338,124 @@ def test_removed_criterion_api_names_the_policy_path():
     for fn in (tverify.position_accepts, tverify.accepted_block_size):
         with pytest.raises(ValueError, match="resolve_policy"):
             fn(None, None)
+
+
+# ---------------------------------------------------------------------------
+# the pod axis: batch / prefill axes, slot and packet specs, owners
+# ---------------------------------------------------------------------------
+
+POD_MESHES = [(2, 1, 2), (2, 2, 1), (2, 2, 2), (4, 1, 1)]
+
+
+class PodStandIn:
+    """A ("pod", "data", "model") mesh as the spec functions read it."""
+
+    axis_names = ("pod", "data", "model")
+
+    def __init__(self, pod, data, model):
+        self.shape = {"pod": pod, "data": data, "model": model}
+
+
+@pytest.mark.parametrize("mesh", POD_MESHES, ids=str)
+def test_pod_batch_and_prefill_axes_equal_reference(mesh):
+    m = PodStandIn(*mesh)
+    for b in (1, 2, 3, 4, 6, 8):
+        assert tshard.batch_axes(m, b) == jshard.batch_axes(m, b)
+        assert tshard.prefill_axes(m, b) == jshard.prefill_axes(m, b)
+        assert tshard.data_spec(m, b, 3) == tuple(jshard.data_spec(m, b, 3))
+    assert (tshard.data_axis_size(m) == jshard.data_axis_size(m)
+            == mesh[0] * mesh[1])
+    flat = StandIn(mesh[1], mesh[2])
+    assert all(tshard.prefill_axes(flat, b) is None
+               and jshard.prefill_axes(flat, b) is None for b in (1, 2, 4))
+
+
+def _slots(caches, policy_state, s, mod, sds):
+    """A SlotBatch of ``mod`` (the reference's or the port's serving.types)
+    of ``s`` slots around ``caches``, its leaves made by ``sds(shape,
+    dtype name)``."""
+    return mod.SlotBatch(
+        tokens=sds((s, 20), "int32"), text_len=sds((s,), "int32"),
+        prompt_len=sds((s,), "int32"), proposals=sds((s, K), "int32"),
+        caches=caches, active=sds((s,), "bool"), finished=sds((s,), "bool"),
+        generated=sds((s,), "int32"), max_new=sds((s,), "int32"),
+        invocations=sds((s,), "int32"), policy_state=policy_state,
+        group=sds((s,), "int32"))
+
+
+@pytest.mark.parametrize("mesh", POD_MESHES + [(1, 2, 2)], ids=str)
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_slot_and_packet_specs_equal_reference(mesh, backend):
+    """A serving group's slot batch (8 slots) and a prefill packet (widths
+    4 and 2) spec as the reference's ``slot_specs`` / ``packet_specs``:
+    slots over pod×data (or data), packet rows over ``pod``."""
+    from repro.serving import session as jsession
+    from repro.serving import types as jtypes
+    from repro_torch.serving import session as tsession
+    from repro_torch.serving import types as ttypes
+
+    arch = "granite-3-8b"
+    jcfg, tcfg = _configs(arch)
+    m = PodStandIn(*mesh) if mesh[0] > 1 else StandIn(*mesh[1:])
+    jdec, tdec = JDecodeConfig(cache_backend=backend), DecodeConfig(
+        cache_backend=backend)
+
+    def jsds(shape, dtype):
+        return jax.ShapeDtypeStruct(shape, np.dtype(dtype))
+
+    def tsds(shape, dtype):
+        return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+
+    for s in (8, 4, 2):
+        jc = jax.eval_shape(lambda: jmodel.init_caches(
+            jcfg, s, CTX, K, backend=jcache.get_backend(jdec)))
+        tc = tmodel.init_caches(tcfg, s, CTX, K, device="meta",
+                                backend=tcache.get_backend(tdec))
+        jps = jpolicy.PolicyState(drafter=(), schedule={
+            "rate": jsds((s,), "float32"), "cap": jsds((s,), "int32")})
+        tps = tpolicy.PolicyState(drafter=(), schedule={
+            "rate": tsds((s,), "float32"), "cap": tsds((s,), "int32")})
+        want = _ref_specs(jshard.slot_specs(
+            jcfg, _slots(jc, jps, s, jtypes, jsds), m))
+        assert tshard.slot_specs(tcfg, _slots(tc, tps, s, ttypes, tsds),
+                                 m) == want
+        jpkt = jsession.PrefillPacket(
+            tokens=jsds((s, 20), "int32"), prompt_len=jsds((s,), "int32"),
+            proposals=jsds((s, K), "int32"), caches=jc, policy_state=jps)
+        tpkt = tsession.PrefillPacket(
+            tokens=tsds((s, 20), "int32"), prompt_len=tsds((s,), "int32"),
+            proposals=tsds((s, K), "int32"), caches=tc, policy_state=tps)
+        assert tshard.packet_specs(tcfg, tpkt, m) == _ref_specs(
+            jshard.packet_specs(jcfg, jpkt, m))
+
+
+@pytest.mark.parametrize("mesh", POD_MESHES + [(1, 2, 2), (1, 1, 2)],
+                         ids=str)
+def test_slot_owners_and_packet_pods_partition_the_rows(mesh):
+    """Every rank computes the same owner of each slot and pod of each
+    packet row: a rank's slots (``comm.data_rows``) are exactly those whose
+    ``slot_owner`` is its shard, the shards cover the group, and a packet's
+    rows split over the pods in equal runs, or are every rank's."""
+    from repro_torch.sharding import comm
+
+    p, d, m = mesh
+    ranks = [Mesh(d, m, pod=p, index=i) for i in range(p * d * m)]
+    for s in (2, 4, 8):
+        if tshard.batch_axes(ranks[0], s) is None and d * p > 1:
+            continue                  # EngineConfig.validate refuses it
+        kept = set()
+        for r in ranks:
+            n, shard = tshard.batch_shard(r, s)
+            rows = comm.data_rows(r, s)
+            assert rows.stop - rows.start == s // n
+            assert all(tshard.slot_owner(r, s, j) == shard
+                       for j in range(rows.start, rows.stop))
+            kept |= set(range(rows.start, rows.stop))
+        assert kept == set(range(s))
+    for w in (1, 2, 4, 8):
+        pods = [tshard.packet_pod(ranks[-1], w, row) for row in range(w)]
+        if tshard.prefill_axes(ranks[-1], w) is None:
+            assert pods == [None] * w
+        else:
+            assert pods == sorted(pods) and all(
+                pods.count(i) == w // p for i in range(p))
