@@ -94,7 +94,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 without dstate, chunks of 16 and 32, timed at rwkv6-1.6b's
                 training shape (fp32, B 4, S 512, H 32, D 64) beside the
                 plain version and the bound, and each kernel of that call
-                from a profiled one.
+                from a profiled one; the local shapes of phase 22's
+                ranks (check_mesh_shapes): granite's 16/4 and 8/2 heads a
+                rank, fused_heads on a rank's block of its tied table, and
+                the families' (check_mesh_family_shapes): the three
+                split-KV kernels at the MoE models' 8/8 heads of 128 a
+                rank, fused_heads on olmoe's two (2048, 25216) lm_head
+                blocks merged equal to one launch, rwkv6_scan at a rank's
+                16 and 8 heads (B 8, S 512, D 64), each timed beside its
+                plain version, SDPA where it applies and the bound.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -231,9 +239,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 --policies exact=2,draft_model=2.
   16. families — everything earlier freed; stablelm-12b, starcoder2-7b and
                 nemotron-4-15b at full width from seed 0, the fp32 decodes
-                at a tenth to an eighth of the depth (FAMILY_FP32_LAYERS: 4
-                of 40, 4 of 32 and 4 of 32 layers, cut so that the script
-                with phase 22 stays within 75% of its time limit), each
+                at a twentieth to a sixteenth of the depth
+                (FAMILY_FP32_LAYERS: 2 of 40, 2 of 32 and 2 of 32 layers,
+                cut so that the script with phase 22 stays within 75% of
+                its time limit), each
                 bf16 serve at
                 full depth, phase 4's 8 prompts x 64 new tokens at
                 block_k 8: greedy, then BPD exact and topk_tree on the
@@ -396,7 +405,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 a second run resumes from its step; then the launcher's
                 step timed and one step profiled outside it.
   22. mesh    — last: granite-3-8b at full width over meshes of processes
-                sharing the card (gloo), one spawn of four ranks: fp32 at 4
+                sharing the card (gloo), one spawn of four ranks: fp32 at 2
                 of 40 layers, the static paths over two (1, 2) pairs side
                 by side; the engine (phase 5c's 16 requests, exact and
                 topk_tree groups of 4) unified dense and paged over (1, 2)
@@ -413,7 +422,21 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 each first divergence a near-tie; meanwhile
                 repro_torch.launch.serve --mesh-model 2 --http --http-demo
                 at its smoke config, the stream equal to both ranks'
-                finish records.
+                finish records.  The same spawn serves the MoE, RWKV-6
+                and Hymba families (ROADMAP §1 item 8c(i)) in fp32 at
+                FAMILY_FP32_LAYERS from seed 0 over the (1, 2) pair of
+                ranks 2, 3: greedy and BPD exact dense for olmoe-1b-7b,
+                qwen2-moe-a2.7b, rwkv6-1.6b and hymba-1.5b, olmoe also
+                exact paged, topk_tree dense and phase 17's engine run
+                (unified paged); olmoe's exact dense over (1, 4) (16
+                experts a rank); each held against the one-device run of
+                phases 17-18 (rwkv6-1.6b's decoded in this process beside
+                the ranks' start): tokens, counters and each rank's
+                launches equal (the near-tie rule and its router
+                extension), every rank's expert ids of a forward equal;
+                then olmoe's bf16 serve at full depth over (1, 2) beside
+                phase 17's one-device serve (tokens/s, k̂, collectives an
+                iteration, peak a rank, each first divergence a near-tie).
 
 Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
@@ -1896,6 +1919,120 @@ def check_mesh_shapes(torch, gen, results):
         log(f"  fused_heads {dtype} granite model 2 block ({n}, {d}) x ({d}, "
             f"{vl}) T=1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.mm then torch.topk {two_ms:.4f} ms, {bounds}")
+    check_mesh_family_shapes(torch, gen, results)
+
+
+# phase 22's families at ``model`` 2: the MoE models' 8/8 heads of 128 a
+# rank, olmoe-1b-7b's (2048, 50432 / 2) block of its untied lm_head at
+# vocab 50304, rwkv6-1.6b's scan at 16 of its 32 heads (8 at model 4)
+MESH_MOE_HEADS = (8, 8, 128)
+MESH_OLMOE = (2048, 50304, 50432)
+MESH_SCAN = (8, 512, 16, 64)
+
+
+def check_mesh_family_shapes(torch, gen, results):
+    """The decode kernels at the local shapes of phase 22's families,
+    bf16 and fp32, against their plain versions: the three split-KV
+    kernels at the MoE models' 8/8 heads of 128 a rank (B 8, kq 8, L 256;
+    paged over 16 pages), bit for bit batch-invariant and timed beside
+    SDPA; fused_heads on each of olmoe-1b-7b's two (2048, 25216) column
+    blocks of its untied lm_head (the row-major layout, vocab cut at the
+    block's real lanes) at T 1, 2 and 4, the blocks' top-T merged equal to
+    one launch over the whole lm_head, timed at the first block beside
+    torch.mm then torch.topk; rwkv6_scan at a rank's 16 heads (B 8, S 512,
+    D 64) and 8 heads (model 4), timed at 16 beside its plain version and
+    the bound."""
+    from repro_torch.kernels.fused_heads import (fused_heads_topk_cuda,
+                                                 heads_topk_plain)
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
+                                                rwkv6_scan_plain)
+
+    h, kvh, hd = MESH_MOE_HEADS
+    for dtype in ("bfloat16", "float32"):
+        check_split_kv(torch, gen, results, model="MoE model 2", hd=hd, h=h,
+                       kvh=kvh, kq=8, l=256, dtype=dtype, timed=True)
+    d, vocab, lanes = MESH_OLMOE
+    n, vl = 56, lanes // 2
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        w = (torch.randn((d, lanes), generator=gen, device="cuda")
+             * 0.02).to(dt)
+        o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+        blocks = [w[:, i * vl:(i + 1) * vl].contiguous() for i in range(2)]
+        for top_t in (1, 2, 4):
+            vals, ids = [], []
+            for i, block in enumerate(blocks):
+                real = min(vocab - i * vl, vl)
+                kv, ki = fused_heads_topk_cuda(o, block, vocab=real,
+                                               top_t=top_t)
+                torch.cuda.synchronize()
+                ok, _, pv = heads_ids_agree(torch, kv, ki, o, block, real,
+                                            top_t)
+                err = (kv - pv).abs().max().item()
+                tol = ATTN_TOL[dtype]
+                check(ok and torch.allclose(kv, pv, rtol=tol, atol=tol),
+                      f"fused_heads {dtype} olmoe block {i} T={top_t} "
+                      f"differs from its plain version (err {err})")
+                results["fused_heads"]["max_abs_err"] = max(
+                    results["fused_heads"]["max_abs_err"], err)
+                vals.append(kv)
+                ids.append(ki.long() + i * vl)
+            v, i_ = torch.cat(vals, 1), torch.cat(ids, 1)
+            by_id = torch.argsort(i_, dim=1, stable=True)
+            v, i_ = v.gather(1, by_id), i_.gather(1, by_id)
+            top = torch.argsort(v, dim=1, descending=True,
+                                stable=True)[:, :top_t]
+            _, whole = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+            check(torch.equal(i_.gather(1, top).int(), whole),
+                  f"fused_heads {dtype}: olmoe's two blocks' merged top-"
+                  f"{top_t} differs from one launch over the lm_head")
+        block = blocks[0]
+        ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, block, vocab=vl,
+                                                          top_t=1))
+        plain_ms = time_ms(torch, lambda: heads_topk_plain(o, block,
+                                                           vocab=vl, top_t=1))
+        two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, block), 1))
+        bounds = heads_bounds(nbytes(o, block) + n * 8, n, d, vl, dtype, ms)
+        log(f"  fused_heads {dtype} olmoe model 2 block ({n}, {d}) x ({d}, "
+            f"{vl}), T 1/2/4 each == its plain version, merged == one launch "
+            f"over ({d}, {lanes}) ok; T=1: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.mm then torch.topk {two_ms:.4f} ms, "
+            f"{bounds}")
+        del w, o, blocks, block
+    b, s_, h, d = MESH_SCAN
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for heads in (h, h // 2):
+            r, k, v = (torch.randn((b, s_, heads, d), generator=gen,
+                                   device="cuda").to(dt) for _ in range(3))
+            logw = -torch.exp(torch.randn((b, s_, heads, d), generator=gen,
+                                          device="cuda") * 0.5 - 1.0)
+            u = torch.randn((heads, d), generator=gen, device="cuda") * 0.1
+            got = rwkv6_scan_cuda(r, k, v, logw, u)
+            want = rwkv6_scan_plain(r, k, v, logw, u)
+            torch.cuda.synchronize()
+            err = 0.0
+            for g, w_ in zip(got, want):              # y, the final state
+                ok = bool(torch.isfinite(g).all()) and torch.allclose(
+                    g, w_, rtol=SCAN_TOL,
+                    atol=SCAN_TOL * float(w_.abs().max()))
+                check(ok, f"rwkv6_scan {dtype} at {heads} heads differs from "
+                          f"its plain version")
+                err = max(err, (g - w_).abs().max().item())
+            results["rwkv6_scan"]["max_abs_err"] = max(
+                results["rwkv6_scan"]["max_abs_err"], err)
+            line = (f"  rwkv6_scan {dtype} a rank's B={b} S={s_} H={heads} "
+                    f"D={d}: max_abs_err={err:.3g} ok")
+            if heads == h:
+                ms = time_ms(torch, lambda: rwkv6_scan_cuda(r, k, v, logw, u))
+                plain_ms = time_ms(torch, lambda: rwkv6_scan_plain(
+                    r, k, v, logw, u), runs=5, warmup=1)
+                out_bytes = (b * s_ * heads * d + b * heads * d * d) * 4
+                bms, by = bound(nbytes(r, k, v, logw, u) + out_bytes,
+                                4.0 * b * s_ * heads * d * d, "float32")
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"library none, bound {bms:.5f} ms ({by})")
+            log(line)
 
 
 def check_mt_heads_verify(torch, gen):
@@ -2277,6 +2414,10 @@ class Routes:
 
 
 ROUTER_TIES = []       # every router near-tie admitted in this run
+# (arch, run) -> a one-device run of phases 16-18 (``family_paths``' paths,
+# ``phase_engine_fp32``'s engine, ``family_serve``'s bf16 serve) that phase
+# 22 holds its sharded runs of the same model, seed and prompts against
+ONE_DEVICE = {}
 
 
 def routes_for(torch, cfg):
@@ -2956,6 +3097,15 @@ def phase_engine_fp32(torch, M, D, params, cfg, dec, prompts, g_toks, *,
         compare_engine(torch, after, done, greedy_rows, plan, label,
                        routes=(g_routes, rec) if rec is not None else None,
                        cfg=cfg)
+        if paged:
+            ONE_DEVICE[(cfg.name, "engine unified paged")] = {
+                "records": [engine_record(f) for f in done],
+                "launches": launches, "wall": wall,
+                "counters": {"iterations": engine.num_steps,
+                             "forwards": engine.num_forwards,
+                             "prefill_batches": engine.num_prefill_batches,
+                             "cow": {g.name: g.pages.cow_hits
+                                     for g in engine.groups}}}
     for name in ("verify_attention", "paged_verify_attention",
                  "tree_verify_attention", "fused_verify", "fused_heads"):
         check(seen[name] > 0 or name == "verify_attention"
@@ -4207,14 +4357,17 @@ def phase_draft_launcher(torch):
 FAMILY_MEM_GIB = 76.0   # the fp32 decodes' peak at full depth stays below it
 WINDOW_PROMPT = 4608    # starcoder2-7b's window + 512: the ring wraps
 WINDOW_CHUNK = 512
-# the fp32 decodes of phases 4b-5c, 14, 15 and 16-18 run at a tenth to an
-# eighth of the depth (cut from a quarter to pay for phase 22's sharded
-# engine), so that the script stays within 75% of its time limit; phase 4
-# and each bf16 serve run at full depth
-FAMILY_FP32_LAYERS = {"granite-3-8b": 4, "stablelm-12b": 4,
-                      "starcoder2-7b": 4, "nemotron-4-15b": 4,
+# the fp32 decodes of phases 4b-5c, 14, 15 and 16-18 run at a twentieth to
+# an eighth of the depth (cut from a quarter to pay for phase 22's sharded
+# engine, and stablelm-12b's, starcoder2-7b's and nemotron-4-15b's from 4
+# layers to 2 for its sharded families), so that the script stays within
+# 75% of its time limit; phase 4 and each bf16 serve run at full depth.
+# rwkv6-1.6b's entry is phase 22's sharded fp32 depth (phase 8 decodes it
+# whole)
+FAMILY_FP32_LAYERS = {"granite-3-8b": 4, "stablelm-12b": 2,
+                      "starcoder2-7b": 2, "nemotron-4-15b": 2,
                       "olmoe-1b-7b": 2, "qwen2-moe-a2.7b": 3,
-                      "hymba-1.5b": 4}
+                      "hymba-1.5b": 4, "rwkv6-1.6b": 4}
 
 
 def attention_launches(cfg, dec) -> dict:
@@ -4273,6 +4426,10 @@ def family_paths(torch, M, D, params, cfg, dec, batch, prompt_len, paths,
                               f"{want}")
         check(bool((stats["generated"] == dec.max_new_tokens).all()),
               f"{label} {name}: short rows")
+        ONE_DEVICE[(cfg.name, name)] = {
+            "tokens": toks.cpu(), "generated": stats["generated"].cpu(),
+            "text_len": stats["text_len"].cpu(), "iterations": iters,
+            "launches": launch, "wall": wall, "routes": rec}
         if g_toks is None:
             g_toks, g_routes = toks, rec
             continue
@@ -4317,10 +4474,14 @@ def family_serve(torch, D, M, params, cfg, prompts, label):
               for k, n in attn.items())
           and launches["fused_verify"] == 2 * s_stats["iterations"],
           f"{label} serve: launches {launches}")
+    generated = int(s_stats["generated"].sum())
+    ONE_DEVICE[(cfg.name, "bf16 serve")] = {
+        "tokens": s_toks.cpu(), "tps": generated / out["wall_s"],
+        "khat": s_stats["mean_accepted"], "iterations": s_stats["iterations"],
+        "peak": torch.cuda.max_memory_allocated()}
     gb_toks, _ = D.greedy_decode(params, scfg, sdec, sbatch)
     n = prompt_len + max_new
     same = s_toks[:, prompt_len:n] == gb_toks[:, prompt_len:n]
-    generated = int(s_stats["generated"].sum())
     log(f"[families] {label} bf16 serve: {generated / out['wall_s']:.1f} "
         f"tokens/s, k̂={s_stats['mean_accepted']:.4f}, iterations="
         f"{s_stats['iterations']}, wall {out['wall_s'] * 1e3:.1f} ms, "
@@ -5921,9 +6082,10 @@ def phase_train(torch, phase4):
 # ---------------------------------------------------------------------------
 
 
-# granite-3-8b's fp32 depth on the mesh: 4 of 40 layers, cut from the 10
-# of its other fp32 paths to keep the script within 900 s
-MESH_FP32_LAYERS = 4
+# granite-3-8b's fp32 depth on the mesh: 2 of 40 layers, cut from the 10
+# of its other fp32 paths to keep the script within 900 s (and from 4 to 2
+# to pay for the sharded families)
+MESH_FP32_LAYERS = 2
 MESH_BUDGETS = (64, 16, 40, 56, 24, 48, 32, 8)
 MESH_PATHS = {            # label -> (DecodeConfig keywords, BPD?, budgets?)
     "greedy": ({}, False, False),
@@ -5954,13 +6116,31 @@ MESH_ENGINE_RUNS = {
 MESH_ENGINE_PAIRS = ("unified dense", "unified paged")
 ENGINE_KERNELS = ("verify_attention", "tree_verify_attention",
                   "paged_verify_attention", "fused_heads", "fused_verify")
+# the MoE, RWKV-6 and Hymba families (ROADMAP §1 item 8c(i)) in fp32 at
+# FAMILY_FP32_LAYERS, seed 0, over the (1, 2) pair of ranks 2, 3: arch ->
+# MESH_PATHS labels; olmoe-1b-7b's exact dense also over (1, 4) (16 of its
+# 64 experts a rank) and its phase 17 engine run over the pair
+MESH_FAMILY_PATHS = {
+    "olmoe-1b-7b": ("greedy", "exact dense", "exact paged",
+                    "topk_tree dense"),
+    "qwen2-moe-a2.7b": ("greedy", "exact dense"),
+    "rwkv6-1.6b": ("greedy", "exact dense"),
+    "hymba-1.5b": ("greedy", "exact dense"),
+}
+# the one-device run of phases 16-18 (``family_paths``) each label is held
+# against (rwkv6-1.6b's are decoded beside the ranks' start)
+ONE_DEVICE_PATH = {"greedy": "greedy", "exact dense": "bpd exact dense",
+                   "exact paged": "bpd exact paged",
+                   "topk_tree dense": "bpd topk_tree dense"}
 
 
 def mesh_decode(torch, D, params, cfg, dec, batch, label, mesh=None):
     """One of MESH_PATHS on the card (sharded over ``mesh`` when given):
     {tokens, generated, text_len, iterations, launches, wall}, the launches
     counted from 0 and checked against the forwards the run made, as phase
-    4b counts them (on every rank: each launches its own kernels)."""
+    4b counts them (on every rank: each launches its own kernels; an
+    RWKV-6 model its scan once a layer in the prefill).  An MoE model's
+    routings are kept too (``Routes.by_position``, under "routes")."""
     from repro_torch.kernels import _build
 
     kw, bpd, budgets = MESH_PATHS[label]
@@ -5969,17 +6149,22 @@ def mesh_decode(torch, D, params, cfg, dec, batch, label, mesh=None):
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if bpd:
-        toks, st = D.bpd_decode(params, cfg, pdec, batch, max_new_rows=rows,
-                                mesh=mesh)
-    else:
-        toks, st = D.greedy_decode(params, cfg, pdec, batch, mesh=mesh)
-    torch.cuda.synchronize()
+    with routes_for(torch, cfg) as rec:
+        if bpd:
+            toks, st = D.bpd_decode(params, cfg, pdec, batch,
+                                    max_new_rows=rows, mesh=mesh)
+        else:
+            toks, st = D.greedy_decode(params, cfg, pdec, batch, mesh=mesh)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     iters = st["iterations"]
     want = {name: 0 for name in launches}
-    want[next(iter(attention_launches(cfg, pdec)))] = cfg.num_layers * iters
+    if cfg.block_type == "rwkv6":
+        want["rwkv6_scan"] = cfg.num_layers
+    else:
+        for kernel, n in attention_launches(cfg, pdec).items():
+            want[kernel] = n * iters
     if bpd:
         want.update(fused_verify=iters, fused_heads=iters + 1)
     check(launches == want, f"{label}: launches {launches}, expected {want}")
@@ -5988,7 +6173,8 @@ def mesh_decode(torch, D, params, cfg, dec, batch, label, mesh=None):
           f"{label}: generated {st['generated'].tolist()}")
     return {"tokens": toks, "generated": st["generated"],
             "text_len": st["text_len"], "iterations": iters,
-            "launches": launches, "wall": wall}
+            "launches": launches, "wall": wall,
+            "routes": None if rec is None else rec.by_position()}
 
 
 def nonzero(launches: dict) -> dict:
@@ -6208,17 +6394,113 @@ def mesh_rank_bf16(torch, mesh, job):
     return run
 
 
+def family_weights(torch, arch, mesh=None):
+    """``arch`` at full width and FAMILY_FP32_LAYERS in fp32, from seed 0:
+    this rank's blocks over ``mesh`` (``model.init(mesh=)``), or the whole
+    weights on the card; and the config."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch).replace(dtype="float32",
+                                   num_layers=FAMILY_FP32_LAYERS[arch])
+    if mesh is None:
+        return M.init(cfg, seed=0, device="cuda"), cfg
+    return M.init(cfg, seed=0, mesh=mesh), cfg
+
+
+def forward_expert_ids(torch, M, params, cfg, batch) -> dict:
+    """{layer: (B, S, K) expert ids} of one full-capacity forward of
+    ``batch``: what every rank of a mesh must route alike."""
+    from repro_torch.models import moe
+
+    with Routes(torch) as rec:
+        M.forward_hidden(params, cfg, M.embed_inputs(params, cfg, batch),
+                         moe_full_capacity=True)
+    return {layer: moe.top_experts(torch.softmax(lg, -1),
+                                   cfg.num_experts_per_tok).cpu()
+            for layer, _, lg in rec.recs}
+
+
+def mesh_family_runs(torch, mesh, job, families) -> dict:
+    """A phase 22 rank's fp32 family runs over ``mesh``: for each arch of
+    ``families`` ({arch: MESH_PATHS labels}) its paths on this rank's
+    blocks (``family_weights``), with an MoE model's routings and the
+    expert ids of a full forward of the prompts.  Only the mesh's rank 0
+    prints."""
+    from repro_torch.config import DecodeConfig
+    from repro_torch.core import decode as D
+    from repro_torch.models import model as M
+
+    batch = {"tokens": torch.as_tensor(job["prompts"], device=mesh.device)}
+    dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
+    out = {}
+    with quiet_unless_first(mesh):
+        for arch, paths in families.items():
+            params, cfg = family_weights(torch, arch, mesh)
+            runs = {label: mesh_decode(torch, D, params, cfg, dec, batch,
+                                       label, mesh) for label in paths}
+            if cfg.mlp_type == "moe":
+                runs["expert ids"] = forward_expert_ids(torch, M, params, cfg,
+                                                        batch)
+            out[arch] = runs
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_family_bf16(torch, mesh, job):
+    """olmoe-1b-7b's bf16 serve over (1, 2) on ranks 2, 3: this rank's
+    blocks at full depth (phase 17's draw from seed 0, then its bf16 cast),
+    BPD exact dense timed; the collectives it issued, the rank's peak after
+    the cast, and each row's first divergence from phase 17's one-device
+    serve (``job["olmoe_bf16"]``), by the sharded full forward."""
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.models import model as M
+    from repro_torch.sharding import comm
+
+    dev = mesh.device
+    full = get_config("olmoe-1b-7b").replace(dtype="float32")
+    batch = {"tokens": torch.as_tensor(job["prompts"], device=dev)}
+    dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
+    params = M.init(full, seed=0, mesh=mesh)
+    bcfg = full.replace(dtype="bfloat16")
+    M.cast_for_compute(params, bcfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with quiet_unless_first(mesh):
+        calls = sum(comm.CALLS.values())
+        run = mesh_decode(torch, D, params, bcfg, dec, batch, "exact dense",
+                          mesh)
+        run["collectives"] = sum(comm.CALLS.values()) - calls
+        run["peak"] = torch.cuda.max_memory_allocated(dev)
+        prompt_len = batch["tokens"].shape[1]
+        run["divergences"] = report_divergences(
+            torch, causal_logits_after(torch, M, params, bcfg), run["tokens"],
+            torch.as_tensor(job["olmoe_bf16"], device=dev), prompt_len,
+            prompt_len + job["max_new"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
 def phase22_rank(mesh22, job):
     """One of phase 22's four ranks.  Every rank makes every mesh first, in
     one order: the (1, 2) pairs of ranks 0, 1 and 2, 3, the (2, 1) mesh of
-    ranks 2, 3 and the pod mesh (2, 1, 2) of all four.  Then: each pair's
-    MESH_PAIR_PATHS side by side on the pair's fp32 blocks, and the
-    unified engine (MESH_ENGINE_PAIRS) over (1, 2) on ranks 0, 1 beside
-    (2, 1) on ranks 2, 3 (whole fp32 weights of their own); then, on the
-    pairs' blocks, the (2, 2) mesh's BPD exact dense and the disaggregated
-    engine over the pod mesh; then ranks 0 and 1 alone the bf16 runs,
-    while 2 and 3 wait at the last barrier.  Returns {(1, 2): ..., (2, 2):
-    ..., "engine": {shape: {label: run}}[, "bf16": ...]}."""
+    ranks 2, 3, the (1, 4) mesh and the pod mesh (2, 1, 2) of all four.
+    Then: each pair's MESH_PAIR_PATHS side by side on the pair's fp32
+    blocks, and the unified engine (MESH_ENGINE_PAIRS) over (1, 2) on
+    ranks 0, 1 beside (2, 1) on ranks 2, 3 (whole fp32 weights of their
+    own), after which ranks 2, 3 serve olmoe-1b-7b's phase 17 engine run
+    over their pair; then, on the pairs' blocks, the (2, 2) mesh's BPD
+    exact dense, olmoe's exact dense over (1, 4) and the disaggregated
+    engine over the pod mesh; then ranks 0 and 1 the granite bf16 runs
+    beside ranks 2 and 3's family runs (MESH_FAMILY_PATHS) and olmoe's
+    bf16 serve, and all four meet at the last barrier.  Returns {(1, 2):
+    ..., (2, 2): ..., "engine": {shape: {label: run}}, "families": {mesh:
+    {arch: runs}}[, "bf16": ...][, "olmoe bf16": ...]}."""
     import torch
     import torch.distributed as dist
 
@@ -6230,6 +6512,7 @@ def phase22_rank(mesh22, job):
     dev = mesh22.device
     pairs = [make_mesh(1, 2, device=dev, ranks=r) for r in ((0, 1), (2, 3))]
     m21 = make_mesh(2, 1, device=dev, ranks=(2, 3))
+    m14 = make_mesh(1, 4, device=dev)
     pod = make_mesh(1, 2, pod=2, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     params, cfg = mesh_weights(torch, pairs[side])
@@ -6250,8 +6533,16 @@ def phase22_rank(mesh22, job):
             label: engine_run(torch, blocks, cfg, dec, prompts, label, mesh)
             for label in MESH_ENGINE_PAIRS}
     del blocks
+    if side == 1:                   # olmoe's engine over the pair (2, 3)
+        olmoe, ocfg = family_weights(torch, "olmoe-1b-7b", pairs[1])
+        with quiet_unless_first(pairs[1]):
+            out["engine"]["olmoe (1, 2)"] = {"unified paged": engine_run(
+                torch, olmoe, ocfg, dec, prompts, "unified paged", pairs[1])}
+        del olmoe
     out[(2, 2)] = mesh_rank_runs(torch, mesh22, job, MESH_RUNS[(2, 2)],
                                  rebind(params, mesh22), cfg)
+    out["families"] = {(1, 4): mesh_family_runs(
+        torch, m14, job, {"olmoe-1b-7b": ("exact dense",)})}
     label = "disaggregated dense, windows of 4"
     with quiet_unless_first(pod):
         out["engine"][(2, 1, 2)] = {label: engine_run(
@@ -6262,6 +6553,10 @@ def phase22_rank(mesh22, job):
     torch.cuda.empty_cache()
     if side == 0:
         out["bf16"] = mesh_rank_bf16(torch, pairs[0], job)
+    else:
+        out["families"][(1, 2)] = mesh_family_runs(torch, pairs[1], job,
+                                                   MESH_FAMILY_PATHS)
+        out["olmoe bf16"] = mesh_rank_family_bf16(torch, pairs[1], job)
     dist.barrier(group=mesh22.groups["world"])
     return out
 
@@ -6275,15 +6570,31 @@ def repeats(toks, prompt_len: int, end: int) -> list:
     return (new[:, 1:] == new[:, :-1]).sum(dim=1).tolist()
 
 
-def compare_mesh_run(torch, after, got, want, label, prompt_len) -> bool:
+class Positions:
+    """A run's routings as ``Routes.by_position`` gave them on a rank: what
+    ``router_tie`` reads of the run that left the one-device run."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def by_position(self):
+        return self.table
+
+
+def compare_mesh_run(torch, after, got, want, label, prompt_len, *,
+                     cfg=None) -> bool:
     """A sharded fp32 run against the single-device one: tokens equal
-    except at rows that diverge at a near-tie (``compare_rows``), and with
-    every row equal the counters equal too.  Returns whether every row
-    was equal."""
+    except at rows that diverge at a near-tie (``compare_rows``; for an MoE
+    model ``cfg`` with its router extension, from both runs' routings), and
+    with every row equal the counters equal too.  Returns whether every
+    row was equal."""
+    routes = None
+    if got.get("routes") is not None and want.get("routes") is not None:
+        routes = (want["routes"], Positions(got["routes"]))
     diverged = compare_rows(torch, after,
                             torch.as_tensor(got["tokens"]).cuda(),
                             want["tokens"].cuda(), want["text_len"],
-                            prompt_len)
+                            prompt_len, routes=routes, cfg=cfg, label=label)
     if diverged:
         log(f"[mesh] {label}: rows {diverged} diverge at near-ties; "
             f"iterations {got['iterations']} vs {want['iterations']}")
@@ -6360,7 +6671,9 @@ def phase_mesh(torch, phase4, card):
     spawned = {}
     job = {"prompts": prompts.numpy(), "max_new": max_new,
            "block_k": block_k, "bf16": phase4["bf16"]["tokens"].numpy(),
-           "engine_bf16": {"tokens": phase4["engine_bf16"]["tokens"]}}
+           "engine_bf16": {"tokens": phase4["engine_bf16"]["tokens"]},
+           "olmoe_bf16": ONE_DEVICE[("olmoe-1b-7b", "bf16 serve")][
+               "tokens"].numpy()}
 
     def ranks_run():
         try:
@@ -6384,8 +6697,18 @@ def phase_mesh(torch, phase4, card):
                           for k, v in r.items()}
     engines = {label: engine_run(torch, params, cfg, dec, batch["tokens"],
                                  label) for label in MESH_ENGINE_RUNS}
+    # the families' one-device runs: phases 16-18's, and rwkv6-1.6b's here
+    rwkv, rcfg = family_weights(torch, "rwkv6-1.6b")
+    for label in MESH_FAMILY_PATHS["rwkv6-1.6b"]:
+        r = mesh_decode(torch, D, rwkv, rcfg, dec, batch, label)
+        ONE_DEVICE[("rwkv6-1.6b", ONE_DEVICE_PATH[label])] = {
+            k: (v.cpu() if hasattr(v, "cpu") else v) for k, v in r.items()}
+    del rwkv
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[mesh] single-device references at {MESH_FP32_LAYERS} of 40 layers "
-        f"in {time.perf_counter() - t0:.1f}s, beside the ranks' start")
+        f"and rwkv6-1.6b's at {FAMILY_FP32_LAYERS['rwkv6-1.6b']} of 24 in "
+        f"{time.perf_counter() - t0:.1f}s, beside the ranks' start")
     http_s = http_demo(torch)
     worker.join(timeout=730)
     check(not worker.is_alive(), "phase 22: the ranks outlived their limit")
@@ -6511,11 +6834,134 @@ def phase_mesh(torch, phase4, card):
         f"leave phase 6c's tokens, each first at a near-tie "
         f"({[(d['rid'], d['at'], round(d['bpd_ulps'], 3)) for d in e['divergences']]}"
         f": request, new token, ulps below the top); {card}")
+    equal += compare_mesh_families(torch, ranks, prompt_len, card)
     log(f"[mesh] fp32 sharded runs with every row equal to the single-device "
         f"port's: {equal}; the longest fp32 engine run on the ranks "
         f"{t_engine:.1f}s, the bf16 engine {e['wall']:.1f}s, the HTTP demo "
         f"{http_s:.1f}s (beside the ranks); phase 22 "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+def lazy_logits_after(torch, M, arch):
+    """``causal_logits_after`` of ``arch``'s one-device fp32 weights
+    (``family_weights``), drawn on the first call: only a row that leaves
+    the one-device run reads them."""
+    held = {}
+
+    def after(r, prefix):
+        if "fn" not in held:
+            params, cfg = family_weights(torch, arch)
+            held["fn"] = causal_logits_after(torch, M, params, cfg)
+        return held["fn"](r, prefix)
+
+    return after
+
+
+def compare_mesh_families(torch, ranks, prompt_len, card) -> int:
+    """Phase 22's family runs against the one-device runs of phases 16-18
+    (and rwkv6-1.6b's beside the ranks' start): every sharded fp32 run's
+    tokens, counters and launches a rank equal one device's (the near-tie
+    rule and its router extension, each admission reported), every rank's
+    expert ids of a forward equal; olmoe's engine over (1, 2) record for
+    record; olmoe's bf16 serve over (1, 2) beside phase 17's (tokens/s, k̂,
+    collectives an iteration, peak a rank, each first divergence a
+    near-tie).  Returns the sharded runs with every row equal."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+
+    equal = 0
+    for mesh, idx, families in (((1, 2), (2, 3), MESH_FAMILY_PATHS),
+                                ((1, 4), (0, 1, 2, 3),
+                                 {"olmoe-1b-7b": ("exact dense",)})):
+        for arch, paths in families.items():
+            cfg = get_config(arch).replace(dtype="float32",
+                                           num_layers=FAMILY_FP32_LAYERS[arch])
+            after = lazy_logits_after(torch, M, arch)
+            runs = [(i, ranks[i]["families"][mesh][arch]) for i in idx]
+            for label in paths:
+                want = ONE_DEVICE[(arch, ONE_DEVICE_PATH[label])]
+                same = True
+                for i, r in runs:
+                    got = r[label]
+                    ok = compare_mesh_run(torch, after, got, want,
+                                          f"{arch} {mesh} rank {i} {label}",
+                                          prompt_len, cfg=cfg)
+                    if ok:
+                        check(nonzero(got["launches"])
+                              == nonzero(want["launches"]),
+                              f"22 {arch} {mesh} rank {i} {label}: launches "
+                              f"{nonzero(got['launches'])} vs one device's "
+                              f"{nonzero(want['launches'])}")
+                    same = same and ok
+                    equal += ok
+                lead = runs[0][1][label]
+                log(f"[mesh] {arch} {FAMILY_FP32_LAYERS[arch]} layers fp32 "
+                    f"{mesh} {label}: "
+                    f"{'tokens, counters and launches equal to' if same else 'near-tie divergences from'}"
+                    f" one device's on ranks {list(idx)}; k̂="
+                    f"{float(lead['generated'].sum()) / lead['iterations'] / 8:.4f}"
+                    f", iterations {lead['iterations']} (one device "
+                    f"{want['iterations']}), launches a rank "
+                    f"{nonzero(lead['launches'])}; {lead['wall']:.2f}s (one "
+                    f"device {want['wall']:.2f}s)")
+            if cfg.mlp_type == "moe":
+                ids = [r["expert ids"] for _, r in runs]
+                for i, other in zip(idx, ids):
+                    check(sorted(other) == sorted(ids[0]) and all(
+                        np_equal(other[layer], ids[0][layer])
+                        for layer in ids[0]),
+                        f"22 {arch} {mesh}: rank {i}'s expert ids of a "
+                        f"forward differ from rank {idx[0]}'s")
+                log(f"[mesh] {arch} {mesh}: the expert ids of a forward of "
+                    f"the prompts ({len(ids[0])} layers, top-"
+                    f"{cfg.num_experts_per_tok} of {cfg.num_experts}) equal "
+                    f"on ranks {list(idx)}")
+
+    want = ONE_DEVICE[("olmoe-1b-7b", "engine unified paged")]
+    got = [(i, ranks[i]["engine"]["olmoe (1, 2)"]["unified paged"])
+           for i in (2, 3)]
+    for i, g in got:
+        compare_engine_runs(g, want, f"olmoe engine (1, 2) rank {i}")
+        check(nonzero(g["launches"]) == nonzero(want["launches"]),
+              f"22 olmoe engine (1, 2) rank {i}: launches "
+              f"{nonzero(g['launches'])} vs one device's "
+              f"{nonzero(want['launches'])}")
+    lead = got[0][1]
+    log(f"[mesh] olmoe-1b-7b engine (1, 2), unified paged, phase 17's 16 "
+        f"requests: records, counters and launches equal to one device's on "
+        f"ranks 2, 3 (launches a rank {nonzero(lead['launches'])}); "
+        f"{lead['wall']:.2f}s (one device {want['wall']:.2f}s)")
+
+    runs = [ranks[i]["olmoe bf16"] for i in (2, 3)]
+    one = ONE_DEVICE[("olmoe-1b-7b", "bf16 serve")]
+    for i, b in zip((2, 3), runs):
+        check(np_equal(b["tokens"], runs[0]["tokens"]),
+              f"22 olmoe bf16: rank {i}'s tokens differ from rank 2's")
+        check(all(d["tie"] for d in b["divergences"]),
+              f"22 olmoe bf16: rank {i} diverges from phase 17's serve beyond "
+              f"{BF16_TIE_ULPS} ulps: {b['divergences']}")
+    b = runs[0]
+    gen = int(b["generated"].sum())
+    log(f"[mesh] bf16 olmoe-1b-7b, 16 layers, sharded over (1, 2) on ranks "
+        f"2, 3 (32 of 64 experts a rank): {gen / b['wall']:.1f} tokens/s "
+        f"beside phase 17's single-device {one['tps']:.1f}; k̂="
+        f"{gen / b['iterations'] / 8:.4f} (phase 17: {one['khat']:.4f}), "
+        f"iterations {b['iterations']} ({one['iterations']}); "
+        f"{b['collectives'] / b['iterations']:.1f} collectives an iteration "
+        f"on rank 2; peak a rank "
+        f"{[round(r['peak'] / 2 ** 30, 2) for r in runs]} GiB (one device "
+        f"{one['peak'] / 2 ** 30:.2f}); launches a rank "
+        f"{nonzero(b['launches'])}; first divergences from phase 17's tokens: "
+        f"{len(b['divergences'])} rows, all within {BF16_TIE_ULPS} bf16 ulps "
+        f"of the top logit ({[round(d['bpd_ulps'], 3) for d in b['divergences']]}); "
+        f"{card}")
+    return equal
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
 
 
 def main() -> int:

@@ -4,7 +4,11 @@
 (``params["blocks"][3]["attn"]["wq"]`` becomes ``blocks.3.attn.wq``);
 ``load_checkpoint`` reads ``step_N/arrays.npz`` checkpoints (the
 reference's layout, ``repro_torch.checkpoint``) with numpy alone.  Both
-check every key and shape against ``cfg``.
+check every key and shape against ``cfg``.  With ``mesh`` each rank keeps its
+blocks of the reference's whole leaves (``sharding.shard_params``): the
+``PARAM_RULES`` cuts, Mamba's ``in_proj`` cut in each of its u and z
+halves (``sharding.policy.SPLIT_LEAVES``), experts, wkv heads and Mamba
+channels over ``model``.
 """
 from __future__ import annotations
 

@@ -539,8 +539,8 @@ class DecodePolicy:
                                                   AdaptiveSchedule)):
             raise NotImplementedError(
                 f"policy {self.name!r} under a mesh is not ported yet "
-                f"(ROADMAP.md §1 item 8c): a sharded decode runs exact, topk, "
-                f"distance, adaptive and topk_tree")
+                f"(ROADMAP.md §1 item 8c(ii)): a sharded decode runs exact, "
+                f"topk, distance, adaptive and topk_tree")
 
     @property
     def cache_key(self):

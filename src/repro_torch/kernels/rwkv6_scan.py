@@ -11,7 +11,9 @@ for fp32 accuracy.  One warp-specialised block per (batch row, head):
 consumer warps own 16 columns of the (D, D) state each, in mma
 accumulators; producer warps copy r/k/v/logw ahead with ``cp.async`` and
 form each tile's decays, exponentials and score partials while the
-consumers multiply the last.  ``rwkv6_scan_plain`` (``kernels/ref.py``:
+consumers multiply the last.  Nothing in the launch depends on H beyond
+the grid: a rank of a ``model``-sharded mesh scans its own H / M heads
+(16 of rwkv6-1.6b's 32 at ``model`` 2) with the same kernel.  ``rwkv6_scan_plain`` (``kernels/ref.py``:
 the sequential fp32 recurrence) is its plain version.  Given a ``chunk``
 (a multiple of ``STAGE_STEPS``) it also writes the state at the start of
 every chunk: the training forward's checkpoints.

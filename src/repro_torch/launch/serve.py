@@ -90,10 +90,22 @@ data), rank 0 runs the scheduler (and the HTTP server) and the other ranks
 replay its plans (``ContinuousBatchingEngine.follow``); ``--prefill-slots
 W`` on a pod mesh prefills each pod's rows of a batch and hands them to
 every rank over ``pod``.  Ranks sharing one card use gloo, ranks with a
-card each NCCL (printed).  The mesh runs the dense text trunk (granite-3-8b,
-stablelm-12b, starcoder2-7b, nemotron-4-15b) under exact, topk, distance,
-adaptive and topk_tree; the other families and ``draft_model`` under a mesh
-raise (ROADMAP.md §1 item 8c).
+card each NCCL (printed).  The mesh runs the decoder-only text families
+under exact, topk, distance, adaptive and topk_tree: the dense trunk
+(granite-3-8b, stablelm-12b, starcoder2-7b, nemotron-4-15b) and the MoE
+models (olmoe-1b-7b, qwen2-moe-a2.7b: experts over ``model``) static and
+through ``--engine`` / ``--http``; rwkv6-1.6b (wkv heads over ``model``)
+and hymba-1.5b (Mamba channels over ``model``, attention replicated)
+static only, as on one device, where the engine refuses them too:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --device cpu --mesh-model 2 [--engine]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --device cpu --mesh-data 2 --mesh-model 2
+
+llava-next-34b, the encoder-decoder and ``draft_model`` / ``input_copy``
+/ ``locality`` under a mesh raise before any rank starts (ROADMAP.md §1
+item 8c(ii)).
 """
 from __future__ import annotations
 
@@ -119,6 +131,7 @@ from repro_torch.models import model as M
 from repro_torch.serving import (ContinuousBatchingEngine, DecodeSession,
                                  EngineConfig, Frontend, HTTPServer, Request,
                                  Scheduler, aggregate_stats)
+from repro_torch.serving.engine import check_engine_supported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -379,6 +392,8 @@ def serve_mesh(argv: Sequence[str], args, pod: int, data: int,
     cfg, dec = _configs(args)                  # refusals before any spawn
     layout = Mesh(data, model, pod=pod)
     M.check_mesh_supported(cfg, layout)
+    if args.engine or args.http:
+        check_engine_supported(cfg)
     groups = parse_policy_groups(args.policies)
     for name in groups or [None]:        # draft_model among the refused
         resolve_policy(dec, name).bind({}, cfg, mesh=layout)

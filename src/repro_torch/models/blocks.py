@@ -13,6 +13,19 @@ Two execution modes:
              verify substep).  Recurrent components return per-step states
              stacked along axis 1; ``commit_cache`` selects the accepted
              step.
+
+On a ``model``-sharded ``ParamTree`` each sublayer sums its own
+row-parallel products (``sharding.comm``), so a block's residual stream is
+whole on every rank: attention's ``wo``, the dense MLP's ``w2``, the MoE
+MLP's routed and shared experts in one sum (``models.moe``), RWKV-6's
+``tm/wo`` and ``cm/wv`` (``models.rwkv6``), and the Mamba heads' ``x_proj``
+and ``out_proj`` (``models.mamba``).  A Hymba layer's attention, whose
+25 query heads over 5 KV heads divide no ``model`` axis of 2 or 4, stays
+replicated (``sharding.local_kv_heads`` keeps every KV head; no leaf of it
+is cut), so its output is not summed; the Mamba branch's ``out_proj`` sum
+finishes inside ``mamba_apply``, before ``_hymba_fuse`` normalises each
+branch over the full ``d``.  The per-step recurrent states stay at the
+rank's wkv heads and Mamba channels.
 """
 from __future__ import annotations
 
@@ -128,8 +141,8 @@ def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
     cache, or a Hymba layer's both: its attention cache and its Mamba
     cache, which every backend leaves as it is."""
     if cfg.block_type == "rwkv6":
-        h = cfg.d_model // cfg.rwkv_head_dim
-        return {"tm": cache_lib.rwkv_cache_init(batch, cfg.d_model, h,
+        return {"tm": cache_lib.rwkv_cache_init(batch, cfg.d_model,
+                                                cache_lib.wkv_heads(cfg),
                                                 cfg.rwkv_head_dim, dtype,
                                                 device)}
     be = backend if backend is not None else cache_lib.DenseBackend()
@@ -137,7 +150,7 @@ def block_cache_init(cfg: ModelConfig, layer_idx: int, batch: int,
                                     block_k, dtype, device)}
     if cfg.block_type == "hymba":
         c["mamba"] = cache_lib.mamba_cache_init(
-            batch, cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim,
+            batch, cache_lib.ssm_channels(cfg), cfg.ssm_state_dim,
             cfg.ssm_conv_width, dtype, device)
     return c
 

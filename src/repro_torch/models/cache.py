@@ -16,7 +16,9 @@ RWKV-6 layers keep a recurrent cache instead (``rwkv_cache_init``): the
 time-mix and channel-mix token shifts (batch, d_model) and the wkv state
 (batch, H, D, D) fp32, the same under either backend.  A Hymba layer keeps
 both: its attention cache and a Mamba cache (``mamba_cache_init``: the
-conv's trailing inputs and the SSM state (batch, d_inner, N) fp32).
+conv's trailing inputs and the SSM state (batch, d_inner, N) fp32).  On a
+``model``-sharded mesh a rank's state holds its H / M wkv heads and its
+d_inner / M channels (``RankConfig``).
 Windowed layers reserve ``num_meta_tokens`` leading slots of their ring for
 the meta tokens, which every query sees.
 
@@ -38,11 +40,34 @@ the slot slab in place, as the decode paths' cache writes do.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
 
 from repro_torch.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """A config as one rank of a ``model``-sharded mesh holds its caches
+    (``models.model.cache_config``): ``num_kv_heads`` the rank's KV heads,
+    ``wkv_heads`` the RWKV-6 heads of its wkv state and ``ssm_channels`` the
+    Mamba channels of its conv window and SSM state.  The token shifts and
+    hymba's attention, replicated, keep their whole width."""
+
+    wkv_heads: int = 0
+    ssm_channels: int = 0
+
+
+def wkv_heads(cfg: ModelConfig) -> int:
+    """The wkv heads of an RWKV-6 layer's state: a rank's under a mesh."""
+    return getattr(cfg, "wkv_heads", 0) or cfg.d_model // cfg.rwkv_head_dim
+
+
+def ssm_channels(cfg: ModelConfig) -> int:
+    """The channels of a Mamba cache: a rank's under a mesh."""
+    return getattr(cfg, "ssm_channels", 0) or cfg.ssm_expand * cfg.d_model
 
 
 def attn_cache_init(batch: int, buf_len: int, kv_heads: int, head_dim: int,

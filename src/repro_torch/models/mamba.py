@@ -20,6 +20,14 @@ One departure: past 128 steps the reference's prefill scans in chunks of
 128 and pads the last chunk with zeros after the exponential, so its final
 SSM state is zero whenever S % 128 != 0 (ROADMAP.md §3).  The final state
 here is the recurrence's, the last of the reference's own per-step states.
+
+On a ``model``-sharded ``ParamTree`` the d_inner channels lie over
+``model``: a rank keeps its channels of both halves of ``in_proj``
+(``sharding.policy.SPLIT_LEAVES``), and of ``conv_w``, ``conv_b``,
+``dt_proj``, ``A_log`` and ``D``, so its conv, scan and states run at d_inner
+/ M.  ``x_proj`` is a row block over d_inner, so Δ_low, B and C are summed
+over ``model`` before the split (B and C feed every channel); ``out_proj``
+is a row sum.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import dense_init, normal
+from repro_torch.models.layers import dense_init, normal, row_parallel_apply
 
 DT_RANK_DIV = 16  # dt_rank = ceil(d_model / 16), the mamba default
 
@@ -107,9 +115,9 @@ def mamba_apply(p, cfg: ModelConfig, x, *, conv_state=None, h0=None,
     """x: (B, S, d) -> (y, aux) with aux = {"conv", "ssm"}: the final conv
     input window (B, W-1, di) and SSM state (B, di, N), or with
     ``return_states`` (the decode block) each step's, (B, S, W-1, di) and
-    (B, S, di, N)."""
+    (B, S, di, N); di is this rank's channels when they are sharded."""
     b, s, d = x.shape
-    di = cfg.ssm_expand * d
+    di = p["D"].shape[0]
     n = cfg.ssm_state_dim
     width = cfg.ssm_conv_width
     dtr = _dt_rank(cfg)
@@ -123,7 +131,7 @@ def mamba_apply(p, cfg: ModelConfig, x, *, conv_state=None, h0=None,
     u_in, z = xz.split(di, dim=-1)
     u, new_conv, xx = _causal_conv(p, u_in, conv_state)
 
-    proj = u @ p["x_proj"]["w"].to(x.dtype)          # (B, S, dtr + 2N)
+    proj = row_parallel_apply(p["x_proj"], u)        # (B, S, dtr + 2N)
     dt_low, Bm, Cm = proj.split((dtr, n, n), dim=-1)
     # torch's softplus returns x itself above 20, where jax's adds
     # log1p(exp(-x)) < 2.1e-9: below 1e-10 of the value, far under a ulp
@@ -134,7 +142,7 @@ def mamba_apply(p, cfg: ModelConfig, x, *, conv_state=None, h0=None,
     y, states = _ssm_scan(u, dt, Bm, Cm, A, p["D"], h0,
                           return_states=return_states)
     y = y.to(x.dtype) * F.silu(z)
-    y = y @ p["out_proj"]["w"].to(x.dtype)
+    y = row_parallel_apply(p["out_proj"], y)
 
     if return_states:
         # the trailing W-1 inputs after each step: windows 1..S of xx

@@ -16,6 +16,7 @@ weights are not re-read on every forward.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -46,7 +47,8 @@ from repro_torch.models.layers import (
     unembed_apply,
 )
 from repro_torch.sharding import comm
-from repro_torch.sharding.policy import local_kv_heads, shard_leaves
+from repro_torch.sharding.policy import (local_channels, local_kv_heads,
+                                         shard_leaves)
 from repro_torch.utils.tree import flatten_with_names
 
 
@@ -148,30 +150,49 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     return ParamTree(p, mesh=mesh, sharded=sharded)
 
 
+MESH_BLOCKS = (("attn", "dense"), ("attn", "moe"),
+               ("rwkv6", "rwkv_channel_mix"), ("hymba", "dense"))
+
+
 def check_mesh_supported(cfg: ModelConfig, mesh) -> None:
-    """The sharded decode path runs the dense trunk (attention + dense
-    MLP, text in and out) whose query heads split into whole KV heads or
-    whole groups of a KV head (``sharding.local_kv_heads``); anything else
+    """The sharded decode path runs the decoder-only text families: the
+    dense trunk and the MoE blocks (attention whose query heads split into
+    whole KV heads or whole groups of a KV head, ``sharding.
+    local_kv_heads``; experts over ``model``), RWKV-6 (wkv heads over
+    ``model``) and Hymba (Mamba channels over ``model``, attention
+    replicated where its heads do not divide the axis).  Anything else
     raises before any work."""
-    if not (cfg.block_type == "attn" and cfg.mlp_type == "dense"
+    if not ((cfg.block_type, cfg.mlp_type) in MESH_BLOCKS
             and cfg.modality == "text" and not cfg.is_encoder_decoder
             and not cfg.is_encoder_only):
         raise NotImplementedError(
             f"{cfg.name} (block_type={cfg.block_type!r}, mlp_type="
             f"{cfg.mlp_type!r}, modality={cfg.modality!r}, encoder-decoder="
             f"{cfg.is_encoder_decoder}, encoder-only={cfg.is_encoder_only}) "
-            f"under a mesh is not ported yet (ROADMAP.md §1 item 8c): the "
-            f"sharded path runs the dense text trunk (attention + dense MLP)")
-    local_kv_heads(cfg, mesh.shape["model"])
+            f"under a mesh is not ported yet (ROADMAP.md §1 item 8c(ii)): "
+            f"the sharded path runs the decoder-only text families "
+            f"(attention + dense or MoE MLP, RWKV-6, Hymba)")
+    m = mesh.shape["model"]
+    local_kv_heads(cfg, m)
+    local_channels(cfg, m)
+    if cfg.mlp_type == "moe" and cfg.padded_num_experts % m:
+        raise ValueError(f"{cfg.name}: {cfg.padded_num_experts} experts do "
+                         f"not divide the model axis of {m}")
 
 
 def cache_config(params, cfg: ModelConfig) -> ModelConfig:
-    """``cfg`` as this rank's caches see it: at the KV heads the rank keeps
-    (``sharding.local_kv_heads``) when ``params`` are sharded."""
+    """``cfg`` as this rank's caches see it when ``params`` are sharded: a
+    ``cache.RankConfig`` at the KV heads, wkv heads and Mamba channels the
+    rank keeps (``sharding.local_kv_heads`` / ``local_channels``)."""
     mesh = getattr(params, "mesh", None)
     if mesh is None:
         return cfg
-    return cfg.replace(num_kv_heads=local_kv_heads(cfg, mesh.shape["model"]))
+    m = mesh.shape["model"]
+    heads, channels = local_channels(cfg, m)
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields.update(num_kv_heads=local_kv_heads(cfg, m), wkv_heads=heads,
+                  ssm_channels=channels)
+    return cache_lib.RankConfig(**fields)
 
 
 # Leaves the reference reads in fp32 whatever the compute dtype: every

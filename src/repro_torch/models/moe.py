@@ -18,6 +18,17 @@ them), renormalised to sum to 1.  Two ways to apply the experts:
   with the host, so the launches are a function of the shapes.  Pad
   experts are never chosen and are not computed.
 
+On a ``model``-sharded ``ParamTree`` the experts lie over ``model`` (the
+reference's ``maybe_shard_expert``: ``w1`` / ``w2`` / ``w3`` cut by
+expert): the router stays whole and runs on the whole ``x`` on every
+rank, so every rank chooses the same experts; a rank computes only its
+own real experts (the last rank's pad experts never), each capacity slot
+from the whole row's ``assignment_ranks`` (so drops are one device's), and
+the routed partial and the shared expert's row-parallel partial (``shared
+/w2`` cut over its hidden width) are added in fp32 and summed in one
+``all_reduce`` (``comm.partial_sum``).  The metrics and the router's
+logits are whole on every rank.
+
 ``ROUTER_TRACE``: when set to a callable, every MoE layer calls it as
 ``ROUTER_TRACE(layer_idx, positions (B, S) int, logits (B, S, E) fp32)``
 (``models.blocks``), so a caller can see which experts each decode chose
@@ -29,6 +40,7 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import (
@@ -39,6 +51,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     normal,
 )
+from repro_torch.sharding import comm
 
 ROUTER_TRACE: Optional[Callable] = None
 
@@ -121,39 +134,57 @@ def capacity(cfg: ModelConfig, s: int) -> int:
     return min(c, s)
 
 
-def _bounded(p, cfg: ModelConfig, x, gates, ids, cap: int):
-    """The capacity-bounded dispatch: per row, the kept assignments into
-    the (E, cap) buffer, the experts, the gated sum.  Returns (y, keep)."""
+def local_experts(p, cfg: ModelConfig) -> Tuple[int, int]:
+    """(the global id of this rank's first expert, its real experts): (0,
+    ``num_experts``) when the experts are whole.  Pad experts, the last of
+    ``padded_num_experts``, are never chosen and never computed."""
+    if comm.cut(p, "w1") is None:
+        return 0, cfg.num_experts
+    n = p["w1"].shape[0]
+    lo = p.mesh.coords["model"] * n
+    return lo, max(0, min(n, cfg.num_experts - lo))
+
+
+def _bounded(p, cfg: ModelConfig, x, gates, ids, cap: int, experts, dtype):
+    """The capacity-bounded dispatch: per row, the kept assignments of the
+    ``experts`` (first id, count) into their (n, cap) buffer, the experts,
+    the gated sum in ``dtype``.  Returns (y, keep): ``keep`` over every
+    assignment, from the row's whole ranks."""
     b, s, d = x.shape
-    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    k = cfg.num_experts_per_tok
+    lo, n = experts
     flat = ids.reshape(b, s * k)
     rank = assignment_ranks(flat)
     keep = rank < cap
-    slot = torch.where(keep, flat * cap + rank, e * cap)
+    local = flat - lo
+    mine = keep & (local >= 0) & (local < n)
+    slot = torch.where(mine, local * cap + rank, n * cap)
     src = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
     idx = slot[..., None].expand(b, s * k, d)
-    xin = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
-    xin = xin.scatter(1, idx, src)          # the dump row collects drops
-    per_expert = xin[:, :e * cap].reshape(b, e, cap, d).transpose(0, 1)
-    xout = _expert_ffn(p, per_expert.reshape(e, b * cap, d), cfg.activation)
-    xout = xout.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    xin = torch.zeros((b, n * cap + 1, d), dtype=x.dtype, device=x.device)
+    xin = xin.scatter(1, idx, src)          # the dump row collects the rest
+    per_expert = xin[:, :n * cap].reshape(b, n, cap, d).transpose(0, 1)
+    xout = _expert_ffn(p, per_expert.reshape(n, b * cap, d), cfg.activation)
+    xout = xout.reshape(n, b, cap, d).transpose(0, 1).reshape(b, n * cap, d)
     xout = torch.cat([xout, torch.zeros((b, 1, d), dtype=x.dtype,
                                         device=x.device)], 1)
-    g = xout.gather(1, idx).reshape(b, s, k, d)
-    w = (gates * keep.reshape(b, s, k)).to(x.dtype)
+    g = xout.gather(1, idx).reshape(b, s, k, d).to(dtype)
+    w = (gates * mine.reshape(b, s, k)).to(dtype)
     return torch.einsum("bskd,bsk->bsd", g, w), keep
 
 
-def _full(p, cfg: ModelConfig, x, gates, ids):
-    """Full capacity: every token through every real expert, summed with
-    its gate where the expert was chosen (zero elsewhere)."""
+def _full(p, cfg: ModelConfig, x, gates, ids, experts, dtype):
+    """Full capacity: every token through each of the ``experts`` (first
+    id, count), summed in ``dtype`` with its gate where the expert was
+    chosen (zero elsewhere)."""
     b, s, d = x.shape
-    e = cfg.num_experts
-    weight = torch.zeros((b, s, e), dtype=gates.dtype, device=x.device)
-    weight = weight.scatter(-1, ids, gates).to(x.dtype)
-    xout = _expert_ffn(p, x.reshape(1, b * s, d).expand(e, b * s, d),
+    lo, n = experts
+    weight = torch.zeros((b, s, cfg.num_experts), dtype=gates.dtype,
+                         device=x.device)
+    weight = weight.scatter(-1, ids, gates).to(dtype)[..., lo:lo + n]
+    xout = _expert_ffn(p, x.reshape(1, b * s, d).expand(n, b * s, d),
                        cfg.activation)
-    return torch.einsum("etd,te->td", xout, weight.reshape(b * s, e)
+    return torch.einsum("etd,te->td", xout.to(dtype), weight.reshape(b * s, n)
                         ).reshape(b, s, d)
 
 
@@ -180,18 +211,35 @@ def moe_apply(p, cfg: ModelConfig, x, *, full_capacity: bool = False,
     decode path: a dropped token would break BPD's greedy equivalence);
     otherwise each row's experts take ``capacity(cfg, S)``
     assignments.  ``metrics`` False skips the three metrics (the decode
-    path reads none); ``trace`` is called with the router's logits."""
+    path reads none); ``trace`` is called with the router's logits.  With
+    the experts over ``model`` the ranks' fp32 partials are summed once
+    (see the module)."""
     b, s, _ = x.shape
     logits, probs, gates, ids = route(p, cfg, x)
     if trace is not None:
         trace(logits.detach())
+    experts = local_experts(p, cfg)
+    sharded = comm.cut(p, "w1") is not None
+    dtype = torch.float32 if sharded else x.dtype
     if full_capacity:
-        y, kept = _full(p, cfg, x, gates, ids), b * s * cfg.num_experts_per_tok
+        y = _full(p, cfg, x, gates, ids, experts, dtype)
+        kept = b * s * cfg.num_experts_per_tok
     else:
-        y, keep = _bounded(p, cfg, x, gates, ids, capacity(cfg, s))
+        y, keep = _bounded(p, cfg, x, gates, ids, capacity(cfg, s), experts,
+                           dtype)
         kept = keep.sum()
+    shared = None
     if "shared" in p:
         sp = p["shared"]
         g = torch.sigmoid(dense_apply(sp["gate"], x).float()).to(x.dtype)
-        y = y + g * mlp_apply(sp, x, act="silu")
+        if sharded and comm.cut(sp["w2"], "w") is not None:
+            h = F.silu(dense_apply(sp["w1"], x)) * dense_apply(sp["w3"], x)
+            y = y + g.float() * comm.partial(
+                h.reshape(b * s, -1), sp["w2"]["w"]).reshape(y.shape)
+        else:
+            shared = g * mlp_apply(sp, x, act="silu")
+    if sharded:
+        y = comm.partial_sum(p.mesh, y, x.dtype)
+    if shared is not None:
+        y = y + shared
     return y, (moe_metrics(cfg, logits, probs, ids, kept) if metrics else {})

@@ -18,6 +18,20 @@ card), where the reference differentiates its jnp scan of 128-step chunks
 under ``jax.checkpoint``.  The decode block keeps the per-step states that
 blockwise parallel decoding rolls back to (``blocks.commit_cache``), in the
 reference's per-step loop.
+
+On a ``model``-sharded ``ParamTree`` the wkv heads lie over ``model``:
+``tm/wr|wk|wv|wg`` are column blocks of whole heads and ``tm/u`` the same
+heads' rows, so a rank scans its H / M heads (``ops.rwkv6_scan`` at the
+local H) and keeps their (B, H / M, D, D) state.  The token-shift mixes
+and the decay LoRA stay whole: a rank forms ``logw`` for its own columns
+only (``w0`` and ``decay_B``'s columns), and ``ln_x``, a group norm per
+head, reads its heads' slice of the whole scale and bias.  ``tm/wo`` is a
+row sum over ``model``.  In channel mix ``cm/wk`` is a column block and
+``cm/wv`` a row sum; the receptance ``sigmoid(x_r W_r)`` is computed on
+``cm/wr``'s column block and gathered over ``model`` to the full width
+before it gates the summed product (one ``all_gather``; the reference's
+GSPMD moves the same bytes), so the rank's ``cm/wr`` stays the block
+``PARAM_RULES`` gives it.
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, group_norm_apply, normal
+from repro_torch.sharding import comm
 
 LORA_MIX_RANK = 32
 LORA_DECAY_RANK = 64
@@ -77,12 +92,31 @@ def _ddlerp(p, x, x_prev):
                  for i in range(5))
 
 
-def _log_decay(p, xw):
-    """log w = -exp(w0 + tanh(x_w dA) dB), in fp32 from a compute-dtype
-    x_w and the fp32 decay weights (exp of it is the reference's decay)."""
-    ww = p["w0"].float() + (torch.tanh(xw.float() @ p["decay_A"].float())
-                            @ p["decay_B"].float())
+def _log_decay(p, xw, cols: slice = slice(None)):
+    """log w = -exp(w0 + tanh(x_w dA) dB) at channels ``cols``, in fp32
+    from a compute-dtype x_w and the fp32 decay weights (exp of it is the
+    reference's decay)."""
+    ww = p["w0"][cols].float() + (
+        torch.tanh(xw.float() @ p["decay_A"].float())
+        @ p["decay_B"][:, cols].float())
     return -torch.exp(ww)
+
+
+def _columns(p, leaf: str) -> slice:
+    """The channels of ``p[leaf]``'s columns: this rank's block when they
+    are cut over ``model``, else all of them."""
+    n = p[leaf].shape[1]
+    lo = 0 if comm.cut(p, leaf) is None else p.mesh.coords["model"] * n
+    return slice(lo, lo + n)
+
+
+def _row_product(p, leaf: str, x):
+    """``x @ p[leaf]``, summed over ``model`` when its rows are cut."""
+    w = p[leaf]
+    if comm.cut(p, leaf) is None:
+        return x @ w.to(x.dtype)
+    return comm.row_sum(p.mesh, x.reshape(-1, w.shape[0]), w).reshape(
+        *x.shape[:-1], w.shape[1])
 
 
 def _wkv_step(uf):
@@ -135,11 +169,14 @@ def rwkv_tm_apply(p, cfg: ModelConfig, x, *, x_prev=None, state0=None,
     state0  : (B, H, D, D) initial wkv state (decode only; the prefill
               starts from zeros).
     Returns (y, aux) where aux = {"x_last": (B,d), "state": the final state,
-    or the per-step states if return_states}.
+    or the per-step states if return_states}.  Sharded, H and the state
+    are this rank's heads (see the module).
     """
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    cols = _columns(p, "wr")                       # this rank's channels
+    dl = cols.stop - cols.start
+    h = dl // hd
     if x_prev is None:
         x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     shifted = torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
@@ -149,13 +186,15 @@ def rwkv_tm_apply(p, cfg: ModelConfig, x, *, x_prev=None, state0=None,
     k = (xk @ p["wk"].to(x.dtype)).reshape(b, s, h, hd)
     v = (xv @ p["wv"].to(x.dtype)).reshape(b, s, h, hd)
     g = F.silu(xg @ p["wg"].to(x.dtype))
-    logw = _log_decay(p, xw).reshape(b, s, h, hd)
+    logw = _log_decay(p, xw, cols).reshape(b, s, h, hd)
 
     y, states = _wkv_scan(r, k, v, logw, p["u"].float(), state0,
                           return_states=return_states)
-    y = y.reshape(b, s, d).to(x.dtype)
-    y = group_norm_apply(p["ln_x"], y, h)
-    y = (y * g) @ p["wo"].to(x.dtype)
+    y = y.reshape(b, s, dl).to(x.dtype)
+    ln = p["ln_x"]
+    y = group_norm_apply({"scale": ln["scale"][cols],
+                          "bias": ln["bias"][cols]}, y, h)
+    y = _row_product(p, "wo", y * g)
     return y, {"x_last": x[:, -1, :], "state": states}
 
 
@@ -187,6 +226,8 @@ def rwkv_cm_apply(p, cfg: ModelConfig, x, *, x_prev=None):
     xr = x + sx * p["mu_r"].to(x.dtype)
     kk = F.relu(xk @ p["wk"].to(x.dtype))
     kk = kk * kk
-    vv = kk @ p["wv"].to(x.dtype)
+    vv = _row_product(p, "wv", kk)
     rr = torch.sigmoid(xr @ p["wr"].to(x.dtype))
+    if comm.cut(p, "wr") is not None:    # the receptance at the full width
+        rr = comm.model_gather(p.mesh, rr)
     return rr * vv, {"x_last": x[:, -1, :]}

@@ -242,6 +242,23 @@ def _normalize_groups(policies, default_name: str,
     return items
 
 
+def check_engine_supported(cfg: ModelConfig) -> None:
+    """The families the engine serves, on one device and on a mesh alike:
+    decoder-only text models with attention caches (the dense trunk and
+    the MoE models); anything else raises before any work."""
+    if cfg.block_type != "attn":
+        raise NotImplementedError(
+            f"serving engine requires an attention-cache family "
+            f"(block_type='attn'), got {cfg.block_type!r}: recurrent "
+            f"states cannot be prefilled from a padded prompt")
+    if cfg.modality != "text":
+        raise NotImplementedError(
+            "serving engine v1 is text-only (per-request vision prefixes "
+            "would make the prefill shape dynamic)")
+    if cfg.is_encoder_only or cfg.is_encoder_decoder:
+        raise NotImplementedError("serving engine is decoder-only")
+
+
 class ContinuousBatchingEngine:
     """Slot-based continuous batching for the decoder-only BPD loop,
     with per-request decode policies via policy slot groups."""
@@ -252,18 +269,7 @@ class ContinuousBatchingEngine:
                  bundles=None,
                  policies: Union[None, Dict[str, int],
                                  Sequence[Tuple[str, int]]] = None):
-        if cfg.block_type != "attn":
-            raise NotImplementedError(
-                f"serving engine requires an attention-cache family "
-                f"(block_type='attn'), got {cfg.block_type!r}: recurrent "
-                f"states cannot be prefilled from a padded prompt")
-        if cfg.modality != "text":
-            raise NotImplementedError(
-                "serving engine v1 is text-only (per-request vision prefixes "
-                "would make the prefill shape dynamic)")
-        if cfg.is_encoder_only or cfg.is_encoder_decoder:
-            raise NotImplementedError("serving engine is decoder-only")
-
+        check_engine_supported(cfg)
         self.session = session if session is not None else DecodeSession(
             params, cfg, dec, mesh=mesh, policy=policy, bundles=bundles)
         for name, b in self.session.bundles.items():

@@ -53,9 +53,15 @@ group (``ServingFns.local``: the slot slab over pod×data, or data alone,
     written on every rank; decode-time pages are written by the slot's
     ranks and read by no other.
 
-The sharded path runs the dense text trunk (``model.check_mesh_supported``)
-under the policies ``DecodePolicy.bind`` admits; auxiliary bundles under a
-mesh are ROADMAP.md §1 item 8c.
+The sharded path runs the decoder-only text families
+(``model.check_mesh_supported``): the dense trunk, the MoE models (experts
+over ``model``), RWKV-6 (wkv heads over ``model``) and Hymba (Mamba
+channels over ``model``, attention replicated), under the policies
+``DecodePolicy.bind`` admits.  A recurrent family's rows and their
+per-step rollback are the rank's rows over ``data``, its states at the
+rank's heads or channels (``model.cache_config``); the engine serves
+attention families only, on a mesh as on one device.  Auxiliary bundles
+under a mesh are ROADMAP.md §1 item 8c(ii).
 """
 from __future__ import annotations
 
@@ -183,7 +189,8 @@ class DecodeSession:
             if bundles:
                 raise NotImplementedError(
                     "auxiliary bundles under a mesh are not ported yet "
-                    "(ROADMAP.md §1 item 8c: draft_model's bundle shardings)")
+                    "(ROADMAP.md §1 item 8c(ii): draft_model's bundle "
+                    "shardings)")
             if held is None:
                 params = shard_params(params, mesh)
             elif held is not mesh:

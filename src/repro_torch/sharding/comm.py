@@ -3,8 +3,12 @@ inserts them; here they are explicit, on the process groups of a
 ``launch.mesh.Mesh``.
 
   * ``row_sum``      — a row-parallel product (attention's ``wo``, the
-                       MLP's ``w2``, the BPD heads' ``w2``): each rank's
-                       partial product summed over ``model``;
+                       MLP's ``w2``, the BPD heads' ``w2``, RWKV-6's
+                       ``tm/wo`` and ``cm/wv``, Mamba's ``x_proj`` and
+                       ``out_proj``): each rank's partial product summed
+                       over ``model``; ``partial`` / ``partial_sum`` are
+                       its halves, for the MoE MLP's routed experts and
+                       shared expert summed in one ``all_reduce``;
   * ``model_sum``    — the ``model``-axis sum (also the vocab-parallel
                        embedding's rows, one non-zero term each);
   * ``model_gather`` — a vocab-sharded last dimension put back together;
@@ -85,10 +89,13 @@ def model_sum(mesh, x: torch.Tensor) -> torch.Tensor:
     return _reduce(x.to(_wide(x), copy=True), mesh, "model").to(x.dtype)
 
 
-def _fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` ((N, n) @ (n, d), or batched (k, N, n) @ (k, n, d)) with an
-    fp32 result: 16-bit inputs are multiplied with fp32 accumulation and not
-    rounded (on the card ``out_dtype``; on the CPU widened first)."""
+def partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` ((N, n) @ (n, d), or batched (k, N, n) @ (k, n, d)), ``w``
+    read in ``x``'s dtype, with an fp32 result: 16-bit inputs are
+    multiplied with fp32 accumulation and not rounded (on the card
+    ``out_dtype``; on the CPU widened first).  A rank's partial product of
+    a row-parallel weight, before its ``model``-axis sum."""
+    w = w.to(x.dtype)
     if x.dtype not in (torch.bfloat16, torch.float16):
         return x @ w
     if not x.is_cuda:
@@ -97,16 +104,21 @@ def _fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return mm(x, w, out_dtype=torch.float32)
 
 
+def partial_sum(mesh, part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Every ``model`` rank's fp32 ``part`` summed in fp32 (in place, one
+    ``all_reduce``), rounded once to ``dtype``."""
+    if mesh.shape["model"] > 1:
+        _reduce(part, mesh, "model")
+    return part.to(dtype)
+
+
 def row_sum(mesh, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` where the inner dim of ``w`` (its rows) is cut over the
     ``model`` axis and ``x`` holds this rank's matching columns: (N, n) @
     (n, d) -> (N, d), or (k, N, n) @ (k, n, d) -> (k, N, d).  Each rank's
     partial product in fp32, summed in fp32, rounded once to ``x``'s
     dtype."""
-    part = _fp32_product(x, w.to(x.dtype))
-    if mesh.shape["model"] > 1:
-        _reduce(part, mesh, "model")
-    return part.to(x.dtype)
+    return partial_sum(mesh, partial(x, w), x.dtype)
 
 
 def model_gather(mesh, x: torch.Tensor) -> torch.Tensor:

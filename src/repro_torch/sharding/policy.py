@@ -21,10 +21,14 @@ by leaf as it draws.  One departure: where the KV heads do not divide the
 ``model`` axis, the reference shards the cache's length over ``model`` and
 replicates the paged pool; the port keeps, unsharded, the KV head its rank's
 query heads read (``local_kv_heads``), the same function in another layout.
+Mamba's ``in_proj`` (u and z side by side) is cut in each half
+(``SPLIT_LEAVES``): a rank keeps the same channels of both, which is what
+the reference's global layout means once GSPMD has moved the halves.
 
 The port's path reads ``PARAM_RULES`` (through ``shard_params`` /
 ``shard_leaves``), ``batch_axes``, ``prefill_axes``, ``batch_shard`` and
-``local_kv_heads``; the serving engine reads ``slot_owner`` and
+``local_kv_heads`` (and ``local_channels`` for the recurrent caches); the
+serving engine reads ``slot_owner`` and
 ``packet_pod``, plain functions every rank computes alike.  The spec tables
 ``param_specs``, ``data_spec``, ``batch_specs``, ``cache_specs``,
 ``state_specs``, ``slot_specs``, ``packet_specs`` and ``data_axis_size``
@@ -258,7 +262,7 @@ def state_specs(cfg: ModelConfig, state, mesh, *,
     state's included, shards its leading dim over the data axes; scalars
     and non-tensors are replicated.  (A draft model's cache in the policy
     state, specced under the draft's config, comes with ROADMAP.md §1 item
-    8c.)  ``ax`` overrides the batch-dim axes (a prefill packet's)."""
+    8c(ii).)  ``ax`` overrides the batch-dim axes (a prefill packet's)."""
     b = batch_size if batch_size is not None else state.tokens.shape[0]
     if ax == "auto":
         ax = batch_axes(mesh, b)
@@ -332,18 +336,52 @@ def local_kv_heads(cfg: ModelConfig, model: int) -> int:
     raise NotImplementedError(
         f"{cfg.name}: {h // model} query heads a rank straddle KV heads of "
         f"{cfg.num_kv_groups} queries at model={model}: the length-sharded "
-        f"cache this needs is not ported yet (ROADMAP.md §1 item 8c)")
+        f"cache this needs is not ported yet (ROADMAP.md §1 item 8c(ii))")
 
 
-def _block(x: torch.Tensor, s: Tuple, mesh) -> Tuple[torch.Tensor, Optional[int]]:
+# leaves whose cut dim holds several blocks side by side, each cut alike:
+# Mamba's in_proj is [u | z] over its columns, and a rank keeps its
+# channels of both (the reference's one contiguous block would give rank
+# 0 of model 2 all of u and rank 1 all of z, which GSPMD then reshuffles)
+SPLIT_LEAVES: Tuple[Tuple[str, int], ...] = ((r"mamba/in_proj/w$", 2),)
+
+
+def _parts(name: str) -> int:
+    """How many side-by-side blocks the cut dim of leaf ``name`` holds."""
+    for pattern, n in SPLIT_LEAVES:
+        if re.search(pattern, name):
+            return n
+    return 1
+
+
+def local_channels(cfg: ModelConfig, model: int) -> Tuple[int, int]:
+    """(the RWKV-6 wkv heads, the Mamba channels) one rank of a
+    ``model``-wide axis keeps: the rank's block of each (``tm/w[rkvg]``,
+    ``tm/u`` and ``mamba/*`` cut over ``model``), 0 for a family without
+    them.  Raises where they do not divide the axis."""
+    heads = (cfg.d_model // cfg.rwkv_head_dim
+             if cfg.block_type == "rwkv6" else 0)
+    channels = cfg.ssm_expand * cfg.d_model if cfg.block_type == "hymba" else 0
+    for what, n in (("wkv heads", heads), ("Mamba channels", channels)):
+        if n % model:
+            raise ValueError(f"{cfg.name}: {n} {what} do not divide the "
+                             f"model axis of {model}")
+    return heads // model, channels // model
+
+
+def _block(x: torch.Tensor, s: Tuple, mesh, parts: int = 1
+           ) -> Tuple[torch.Tensor, Optional[int]]:
     """(this rank's block of ``x`` under spec ``s``, the dim cut or None).
-    Only the ``model`` axis cuts parameters."""
+    Only the ``model`` axis cuts parameters.  A dim of ``parts`` blocks
+    side by side (``SPLIT_LEAVES``) keeps the rank's slice of each."""
     m = mesh.shape["model"]
     for dim, ax in enumerate(s):
         if ax == "model" and m > 1:
-            n = x.shape[dim] // m
+            xs = x.unflatten(dim, (parts, x.shape[dim] // parts))
+            n = xs.shape[dim + 1] // m
             i = mesh.coords["model"]
-            return x.narrow(dim, i * n, n).contiguous().clone(), dim
+            block = xs.narrow(dim + 1, i * n, n).flatten(dim, dim + 1)
+            return block.contiguous().clone(), dim
     return x, None
 
 
@@ -356,8 +394,12 @@ def shard_leaves(tree, mesh, *, prefix: str = ""):
     def visit(path: str, node):
         if isinstance(node, torch.Tensor):
             full = f"{prefix}/{path}" if prefix else path
-            block, dim = _block(node.data, _divisible(
-                _spec_for(full), tuple(node.shape), mesh), mesh)
+            rule, parts = _spec_for(full), _parts(full)
+            shape = list(node.shape)     # each part must divide the axis
+            if parts > 1:
+                shape[rule.index("model")] //= parts
+            block, dim = _block(node.data, _divisible(rule, tuple(shape), mesh),
+                                mesh, parts)
             if dim is not None:
                 dims[full] = dim
             return block

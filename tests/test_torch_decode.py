@@ -231,7 +231,7 @@ def test_serve_static_path_on_cpu(capsys):
 @pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2", "--batch",
                                    "2", "--policies", "exact=1,draft_model=1"],
                                   ["--http", "--mesh-model", "2", "--arch",
-                                   "olmoe-1b-7b"],
+                                   "llava-next-34b"],
                                   ["--engine", "--mesh-pod", "2", "--policy",
                                    "input_copy"]])
 def test_unported_serving_options_raise(argv):
@@ -265,6 +265,37 @@ def test_serve_static_mesh_on_cpu(argv, capfd):
     assert rows(meshed) == rows(single) and len(rows(single)) == 2
     assert _rows(out["tokens"].numpy(), out["stats"]) == _rows(
         one["tokens"].numpy(), one["stats"])
+
+
+@pytest.mark.parametrize("arch,argv", [("olmoe-1b-7b", ["--engine"]),
+                                       ("qwen2-moe-a2.7b", []),
+                                       ("rwkv6-1.6b", []),
+                                       ("hymba-1.5b", [])])
+def test_serve_families_on_a_model_mesh(arch, argv, capfd):
+    """The MoE, RWKV-6 and Hymba families on a ``model`` mesh of 2 spawned
+    CPU ranks (experts, wkv heads, Mamba channels split): the static
+    batch prints the single-device launcher's rows, and olmoe's engine
+    finishes its requests with the single-device engine's tokens."""
+    from repro_torch.launch import serve
+
+    base = ["--arch", arch, "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--max-new", "6", *argv]
+    out = serve.main(base + ["--mesh-model", "2"])
+    meshed = capfd.readouterr().out
+    one = serve.main(base)
+    single = capfd.readouterr().out
+    assert "backend gloo" in meshed and len(out["ranks"]) == 2
+    if "--engine" in argv:
+        done = [sorted((f.rid, f.tokens.tolist()) for f in r["finished"])
+                for r in out["ranks"]]
+        want = sorted((f.rid, f.tokens.tolist()) for f in one["finished"])
+        assert done == [want, want] and len(want) == 4
+        return
+
+    def rows(text):
+        return [ln for ln in text.splitlines() if ln.startswith("    row ")]
+
+    assert rows(meshed) == rows(single) and len(rows(single)) == 2
 
 
 def test_exact_resolves_and_unported_policies_raise():

@@ -292,9 +292,8 @@ def test_engine_and_serving_fns_refuse_a_mesh():
                                                     "input_copy": 1})
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b",
-                                  "rwkv6-1.6b", "hymba-1.5b", "paper-mt-base",
-                                  "llava-next-34b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["paper-mt-base", "llava-next-34b",
+                                  "hubert-xlarge"])
 def test_configs_the_mesh_does_not_run_are_refused(arch):
     cfg = get_config(arch, smoke=True)
     params = tmodel.init(cfg, device="meta")
