@@ -102,7 +102,16 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 rank, fused_heads on olmoe's two (2048, 25216) lm_head
                 blocks merged equal to one launch, rwkv6_scan at a rank's
                 16 and 8 heads (B 8, S 512, D 64), each timed beside its
-                plain version, SDPA where it applies and the bound.
+                plain version, SDPA where it applies and the bound; and
+                phase 23's (check_input_shapes): the three split-KV
+                kernels at paper-mt-base's 4/4 heads of 64 a rank (L 80)
+                and llava's 28/4 heads of 128 (L 3016),
+                the cross call at a rank's 4 heads over Se 64, fused_heads
+                on each rank's block of paper-mt-base's (512, 32000) and
+                llava's (7168, 64000) untied lm_heads merged equal to one
+                launch, fused_verify at a data rank's (4, 8, 32000), each
+                timed at model 2 beside its plain version, SDPA or
+                torch.mm then torch.topk, and the bound.
   4. decode   — granite-3-8b at full width in fp32 (random weights, seed 0):
                 greedy_decode and bpd_decode of 8 prompts x 64 new tokens;
                 BPD must emit greedy's tokens, and the kernels' launch counts
@@ -437,6 +446,29 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
                 then olmoe's bf16 serve at full depth over (1, 2) beside
                 phase 17's one-device serve (tokens/s, k̂, collectives an
                 iteration, peak a rank, each first divergence a near-tie).
+  23. inputs  — in phase 22's spawn, after its runs (ROADMAP §1 item
+                8c(ii); phase 3's check_input_shapes holding the kernels
+                at these ranks' shapes first): paper-mt-base fp32 at full
+                width and depth over the (1, 2) pair of ranks 0, 1 under
+                exact, topk_tree and input_copy and over (2, 2) under
+                exact (phase 10's sources, 32 new tokens), and bf16 exact
+                over ranks 0, 1 (tokens/s, k̂, collectives an iteration;
+                not gated); llava-next-34b fp32 at 4 of 60 layers over the
+                (1, 2) pair of ranks 2, 3 behind 19a's 2,880 patches,
+                exact dense and paged, against 19a; granite's draft_model
+                at 2 of 40 layers over (1, 2), a self-draft (its bundle
+                the primary's sharded blocks) and 15b's small draft cut by
+                the same rules (16 new tokens: the draft's cache read back
+                across iterations), and an engine of a draft_model and
+                an exact group of 2 slots (15d's first 8 requests,
+                budgets cut to 8) unified over (1, 2) and disaggregated
+                over (2, 1, 2); phase 13c's locality + exact engine on the
+                first 3 fields over (1, 2) and (2, 1), and those fields as
+                one batch over (2, 1) against 13a's rows; each against the
+                same run on one device, made in this process beside the
+                ranks' start: tokens, counters and each rank's launches
+                equal (a rank whose vocab block holds pad lanes only
+                launches no fused_heads), the near-tie rule as above.
 
 Each kernel's launch count in the JSON line is read from one path's run,
 the counts set to 0 just before it: verify_attention, fused_verify and
@@ -2035,6 +2067,171 @@ def check_mesh_family_shapes(torch, gen, results):
             log(line)
 
 
+# phase 23's inputs (ROADMAP §1 item 8c(ii)) at a rank's local shapes on
+# the card, ``model`` 2: paper-mt-base's 8 heads of 64 (4 / 4 a rank), its
+# decoder cache of 1 + 64 + 8 positions (L 80) and cross call over Se 64;
+# llava-next-34b's 56 / 8 heads of 128 (28 / 4), L 3016; each model's
+# vocab block of its untied lm_head: (d, lanes, vocab, rows a launch);
+# fused_verify on a data rank's rows of phase 10
+MESH_MT_HEADS = ((2, 4, 4),)
+MESH_LLAVA_HEADS = ((2, 28, 4),)
+MESH_HEAD_BLOCKS = (("paper-mt-base", 512, 32000, 32000, 56),
+                    ("llava-next-34b", 7168, 64000, 64000, 28))
+
+
+def heads_block_checks(torch, gen, results, label, d, vocab, lanes, n, m):
+    """fused_heads on each of ``m`` column blocks of a (d, lanes) untied
+    lm_head (row-major, vocab cut at each block's real lanes), bf16 and
+    fp32, T 1, 2 and 4, each against its plain version, the blocks' top-T
+    merged as ``comm.merge_top_t`` merges them equal to one launch over
+    the whole lm_head; the first block timed at T 1 beside its plain
+    version, torch.mm then torch.topk, and the bound."""
+    from repro_torch.kernels.fused_heads import (fused_heads_topk_cuda,
+                                                 heads_topk_plain)
+
+    vl = lanes // m
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        w = (torch.randn((d, lanes), generator=gen, device="cuda")
+             * 0.02).to(dt)
+        o = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+        blocks = [w[:, i * vl:(i + 1) * vl].contiguous() for i in range(m)]
+        for top_t in (1, 2, 4):
+            vals, ids = [], []
+            for i, block in enumerate(blocks):
+                real = min(vocab - i * vl, vl)
+                kv, ki = fused_heads_topk_cuda(o, block, vocab=real,
+                                               top_t=top_t)
+                torch.cuda.synchronize()
+                ok, _, pv = heads_ids_agree(torch, kv, ki, o, block, real,
+                                            top_t)
+                err = (kv - pv).abs().max().item()
+                tol = ATTN_TOL[dtype]
+                check(ok and torch.allclose(kv, pv, rtol=tol, atol=tol),
+                      f"fused_heads {dtype} {label} block {i} of {m} "
+                      f"T={top_t} differs from its plain version (err {err})")
+                results["fused_heads"]["max_abs_err"] = max(
+                    results["fused_heads"]["max_abs_err"], err)
+                vals.append(kv)
+                ids.append(ki.long() + i * vl)
+            v, i_ = torch.cat(vals, 1), torch.cat(ids, 1)
+            by_id = torch.argsort(i_, dim=1, stable=True)
+            v, i_ = v.gather(1, by_id), i_.gather(1, by_id)
+            top = torch.argsort(v, dim=1, descending=True,
+                                stable=True)[:, :top_t]
+            _, whole = fused_heads_topk_cuda(o, w, vocab=vocab, top_t=top_t)
+            check(torch.equal(i_.gather(1, top).int(), whole),
+                  f"fused_heads {dtype}: {label}'s {m} blocks' merged top-"
+                  f"{top_t} differs from one launch over the lm_head")
+        block = blocks[0]
+        ms = time_ms(torch, lambda: fused_heads_topk_cuda(o, block, vocab=vl,
+                                                          top_t=1))
+        plain_ms = time_ms(torch, lambda: heads_topk_plain(o, block,
+                                                           vocab=vl, top_t=1))
+        two_ms = time_ms(torch, lambda: torch.topk(torch.mm(o, block), 1))
+        bounds = heads_bounds(nbytes(o, block) + n * 8, n, d, vl, dtype, ms)
+        log(f"  fused_heads {dtype} {label} model {m} block ({n}, {d}) x "
+            f"({d}, {vl}), T 1/2/4 each == its plain version, merged == one "
+            f"launch over ({d}, {lanes}) ok; T=1: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.mm then torch.topk {two_ms:.4f} ms, "
+            f"{bounds}")
+        del w, o, blocks, block
+
+
+def check_input_shapes(torch, gen, results):
+    """The decode kernels at the local shapes of phase 22's inputs (the
+    encoder-decoder, llava's patch prefix, the draft and locality models
+    run at shapes phases 3's earlier checks hold), bf16 and fp32, against
+    their plain versions: the three split-KV kernels at paper-mt-base's
+    4 / 4 heads of 64 a rank (B 8, kq 8, L 80: its decoder's 1 + 64 + 8
+    positions; paged over 5 pages) and at llava's 28 / 4 heads of 128 (L
+    3016; paged over 189 pages), bit for bit batch-invariant, timed beside
+    SDPA; verify_attention as
+    the cross attention calls it at a rank's 4 heads of 64 over Se 64
+    (every query at position 0, masked tails), timed; fused_heads on each
+    rank's block of paper-mt-base's (512, 32000) and llava's (7168,
+    64000) untied lm_heads (``heads_block_checks``); fused_verify on a
+    data rank's 4 rows of phase 10's (8, 8, 32000) logits, timed."""
+    from repro_torch.kernels.block_attention import (verify_attention_cuda,
+                                                     verify_attention_plain)
+    from repro_torch.kernels.fused_verify import (fused_verify_cuda,
+                                                  fused_verify_plain)
+
+    for name, heads, hd, l in (("paper-mt-base", MESH_MT_HEADS, 64, 80),
+                               ("llava", MESH_LLAVA_HEADS, 128, 3016)):
+        for m, h, kvh in heads:
+            for dtype in ("bfloat16", "float32"):
+                check_split_kv(torch, gen, results, model=f"{name} model {m}",
+                               hd=hd, h=h, kvh=kvh, kq=8, l=l, dtype=dtype,
+                               timed=m == 2)
+    b, se, h, hd = 8, 64, 4, 64
+    tails = [0, 3, 5, 0, 7, 1, 0, 2]
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for kq_ in (1, 8):
+            q = torch.randn((b, kq_, h, hd), generator=gen, device="cuda").to(dt)
+            k = torch.randn((b, se, h, hd), generator=gen, device="cuda").to(dt)
+            v = torch.randn((b, se, h, hd), generator=gen, device="cuda").to(dt)
+            q_pos = torch.zeros((b, kq_), dtype=torch.int32, device="cuda")
+            slot = torch.arange(se, device="cuda")[None, :]
+            tail = torch.tensor(tails, device="cuda")[:, None]
+            kv_pos = torch.where(slot < se - tail, 0, -1).int()
+            args = (q, k, v, q_pos, kv_pos)
+            got = verify_attention_cuda(*args)
+            want = verify_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(),
+                                 rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype]),
+                  f"cross attention {dtype} a rank's {h} heads kq {kq_} "
+                  f"differs by {err}")
+            worst = max(worst, err)
+        ms = time_ms(torch, lambda: verify_attention_cuda(*args))
+        plain_ms = time_ms(torch, lambda: verify_attention_plain(*args))
+        mask = (kv_pos[:, None, :] >= 0).expand(b, kq_, -1)[:, None]
+        repeat_ms, gqa_ms = sdpa_yardsticks(torch, q, k, v, mask)
+        bms, by = bound(nbytes(*args, q), 4 * b * kq_ * h * se * hd, dtype)
+        log(f"  cross attention {dtype} paper-mt-base model 2 (a rank's "
+            f"{h} heads of {hd}, q ({b},{kq_},{h},{hd}), Se {se}, masked "
+            f"tails): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{min(repeat_ms, gqa_ms):.4f} ms, bound {bms:.5f} ms ({by})")
+    results["verify_attention"]["max_abs_err"] = max(
+        results["verify_attention"]["max_abs_err"], worst)
+    log(f"  cross attention at a rank's heads: max_abs_err={worst:.3g} over "
+        f"4 cases ok")
+    for label, d, vocab, lanes, n in MESH_HEAD_BLOCKS:
+        heads_block_checks(torch, gen, results, label, d, vocab, lanes, n, 2)
+    b, k, vocab = 4, 8, 32000
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        logits = torch.randn((b, k, vocab), generator=gen, device="cuda").to(dt)
+        greedy = torch.argmax(logits.float(), -1).int()
+        props = torch.randint(0, vocab, greedy.shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        props[:, 1:4] = greedy[:, 0:3]                # accepted prefixes
+        for crit in ("exact", "topk", "distance"):
+            got = fused_verify_cuda(logits, props, criterion=crit, top_k=2,
+                                    epsilon=2.0)
+            want = fused_verify_plain(logits, props, criterion=crit, top_k=2,
+                                      epsilon=2.0)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"fused_verify {dtype} a data rank's ({b}, {k}, {vocab}) "
+                  f"{crit} differs from its plain version")
+        ms = time_ms(torch, lambda: fused_verify_cuda(logits, props,
+                                                      criterion="exact"))
+        plain_ms = time_ms(torch, lambda: fused_verify_plain(
+            logits, props, criterion="exact"))
+        two_ms = time_ms(torch, lambda: argmax_then_scan(torch, logits, props))
+        bms, by = bound(nbytes(logits, props) + b * k * 9 + b * k,
+                        b * k * vocab, dtype)
+        log(f"  fused_verify {dtype} paper-mt-base a data rank's ({b}, {k}, "
+            f"{vocab}) exact / topk / distance bit for bit ok; exact: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.argmax then the "
+            f"scan {two_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+
+
 def check_mt_heads_verify(torch, gen):
     """fused_heads and fused_verify at the shapes phases 10-10c give them:
     paper-mt-base's untied row-major lm_head (512, 32000) and (8, 8, 32000)
@@ -3492,6 +3689,7 @@ def phase_mt(torch, results):
         check(launch == want, f"mt {label}: launches {launch}, expected {want}")
         check(bool((stats["generated"] == max_new).all()), f"mt {label}: short rows")
         runs[label] = (toks, stats)
+    ONE_DEVICE[(cfg.name, "src")] = src.cpu()      # phase 23's sources
     g_toks = runs["greedy"][0]
     check(runs["greedy"][1]["iterations"] == max_new, "mt greedy: not one "
                                                       "token an iteration")
@@ -3920,6 +4118,8 @@ def phase_locality(torch, card):
             sched.submit(serving.Request(rid=rid, prompt=stream[r, :start],
                                          max_new=n - start, policy=policy))
     done = sched.run()
+    ONE_DEVICE[("locality", "rows")] = [r["tokens"] for r in
+                                        decoded["locality"]]
     check(sorted(f.rid for f in done) == sorted(plan), "engine lost requests")
     got, want = [], []
     for f in sorted(done, key=lambda f: f.rid):
@@ -5133,6 +5333,7 @@ def phase_llava(torch, results):
                               .sample(np.random.default_rng(1), 8, 64),
                               device="cuda")
     batch = llava_batch(torch, cfg, prompts)
+    ONE_DEVICE[(name, "prompts")] = prompts.cpu()      # phase 22's batch
     log(f"[llava] 19a {name} fp32 at {cfg.num_layers} of {full.num_layers} "
         f"layers (full depth's 36.74 B parameters take 137 GiB in fp32): "
         f"{n_params / 1e9:.3f} B parameters, d {cfg.d_model}, "
@@ -6086,6 +6287,7 @@ def phase_train(torch, phase4):
 # of its other fp32 paths to keep the script within 900 s (and from 4 to 2
 # to pay for the sharded families)
 MESH_FP32_LAYERS = 2
+MESH_RANKS_S = 900         # the four ranks' time limit, their start included
 MESH_BUDGETS = (64, 16, 40, 56, 24, 48, 32, 8)
 MESH_PATHS = {            # label -> (DecodeConfig keywords, BPD?, budgets?)
     "greedy": ({}, False, False),
@@ -6557,8 +6759,345 @@ def phase22_rank(mesh22, job):
         out["families"][(1, 2)] = mesh_family_runs(torch, pairs[1], job,
                                                    MESH_FAMILY_PATHS)
         out["olmoe bf16"] = mesh_rank_family_bf16(torch, pairs[1], job)
+    out["inputs"] = phase23_rank(torch, side, pairs, m21, mesh22, pod, job)
     dist.barrier(group=mesh22.groups["world"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23 (in phase 22's spawn): the inputs on a mesh (ROADMAP §1 item
+# 8c(ii)): the encoder-decoder, llava's patch prefix, draft_model, locality
+# ---------------------------------------------------------------------------
+
+
+# paper-mt-base at full width and depth, phase 10's sources and paths
+# (MESH_MT_PATHS over (1, 2), exact over (2, 2)), MESH_MT_NEW new tokens;
+# draft_model on granite at MESH_FP32_LAYERS: MESH_DRAFT_STATIC_NEW new
+# tokens of phase 4's prompts static (two blocks of 8 at least, so the
+# draft's cache is read back across iterations), and the first
+# MESH_DRAFT_REQUESTS of phase 15d's plan (budgets cut to MESH_DRAFT_NEW)
+# through an engine of a draft_model and an exact group of 2 slots each;
+# 13c's locality engine on the first MESH_LOC_FIELDS fields (3: a field of
+# each group admitted after an eviction).  Each is cut so that phase 23
+# costs the script about half a minute
+MESH_MT_PATHS = ("exact", "topk_tree", "input_copy")
+MESH_MT_22_PATHS = ("exact",)
+MESH_MT_NEW = 32
+MESH_LLAVA_PATHS = ("bpd exact dense", "bpd exact paged")
+MESH_DRAFT_STATIC_NEW = 16
+MESH_DRAFT_NEW, MESH_DRAFT_REQUESTS = 8, 8
+MESH_LOC_FIELDS = 3
+DRAFT_GROUPS = {"draft_model": 2, "exact": 2}
+
+
+def run_launches(torch, fn):
+    """(``fn()``, its wall seconds, the kernels it launched)."""
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+
+def decode_record(toks, st, wall, launches) -> dict:
+    return {"tokens": toks.cpu(), "generated": st["generated"].cpu(),
+            "text_len": st["text_len"].cpu(), "iterations": st["iterations"],
+            "launches": launches, "wall": wall}
+
+
+def mt_mesh_runs(torch, mesh, job, paths) -> dict:
+    """paper-mt-base fp32 at full width and depth from seed 0, this rank's
+    blocks (``model.init(mesh=)``) or on one device without ``mesh``: each
+    of ``paths`` (phase 10's policies) on phase 10's sources (a rank's rows
+    of them), MESH_MT_NEW new tokens."""
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.models import model as M
+
+    cfg = get_config("paper-mt-base").replace(dtype="float32")
+    dev = "cuda" if mesh is None else mesh.device
+    params = M.init(cfg, seed=0, device=dev, mesh=mesh)
+    batch = {"src": torch.as_tensor(job["mt_src"], device=dev)}
+    dec = DecodeConfig(max_new_tokens=MESH_MT_NEW, block_k=cfg.bpd_k, top_k=2)
+    out = {}
+    for label in paths:
+        (toks, st), wall, launches = run_launches(
+            torch, lambda: D.bpd_decode_seq2seq(
+                params, cfg, dec.replace(policy=label), batch, mesh=mesh))
+        out[label] = decode_record(toks, st, wall, launches)
+    return out
+
+
+def mt_mesh_bf16(torch, mesh, job) -> dict:
+    """paper-mt-base cast for bf16 (phase 10b's cast) over ``mesh`` or on
+    one device, BPD exact on phase 10's sources, MESH_MT_NEW new tokens,
+    timed without a warm-up (each process has run bf16 serves before):
+    tokens/s, k̂, iterations and the collectives it issued."""
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.models import model as M
+    from repro_torch.sharding import comm
+
+    cfg = get_config("paper-mt-base").replace(dtype="float32")
+    dev = "cuda" if mesh is None else mesh.device
+    params = M.init(cfg, seed=0, device=dev, mesh=mesh)
+    bcfg = cfg.replace(dtype="bfloat16")
+    M.cast_for_compute(params, bcfg)
+    batch = {"src": torch.as_tensor(job["mt_src"], device=dev)}
+    dec = DecodeConfig(max_new_tokens=MESH_MT_NEW, block_k=cfg.bpd_k,
+                       policy="exact")
+    calls = sum(comm.CALLS.values())
+    (toks, st), wall, launches = run_launches(
+        torch, lambda: D.bpd_decode_seq2seq(params, bcfg, dec, batch,
+                                            mesh=mesh))
+    rec = decode_record(toks, st, wall, launches)
+    rec.update(collectives=sum(comm.CALLS.values()) - calls,
+               khat=st["mean_accepted"])
+    return rec
+
+
+def llava_mesh_runs(torch, mesh, job) -> dict:
+    """llava-next-34b fp32 at LLAVA_FP32_LAYERS over ``mesh`` (28 / 4 heads
+    a rank at ``model`` 2), this rank's blocks from seed 0, behind phase
+    19a's 2,880 stub patches (its batch, 64 new tokens, block_k 8, the
+    chain prefills in chunks of KV_CHUNK keys): MESH_LLAVA_PATHS."""
+    from repro_torch.config import DecodeConfig, get_config
+    from repro_torch.core import decode as D
+    from repro_torch.models import model as M
+
+    cfg = get_config("llava-next-34b").replace(num_layers=LLAVA_FP32_LAYERS,
+                                               dtype="float32")
+    params = M.init(cfg, seed=0, mesh=mesh)
+    batch = llava_batch(torch, cfg, torch.as_tensor(job["llava_prompts"],
+                                                    device=mesh.device))
+    dec = DecodeConfig(max_new_tokens=64, block_k=cfg.bpd_k)
+    out = {}
+    for label, kw in (("bpd exact dense", {}),
+                      ("bpd exact paged", {"cache_backend": "paged"})):
+        (toks, st), wall, launches = run_launches(
+            torch, lambda: D.bpd_decode(params, cfg, dec.replace(**kw), batch,
+                                        kv_chunk=KV_CHUNK, mesh=mesh))
+        out[label] = decode_record(toks, st, wall, launches)
+    out["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def draft_static(torch, params, cfg, dec, batch, bundle, mesh=None) -> dict:
+    """draft_model with ``bundle`` through a DecodeSession (sharded over
+    ``mesh`` when given: the bundle cut by the primary's rules, a
+    self-draft's the primary's own blocks): the decode record, the draft
+    forwards an iteration and the draft cache's KV heads."""
+    from repro_torch import serving
+
+    sess = serving.DecodeSession(params, cfg, dec.replace(
+        policy="draft_model", max_new_tokens=MESH_DRAFT_STATIC_NEW),
+        mesh=mesh,
+        bundles={"draft": bundle})
+    (toks, st), wall, launches = run_launches(torch,
+                                              lambda: sess.decode(batch))
+    rec = decode_record(toks, st, wall, launches)
+    drafter = sess.policy.drafter
+    rec.update(steps=drafter.draft_steps_per_iter(dec.block_k),
+               draft_kv_heads=drafter.cache_cfg.num_kv_heads,
+               draft_kv_whole=bundle.cfg.num_kv_heads,
+               self_draft=sess.aux_params["draft"] is sess.params)
+    return rec
+
+
+def draft_plan():
+    """The first MESH_DRAFT_REQUESTS of phase 15d's plan (its topk_tree
+    requests in the draft_model group), budgets cut to MESH_DRAFT_NEW."""
+    return [(rid, row, plen, min(budget, MESH_DRAFT_NEW), t,
+             {"topk_tree": "draft_model"}.get(policy, policy))
+            for rid, row, plen, budget, t, policy
+            in engine_plan()[:MESH_DRAFT_REQUESTS]]
+
+
+def draft_engine_run(torch, params, cfg, dec, prompts, bundle, label,
+                     mesh=None, **ekw) -> dict:
+    """``draft_plan``'s requests through the engine on the managed page
+    pool with a draft_model and an exact group of 2 slots (15d's groups,
+    cut), drafting with ``bundle``: on one device, or sharded over
+    ``mesh`` (rank 0 schedules on the virtual clock, the others replay its
+    plans).  Returns {records, launches, wall, counters}."""
+    from repro_torch import serving
+    from repro_torch.kernels import _build
+
+    host = prompts.cpu().numpy()
+    reqs = [serving.Request(rid=rid, prompt=host[row, :plen], max_new=budget,
+                            arrival=t, policy=policy)
+            for rid, row, plen, budget, t, policy in draft_plan()]
+    edec = dec.replace(page_size=16, cache_backend="paged")
+    ecfg = serving.EngineConfig(num_slots=sum(DRAFT_GROUPS.values()),
+                                max_prompt_len=64, max_new_cap=MESH_DRAFT_NEW,
+                                **ekw)
+    engine = serving.ContinuousBatchingEngine(
+        params, cfg, edec, ecfg, mesh=mesh, policies=DRAFT_GROUPS,
+        bundles={"draft": bundle})
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mesh is None or mesh.index == 0:
+        done, _, _, _ = drive_engine(torch, serving, engine, reqs, label,
+                                     profile_step=None)
+        engine.release_followers()
+    else:
+        done = engine.follow()
+    torch.cuda.synchronize()
+    return {"records": sorted(engine_record(f) for f in done),
+            "launches": {n: _build.LAUNCHES[n] for n in ENGINE_KERNELS},
+            "wall": time.perf_counter() - t0,
+            "counters": {"iterations": engine.num_steps,
+                         "forwards": engine.num_forwards,
+                         "prefill_batches": engine.num_prefill_batches}}
+
+
+def locality_engine_run(torch, mesh=None, *, static=False) -> dict:
+    """Phase 13c's engine (the lattice fixture, a locality and an exact
+    group of 2 slots, each field's coarse prompt under each policy) on the
+    first MESH_LOC_FIELDS fields, on the card or over ``mesh``: rank 0 runs
+    the scheduler, the others replay its plans; with ``static`` then the
+    fields as one static batch.  A
+    rank whose block of the vocab projection holds no real lane (vocab 16
+    in the first of 64-lane blocks) launches no fused_heads: ``real``
+    records its real lanes."""
+    import numpy as np
+
+    from repro_torch import bridge, serving
+    from repro_torch.config import DecodeConfig
+    from repro_torch.data.synthetic import OrdinalField
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+
+    cfg = fixture_config(LOCALITY / "locality")
+    dev = "cuda" if mesh is None else mesh.device
+    params = bridge.load_checkpoint(str(LOCALITY / "locality" / "checkpoint"),
+                                    cfg, device=dev, mesh=mesh)
+    grids = np.load(LOCALITY / "grids.npy")
+    field = OrdinalField(levels=cfg.vocab_size, height=grids.shape[1],
+                         width=grids.shape[2], n_waves=2, stride=2,
+                         order="locality", bilinear=True)
+    stream = field.serialize(grids)[:MESH_LOC_FIELDS]
+    h, w = grids.shape[1:]
+    start, n = field.coarse_len, h * w
+    dec = DecodeConfig(max_new_tokens=n - start, block_k=cfg.bpd_k,
+                       image_height=h, image_width=w, locality_stride=2)
+    engine = serving.ContinuousBatchingEngine(
+        params, cfg, dec, serving.EngineConfig(num_slots=4,
+                                               max_prompt_len=start,
+                                               max_new_cap=n - start),
+        mesh=mesh, policies={"locality": 2, "exact": 2})
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if mesh is None or mesh.index == 0:
+        sched = serving.Scheduler(engine)
+        for r in range(len(stream)):
+            for j, policy in enumerate(("locality", "exact")):
+                sched.submit(serving.Request(rid=2 * r + j,
+                                             prompt=stream[r, :start],
+                                             max_new=n - start, policy=policy))
+        done = sched.run()
+        engine.release_followers()
+    else:
+        done = engine.follow()
+    torch.cuda.synchronize()
+    _, lo = M.vocab_lanes(params, cfg)
+    lanes = M.vocab_matrix(params, cfg).shape[1]
+    out = {"records": sorted(engine_record(f) for f in done),
+           "launches": {k: _build.LAUNCHES[k] for k in ENGINE_KERNELS},
+           "counters": {"iterations": engine.num_steps,
+                        "forwards": engine.num_forwards},
+           "wall": time.perf_counter() - t0,
+           "real": max(0, min(cfg.vocab_size - lo, lanes))}
+    if static:                     # the fields as one batch of prompts
+        toks, _ = serving.DecodeSession(params, cfg, dec.replace(
+            policy="locality"), mesh=mesh).decode(
+            {"tokens": torch.as_tensor(stream[:, :start], device=dev)})
+        out["static"] = toks[:, :n].cpu().tolist()
+    return out
+
+
+def phase23_rank(torch, side, pairs, m21, mesh22, pod, job) -> dict:
+    """Phase 23's share of a phase 22 rank: ranks 2, 3 (whose phase 22
+    share ends about 35 s sooner) run granite's draft engine unified and
+    the locality engine over their (1, 2) pair, then the locality engine
+    over (2, 1) with the fields as one static batch, while ranks 0, 1
+    finish phase 22; then, every rank's phase 22 memory freed, ranks 0, 1
+    run paper-mt-base fp32 (MESH_MT_PATHS) and bf16 exact and granite's
+    draft_model static (self and small draft) beside ranks 2, 3's llava;
+    then all four run paper-mt-base exact over (2, 2) and the draft engine
+    disaggregated over the pod mesh (2, 1, 2).  Only a mesh's rank 0
+    prints."""
+    import torch.distributed as dist
+
+    from repro_torch.config import DecodeConfig
+
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+
+    def run(key, fn):
+        t = time.perf_counter()
+        out[key] = fn()
+        parts[key] = round(time.perf_counter() - t, 1)
+
+    dec = DecodeConfig(max_new_tokens=job["max_new"], block_k=job["block_k"])
+    prompts = torch.as_tensor(job["prompts"], device=mesh22.device)
+    mesh = pairs[side]
+    if side == 1:
+        with quiet_unless_first(mesh):
+            params, cfg = mesh_weights(torch, mesh)
+            run("draft engine (1, 2)", lambda: draft_engine_run(
+                torch, params, cfg, dec, prompts, small_draft(torch, cfg),
+                "draft unified", mesh))
+            del params
+            run("locality (1, 2)", lambda: locality_engine_run(torch, mesh))
+        with quiet_unless_first(m21):
+            run("locality (2, 1)", lambda: locality_engine_run(
+                torch, m21, static=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # llava's 21 GiB a rank only once every rank's phase 22 work (side
+    # 0's bf16 granite at full depth) has freed its memory on the card
+    dist.barrier(group=mesh22.groups["world"])
+    with quiet_unless_first(mesh):
+        if side == 0:
+            run("mt (1, 2)", lambda: mt_mesh_runs(torch, mesh, job,
+                                                  MESH_MT_PATHS))
+            run("mt bf16 (1, 2)", lambda: mt_mesh_bf16(torch, mesh, job))
+            params, cfg = mesh_weights(torch, mesh)
+            batch = {"tokens": prompts}
+            for name, bundle in (("self", self_bundle(params, cfg)),
+                                 ("small", small_draft(torch, cfg))):
+                run(f"draft {name} (1, 2)", lambda: {"run": draft_static(
+                    torch, params, cfg, dec, batch, bundle, mesh)})
+            del params, bundle
+        else:
+            torch.cuda.reset_peak_memory_stats(mesh22.device)
+            run("llava (1, 2)", lambda: llava_mesh_runs(torch, mesh, job))
+    with quiet_unless_first(mesh22):
+        run("mt (2, 2)", lambda: mt_mesh_runs(torch, mesh22, job,
+                                              MESH_MT_22_PATHS))
+    with quiet_unless_first(pod):
+        params, cfg = mesh_weights(torch, pod)
+        run("draft engine (2, 1, 2)", lambda: draft_engine_run(
+            torch, params, cfg, dec, prompts, small_draft(torch, cfg),
+            "draft disaggregated", pod, prefill_slots=2))
+        del params
+    out["seconds"], out["parts"] = time.perf_counter() - t0, parts
+    return out
+
+
+def self_bundle(params, cfg):
+    """A self-draft's bundle: the primary's own tree and config."""
+    from repro_torch.core import ModelBundle
+
+    return ModelBundle(params, cfg)
 
 
 def repeats(toks, prompt_len: int, end: int) -> list:
@@ -6673,12 +7212,14 @@ def phase_mesh(torch, phase4, card):
            "block_k": block_k, "bf16": phase4["bf16"]["tokens"].numpy(),
            "engine_bf16": {"tokens": phase4["engine_bf16"]["tokens"]},
            "olmoe_bf16": ONE_DEVICE[("olmoe-1b-7b", "bf16 serve")][
-               "tokens"].numpy()}
+               "tokens"].numpy(),
+           "mt_src": ONE_DEVICE[("paper-mt-base", "src")].numpy(),
+           "llava_prompts": ONE_DEVICE[("llava-next-34b", "prompts")].numpy()}
 
     def ranks_run():
         try:
             spawned["ranks"] = spawn(phase22_rank, 2, 2, device="cuda",
-                                     timeout=700, args=(job,))
+                                     timeout=MESH_RANKS_S, args=(job,))
         except BaseException as exc:           # raised below, in this thread
             spawned["error"] = exc
 
@@ -6697,6 +7238,19 @@ def phase_mesh(torch, phase4, card):
                           for k, v in r.items()}
     engines = {label: engine_run(torch, params, cfg, dec, batch["tokens"],
                                  label) for label in MESH_ENGINE_RUNS}
+    # phase 23's one-device references, at the ranks' sizes
+    small = small_draft(torch, cfg)
+    refs23 = {
+        "draft self": draft_static(torch, params, cfg, dec, batch,
+                                   self_bundle(params, cfg)),
+        "draft small": draft_static(torch, params, cfg, dec, batch, small),
+        "draft engine": draft_engine_run(torch, params, cfg, dec,
+                                         batch["tokens"], small,
+                                         "draft one device"),
+        "mt": mt_mesh_runs(torch, None, job, MESH_MT_PATHS),
+        "mt bf16": mt_mesh_bf16(torch, None, job),
+        "locality": locality_engine_run(torch)}
+    del small
     # the families' one-device runs: phases 16-18's, and rwkv6-1.6b's here
     rwkv, rcfg = family_weights(torch, "rwkv6-1.6b")
     for label in MESH_FAMILY_PATHS["rwkv6-1.6b"]:
@@ -6710,7 +7264,7 @@ def phase_mesh(torch, phase4, card):
         f"and rwkv6-1.6b's at {FAMILY_FP32_LAYERS['rwkv6-1.6b']} of 24 in "
         f"{time.perf_counter() - t0:.1f}s, beside the ranks' start")
     http_s = http_demo(torch)
-    worker.join(timeout=730)
+    worker.join(timeout=MESH_RANKS_S + 30)
     check(not worker.is_alive(), "phase 22: the ranks outlived their limit")
     if "error" in spawned:
         raise spawned["error"]
@@ -6835,6 +7389,7 @@ def phase_mesh(torch, phase4, card):
         f"({[(d['rid'], d['at'], round(d['bpd_ulps'], 3)) for d in e['divergences']]}"
         f": request, new token, ulps below the top); {card}")
     equal += compare_mesh_families(torch, ranks, prompt_len, card)
+    equal += compare_inputs(torch, ranks, refs23, after, card)
     log(f"[mesh] fp32 sharded runs with every row equal to the single-device "
         f"port's: {equal}; the longest fp32 engine run on the ranks "
         f"{t_engine:.1f}s, the bf16 engine {e['wall']:.1f}s, the HTTP demo "
@@ -6842,19 +7397,184 @@ def phase_mesh(torch, phase4, card):
         f"{time.perf_counter() - t0:.1f}s")
 
 
-def lazy_logits_after(torch, M, arch):
-    """``causal_logits_after`` of ``arch``'s one-device fp32 weights
-    (``family_weights``), drawn on the first call: only a row that leaves
-    the one-device run reads them."""
+def lazy_after(make):
+    """``logits_after(row, prefix)`` whose model ``make()`` builds on the
+    first call: only a row that leaves the one-device run reads it."""
     held = {}
 
     def after(r, prefix):
         if "fn" not in held:
-            params, cfg = family_weights(torch, arch)
-            held["fn"] = causal_logits_after(torch, M, params, cfg)
+            held["fn"] = make()
         return held["fn"](r, prefix)
 
     return after
+
+
+def compare_decodes(torch, ranks, key, idx, labels, want_of, after,
+                    prompt_len, name) -> int:
+    """Phase 23's static runs ``key`` of ranks ``idx`` against one device's
+    (``want_of(label)``): tokens under the near-tie rule, and with every
+    row equal the counters and each rank's launches equal.  Returns the
+    runs with every row equal."""
+    equal = 0
+    for label in labels:
+        want = want_of(label)
+        same = True
+        for i in idx:
+            got = ranks[i]["inputs"][key][label]
+            ok = compare_mesh_run(torch, after, got, want,
+                                  f"{name} {key} rank {i} {label}",
+                                  prompt_len)
+            if ok:
+                check(nonzero(got["launches"]) == nonzero(want["launches"]),
+                      f"23 {name} {key} rank {i} {label}: launches "
+                      f"{nonzero(got['launches'])} vs one device's "
+                      f"{nonzero(want['launches'])}")
+            same = same and ok
+            equal += ok
+        lead = ranks[idx[0]]["inputs"][key][label]
+        b = lead["generated"].shape[0]
+        log(f"[inputs] {name} {key} {label}: "
+            f"{'tokens, counters and launches equal to' if same else 'near-tie divergences from'}"
+            f" one device's on ranks {list(idx)}; k̂="
+            f"{float(lead['generated'].sum()) / lead['iterations'] / b:.4f}, "
+            f"iterations {lead['iterations']} (one device "
+            f"{want['iterations']}), launches a rank "
+            f"{nonzero(lead['launches'])}; {lead['wall']:.2f}s (one device "
+            f"{want['wall']:.2f}s)")
+    return equal
+
+
+def compare_engine_records(ranks, key, idx, want, label, *, launches=True):
+    """Phase 23's engine runs against one device's: records (tokens,
+    generated, invocations, policy), iterations and forwards equal on
+    every rank, and each rank's launches where ``launches``."""
+    for i in idx:
+        got = ranks[i]["inputs"][key]
+        check(got["records"] == want["records"],
+              f"23 {label} rank {i}: records differ from one device's")
+        for k in ("iterations", "forwards"):
+            check(got["counters"][k] == want["counters"][k],
+                  f"23 {label} rank {i}: {k} {got['counters'][k]} vs "
+                  f"{want['counters'][k]}")
+        if launches:
+            want_l = dict(want["launches"])
+            if got.get("real") == 0:      # a block of pad lanes alone
+                want_l["fused_heads"] = 0
+            check(got["launches"] == want_l,
+                  f"23 {label} rank {i}: launches {got['launches']} vs "
+                  f"{want_l}")
+    lead = ranks[idx[0]]["inputs"][key]
+    pads = [i for i in idx if ranks[i]["inputs"][key].get("real") == 0]
+    log(f"[inputs] {label}: {len(want['records'])} records and counters "
+        f"equal to one device's on ranks {list(idx)} (iterations "
+        f"{lead['counters']['iterations']}, forwards "
+        f"{lead['counters']['forwards']}); launches a rank "
+        f"{[nonzero(ranks[i]['inputs'][key]['launches']) for i in idx]}"
+        f"{' (equal' if launches else ''}"
+        f"{f'; no fused_heads on ranks {pads}, whose vocab block holds pad lanes only' if launches and pads else ''}"
+        f"{')' if launches else ''} beside one device's "
+        f"{nonzero(want['launches'])}; {lead['wall']:.2f}s")
+
+
+def compare_inputs(torch, ranks, one, after_granite, card) -> int:
+    """Phase 23 against the one-device runs ``one`` (computed beside the
+    ranks' start): paper-mt-base over (1, 2) and (2, 2), granite's
+    draft_model static and its engine (unified over (1, 2), disaggregated
+    over (2, 1, 2)), the locality engine over (1, 2) and (2, 1); llava over
+    (1, 2) against 19a's, the locality fields as one static batch over (2,
+    1) against 13a's rows; paper-mt-base bf16 over (1, 2) beside one
+    device's.  Returns the sharded fp32 runs with every row equal."""
+    from repro_torch import bridge
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import seq2seq as S
+
+    equal = 0
+    mcfg = get_config("paper-mt-base").replace(dtype="float32")
+    src = ONE_DEVICE[(mcfg.name, "src")].cuda()
+    after = lazy_after(lambda: mt_logits_after(
+        torch, S, M.init(mcfg, seed=0, device="cuda"), mcfg, src))
+    for key, idx, paths in (("mt (1, 2)", (0, 1), MESH_MT_PATHS),
+                            ("mt (2, 2)", (0, 1, 2, 3), MESH_MT_22_PATHS)):
+        equal += compare_decodes(torch, ranks, key, idx, paths,
+                                 lambda label: one["mt"][label],
+                                 after, 0, "paper-mt-base")
+    b, w = ranks[0]["inputs"]["mt bf16 (1, 2)"], one["mt bf16"]
+    same = sum(bool(torch.equal(torch.as_tensor(b["tokens"])[r],
+                                w["tokens"][r])) for r in range(8))
+    log(f"[inputs] bf16 paper-mt-base exact over (1, 2), {MESH_MT_NEW} new "
+        f"tokens: {int(b['generated'].sum()) / b['wall']:.1f} tokens/s beside "
+        f"one device's {int(w['generated'].sum()) / w['wall']:.1f}; "
+        f"k̂={b['khat']:.4f} in {b['iterations']} iterations (one device "
+        f"{w['khat']:.4f} in {w['iterations']}); "
+        f"{b['collectives'] / b['iterations']:.1f} collectives an iteration "
+        f"on rank 0; {same}/8 rows equal to one device's (recorded, not "
+        f"gated); {card}")
+
+    lcfg = get_config("llava-next-34b").replace(num_layers=LLAVA_FP32_LAYERS,
+                                                dtype="float32")
+    lbatch = llava_batch(torch, lcfg, ONE_DEVICE[(lcfg.name, "prompts")]
+                         .cuda())
+    after = lazy_after(lambda: causal_logits_after(
+        torch, M, M.init(lcfg, seed=0, device="cuda"), lcfg, lbatch))
+    equal += compare_decodes(torch, ranks, "llava (1, 2)", (2, 3),
+                             MESH_LLAVA_PATHS,
+                             lambda label: ONE_DEVICE[(lcfg.name, label)],
+                             after, 64, "llava-next-34b")
+    log(f"[inputs] llava (1, 2) peak a rank "
+        f"{[round(ranks[i]['inputs']['llava (1, 2)']['peak'] / 2 ** 30, 2) for i in (2, 3)]}"
+        f" GiB (28 / 4 heads, half the vocab a rank)")
+
+    for name in ("self", "small"):
+        key = f"draft {name} (1, 2)"
+        equal += compare_decodes(torch, ranks, key, (0, 1), ("run",),
+                                 lambda _: one[f"draft {name}"],
+                                 after_granite, 64, "granite draft_model")
+        for i in (0, 1):
+            r = ranks[i]["inputs"][key]["run"]
+            check(r["self_draft"] == (name == "self"),
+                  f"23 {key} rank {i}: the self-draft's bundle is not the "
+                  f"primary's sharded tree")
+            check(2 * r["draft_kv_heads"] == r["draft_kv_whole"],
+                  f"23 {key} rank {i}: the draft's cache at "
+                  f"{r['draft_kv_heads']} of its {r['draft_kv_whole']} KV "
+                  f"heads at model 2")
+    compare_engine_records(ranks, "draft engine (1, 2)", (2, 3),
+                           one["draft engine"],
+                           "draft_model + exact engine, unified (1, 2)")
+    compare_engine_records(ranks, "draft engine (2, 1, 2)", (0, 1, 2, 3),
+                           one["draft engine"],
+                           "draft_model + exact engine, disaggregated "
+                           "(2, 1, 2)", launches=False)
+
+    want = one["locality"]
+    for key, idx in (("locality (1, 2)", (2, 3)), ("locality (2, 1)", (2, 3))):
+        compare_engine_records(ranks, key, idx, want,
+                               f"locality + exact engine {key[9:]}")
+    fcfg = fixture_config(LOCALITY / "locality")
+    fparams = bridge.load_checkpoint(str(LOCALITY / "locality" / "checkpoint"),
+                                     fcfg, device="cuda")
+    rows = ranks[2]["inputs"]["locality (2, 1)"]["static"]
+    n = match_reference(torch, causal_logits_after(torch, M, fparams, fcfg),
+                        rows, ONE_DEVICE[("locality", "rows")][:len(rows)],
+                        "locality static batch over (2, 1)")
+    log(f"[inputs] locality: {len(rows)} fields as one static batch over "
+        f"(2, 1): {n}/{len(rows)} rows equal to 13a's row-alone decodes "
+        f"(others at reported near-ties)")
+    secs = [round(r["inputs"]["seconds"], 1) for r in ranks]
+    log(f"[inputs] phase 23 on the ranks {secs}s (from each one's end of "
+        f"phase 22); seconds by part on ranks 0 and 2: "
+        f"{ranks[0]['inputs']['parts']}, "
+        f"{ranks[2]['inputs']['parts']}")
+    return equal
+
+
+def lazy_logits_after(torch, M, arch):
+    """``causal_logits_after`` of ``arch``'s one-device fp32 weights
+    (``family_weights``), drawn on the first call."""
+    return lazy_after(lambda: causal_logits_after(
+        torch, M, *family_weights(torch, arch)))
 
 
 def compare_mesh_families(torch, ranks, prompt_len, card) -> int:
@@ -7007,6 +7727,7 @@ def main() -> int:
     check_rwkv6_scan(torch, gen, results)
     check_mt_heads_verify(torch, gen)
     check_mesh_shapes(torch, gen, results)
+    check_input_shapes(torch, gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         extra = f"; {r['extra']}" if "extra" in r else ""

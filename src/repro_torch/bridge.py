@@ -8,7 +8,9 @@ check every key and shape against ``cfg``.  With ``mesh`` each rank keeps its
 blocks of the reference's whole leaves (``sharding.shard_params``): the
 ``PARAM_RULES`` cuts, Mamba's ``in_proj`` cut in each of its u and z
 halves (``sharding.policy.SPLIT_LEAVES``), experts, wkv heads and Mamba
-channels over ``model``.
+channels over ``model``; an encoder-decoder's both stacks, its cross
+attention and ``src_embed`` too, and a draft bundle's tree by the same
+rules.
 """
 from __future__ import annotations
 

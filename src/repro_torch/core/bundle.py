@@ -8,7 +8,11 @@ plus auxiliary bundles by name: their parameters go on the session's
 device and reach the decode functions as ``aux`` ({name: params}), and the
 static half (cfg, kv_chunk, backend factory) is bound into the policy
 before any decode (``DecodePolicy.bind``), so an incompatible bundle fails
-at construction.
+at construction.  On a mesh the session swaps each bundle for one whose
+parameters are this rank's sharded ``ParamTree`` (``sharding.
+shard_bundles``: the primary's path rules; a self-draft's is the primary's
+own tree), and the drafter bound to it keeps its cache at the draft's local
+KV heads.
 """
 from __future__ import annotations
 

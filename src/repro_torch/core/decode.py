@@ -32,11 +32,12 @@ kernels: their (k, L) scores need no bound.  A tree-drafting policy with
 ``core.bundle.ModelBundle``s, e.g. the ``draft_model`` policy's draft) are
 bound into the policy there, and their parameters reach the loop as
 ``aux_params``, which the drafter reads from ``DraftInputs.aux``.
-``mesh=`` (``bpd_decode``, ``greedy_decode``) shards the decode over a
-("data", "model") process mesh there: on sharded parameters the loop's
-host read becomes the world-wide "all finished" flag
-(``sharding.comm.all_finished``), so every rank runs the single-device
-iteration count and no rank leaves its peers waiting in a collective.
+``mesh=`` (every entry point) shards the decode over a ("data", "model")
+process mesh there: on sharded parameters the loop's host read becomes the
+world-wide "all finished" flag (``sharding.comm.all_finished``), so every
+rank runs the single-device iteration count and no rank leaves its peers
+waiting in a collective.  Caches, the seq2seq decoder's and a draft
+model's included, hold a rank's KV heads (``model.cache_config``).
 """
 from __future__ import annotations
 
@@ -520,7 +521,8 @@ def bpd_prefill_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
     dev = src.device
     enc_kvs = seq2seq_lib.encode(params, cfg, src)
     be = seq2seq_backend(cfg, enc_kvs, block_k)
-    caches = seq2seq_lib.init_caches(cfg, b, 1 + max_new, block_k, device=dev)
+    caches = seq2seq_lib.init_caches(model_lib.cache_config(params, cfg), b,
+                                     1 + max_new, block_k, device=dev)
     bos = torch.zeros((b, 1), dtype=I32, device=dev)
     hidden, caches = seq2seq_lib.forward_hidden(params, cfg, bos, enc_kvs,
                                                 caches=caches)
@@ -556,7 +558,7 @@ def _bpd_decode_seq2seq_impl(params, cfg: ModelConfig, dec: DecodeConfig,
     max_new = dec.max_new_tokens
     state, be = bpd_prefill_seq2seq(params, cfg, dec, batch, policy=pol,
                                     aux_params=aux_params)
-    while not bool(state.finished.all()) and state.iters < max_new:
+    while not _all_finished(params, state.finished) and state.iters < max_new:
         state = bpd_iteration(params, cfg, dec, be, state, prefix_offset=0,
                               max_new=max_new, policy=pol,
                               aux_params=aux_params)
@@ -564,22 +566,34 @@ def _bpd_decode_seq2seq_impl(params, cfg: ModelConfig, dec: DecodeConfig,
 
 
 def bpd_decode_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
-                       batch: Dict, *, policy=None, bundles=None,
+                       batch: Dict, *, policy=None, bundles=None, mesh=None,
                        session=None) -> Tuple[torch.Tensor, Dict]:
     """batch: {"src": (B, Se) int32}.  The decoder stream is BOS + output;
     returns (tokens (B, max_new + block_k) without BOS, stats).  Source
     drafters (``input_copy``) draw their state from ``batch["src"]``; the
     ``draft_model`` policy's causal draft LM (``bundles``, as in
-    ``bpd_decode``) runs over the output stream."""
-    sess = _session_for(params, cfg, dec, session=session, policy=policy,
-                        bundles=bundles)
+    ``bpd_decode``) runs over the output stream.  ``mesh`` shards the decode as ``bpd_decode``'s does: the source rows
+    over the batch axes, both stacks' heads over ``model``."""
+    sess = _session_for(params, cfg, dec, mesh=mesh, session=session,
+                        policy=policy, bundles=bundles)
     return sess.decode_seq2seq(batch)
 
 
 def greedy_decode_seq2seq(params, cfg: ModelConfig, dec: DecodeConfig,
-                          batch: Dict) -> Tuple[torch.Tensor, Dict]:
-    """The greedy baseline through the BPD machinery at block size 1."""
-    return bpd_decode_seq2seq(params, cfg, dec.replace(block_k=1), batch)
+                          batch: Dict, *, mesh=None,
+                          session=None) -> Tuple[torch.Tensor, Dict]:
+    """The greedy baseline through the BPD machinery at block size 1;
+    ``session`` (built with ``block_k=1``) or ``mesh`` as in
+    ``bpd_decode_seq2seq``."""
+    if session is not None:
+        if (session.dec.block_k or session.cfg.bpd_k) != 1:
+            raise ValueError(
+                f"greedy_decode_seq2seq needs a session built with "
+                f"block_k=1, got block_k="
+                f"{session.dec.block_k or session.cfg.bpd_k}")
+        return session.decode_seq2seq(batch)
+    return bpd_decode_seq2seq(params, cfg, dec.replace(block_k=1), batch,
+                              mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

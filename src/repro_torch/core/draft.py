@@ -105,8 +105,19 @@ class DraftModelDrafter(policy_lib.Drafter):
                 f"draft model vocab_size={d.vocab_size} != primary model "
                 f"vocab_size={cfg.vocab_size}: proposals are token ids in "
                 f"the primary vocabulary")
-        return dataclasses.replace(self, cfg=d, kv_chunk=b.kv_chunk,
-                                   backend_factory=b.backend_factory)
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(DraftModelDrafter)}
+        fields.update(cfg=d, kv_chunk=b.kv_chunk,
+                      backend_factory=b.backend_factory)
+        rank_cfg = model_lib.cache_config(b.params, d)
+        if rank_cfg is d:
+            return DraftModelDrafter(**fields)
+        return ShardedDraftModelDrafter(rank_cfg=rank_cfg, **fields)
+
+    @property
+    def cache_cfg(self) -> Optional[ModelConfig]:
+        """The config the draft's caches are laid out under: ``cfg``."""
+        return self.cfg
 
     def _require_bound(self):
         if self.cfg is None:
@@ -126,8 +137,9 @@ class DraftModelDrafter(policy_lib.Drafter):
 
     def init_state(self, cfg, dec, batch, b, aux=()) -> Any:
         """The draft's dense KV cache for ``b`` rows at ``prompt_len +
-        max_new + block_k`` positions, prefilled on ``batch["tokens"]``
-        when ``aux`` holds the draft's parameters.  Its geometry never
+        max_new + block_k`` positions (a rank's KV heads of the draft when
+        its bundle is sharded), prefilled on ``batch["tokens"]`` when
+        ``aux`` holds the draft's parameters.  Its geometry never
         depends on ``aux``, so the engine's paramless init and evict states
         match its admission prefill's.  Without ``tokens`` (seq2seq) the
         draft stream starts at BOS, position 0, with nothing to prefill."""
@@ -137,7 +149,8 @@ class DraftModelDrafter(policy_lib.Drafter):
         dev = next(iter(batch.values())).device if batch else None
         prompt_len = 1 if tokens is None else tokens.shape[1]
         context = prompt_len + dec.max_new_tokens + block_k
-        caches = model_lib.init_caches(self.cfg, b, context, 1, device=dev)
+        caches = model_lib.init_caches(self.cache_cfg, b, context, 1,
+                                       device=dev)
         params = aux.get(self.bundle) if aux else None
         if params is not None and tokens is not None:
             h = embed_apply(params["embed"], tokens.to(I32))
@@ -206,6 +219,23 @@ class DraftModelDrafter(policy_lib.Drafter):
         if self.carry_over and block_k > 1:
             return block_k - 1
         return block_k
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedDraftModelDrafter(DraftModelDrafter):
+    """A ``DraftModelDrafter`` bound to a bundle sharded over a mesh
+    (``sharding.shard_bundles``): its forwards run on the rank's blocks of
+    the draft, and its caches hold the draft's KV heads of this rank,
+    ``rank_cfg`` (``model.cache_config``).  A subclass rather than a field
+    of ``DraftModelDrafter``, so that the registry's unbound drafter keeps
+    the reference's fields exactly (``tests/test_torch_policy.py`` compares
+    every field of each registered policy with the reference's)."""
+
+    rank_cfg: Optional[ModelConfig] = None
+
+    @property
+    def cache_cfg(self) -> Optional[ModelConfig]:
+        return self.rank_cfg
 
 
 policy_lib.register_policy("draft_model", lambda dec: policy_lib.DecodePolicy(

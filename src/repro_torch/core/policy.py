@@ -517,30 +517,21 @@ class DecodePolicy:
             drafter=self.drafter.init_state(cfg, dec, batch, b, aux=aux),
             schedule=self.schedule.init_state(b, device))
 
-    def bind(self, bundles: Dict, cfg, *, mesh=None) -> "DecodePolicy":
+    def bind(self, bundles: Dict, cfg) -> "DecodePolicy":
         """Attach the session's auxiliary ``ModelBundle``s (their static
         half) to the drafter: a no-op for single-model policies, while a
         model-backed drafter checks and absorbs its bundle here, so a
-        missing or incompatible draft model fails before any decode.  Under
-        a ``mesh`` only the policies the sharded path runs bind: the heads
-        drafter or the top-k tree under any ported acceptor with a static
-        or adaptive schedule (the tree on the paged cache through the
-        pool's dense view, as on one device)."""
-        if mesh is not None:
-            self._check_mesh()
+        missing or incompatible draft model fails before any decode.  On a
+        mesh every policy binds as on one device: a drafter reads the
+        model through ``DraftInputs`` (whole logits, whole hidden states,
+        ids merged over the vocab shards) and keeps its per-row state
+        batch-leading, so it sees a rank's rows as one device sees its
+        batch; a draft model's bundle arrives sharded
+        (``sharding.shard_bundles``)."""
         drafter = self.drafter.bind(bundles or {}, cfg)
         if drafter is self.drafter:
             return self
         return dataclasses.replace(self, drafter=drafter)
-
-    def _check_mesh(self) -> None:
-        heads = type(self.drafter) in (HeadsDrafter, TopKTreeDrafter)
-        if not (heads and type(self.schedule) in (StaticSchedule,
-                                                  AdaptiveSchedule)):
-            raise NotImplementedError(
-                f"policy {self.name!r} under a mesh is not ported yet "
-                f"(ROADMAP.md §1 item 8c(ii)): a sharded decode runs exact, "
-                f"topk, distance, adaptive and topk_tree")
 
     @property
     def cache_key(self):

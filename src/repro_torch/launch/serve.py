@@ -58,10 +58,14 @@ no KV layout, so ``--cache-backend paged`` leaves them as they are, and
 paged`` (the windowed layers keep their dense rings, the Mamba states stay
 as they are); ``topk_tree`` raises as for rwkv6, and so does
 ``--policy draft_model``: the meta tokens put the primary's positions ahead
-of a draft's.  An encoder-decoder ``--arch`` (paper-mt-base) is
-refused, as the reference's serve has no seq2seq path: its entry point is
-``repro_torch.core.decode.bpd_decode_seq2seq``.  An encoder-only ``--arch``
-(hubert-xlarge) exits with the reference's words: it has no decode path.
+of a draft's.  The encoder-decoder ``--arch paper-mt-base`` serves its
+static batch as sources: ``--batch`` MarkovLM sequences of ``--prompt-len``
+tokens are encoded and decoded (``DecodeSession.decode_seq2seq``, the
+reference's session entry point; the reference's launcher has no seq2seq
+path), each row printing its ``generated`` output tokens; ``input_copy``
+drafts from the source there, and ``--engine`` / ``--http`` raise (the
+engine is decoder-only).  An encoder-only ``--arch`` (hubert-xlarge) exits
+with the reference's words: it has no decode path.
 
 ``--engine`` schedules 2 × ``--batch`` mixed-length requests through
 ``--batch`` slots of ``repro_torch.serving.ContinuousBatchingEngine`` with
@@ -90,22 +94,26 @@ data), rank 0 runs the scheduler (and the HTTP server) and the other ranks
 replay its plans (``ContinuousBatchingEngine.follow``); ``--prefill-slots
 W`` on a pod mesh prefills each pod's rows of a batch and hands them to
 every rank over ``pod``.  Ranks sharing one card use gloo, ranks with a
-card each NCCL (printed).  The mesh runs the decoder-only text families
-under exact, topk, distance, adaptive and topk_tree: the dense trunk
-(granite-3-8b, stablelm-12b, starcoder2-7b, nemotron-4-15b) and the MoE
-models (olmoe-1b-7b, qwen2-moe-a2.7b: experts over ``model``) static and
-through ``--engine`` / ``--http``; rwkv6-1.6b (wkv heads over ``model``)
-and hymba-1.5b (Mamba channels over ``model``, attention replicated)
-static only, as on one device, where the engine refuses them too:
+card each NCCL (printed).  The mesh serves what one device serves, under
+every policy (a ``draft_model`` draft is cut by the primary's rules on
+each rank): the dense trunk (granite-3-8b, stablelm-12b, starcoder2-7b,
+nemotron-4-15b) and the MoE models (olmoe-1b-7b, qwen2-moe-a2.7b: experts
+over ``model``) static and through ``--engine`` / ``--http``; rwkv6-1.6b
+(wkv heads over ``model``), hymba-1.5b (Mamba channels over ``model``,
+attention replicated), llava-next-34b (a rank's rows of the patch prefix)
+and paper-mt-base (a rank's rows of the sources, both stacks' heads over
+``model``) static only, as on one device, where the engine refuses them
+too:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --device cpu --mesh-model 2 [--engine]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --device cpu --mesh-data 2 --mesh-model 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-mt-base \
+        --device cpu --policy input_copy --mesh-model 2
 
-llava-next-34b, the encoder-decoder and ``draft_model`` / ``input_copy``
-/ ``locality`` under a mesh raise before any rank starts (ROADMAP.md §1
-item 8c(ii)).
+A head split that straddles KV heads raises before any rank starts
+(ROADMAP.md §1 item 8c(iii)).
 """
 from __future__ import annotations
 
@@ -303,11 +311,6 @@ def main(argv: Optional[Sequence[str]] = None, params=None) -> Dict:
 def _configs(args):
     """The served (ModelConfig, DecodeConfig) of ``args``."""
     cfg = get_config(args.arch, smoke=not args.full_config)
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name} is an encoder-decoder: this launcher serves "
-            f"decoder-only prompts, as the reference's does; decode a source "
-            f"with repro_torch.core.decode.bpd_decode_seq2seq")
     if cfg.is_encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only — no decode path")
     if not args.full_config:
@@ -346,19 +349,22 @@ def serve_static(sess, args, task, dev) -> Dict:
     cfg, dec = sess.cfg, sess.dec
     prompts = task.sample(np.random.default_rng(args.seed + 1), args.batch,
                           args.prompt_len)
-    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    seq2seq = cfg.is_encoder_decoder       # the prompts are the sources
+    batch = {"src" if seq2seq else "tokens": torch.as_tensor(prompts,
+                                                             device=dev)}
     if cfg.modality == "vision_text":
         batch["patch_embeds"] = torch.zeros((args.batch, 4, cfg.d_model),
                                             dtype=torch.float32, device=dev)
+    decode = sess.decode_seq2seq if seq2seq else sess.decode
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    sess.decode(batch)                                          # warm-up
+    decode(batch)                                               # warm-up
     sync()
     t0 = time.perf_counter()
-    toks, stats = sess.decode(batch)
+    toks, stats = decode(batch)
     sync()
     dt = time.perf_counter() - t0
 
@@ -374,11 +380,12 @@ def serve_static(sess, args, task, dev) -> Dict:
               f"{stats['mean_accepted']:.2f}  invocations = "
               f"{stats['invocations']} (greedy would need {args.max_new + 1})"
               f"  wall = {dt * 1e3:.0f}ms  {generated / dt:.1f} tokens/s")
-        text_len = stats["text_len"].tolist()
+        # a row's output: past its prompt, or (seq2seq, no BOS) from 0
+        start = 0 if seq2seq else args.prompt_len
+        ends = (stats["generated"] if seq2seq else stats["text_len"]).tolist()
         rows = toks.tolist()
         for r in range(args.batch):
-            print(f"    row {r}: {rows[r][args.prompt_len:text_len[r]]}",
-                  flush=True)
+            print(f"    row {r}: {rows[r][start:ends[r]]}", flush=True)
     return {"tokens": toks, "stats": stats, "wall_s": dt, "batch": batch,
             "cfg": cfg, "dec": dec, "params": sess.params, "session": sess}
 
@@ -395,8 +402,10 @@ def serve_mesh(argv: Sequence[str], args, pod: int, data: int,
     if args.engine or args.http:
         check_engine_supported(cfg)
     groups = parse_policy_groups(args.policies)
-    for name in groups or [None]:        # draft_model among the refused
-        resolve_policy(dec, name).bind({}, cfg, mesh=layout)
+    for name in groups or [None]:
+        resolve_policy(dec, name)
+    if args.policy == "draft_model" or "draft_model" in (groups or {}):
+        M.check_mesh_supported(draft_config(args), layout)
     if args.engine or args.http:
         ecfg = _engine_config(args)
         for n in (groups or {"": args.batch}).values():
@@ -427,17 +436,20 @@ def _serve_rank(mesh, argv: Sequence[str]) -> Dict:
     cfg, dec = _configs(args)
     params = M.cast_for_compute(_params(cfg, args, mesh.device, mesh), cfg)
     groups = parse_policy_groups(args.policies)
+    bundles = draft_bundle(cfg, args, groups, mesh=mesh)
     where = {"device": str(mesh.device), "backend": mesh.backend}
     if args.http:
-        out = serve_http(params, cfg, dec, args, groups, mesh=mesh)
+        out = serve_http(params, cfg, dec, args, groups, bundles, mesh=mesh)
         return dict(where, demo=out.get("demo"), finished=out["finished"])
     if args.engine:
         task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
                         seed=args.seed)
-        out = serve_engine(params, cfg, dec, args, task, groups, mesh=mesh)
+        out = serve_engine(params, cfg, dec, args, task, groups, bundles,
+                           mesh=mesh)
         return dict(where, finished=out["finished"], stats=out["stats"],
                     plans=out["engine"].num_plans)
-    sess = DecodeSession(params, cfg, dec, mesh=mesh, kv_chunk=args.kv_chunk)
+    sess = DecodeSession(params, cfg, dec, mesh=mesh, kv_chunk=args.kv_chunk,
+                         bundles=bundles)
     task = MarkovLM(vocab=min(cfg.vocab_size, 256), temperature=0.2,
                     seed=args.seed)
     out = serve_static(sess, args, task, mesh.device)
@@ -445,24 +457,32 @@ def _serve_rank(mesh, argv: Sequence[str]) -> Dict:
                 wall_s=out["wall_s"])
 
 
-def draft_bundle(cfg, args, groups=None):
+def draft_config(args):
+    """The draft's config: the smoke config of ``--draft-arch`` (default
+    ``--arch``) in fp32 without heads."""
+    return get_config(args.draft_arch or args.arch, smoke=True).replace(
+        dtype="float32", bpd_enabled=False)
+
+
+def draft_bundle(cfg, args, groups=None, mesh=None):
     """The ``draft`` bundle when a served policy is ``draft_model`` (None
-    otherwise): the smoke config of ``--draft-arch`` (default ``--arch``)
-    in fp32 without heads, restored from ``--draft-ckpt`` or random from
-    ``--seed`` + 7, on ``--device``."""
+    otherwise): ``draft_config``'s weights restored from ``--draft-ckpt`` or
+    random from ``--seed`` + 7, on ``--device``, or on a mesh rank this
+    rank's blocks of them (the session cuts a restored draft)."""
     if args.policy != "draft_model" and "draft_model" not in (groups or {}):
         return None
-    dcfg = get_config(args.draft_arch or args.arch, smoke=True).replace(
-        dtype="float32", bpd_enabled=False)
-    dev = resolve_device(args.device)
+    dcfg = draft_config(args)
+    dev = resolve_device(args.device if mesh is None else mesh.device)
+    say = mesh is None or mesh.index == 0
     if args.draft_ckpt:
         dparams = bridge.load_checkpoint(args.draft_ckpt, dcfg, device=dev)
-        print(f"[serve] draft model: {dcfg.name} restored from "
-              f"{args.draft_ckpt}")
+        what = f"restored from {args.draft_ckpt}"
     else:
-        dparams = M.init(dcfg, seed=args.seed + 7, device=dev)
-        print(f"[serve] draft model: {dcfg.name} (random weights: lossless, "
-              f"but expect k̂ ≈ 1; pass --draft-ckpt for a real draft)")
+        dparams = M.init(dcfg, seed=args.seed + 7, device=dev, mesh=mesh)
+        what = ("(random weights: lossless, but expect k̂ ≈ 1; pass "
+                "--draft-ckpt for a real draft)")
+    if say:
+        print(f"[serve] draft model: {dcfg.name} {what}")
     return {"draft": ModelBundle(dparams, dcfg)}
 
 

@@ -24,7 +24,8 @@ Entry points, as in ``repro.models.attention``:
                       encoder-decoder's cross attention (the paper's MT
                       setting): the encoder's K/V once per source, then
                       the plain path for whole sequences and
-                      ``verify_attention`` for a cached block.
+                      ``verify_attention`` for a cached block; on a
+                      sharded tree at a rank's heads, as self attention.
 
 Masking is computed from absolute positions, so the BPD rollback ("length
 decreases by up to k-1") moves no data.  Caches are written in place (the
@@ -71,14 +72,22 @@ def attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32,
     return p
 
 
+def _kv_weights(p, cfg: ModelConfig):
+    """``wk`` / ``wv`` as this rank reads them: its block when they are cut
+    over ``model``, whole where attention is replicated, and where only the
+    query heads are cut, the one KV head the rank's query heads share
+    (``sharding.local_kv_heads``)."""
+    wk, wv = p["wk"], p["wv"]
+    if comm.cut(p, "wq") is not None and comm.cut(p, "wk") is None:
+        kv0 = p.mesh.coords["model"] * p["wq"].shape[1] // cfg.num_kv_groups
+        wk, wv = wk[:, kv0:kv0 + 1], wv[:, kv0:kv0 + 1]
+    return wk, wv
+
+
 def _project_qkv(p, cfg: ModelConfig, x, positions, *, rope: bool = True):
     """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd); RoPE applied unless
     ``rope`` is False (the encoder)."""
-    wk, wv = p["wk"], p["wv"]
-    if comm.cut(p, "wq") is not None and comm.cut(p, "wk") is None:
-        # the KV head this rank's query heads share (sharding.local_kv_heads)
-        kv0 = p.mesh.coords["model"] * p["wq"].shape[1] // cfg.num_kv_groups
-        wk, wv = wk[:, kv0:kv0 + 1], wv[:, kv0:kv0 + 1]
+    wk, wv = _kv_weights(p, cfg)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, wk.to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, wv.to(x.dtype))
@@ -476,9 +485,12 @@ def cross_attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32,
 
 def cross_kv(p, cfg: ModelConfig, enc_out, kv_pos) -> CrossKV:
     """The encoder's K/V for one decoder layer, once per source (no RoPE
-    across modalities; ``k_norm`` where the config has it)."""
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(enc_out.dtype))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(enc_out.dtype))
+    across modalities; ``k_norm`` where the config has it).  On a sharded
+    ``ParamTree``, the KV heads this rank's query heads read
+    (``_kv_weights``)."""
+    wk, wv = _kv_weights(p, cfg)
+    k = torch.einsum("bsd,dhk->bshk", enc_out, wk.to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, wv.to(enc_out.dtype))
     if "k_norm" in p:
         k = norm_apply(p["k_norm"], k)
     return CrossKV(k.contiguous(), v.contiguous(), kv_pos)

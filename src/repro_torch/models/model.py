@@ -113,7 +113,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     if cfg.is_encoder_decoder:
         from repro_torch.models import seq2seq   # seq2seq imports this module
 
-        return seq2seq.init(cfg, seed=seed, device=device)
+        return seq2seq.init(cfg, seed=seed, device=device, mesh=mesh)
     check_supported(cfg)
     dev = resolve_device(mesh.device if device is None and mesh is not None
                          else device)
@@ -150,28 +150,21 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     return ParamTree(p, mesh=mesh, sharded=sharded)
 
 
-MESH_BLOCKS = (("attn", "dense"), ("attn", "moe"),
-               ("rwkv6", "rwkv_channel_mix"), ("hymba", "dense"))
-
-
 def check_mesh_supported(cfg: ModelConfig, mesh) -> None:
-    """The sharded decode path runs the decoder-only text families: the
-    dense trunk and the MoE blocks (attention whose query heads split into
-    whole KV heads or whole groups of a KV head, ``sharding.
-    local_kv_heads``; experts over ``model``), RWKV-6 (wkv heads over
-    ``model``) and Hymba (Mamba channels over ``model``, attention
-    replicated where its heads do not divide the axis).  Anything else
-    raises before any work."""
-    if not ((cfg.block_type, cfg.mlp_type) in MESH_BLOCKS
-            and cfg.modality == "text" and not cfg.is_encoder_decoder
-            and not cfg.is_encoder_only):
+    """The sharded decode path runs every config the single-device port
+    decodes: the dense trunk and the MoE blocks (attention whose query
+    heads split into whole KV heads or whole groups of a KV head,
+    ``sharding.local_kv_heads``; experts over ``model``), RWKV-6 (wkv heads
+    over ``model``), Hymba (Mamba channels over ``model``, attention
+    replicated where its heads do not divide the axis), llava's backbone
+    behind its patch prefix and the encoder-decoder (both stacks' heads
+    over ``model``).  The encoder-only stack, whose one path is training,
+    raises before any work: sharded training is ROADMAP.md §1 item 8d."""
+    check_supported(cfg)
+    if cfg.is_encoder_only:
         raise NotImplementedError(
-            f"{cfg.name} (block_type={cfg.block_type!r}, mlp_type="
-            f"{cfg.mlp_type!r}, modality={cfg.modality!r}, encoder-decoder="
-            f"{cfg.is_encoder_decoder}, encoder-only={cfg.is_encoder_only}) "
-            f"under a mesh is not ported yet (ROADMAP.md §1 item 8c(ii)): "
-            f"the sharded path runs the decoder-only text families "
-            f"(attention + dense or MoE MLP, RWKV-6, Hymba)")
+            f"{cfg.name} is encoder-only: its path is training, and sharded "
+            f"training is not ported yet (ROADMAP.md §1 item 8d)")
     m = mesh.shape["model"]
     local_kv_heads(cfg, m)
     local_channels(cfg, m)

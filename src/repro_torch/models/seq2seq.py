@@ -9,6 +9,14 @@ decoder layer's cross K/V once per source; they travel with the source's
 prefill, teacher forcing) run on the plain path; a cached block's self and
 cross attention run on ``verify_attention`` (or ``tree_verify_attention``
 for a tree's self attention).
+
+On a ``model``-sharded ``ParamTree`` (``init(mesh=)``, ``sharding.
+shard_params``) both stacks run as the decoder-only trunk does: each rank
+computes its own heads of self and cross attention and its block of the
+MLP, the row-parallel partials summed over ``model``; ``encode`` gives each
+rank the cross K/V of its own KV heads, and the source embedding is
+vocab-parallel like the target's.  ``enc_pos`` and the norms are whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -36,34 +44,49 @@ from repro_torch.models.layers import (
     norm_init,
     normal,
 )
+from repro_torch.sharding.policy import shard_leaves
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> "model_lib.ParamTree":
+def init(cfg: ModelConfig, *, seed: int = 0, device=None,
+         mesh=None) -> "model_lib.ParamTree":
     """Random parameters under the reference's key paths (``src_embed``,
     ``embed``, ``enc_pos``, ``enc_blocks.N``, ``enc_norm``, ``blocks.N`` with
     ``ln_cross`` / ``cross``, ``final_norm``, ``lm_head``, ``bpd_heads``),
-    drawn as ``model.init`` draws them."""
+    drawn as ``model.init`` draws them, and with ``mesh`` cut as it cuts
+    them: each leaf drawn whole, in the single-device order, and only this
+    rank's block kept (``sharding.shard_leaves``), one layer at a time."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if device is None and mesh is not None
+                         else device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     kw = dict(dtype=cfg.params_dtype, device=dev)
     vp, d = cfg.padded_vocab_size, cfg.d_model
+    sharded: Dict[str, int] = {}
+
+    def keep(name: str, tree):
+        if mesh is None:
+            return tree
+        blocks, dims = shard_leaves(tree, mesh, prefix=name)
+        sharded.update(dims)
+        return blocks
+
     p: Dict = {
-        "src_embed": embed_init(gen, vp, d, **kw),
-        "embed": embed_init(gen, vp, d, **kw),
+        "src_embed": keep("src_embed", embed_init(gen, vp, d, **kw)),
+        "embed": keep("embed", embed_init(gen, vp, d, **kw)),
         "enc_pos": normal(gen, (cfg.max_seq_len, d), std=0.02, **kw),
-        "enc_blocks": [block_init(gen, cfg, i, **kw)
+        "enc_blocks": [keep(f"enc_blocks/{i}", block_init(gen, cfg, i, **kw))
                        for i in range(cfg.num_encoder_layers)],
         "enc_norm": norm_init(d, kind=cfg.norm_type, **kw),
-        "blocks": [block_init(gen, cfg, i, cross_attention=True, **kw)
+        "blocks": [keep(f"blocks/{i}", block_init(gen, cfg, i,
+                                                  cross_attention=True, **kw))
                    for i in range(cfg.num_layers)],
         "final_norm": norm_init(d, kind=cfg.norm_type, **kw),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, d, vp, **kw)
+        p["lm_head"] = keep("lm_head", dense_init(gen, d, vp, **kw))
     if cfg.bpd_enabled:
-        p["bpd_heads"] = heads_init(gen, cfg, **kw)
-    return model_lib.ParamTree(p)
+        p["bpd_heads"] = keep("bpd_heads", heads_init(gen, cfg, **kw))
+    return model_lib.ParamTree(p, mesh=mesh, sharded=sharded)
 
 
 def encode(params, cfg: ModelConfig, src_tokens,
@@ -115,7 +138,8 @@ def decode_block_step(params, cfg: ModelConfig, h, caches, length, enc_kvs,
 def init_caches(cfg: ModelConfig, batch: int, context_len: int, block_k: int,
                 dtype=None, *, device=None):
     """The decoder's dense self-attention caches (the reference's seq2seq
-    path has no paged layout)."""
+    path has no paged layout); at a rank's KV heads for a ``cfg`` of
+    ``model.cache_config``."""
     dtype = dtype or cfg.compute_dtype
     return tuple(block_cache_init(cfg, i, batch, context_len, block_k, dtype,
                                   device)

@@ -51,7 +51,11 @@ so their allocators and mirrors take the same decisions, until rank 0's
 ``release_followers()``.  While a server idles, rank 0 sends an empty
 plan every ``HEARTBEAT_S`` seconds (``keep_alive``), so the others' wait
 never nears the collectives' time limit and a stuck collective still
-fails the run.
+fails the run.  Every group's policy runs on a mesh as on one device: a
+draft_model group drafts with the session's sharded draft (its cache rows
+ride admission and eviction with the rest of the per-row state), a
+locality group's ``grid`` and ``pos`` shard with the slots, and a
+request's ``src`` travels in the plan with its prompt.
 
 The host loop performs exactly ONE device→host read per group step: the
 step returns a (S,) int8 status (bit 0 = active, bit 1 = harvestable) and

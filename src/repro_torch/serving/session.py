@@ -53,15 +53,19 @@ group (``ServingFns.local``: the slot slab over pod×data, or data alone,
     written on every rank; decode-time pages are written by the slot's
     ranks and read by no other.
 
-The sharded path runs the decoder-only text families
-(``model.check_mesh_supported``): the dense trunk, the MoE models (experts
-over ``model``), RWKV-6 (wkv heads over ``model``) and Hymba (Mamba
-channels over ``model``, attention replicated), under the policies
-``DecodePolicy.bind`` admits.  A recurrent family's rows and their
-per-step rollback are the rank's rows over ``data``, its states at the
-rank's heads or channels (``model.cache_config``); the engine serves
-attention families only, on a mesh as on one device.  Auxiliary bundles
-under a mesh are ROADMAP.md §1 item 8c(ii).
+The sharded path runs what one device decodes (``model.
+check_mesh_supported``): the dense trunk, the MoE models (experts over
+``model``), RWKV-6 (wkv heads over ``model``), Hymba (Mamba channels over
+``model``, attention replicated), llava's backbone (a rank's rows of the
+patch prefix) and the encoder-decoder (``decode_seq2seq`` encodes a rank's
+rows of the source, each rank the cross K/V of its own heads), under every
+policy.  A recurrent family's rows and their per-step rollback are the
+rank's rows over ``data``, its states at the rank's heads or channels
+(``model.cache_config``); the engine serves decoder-only attention
+families, on a mesh as on one device.  Each auxiliary bundle is cut by
+the primary's rules (``sharding.shard_bundles``; a self-draft's bundle is
+the primary's sharded tree), and a draft model's cache holds a rank's KV
+heads of the draft.
 """
 from __future__ import annotations
 
@@ -79,8 +83,8 @@ from repro_torch.models import model as model_lib
 from repro_torch.serving.types import EngineConfig, SlotBatch
 from repro_torch.sharding import comm
 from repro_torch.sharding.policy import (batch_shard, packet_pod,
-                                         prefill_axes, shard_params,
-                                         slot_owner)
+                                         prefill_axes, shard_bundles,
+                                         shard_params, slot_owner)
 
 I32 = torch.int32
 
@@ -186,16 +190,15 @@ class DecodeSession:
         mesh = held if mesh is None else mesh
         if mesh is not None:
             model_lib.check_mesh_supported(cfg, mesh)
-            if bundles:
-                raise NotImplementedError(
-                    "auxiliary bundles under a mesh are not ported yet "
-                    "(ROADMAP.md §1 item 8c(ii): draft_model's bundle "
-                    "shardings)")
+            for b in (bundles or {}).values():
+                model_lib.check_mesh_supported(b.cfg, mesh)
+            whole = params
             if held is None:
                 params = shard_params(params, mesh)
             elif held is not mesh:
                 raise ValueError(f"params are sharded for {held}, not for "
                                  f"the session's {mesh}")
+            bundles = shard_bundles(bundles or {}, mesh, whole, params)
         self.params = params
         self.cfg = cfg
         self.dec = dec
@@ -210,7 +213,7 @@ class DecodeSession:
                     f"{cfg.compute_dtype}: casting it would recast the "
                     f"primary's own tensors")
         self.policy = policy_lib.resolve_policy(dec, policy).bind(
-            self.bundles, cfg, mesh=mesh)
+            self.bundles, cfg)
         # each bundle on this device in its own compute dtype (in place: a
         # self-draft's bundle is the primary's ParamTree, not a copy)
         self.aux_params = {
@@ -238,10 +241,13 @@ class DecodeSession:
 
     def decode_seq2seq(self, batch: Dict):
         """Encode ``batch["src"]`` and BPD the decoder under the session's
-        policy (``core.decode.bpd_decode_seq2seq``)."""
-        return decode_lib._bpd_decode_seq2seq_impl(
-            self.params, self.cfg, self.dec, batch, policy=self.policy,
+        policy (``core.decode.bpd_decode_seq2seq``); on a mesh, this rank's
+        rows of the source, and the whole batch's tokens and stats out."""
+        out = decode_lib._bpd_decode_seq2seq_impl(
+            self.params, self.cfg, self.dec,
+            self._local(batch, self._rows(batch)), policy=self.policy,
             aux_params=self.aux_params)
+        return self._whole(batch, out)
 
     def greedy(self, batch: Dict):
         """The greedy baseline (``core.decode.greedy_decode``)."""
@@ -258,11 +264,17 @@ class DecodeSession:
         the one the decode loop's collectives run on too."""
         return getattr(self.params, "mesh", None)
 
+    @staticmethod
+    def _batch_size(batch: Dict) -> int:
+        """Rows of a decode batch: its prompts', or a seq2seq batch's
+        sources'."""
+        return batch["tokens" if "tokens" in batch else "src"].shape[0]
+
     def _rows(self, batch: Dict) -> Optional[slice]:
         """This rank's rows of ``batch`` (None without a mesh)."""
         if self.mesh is None:
             return None
-        return comm.data_rows(self.mesh, batch["tokens"].shape[0])
+        return comm.data_rows(self.mesh, self._batch_size(batch))
 
     @staticmethod
     def _local(batch: Dict, rows: Optional[slice]) -> Dict:
@@ -276,7 +288,7 @@ class DecodeSession:
         if self.mesh is None:
             return out
         toks, stats = out
-        b = batch["tokens"].shape[0]
+        b = self._batch_size(batch)
         gen = comm.data_gather(self.mesh, stats["generated"], b)
         stats = dict(stats, generated=gen,
                      text_len=comm.data_gather(self.mesh, stats["text_len"], b),
@@ -291,7 +303,7 @@ class DecodeSession:
         if policy is None:
             return self.policy
         return policy_lib.resolve_policy(self.dec, policy).bind(
-            self.bundles, self.cfg, mesh=self.mesh)
+            self.bundles, self.cfg)
 
     def serving_fns(self, ecfg: EngineConfig, *, policy=None) -> ServingFns:
         """The engine's functions for ``policy`` at geometry ``ecfg``, built

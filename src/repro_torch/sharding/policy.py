@@ -26,19 +26,24 @@ Mamba's ``in_proj`` (u and z side by side) is cut in each half
 the reference's global layout means once GSPMD has moved the halves.
 
 The port's path reads ``PARAM_RULES`` (through ``shard_params`` /
-``shard_leaves``), ``batch_axes``, ``prefill_axes``, ``batch_shard`` and
-``local_kv_heads`` (and ``local_channels`` for the recurrent caches); the
-serving engine reads ``slot_owner`` and
-``packet_pod``, plain functions every rank computes alike.  The spec tables
-``param_specs``, ``data_spec``, ``batch_specs``, ``cache_specs``,
-``state_specs``, ``slot_specs``, ``packet_specs`` and ``data_axis_size``
-are kept to be held against the reference's, leaf by leaf, and are read by
-nothing else: ``cache_specs`` describes the reference's cache layout (the
-length sharded where the KV heads do not divide ``model``), which the
-port's caches do not have.
+``shard_leaves``, and ``shard_bundles`` for a session's auxiliary models),
+``batch_axes``, ``prefill_axes``, ``batch_shard`` and ``local_kv_heads``
+(and ``local_channels`` for the recurrent caches); the serving engine reads
+``slot_owner`` and ``packet_pod``, plain functions every rank computes
+alike.  The spec tables ``param_specs``, ``bundle_param_specs``,
+``data_spec``, ``batch_specs``, ``cache_specs``, ``state_specs``,
+``slot_specs``, ``packet_specs`` and ``data_axis_size`` are kept to be held
+against the reference's, leaf by leaf, and are read by nothing else:
+``cache_specs`` describes the reference's cache layout (the length sharded
+where the KV heads do not divide ``model``), which the port's caches do not
+have.  Its one addition is the encoder-decoder's cross K/V (``.../cross/k``
+and ``/v``, computed once a source), which the reference leaves to GSPMD's
+propagation and the port holds at a rank's KV heads, as a self-attention
+cache.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any, Dict, Optional, Tuple
@@ -141,6 +146,13 @@ def param_specs(params, mesh) -> Dict[str, Tuple]:
             for name, x in flatten_with_names(params)}
 
 
+def bundle_param_specs(bundles: Dict, mesh) -> Dict[str, Dict[str, Tuple]]:
+    """{bundle name: ``param_specs``} of a ``{name: core.bundle.ModelBundle}``
+    mapping: every bundle's parameters go through the same path-rule table
+    as the primary's (the reference's ``bundle_param_shardings``)."""
+    return {name: param_specs(b.params, mesh) for name, b in bundles.items()}
+
+
 # ---------------------------------------------------------------------------
 # Batch / activation / cache specs
 # ---------------------------------------------------------------------------
@@ -221,6 +233,9 @@ def cache_specs(cfg: ModelConfig, caches, mesh, batch_size: int, *,
 
     def one(name: str, x) -> Tuple:
         shape = tuple(x.shape)
+        if "/cross/" in name and name[-2:] in ("/k", "/v"):
+            # the encoder's K/V (B, Se, KV, hd): a rank's KV heads
+            return _divisible((ax, None, "model", None), shape, mesh)
         if "/attn/" in name and name.endswith(("/kp", "/vp")):
             if kv_divides:
                 return _divisible((None, None, "model", None), shape, mesh)
@@ -255,14 +270,19 @@ def cache_specs(cfg: ModelConfig, caches, mesh, batch_size: int, *,
 
 def state_specs(cfg: ModelConfig, state, mesh, *,
                 batch_size: Optional[int] = None,
+                draft_cfg: Optional[ModelConfig] = None, policy: Any = None,
                 ax: Any = "auto") -> Dict[str, Tuple]:
     """{'/'-path name: spec} for a batch-leading decode loop state (a
     NamedTuple: ``BPDState``, ``GreedyState``, ``SlotBatch``).  Its
     ``caches`` get ``cache_specs``; every other (B, ...) leaf, the policy
     state's included, shards its leading dim over the data axes; scalars
-    and non-tensors are replicated.  (A draft model's cache in the policy
-    state, specced under the draft's config, comes with ROADMAP.md §1 item
-    8c(ii).)  ``ax`` overrides the batch-dim axes (a prefill packet's)."""
+    and non-tensors are replicated.  A drafter state holding ``"caches"``
+    (the ``draft_model`` policy's draft KV cache) gets ``cache_specs``
+    under ``draft_cfg``, the draft's own config, read off ``policy``'s
+    drafter when only the (bound) policy is given.  ``ax`` overrides the
+    batch-dim axes (a prefill packet's)."""
+    if draft_cfg is None and policy is not None:
+        draft_cfg = getattr(policy.drafter, "cfg", None)
     b = batch_size if batch_size is not None else state.tokens.shape[0]
     if ax == "auto":
         ax = batch_axes(mesh, b)
@@ -285,28 +305,43 @@ def state_specs(cfg: ModelConfig, state, mesh, *,
             out.update({f"caches/{n}": s for n, s in cache_specs(
                 cfg, val, mesh, b, ax=ax).items()})
         elif name == "policy_state" and hasattr(val, "drafter"):
-            out.update(leaves("policy_state/drafter", val.drafter))
+            dstate = val.drafter
+            if (draft_cfg is not None and isinstance(dstate, dict)
+                    and "caches" in dstate):
+                for k, v in dstate.items():
+                    at = f"policy_state/drafter/{k}"
+                    out.update({f"{at}/{n}": s for n, s in cache_specs(
+                        draft_cfg, v, mesh, b, ax=ax).items()}
+                        if k == "caches" else leaves(at, v))
+            else:
+                out.update(leaves("policy_state/drafter", dstate))
             out.update(leaves("policy_state/schedule", val.schedule))
         else:
             out.update(leaves(name, val))
     return out
 
 
-def slot_specs(cfg: ModelConfig, slots, mesh) -> Dict[str, Tuple]:
+def slot_specs(cfg: ModelConfig, slots, mesh, *,
+               draft_cfg: Optional[ModelConfig] = None,
+               policy: Any = None) -> Dict[str, Tuple]:
     """Specs of a serving group's ``SlotBatch``: the slot dim is the decode
     batch dim (``state_specs``), so a group's slots shard over pod×data
     (falling back to data alone) and admission's writes stay on the
-    owning shard."""
-    return state_specs(cfg, slots, mesh, batch_size=slots.tokens.shape[0])
+    owning shard.  ``policy`` (the group's bound policy) specs a draft
+    model's cache under the draft's config."""
+    return state_specs(cfg, slots, mesh, batch_size=slots.tokens.shape[0],
+                       draft_cfg=draft_cfg, policy=policy)
 
 
-def packet_specs(cfg: ModelConfig, packet, mesh) -> Dict[str, Tuple]:
+def packet_specs(cfg: ModelConfig, packet, mesh, *,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 policy: Any = None) -> Dict[str, Tuple]:
     """Specs of a prefill worker's handoff packet: as ``state_specs`` with
     the width dim over ``prefill_axes`` (the pod axis alone); attaching a
     row into the pod×data slot slab is the prefill→decode handoff."""
     b = packet.tokens.shape[0]
-    return state_specs(cfg, packet, mesh, batch_size=b,
-                       ax=prefill_axes(mesh, b))
+    return state_specs(cfg, packet, mesh, batch_size=b, draft_cfg=draft_cfg,
+                       policy=policy, ax=prefill_axes(mesh, b))
 
 
 def data_axis_size(mesh) -> int:
@@ -325,7 +360,8 @@ def local_kv_heads(cfg: ModelConfig, model: int) -> int:
     when the query heads do not divide the axis (attention replicated), the
     rank's block when the KV heads divide it, else the one KV head the
     rank's query heads share (the port's departure from the reference's
-    length-sharded cache).  A split of query heads across KV heads raises."""
+    length-sharded cache).  A split of query heads across KV heads raises:
+    it needs that length-sharded cache, ROADMAP.md §1 item 8c(iii)."""
     h, kv = cfg.num_heads, cfg.num_kv_heads
     if model == 1 or not kv or h % model:
         return kv
@@ -336,7 +372,7 @@ def local_kv_heads(cfg: ModelConfig, model: int) -> int:
     raise NotImplementedError(
         f"{cfg.name}: {h // model} query heads a rank straddle KV heads of "
         f"{cfg.num_kv_groups} queries at model={model}: the length-sharded "
-        f"cache this needs is not ported yet (ROADMAP.md §1 item 8c(ii))")
+        f"cache this needs is not ported yet (ROADMAP.md §1 item 8c(iii))")
 
 
 # leaves whose cut dim holds several blocks side by side, each cut alike:
@@ -411,6 +447,29 @@ def shard_leaves(tree, mesh, *, prefix: str = ""):
         return {k: visit(f"{path}/{k}" if path else k, node[k]) for k in keys}
 
     return visit("", tree), dims
+
+
+def shard_bundles(bundles: Dict, mesh, primary, sharded) -> Dict:
+    """A session's ``{name: core.bundle.ModelBundle}`` with each bundle's
+    parameters cut to this rank's blocks by the same rules as the
+    primary's (``shard_params``; a tree sharded for ``mesh`` already is
+    kept).  A bundle whose parameters are the primary's own tree
+    (``primary``, a self-draft) takes the primary's sharded tree
+    ``sharded``, not a second copy."""
+    out = {}
+    for name, b in bundles.items():
+        held = getattr(b.params, "mesh", None)
+        if b.params is primary or b.params is sharded:
+            params = sharded
+        elif held is None:
+            params = shard_params(b.params, mesh)
+        elif held is mesh:
+            params = b.params
+        else:
+            raise ValueError(f"bundle {name!r}'s parameters are sharded for "
+                             f"{held}, not for the session's {mesh}")
+        out[name] = dataclasses.replace(b, params=params)
+    return out
 
 
 def shard_params(params, mesh):

@@ -228,19 +228,24 @@ def test_serve_static_path_on_cpu(capsys):
     assert _rows(out["tokens"].numpy(), out["stats"]) == _rows(gt.numpy(), gs)
 
 
-@pytest.mark.parametrize("argv", [["--engine", "--mesh-data", "2", "--batch",
-                                   "2", "--policies", "exact=1,draft_model=1"],
-                                  ["--http", "--mesh-model", "2", "--arch",
-                                   "llava-next-34b"],
-                                  ["--engine", "--mesh-pod", "2", "--policy",
-                                   "input_copy"]])
+UNSERVED = {   # argv -> why the launcher refuses it before any rank starts
+    ("--engine", "--mesh-data", "2", "--batch", "2", "--arch",
+     "paper-mt-base", "--policy", "input_copy"): "decoder-only",
+    ("--http", "--mesh-model", "2", "--arch", "llava-next-34b"): "text-only",
+    ("--engine", "--mesh-pod", "2", "--arch", "rwkv6-1.6b"): "attention-cache",
+}
+
+
+@pytest.mark.parametrize("argv", [list(a) for a in UNSERVED])
 def test_unported_serving_options_raise(argv):
-    """The engine, the HTTP server and the pod axis serve under a mesh;
-    draft_model, the other families and the other policies there stay
-    ROADMAP.md §1 item 8c, refused before any rank starts."""
+    """The engine, the HTTP server and the pod axis serve under a mesh what
+    they serve on one device, every policy and draft_model's bundles
+    included; what the engine refuses there (the encoder-decoder, llava's
+    per-request patches, the recurrent families) it refuses under a mesh
+    before any rank starts, in the same words."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="item 8c"):
+    with pytest.raises(NotImplementedError, match=UNSERVED[tuple(argv)]):
         serve.main(["--arch", "granite-3-8b", "--device", "cpu", "--max-new",
                     "2", "--batch", "1", "--prompt-len", "4", *argv])
 
@@ -265,6 +270,32 @@ def test_serve_static_mesh_on_cpu(argv, capfd):
     assert rows(meshed) == rows(single) and len(rows(single)) == 2
     assert _rows(out["tokens"].numpy(), out["stats"]) == _rows(
         one["tokens"].numpy(), one["stats"])
+
+
+@pytest.mark.parametrize("policy", ["input_copy"])
+def test_serve_seq2seq_on_a_model_mesh(policy, capfd):
+    """``--arch paper-mt-base --policy input_copy`` over a (1, 2) mesh of
+    spawned CPU ranks (both stacks' heads and the cross attention split,
+    the sources' rows shared): the rows, tokens and counts of the
+    single-device launcher."""
+    from repro_torch.launch import serve
+
+    base = ["--arch", "paper-mt-base", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--max-new", "10", "--policy", policy]
+    out = serve.main(base + ["--mesh-model", "2"])
+    meshed = capfd.readouterr().out
+    one = serve.main(base)
+    single = capfd.readouterr().out
+
+    def rows(text):
+        return [ln for ln in text.splitlines() if ln.startswith("    row ")]
+
+    assert "backend gloo" in meshed and len(out["ranks"]) == 2
+    assert rows(meshed) == rows(single) and len(rows(single)) == 2
+    assert torch.equal(out["tokens"], one["tokens"])
+    for key in ("generated", "text_len"):
+        assert torch.equal(out["stats"][key], one["stats"][key])
+    assert out["stats"]["iterations"] == one["stats"]["iterations"]
 
 
 @pytest.mark.parametrize("arch,argv", [("olmoe-1b-7b", ["--engine"]),

@@ -145,10 +145,17 @@ def test_check_attention_inputs_head_dims(hd, match):
 
 
 def test_serve_refuses_encoder_decoders():
+    """The launcher serves an encoder-decoder's static batch (its prompts
+    as sources, through ``decode_seq2seq``), and refuses it the engine,
+    which is decoder-only as the reference's is."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="bpd_decode_seq2seq"):
-        serve.main(["--arch", "paper-mt-base", "--device", "cpu"])
+    base = ["--arch", "paper-mt-base", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "6", "--max-new", "4"]
+    out = serve.main(base)
+    assert set(out["batch"]) == {"src"} and out["tokens"].shape[0] == 2
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        serve.main(base + ["--engine"])
 
 
 # ---------------------------------------------------------------------------

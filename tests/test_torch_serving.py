@@ -491,15 +491,18 @@ def test_recurrent_and_encoder_decoder_are_refused(make):
 
 
 def test_mesh_bundles_and_unported_policies_are_refused(stack):
+    """Auxiliary bundles now serve under a mesh (a self-draft's bundle is
+    the primary's sharded tree); draft_model without its bundle is
+    refused, by the session and by an engine group alike."""
     from repro_torch.core.bundle import ModelBundle
     from repro_torch.launch.mesh import make_mesh
 
     _, params, cfg, _ = stack["torch"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tserving.ContinuousBatchingEngine(
-            params, cfg, DecodeConfig(), tserving.EngineConfig(),
-            mesh=make_mesh(1, 1, device="cpu"),
-            bundles={"draft": ModelBundle(params, cfg)})
+    eng = tserving.ContinuousBatchingEngine(
+        params, cfg, DecodeConfig(), tserving.EngineConfig(),
+        mesh=make_mesh(1, 1, device="cpu"),
+        bundles={"draft": ModelBundle(params, cfg)})
+    assert eng.session.aux_params["draft"] is eng.session.params
     # draft_model is ported: without its draft bundle it is refused at
     # construction, by the session and by an engine group alike
     with pytest.raises(ValueError, match="ModelBundle"):

@@ -398,12 +398,21 @@ def test_family_blocks_put_back_equal_the_single_device_leaves(arch, mesh):
 @pytest.mark.parametrize("arch", ["llava-next-34b", "paper-mt-base",
                                   "hubert-xlarge"])
 def test_families_left_to_8c_ii_are_refused_under_a_mesh(arch):
+    """Of the configs item 8c(ii) left, the encoder-decoder and llava's
+    backbone now take a mesh (``test_torch_sharded_inputs.py`` decodes
+    them); the encoder-only stack is refused, naming sharded training
+    (item 8d)."""
     cfg = get_config(arch, smoke=True)
     params = tmodel.init(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match=r"item 8c\(ii\)"):
+    if not cfg.is_encoder_only:
         tserving.DecodeSession(params, cfg, DecodeConfig(),
                                mesh=make_mesh(1, 1, device="cpu"))
-    with pytest.raises(NotImplementedError, match=r"item 8c\(ii\)"):
+        tmodel.init(cfg, device="meta", mesh=Mesh(1, 2))
+        return
+    with pytest.raises(NotImplementedError, match=r"item 8d"):
+        tserving.DecodeSession(params, cfg, DecodeConfig(),
+                               mesh=make_mesh(1, 1, device="cpu"))
+    with pytest.raises(NotImplementedError, match=r"item 8d"):
         tmodel.init(cfg, device="meta", mesh=Mesh(1, 2))
 
 
@@ -414,11 +423,22 @@ def test_families_left_to_8c_ii_are_refused_under_a_mesh(arch):
                          ids=lambda kw: kw["policy"])
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "rwkv6-1.6b"])
 def test_policies_left_to_8c_ii_are_refused_for_the_families(arch, kw):
+    """The policies item 8c(ii) left bind for the families under a mesh as
+    on one device: input_copy and locality build, draft_model without its
+    bundle is refused in the words it is refused in there."""
     cfg = get_config(arch, smoke=True).replace(dtype="float32")
     params = tmodel.init(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 8c\(ii\)"):
-        tserving.DecodeSession(params, cfg, DecodeConfig(**kw),
+    dec = DecodeConfig(**kw)
+    if kw["policy"] != "draft_model":
+        tserving.DecodeSession(params, cfg, dec,
                                mesh=make_mesh(1, 1, device="cpu"))
+        return
+    errors = []
+    for mesh in (None, make_mesh(1, 1, device="cpu")):
+        with pytest.raises(ValueError, match="runs a second model") as err:
+            tserving.DecodeSession(params, cfg, dec, mesh=mesh)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])

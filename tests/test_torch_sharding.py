@@ -267,40 +267,61 @@ def test_a_world_that_is_not_data_times_model_is_refused():
 
 
 def test_engine_and_serving_fns_refuse_a_mesh():
-    """Under a mesh the serving functions build for the policies the mesh
-    runs, and the engine and its groups refuse what stays ROADMAP.md §1
-    item 8c: another policy's group and auxiliary bundles."""
+    """Under a mesh the serving functions build for every registered
+    policy, and the engine takes auxiliary bundles (cut by the primary's
+    rules) and any policy's group; what it refuses there it refuses on one
+    device: a recurrent-state draft model."""
     from repro_torch.core.bundle import ModelBundle
 
     cfg = ModelConfig(**dataclasses.asdict(tiny_dense()))
     params = tmodel.init(cfg, seed=0, device="cpu")
     mesh = make_mesh(1, 1, device="cpu")
-    dec = DecodeConfig(max_new_tokens=8)
+    dec = DecodeConfig(max_new_tokens=8, image_height=4, image_width=4)
     sess = tserving.DecodeSession(params, cfg, dec, mesh=mesh)
     ecfg = tserving.EngineConfig(num_slots=2, max_new_cap=8)
     assert sess.serving_fns(ecfg).local == slice(0, 2)
-    assert sess.serving_fns(ecfg, policy="topk_tree").local == slice(0, 2)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        sess.serving_fns(ecfg, policy="input_copy")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        tserving.ContinuousBatchingEngine(
-            params, cfg, dec, ecfg, mesh=mesh,
-            bundles={"draft": ModelBundle(params, cfg)})
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        tserving.ContinuousBatchingEngine(params, cfg, dec, ecfg, session=sess,
-                                          policies={"exact": 1,
-                                                    "input_copy": 1})
+    for policy in ("topk_tree", "input_copy", "locality"):
+        assert sess.serving_fns(ecfg, policy=policy).local == slice(0, 2)
+    eng = tserving.ContinuousBatchingEngine(
+        params, cfg, dec, ecfg, mesh=mesh, policies={"draft_model": 1,
+                                                     "input_copy": 1},
+        bundles={"draft": ModelBundle(params, cfg)})
+    assert eng.session.aux_params["draft"] is eng.session.params
+    rwkv = ModelConfig(**dataclasses.asdict(get_config(
+        "rwkv6-1.6b", smoke=True).replace(dtype="float32")))
+    for where in (None, mesh):
+        with pytest.raises(NotImplementedError, match="attention caches"):
+            tserving.ContinuousBatchingEngine(
+                params, cfg, dec, ecfg, mesh=where,
+                bundles={"draft": ModelBundle(tmodel.init(
+                    rwkv, device="cpu"), rwkv)})
 
 
-@pytest.mark.parametrize("arch", ["paper-mt-base", "llava-next-34b",
-                                  "hubert-xlarge"])
+# arch -> the ROADMAP.md item its refusal under a mesh names, or None for
+# a config the mesh now decodes
+MESH_CONFIGS = {"paper-mt-base": None, "llava-next-34b": None,
+                "hubert-xlarge": r"item 8d"}
+
+
+@pytest.mark.parametrize("arch", list(MESH_CONFIGS))
 def test_configs_the_mesh_does_not_run_are_refused(arch):
+    """The encoder-only stack (its one path is training) is refused under
+    a mesh, naming sharded training; the encoder-decoder and llava's
+    backbone now build a sharded session and draw their blocks."""
     cfg = get_config(arch, smoke=True)
     params = tmodel.init(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="item 8c"):
+    item = MESH_CONFIGS[arch]
+    if item is None:
+        sess = tserving.DecodeSession(params, cfg, DecodeConfig(),
+                                      mesh=make_mesh(1, 1, device="cpu"))
+        assert sess.mesh is not None
+        blocks = tmodel.init(cfg, device="meta", mesh=Mesh(1, 2))
+        assert blocks["blocks"][0]["attn"]["wq"].shape[1] == cfg.num_heads // 2
+        return
+    with pytest.raises(NotImplementedError, match=item):
         tserving.DecodeSession(params, cfg, DecodeConfig(),
                                mesh=make_mesh(1, 1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 8c"):
+    with pytest.raises(NotImplementedError, match=item):
         tmodel.init(cfg, device="meta", mesh=Mesh(1, 2))
 
 
@@ -312,20 +333,39 @@ def test_configs_the_mesh_does_not_run_are_refused(arch):
                                      cache_backend="paged")],
                          ids=lambda kw: "-".join(map(str, kw.values())))
 def test_policies_the_mesh_does_not_run_are_refused(kw):
+    """Every registered policy binds under a mesh as on one device:
+    draft_model without its bundle is refused in the same words there,
+    with one it binds and its cache holds the draft's local KV heads."""
+    from repro_torch.core.bundle import ModelBundle
+
     cfg = ModelConfig(**dataclasses.asdict(tiny_dense()))
     params = tmodel.init(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        tserving.DecodeSession(params, cfg, DecodeConfig(**kw),
-                               mesh=make_mesh(1, 1, device="cpu"))
+    dec = DecodeConfig(**kw)
+    if kw["policy"] != "draft_model":
+        sess = tserving.DecodeSession(params, cfg, dec,
+                                      mesh=make_mesh(1, 1, device="cpu"))
+        assert sess.policy.name == kw["policy"]
+        return
+    errors = []
+    for mesh in (None, make_mesh(1, 1, device="cpu")):
+        with pytest.raises(ValueError, match="runs a second model") as err:
+            tserving.DecodeSession(params, cfg, dec, mesh=mesh)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    sess = tserving.DecodeSession(params, cfg, dec,
+                                  mesh=make_mesh(1, 1, device="cpu"),
+                                  bundles={"draft": ModelBundle(params, cfg)})
+    assert sess.policy.drafter.cache_cfg.num_kv_heads == cfg.num_kv_heads
 
 
 def test_heads_that_straddle_kv_heads_are_refused():
     # 6 query heads a rank over KV heads of 4 queries: a rank would read
-    # parts of two KV heads (the reference length-shards that cache)
+    # parts of two KV heads (the reference length-shards that cache, the
+    # port's item 8c(iii))
     cfg = ModelConfig(name="odd", num_layers=1, d_model=96, num_heads=12,
                       num_kv_heads=3, head_dim=8, d_ff=64, vocab_size=97,
                       dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 8c"):
+    with pytest.raises(NotImplementedError, match=r"item 8c\(iii\)"):
         tmodel.init(cfg, device="meta", mesh=Mesh(1, 2))
     assert tshard.local_kv_heads(cfg, 1) == 3
     assert tshard.local_kv_heads(cfg, 3) == 1        # 4 heads share one
@@ -337,6 +377,162 @@ def test_removed_criterion_api_names_the_policy_path():
     for fn in (tverify.position_accepts, tverify.accepted_block_size):
         with pytest.raises(ValueError, match="resolve_policy"):
             fn(None, None)
+
+
+# ---------------------------------------------------------------------------
+# the inputs' leaves: encoder, cross, patches, bundles, a draft's cache
+# ---------------------------------------------------------------------------
+
+
+def _draft_config(vocab):
+    return dict(name="tiny-draft", num_layers=1, d_model=32, num_heads=2,
+                num_kv_heads=2, d_ff=64, vocab_size=vocab, bpd_enabled=False,
+                max_seq_len=512, dtype="float32")
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+def test_encoder_cross_and_enc_pos_specs_equal_reference(mesh):
+    """paper-mt-base's encoder blocks, cross attention, ``src_embed`` and
+    ``enc_pos`` spec as the reference's, and at the full config too (8
+    heads of 64 over ``model``)."""
+    m = StandIn(*mesh)
+    for smoke in (True, False):
+        jcfg = jget_config("paper-mt-base", smoke=smoke)
+        tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+        want = _ref_specs(jshard.param_specs(jax.eval_shape(
+            lambda: jseq2seq.init(jax.random.PRNGKey(0), jcfg)), m))
+        got = tshard.param_specs(tmodel.init(tcfg, device="meta"), m)
+        assert got == want
+        ax = "model"                  # every head and vocab count divides
+        assert got["enc_pos"] == (None, None)
+        assert got["enc_blocks/0/attn/wq"] == (None, ax, None)
+        assert got["blocks/0/cross/wo"] == (ax, None, None)
+        assert got["src_embed/table"] == (ax, None)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+def test_bundle_param_specs_equal_reference(mesh):
+    """A session's auxiliary bundles (a self-draft and a small draft) spec
+    leaf by leaf as the reference's ``bundle_param_shardings`` places them:
+    the primary's path-rule table for every bundle."""
+    from repro.core.bundle import ModelBundle as JModelBundle
+    from repro.config import ModelConfig as JModelConfig
+    from repro_torch.core.bundle import ModelBundle
+
+    m = StandIn(*mesh)
+    jcfg, tcfg = _configs("granite-3-8b")
+    jshapes, tparams = _param_shapes("granite-3-8b")
+    jd = JModelConfig(**_draft_config(jcfg.vocab_size))
+    td = ModelConfig(**_draft_config(jcfg.vocab_size))
+    jb = {"self": JModelBundle(jshapes, jcfg), "small": JModelBundle(
+        jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), jd)), jd)}
+    tb = {"self": ModelBundle(tparams, tcfg),
+          "small": ModelBundle(tmodel.init(td, device="meta"), td)}
+    want = {n: _ref_specs(jshard.param_specs(b.params, m))
+            for n, b in jb.items()}
+    assert tshard.bundle_param_specs(tb, m) == want
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+def test_patch_batch_specs_equal_reference(mesh):
+    """llava's decode batch (tokens and patch embeddings) shards its rows
+    over the data axes, as the reference's ``batch_specs``."""
+    m = StandIn(*mesh)
+    for b in (2, 4, 8):
+        batch = {"tokens": np.zeros((b, 8), np.int32),
+                 "patch_embeds": np.zeros((b, 16, 256), np.float32)}
+        want = {k: tuple(v) for k, v in jshard.batch_specs(m, batch).items()}
+        assert tshard.batch_specs(m, {k: torch.as_tensor(v) for k, v in
+                                      batch.items()}) == want
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+def test_draft_cache_state_specs_equal_reference(mesh):
+    """A draft_model loop state: the draft's KV cache in the policy state
+    specs under the draft's own config (``draft_cfg=``, or read off a
+    bound policy), as the reference's ``state_specs``; a slot batch and a
+    prefill packet carrying it too."""
+    from repro.serving import types as jtypes
+    from repro_torch.serving import types as ttypes
+
+    m = StandIn(*mesh)
+    jcfg, tcfg = _configs("granite-3-8b")
+    jdc = jget_config("granite-3-8b", smoke=True).replace(
+        name="draft", num_layers=1, num_heads=4, num_kv_heads=4,
+        bpd_enabled=False)
+    tdc = ModelConfig(**dataclasses.asdict(jdc))
+    jc, tc = _caches("granite-3-8b", "dense")
+    jdraft = jax.eval_shape(lambda: jmodel.init_caches(jdc, B, CTX, 1))
+    tdraft = tmodel.init_caches(tdc, B, CTX, 1, device="meta")
+    jps = jpolicy.PolicyState(drafter={"caches": jdraft}, schedule=())
+    tps = tpolicy.PolicyState(drafter={"caches": tdraft}, schedule=())
+    for jstate, tstate in _states(jc, tc, (jps, tps)):
+        if not hasattr(jstate, "policy_state"):
+            continue
+        want = _ref_specs(jshard.state_specs(jcfg, jstate, m, draft_cfg=jdc))
+        assert tshard.state_specs(tcfg, tstate, m, draft_cfg=tdc) == want
+        assert any("policy_state/drafter/caches/0/attn/k" == k for k in want)
+        pol = tpolicy.resolve_policy(DecodeConfig(), "draft_model")
+        bound = dataclasses.replace(pol, drafter=dataclasses.replace(
+            pol.drafter, cfg=tdc))
+        assert tshard.state_specs(tcfg, tstate, m, policy=bound) == want
+
+    def jsds(shape, dtype):
+        return jax.ShapeDtypeStruct(shape, np.dtype(dtype))
+
+    def tsds(shape, dtype):
+        return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+
+    want = _ref_specs(jshard.slot_specs(
+        jcfg, _slots(jc, jps, B, jtypes, jsds), m, draft_cfg=jdc))
+    assert tshard.slot_specs(tcfg, _slots(tc, tps, B, ttypes, tsds), m,
+                             draft_cfg=tdc) == want
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+def test_cross_kv_specs_follow_the_kv_heads(mesh):
+    """The encoder's cross K/V, which the reference leaves to GSPMD's
+    propagation, spec as a self-attention cache of the rank's KV heads:
+    rows over the data axes, KV heads over ``model`` where they divide."""
+    m = StandIn(*mesh)
+    tcfg = _configs("paper-mt-base")[1]
+    kv = torch.empty((B, 12, tcfg.num_kv_heads, tcfg.resolved_head_dim),
+                     device="meta")
+    tree = [{"cross": {"k": kv, "v": kv}} for _ in range(tcfg.num_layers)]
+    specs = tshard.cache_specs(tcfg, tree, m, B)
+    ax = tshard.batch_axes(m, B)
+    heads = "model" if tcfg.num_kv_heads % mesh[1] == 0 else None
+    assert specs["0/cross/k"] == tshard.spec(ax, None, heads, None)
+    assert specs == {f"{i}/cross/{n}": specs["0/cross/k"]
+                     for i in range(tcfg.num_layers) for n in "kv"}
+
+
+def test_encoder_only_is_refused_naming_8d():
+    """hubert-xlarge's one path is training: a mesh refuses it before any
+    work, naming sharded training (ROADMAP.md §1 item 8d)."""
+    cfg = get_config("hubert-xlarge", smoke=True)
+    with pytest.raises(NotImplementedError, match=r"item 8d"):
+        tmodel.check_mesh_supported(cfg, Mesh(2, 1))
+
+
+def test_straddling_heads_are_refused_naming_8c_iii():
+    """Query heads a rank that straddle two KV heads need the
+    length-sharded cache (ROADMAP.md §1 item 8c(iii)): the session, the
+    draw and a draft bundle are each refused before any work."""
+    from repro_torch.core.bundle import ModelBundle
+
+    odd = ModelConfig(name="odd", num_layers=1, d_model=96, num_heads=12,
+                      num_kv_heads=3, head_dim=8, d_ff=64, vocab_size=97,
+                      bpd_enabled=False, dtype="float32")
+    with pytest.raises(NotImplementedError, match=r"item 8c\(iii\)"):
+        tshard.local_kv_heads(odd, 2)
+    cfg = ModelConfig(**dataclasses.asdict(tiny_dense()))
+    params = tmodel.init(cfg, seed=0, device="cpu")
+    mesh = Mesh(1, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 8c\(iii\)"):
+        tserving.DecodeSession(params, cfg, DecodeConfig(policy="draft_model"),
+                               mesh=mesh, bundles={"draft": ModelBundle(
+                                   tmodel.init(odd, device="cpu"), odd)})
 
 
 # ---------------------------------------------------------------------------
